@@ -1,0 +1,130 @@
+"""Kernel wrappers: the hand-written CUDA kernels with their dispatch.
+
+A wrapper given CPU tensors runs the kernel's plain PyTorch version
+(:mod:`repro_torch.kernels.ref`).  Given CUDA tensors it checks them,
+launches the kernel on the current stream and adds one to its ``launches``
+count, or raises: there is no fallback from the kernel to the plain
+version.  The kernels are built from ``repro_torch/csrc`` at first use
+(:mod:`repro_torch.kernels.build`).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+HEAD_DIMS = (32, 64, 128)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: most query heads per kv head the decode kernel takes (one warp each)
+MAX_GROUP = 16
+
+
+def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: tensors must be on cuda or cpu, got {q.device}")
+    for t in (k, v):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name}: q, k, v must share device and dtype")
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {q.dtype} not supported "
+                         f"(float32 or bfloat16)")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: want q (B,S,H,D) and k == v (B,S,KH,D), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, _, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
+        raise ValueError(f"{name}: shapes {tuple(q.shape)} and "
+                         f"{tuple(k.shape)} do not match for GQA")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{name}: q, k, v must be contiguous")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: k and v must start on a 16-byte boundary "
+                         "(the kernel reads them in 16-byte vectors)")
+
+
+def _slot_vector(x, b: int, device: torch.device) -> torch.Tensor:
+    """Per-slot int32 (B,) vector on ``device`` from a tensor or an int."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != torch.int32 or x.device != device:
+            x = x.to(device=device, dtype=torch.int32)
+        return x.expand(b).contiguous()
+    return torch.full((b,), int(x), dtype=torch.int32, device=device)
+
+
+def _launch(name: str, fn, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Causal GQA attention: q (B,Sq,H,D) over k/v (B,Skv,KH,D); query row
+    i sits at position ``q_offset + i``; ``window`` masks keys older than
+    ``pos - window + 1``.  Returns (B,Sq,H,D) in q's dtype."""
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, window=window, q_offset=q_offset)
+    _check("flash_attention", q, k, v)
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    _launch("flash_attention", build.load("flash_attention"),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, skv, h, kh, d, DTYPE_CODES[q.dtype], int(q_offset),
+            int(window or 0), 1.0 / math.sqrt(d), _stream(q.device))
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 kv_len, q_offset,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """One-token attention over the slot cache: q (B,1,H,D), k/v
+    (B,L,KH,D); ``kv_len`` and ``q_offset`` are per-slot (B,) int32 vectors
+    (or ints) that the kernel reads on the device.  Returns (B,1,H,D)."""
+    if q.device.type == "cpu":
+        return ref.flash_decode(q, k, v, kv_len=kv_len, q_offset=q_offset,
+                                window=window)
+    _check("flash_decode", q, k, v)
+    b, sq, h, d = q.shape
+    L, kh = k.shape[1], k.shape[2]
+    if sq != 1:
+        raise ValueError(f"flash_decode: one query token per slot, got {sq}")
+    if h // kh > MAX_GROUP:
+        raise ValueError(f"flash_decode: {h // kh} query heads per kv head "
+                         f"exceed {MAX_GROUP}")
+    kv_len, q_offset = (_slot_vector(x, b, q.device)
+                        for x in (kv_len, q_offset))
+    out = torch.empty_like(q)
+    _launch("flash_decode", build.load("decode_attention"),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+            q_offset.data_ptr(), out.data_ptr(), b, L, h, kh, d,
+            DTYPE_CODES[q.dtype], int(window or 0), 1.0 / math.sqrt(d),
+            _stream(q.device))
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0
+
+#: every kernel wrapper of the served path, by name
+KERNELS = {"flash_attention": flash_attention, "flash_decode": flash_decode}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

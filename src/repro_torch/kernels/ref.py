@@ -1,0 +1,77 @@
+"""Plain PyTorch versions of the attention kernels (their oracles).
+
+The arithmetic is that of ``repro.kernels.ref`` and ``repro.models.layers.sdpa``:
+scores in fp32, masked entries set to -1e30 before the softmax, rows with no
+unmasked key give 0, and the result is cast back to the query's dtype.
+On a CPU tensor the kernel wrappers in :mod:`repro_torch.kernels.ops` run
+these; on the card ``chip_smoke.py`` holds each kernel against them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def reference_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Skv, KH, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset=0,
+    kv_len=None,
+) -> torch.Tensor:
+    """GQA attention with the reference masks.
+
+    ``q_offset`` is the absolute position of ``q[:, 0]`` and ``kv_len`` the
+    number of valid cache rows; each is an int or a (B,) tensor (decode slots
+    sit at different depths).  ``window`` masks keys older than
+    ``q_pos - window + 1``."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    rep = h // kh
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    dev = q.device
+    if isinstance(q_offset, torch.Tensor):
+        q_offset = q_offset.to(dev).reshape(-1, 1)
+    q_pos = (torch.arange(sq, device=dev)[None, :] + q_offset)[:, None, :, None]
+    k_pos = torch.arange(skv, device=dev)[None, None, None, :]
+    mask = torch.ones_like(s, dtype=torch.bool)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > (q_pos - window)
+    if kv_len is not None:
+        if isinstance(kv_len, torch.Tensor):
+            kv_len = kv_len.to(dev).reshape(-1, 1, 1, 1)
+        mask &= k_pos < kv_len
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Plain version of the prefill kernel (no ``kv_len`` mask)."""
+    return reference_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+
+
+def flash_decode(q, k, v, *, kv_len, q_offset,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the decode kernel: q (B, 1, H, D) over the slot
+    cache k/v (B, L, KH, D) with per-slot ``kv_len`` and ``q_offset``."""
+    return reference_attention(q, k, v, causal=True, window=window,
+                               q_offset=q_offset, kv_len=kv_len)

@@ -15,3 +15,8 @@ except ModuleNotFoundError:
 import jax
 
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card (CUDA); skipped without one")
