@@ -13,6 +13,7 @@ Phases (any failure raises and exits non-zero):
      predictor -> ``EngineExecutor`` -> ``InferenceEngine(attn_impl="kernel")``
      serving qwen2-1.5b (28 layers, bf16, random weights from a seed) to a
      dozen requests; every kernel's launch count is read from this run;
+     one decode window of it is then profiled (device busy share, kernels);
   5. kernel path against plain path: identical greedy tokens at full width
      with 2 layers in fp32, and agreeing first prefill logits at full width
      and depth in bf16.
@@ -349,6 +350,45 @@ def served_path(cfg, params, requests):
     return launches
 
 
+def profile_window(cfg, params, requests) -> None:
+    """Where a steady decode window's time goes: one window of 8 steps at 4
+    live slots under ``torch.profiler``; device busy time is the sum of the
+    kernels' durations (one stream, so they do not overlap)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import Job
+    from repro_torch.engine import EngineConfig, InferenceEngine
+
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        max_slots=4, max_len=MAX_LEN, max_output=64, eos_id=-1),
+        device=DEVICE)
+    jobs = [Job(job_id=r.request_id, prompt="",
+                prompt_tokens=list(r.prompt_tokens), arrival_time=0.0)
+            for r in requests[:4]]
+    eng.run_window(jobs, 8)  # prefill, and a first window as warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run_window(jobs, 8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values()) / 1e3
+    log(f"[profile] one decode window (8 steps, 4 slots, {cfg.n_layers} "
+        f"layers) under torch.profiler: wall {wall * 1e3:.2f} ms, device "
+        f"busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%), "
+        f"{len(by_name)} kernel names")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[profile]   {us / 1e3:8.3f} ms {100 * us / 1e3 / busy:5.1f}% "
+            f"of busy  {name[:90]}")
+
+
 # --------------------------------------------------------------------------- #
 # Phase 5: kernel path against plain path
 # --------------------------------------------------------------------------- #
@@ -469,6 +509,7 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s")
     requests = make_requests(12, SEED)
     launches = served_path(cfg, params, requests)
+    profile_window(cfg, params, requests)
 
     kernel_vs_plain(cfg, params, requests)
 

@@ -59,11 +59,11 @@ def params_to_numpy(tree) -> Any:
     return t.numpy()
 
 
-def cache_from_numpy(length, k, v, *, ring: bool = False, device="cuda",
+def cache_from_numpy(length, k, v, *, device="cuda",
                      dtype: Optional[torch.dtype] = None):
-    """A JAX decode cache (its ``len`` vector and the ``KVCache`` buffers
-    (n_layers, B, L, KH, D), as numpy arrays) -> the port's cache dict."""
+    """A JAX decode cache (its ``len`` vector and the dense ``KVCache``
+    buffers (n_layers, B, L, KH, D), as numpy arrays) -> the port's cache
+    dict."""
     dev = resolve_device(device)
     return {"len": _tensor(length, dev, torch.int32),
-            "kv": KVCache(_tensor(k, dev, dtype), _tensor(v, dev, dtype),
-                          ring)}
+            "kv": KVCache(_tensor(k, dev, dtype), _tensor(v, dev, dtype))}

@@ -567,7 +567,7 @@ class ELISFrontend:
         # refresh the cluster layer's predicted-work view from the raw
         # (un-banded, un-aged) remaining-length scores this window used —
         # skipped entirely when nothing consumes predicted work (default
-        # least_jobs placement without rebalancing keeps PR 2's hot path)
+        # least_jobs placement without rebalancing keeps the original hot path)
         # (the *expectation*, not the risk quantile — summing upper
         # quantiles across a node would systematically over-count its load)
         if self._track_work and self.policy.predicts_length:

@@ -57,6 +57,44 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Stage keys [t0, t0 + kTile) of K and V (rows of `row` elements apart,
+// 16-byte aligned) into shared memory as fp32, zero past `hi`.  Each thread
+// issues four 16-byte loads of K and four of V before it converts any, so a
+// tile costs about one round trip to memory instead of one per element.
+template <typename T, int D>
+__device__ __forceinline__ void stage_tile(float* ks, float* vs, const T* kb,
+                                           const T* vb, size_t row, int t0,
+                                           int hi) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VPR = D / VEC;  // vectors per key row
+  constexpr int NV = kTile * VPR;
+  constexpr int DP = D + 1;
+  for (int base = threadIdx.x; base < NV; base += 4 * blockDim.x) {
+    uint4 kr[4], vr[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = base + u * blockDim.x, t = t0 + i / VPR;
+      const size_t off = (size_t)t * row + (i % VPR) * VEC;
+      const bool in = i < NV && t < hi;
+      kr[u] = in ? *reinterpret_cast<const uint4*>(kb + off) : make_uint4(0, 0, 0, 0);
+      vr[u] = in ? *reinterpret_cast<const uint4*>(vb + off) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i >= NV) break;
+      const int j = i / VPR, c = (i % VPR) * VEC;
+      const T* ke = reinterpret_cast<const T*>(&kr[u]);
+      const T* ve = reinterpret_cast<const T*>(&vr[u]);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        ks[j * DP + c + e] = to_f(ke[e]);
+        vs[j * D + c + e] = to_f(ve[e]);
+      }
+    }
+  }
+}
+
 template <typename T, int D>
 __global__ void decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const int* __restrict__ kv_len,
@@ -92,12 +130,7 @@ __global__ void decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t0 = lo; t0 < hi; t0 += kTile) {
     __syncthreads();  // the previous tile is consumed (and qs is written)
-    for (int i = threadIdx.x; i < kTile * D; i += blockDim.x) {
-      const int j = i / D, d = i % D, t = t0 + j;
-      const bool in = t < hi;
-      ks[j * DP + d] = in ? to_f(kb[t * row + d]) : 0.f;
-      vs[j * D + d] = in ? to_f(vb[t * row + d]) : 0.f;
-    }
+    stage_tile<T, D>(ks, vs, kb, vb, row, t0, hi);
     __syncthreads();
 
     const bool valid = t0 + lane < hi;  // t0 + lane >= lo by construction

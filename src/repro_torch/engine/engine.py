@@ -59,12 +59,6 @@ class EngineConfig:
     #: attention implementation: "kernel" (the hand-written CUDA kernels;
     #: their plain versions on CPU tensors) or "torch" (plain PyTorch)
     attn_impl: str = "kernel"
-    #: admit all newly scheduled jobs in one padded (batch, seq)-bucketed
-    #: prefill dispatch (False = one batch-1 dispatch per job)
-    batched_prefill: bool = True
-    #: compact decode dispatches to the batch bucket of the scheduled slots
-    #: and freeze unscheduled/EOS slots (False = always decode all slots)
-    masked_decode: bool = True
     #: honour each request's own token budget (job.true_output_len acts as
     #: the request's ``max_tokens``)
     respect_job_max: bool = False
@@ -79,7 +73,7 @@ def _gather_slots(cache, idx: torch.Tensor):
     """Copy slot rows ``idx`` of the cache into a sub-cache."""
     kv = cache["kv"]
     return {"len": cache["len"][idx],
-            "kv": T.KVCache(kv.k[:, idx], kv.v[:, idx], kv.ring)}
+            "kv": T.KVCache(kv.k[:, idx], kv.v[:, idx])}
 
 
 def _scatter_slots(big, small, slots: Sequence[int], n: int):
@@ -163,26 +157,13 @@ class InferenceEngine:
             return list(job.prompt_tokens) + list(job.generated)[:-1]
         return list(job.prompt_tokens)
 
-    def add_job(self, job: Job) -> int:
-        """Prefill one job into a free slot.  A job already holding a slot
-        keeps it."""
-        return self.add_jobs([job])[0]
-
     def add_jobs(self, jobs: Sequence[Job]) -> List[int]:
         """Admit every job not yet holding a slot, in ONE padded
-        ``(batch_bucket, seq_bucket)`` prefill dispatch (or one per job with
-        ``batched_prefill=False``).  Returns each job's slot."""
+        ``(batch_bucket, seq_bucket)`` prefill dispatch.  Returns each
+        job's slot."""
         todo = [j for j in jobs if not self.has_job(j.job_id)]
         if todo:
-            if len(todo) > self.free_slots():
-                raise RuntimeError(
-                    f"admitting {len(todo)} jobs needs {len(todo)} free "
-                    f"slots, engine has {self.free_slots()}")
-            if self.cfg.batched_prefill:
-                self._admit(todo)
-            else:
-                for j in todo:
-                    self._admit([j])
+            self._admit(todo)
         return [self.slot_of[j.job_id] for j in jobs]
 
     def _admit(self, jobs: Sequence[Job]) -> List[int]:
@@ -294,7 +275,7 @@ class InferenceEngine:
         ms = self.cfg.max_slots
         order = sorted(slots)
         db = min(batch_bucket(len(order)), ms)
-        compact = self.cfg.masked_decode and db < ms
+        compact = db < ms
         if compact:
             # decode only the scheduled slots, padded to the batch bucket
             # (pad rows duplicate a real slot but start dead, so they are
@@ -308,14 +289,11 @@ class InferenceEngine:
             alive0[: len(order)] = True
             row_of = {slot: r for r, slot in enumerate(order)}
         else:
+            # full-width dispatch, but unscheduled slots stay frozen
             sub_cache = self.cache
             sub_last = self.last_token
-            if self.cfg.masked_decode:
-                # full-width dispatch, but unscheduled slots stay frozen
-                alive0 = np.zeros((ms,), bool)
-                alive0[slots] = True
-            else:
-                alive0 = np.ones((ms,), bool)
+            alive0 = np.zeros((ms,), bool)
+            alive0[slots] = True
             row_of = {s: s for s in slots}
         self.num_decode_dispatches += 1
         new_cache, toks = self._decode_window(

@@ -30,11 +30,11 @@ ATTN_IMPLS = ("kernel", "torch")
 @dataclass
 class KVCache:
     """K/V buffers (..., batch, buf_len, kv_heads, head_dim); a leading
-    layer axis is present in the model cache and absent per layer."""
+    layer axis is present in the model cache and absent per layer.  Ring
+    (sliding-window) and int8 caches are later slices of the port."""
 
     k: torch.Tensor
     v: torch.Tensor
-    ring: bool = False
 
 
 def masked_row_write(buf: torch.Tensor, slot: torch.Tensor, val: torch.Tensor,
@@ -207,10 +207,10 @@ def attention_block(
             out = sdpa(q, k, v, causal=True, window=window)
         new_kv = (k, v)
     else:
-        if s != 1 or cache.ring:
+        if s != 1:
             raise NotImplementedError(
-                "only one-token decode over a dense KV cache is ported; "
-                "chunked prefill and ring caches are later slices")
+                "only one-token decode over the KV cache is ported; "
+                "chunked prefill is a later slice")
         cur = cur_index
         masked_row_write(cache.k, cur, k[:, 0], active)
         masked_row_write(cache.v, cur, v[:, 0], active)

@@ -197,7 +197,7 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
     kvc = cache["kv"]
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         h, _ = _dense_body(cfg, attn_impl, lp, h, cos_sin,
-                           cache=KVCache(kvc.k[i], kvc.v[i], kvc.ring),
+                           cache=KVCache(kvc.k[i], kvc.v[i]),
                            cur_index=cur, active=active)
     if active is not None:
         cache["len"] = torch.where(active, cur + 1, cur)

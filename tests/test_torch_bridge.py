@@ -84,14 +84,13 @@ def test_cache_from_numpy_matches_reference_prefill(jax_params):
     toks = rng.randint(8, 512, size=(2, 16)).astype(np.int32)
     jc = JT.init_cache(jcfg, 2, 32)
     _, jc = JT.prefill(jax_params, jcfg, {"tokens": jnp.asarray(toks)}, jc)
+    assert not jc["kv"].ring and not jc["kv"].quantized
     tc = cache_from_numpy(np.asarray(jc["len"]), np.asarray(jc["kv"].k),
-                          np.asarray(jc["kv"].v), ring=jc["kv"].ring,
-                          device="cpu")
+                          np.asarray(jc["kv"].v), device="cpu")
     assert tc["len"].dtype == torch.int32
     np.testing.assert_array_equal(tc["len"].numpy(), np.asarray(jc["len"]))
     np.testing.assert_array_equal(tc["kv"].k.numpy(), np.asarray(jc["kv"].k))
     np.testing.assert_array_equal(tc["kv"].v.numpy(), np.asarray(jc["kv"].v))
-    assert tc["kv"].ring is False
 
 
 def test_init_params_has_reference_layout_and_distributions(jax_params):
