@@ -11,12 +11,7 @@ from repro_torch.core.load_balancer import (
     PlacementPolicy,
     make_placement,
 )
-from repro_torch.core.metrics import (
-    improvement,
-    kendall_tau,
-    prediction_stats,
-    summarize,
-)
+from repro_torch.core.metrics import prediction_stats, summarize
 from repro_torch.core.predictor import (
     LengthPrediction,
     LengthPredictor,
@@ -25,9 +20,7 @@ from repro_torch.core.predictor import (
     predict_lengths,
 )
 from repro_torch.core.scheduler import (
-    PREEMPT_POLICIES,
     PreemptionConfig,
-    PriorityBuffer,
     SchedulerConfig,
     make_policy,
     select_preemptions,
@@ -65,10 +58,8 @@ __all__ = [
     "NoisyOraclePredictor",
     "OraclePredictor",
     "PLACEMENTS",
-    "PREEMPT_POLICIES",
     "PlacementPolicy",
     "PreemptionConfig",
-    "PriorityBuffer",
     "Request",
     "RequestHandle",
     "RequestOptions",
@@ -77,8 +68,6 @@ __all__ = [
     "SchedulerConfig",
     "TERMINAL_STATES",
     "TokenChunk",
-    "improvement",
-    "kendall_tau",
     "make_placement",
     "make_policy",
     "predict_lengths",

@@ -15,8 +15,7 @@ Lifecycle::
                    \\-> CANCELLED (caller)  |  EXPIRED (deadline)
 
 The server is *steppable*: ``submit`` / ``cancel`` / ``step`` / ``run_until``
-may be interleaved freely, which is what the cluster simulator, the live JAX
-engine, and future async dispatch all sit behind.
+may be interleaved freely over the live engine's executor.
 """
 from __future__ import annotations
 
@@ -94,35 +93,9 @@ class Request:
     #: caller-chosen id; None = server assigns a fresh one
     request_id: Optional[int] = None
     options: RequestOptions = field(default_factory=RequestOptions)
-    #: ground-truth response length/stream — oracle predictors and the
-    #: cluster simulator replay these; the live engine ignores them
+    #: ground-truth response length: the oracle predictors read it, and an
+    #: engine with ``respect_job_max`` stops the request there
     true_output_len: int = 0
-    output_tokens: Sequence[int] = ()
-
-    @classmethod
-    def from_workload(cls, r, options: Optional[RequestOptions] = None
-                      ) -> "Request":
-        """Adapt a ``repro_torch.data.workload.Request`` (generator ground truth).
-
-        Without explicit ``options``, the workload record's own serving
-        attributes (tenant / priority class / deadline — set by the
-        scenario library, absent on plain generator output) are forwarded
-        so multi-tenant scenarios flow through unchanged."""
-        if options is None:
-            options = RequestOptions(
-                deadline=getattr(r, "deadline", None),
-                tenant=getattr(r, "tenant", None) or "default",
-                priority_class=int(getattr(r, "priority_class", 0) or 0),
-            )
-        return cls(
-            prompt=r.prompt,
-            prompt_tokens=r.prompt_tokens,
-            arrival_time=r.arrival_time,
-            request_id=r.request_id,
-            options=options,
-            true_output_len=r.true_output_len,
-            output_tokens=r.output_tokens,
-        )
 
 
 @dataclass(frozen=True)
@@ -292,7 +265,6 @@ class ElisServer:
             prompt_tokens=list(request.prompt_tokens),
             arrival_time=request.arrival_time,
             true_output_len=max_out,
-            output_tokens=list(request.output_tokens),
             deadline=opts.deadline,
             tenant=opts.tenant,
             priority_class=opts.priority_class,
@@ -343,8 +315,7 @@ class ElisServer:
     def drain_stream(self) -> Iterator[Response]:
         """Like :meth:`drain`, but yield each terminal Response and
         immediately release the underlying job's records — constant memory
-        over arbitrarily long runs (pairs with the streaming aggregator in
-        :mod:`repro_torch.core.metrics`).  Responses come in submission order;
+        over arbitrarily long runs.  Responses come in submission order;
         released requests are forgotten (``status`` raises for them
         afterwards)."""
         while self._fe.pending():

@@ -1,10 +1,7 @@
 """ELIS frontend scheduler — Algorithm 1 as a *steppable* event loop.
 
-One implementation drives both backends:
-  * the **cluster simulator** (``repro.simulate``) — virtual time, calibrated
-    per-model latency, 50 workers on a laptop;
-  * the **live JAX engine** (``repro.engine``) — real decode windows, wall
-    clock measured and fed back as event durations.
+It drives the live engine (:class:`repro_torch.engine.EngineExecutor`):
+real decode windows, wall clock measured and fed back as event durations.
 
 Semantics (faithful to the paper):
   * iteration-level batching with a fixed window of K=50 tokens;
@@ -14,7 +11,7 @@ Semantics (faithful to the paper):
     priorities; ``SchedulerConfig.repredict_every`` stretches the encoder
     cadence — between full re-scores a job reuses its cached prediction
     decayed by the tokens generated since it was scored;
-  * per-node PriorityBuffer; pluggable placement at arrival
+  * per-node waiting queues; pluggable placement at arrival
     (``FrontendConfig.placement``): greedy min-job-count (``least_jobs``,
     the paper's line 3), outstanding-predicted-tokens balancing
     (``least_predicted_work``), or per-node drain-time estimation over the
@@ -30,7 +27,7 @@ Semantics (faithful to the paper):
     unless the preemption policy displaces it (FCFS ⇒ non-preemptive ORCA
     behaviour; ISRTF ⇒ priority preemption at window boundaries with
     margin/frequency knobs);
-  * displaced jobs pay a KV-recompute cost when they next run;
+  * displaced jobs are evicted and pay a KV recompute when they next run;
   * prompts are sent to the backend once (re-dispatch is metadata-only).
 
 Online extensions (paper §4.1, "continuously admits requests"):
@@ -57,29 +54,18 @@ from repro_torch.core.job import TERMINAL_STATES, Job, JobState
 from repro_torch.core.load_balancer import GlobalState, LoadBalancer, make_placement
 from repro_torch.core.predictor import Predictor
 from repro_torch.core.scheduler import (
-    PRIORITY_CLASS_WEIGHT,
-    Policy,
     PreemptionConfig,
     SchedulerConfig,
-    batch_effective,
     cached_expected_remaining,
     cached_raw_priority,
-    decide_preempt,
     effective_priority,
     make_policy,
-    prefill_debt,
     score_pool,
     select_fills,
     select_preemptions,
 )
 
-__all__ = [
-    "Backend", "ELISFrontend", "Event", "ExecResult",
-    "FrontendConfig",
-    # re-exported for callers that historically imported these from here —
-    # the implementations now live in repro_torch.core.scheduler
-    "PRIORITY_CLASS_WEIGHT", "batch_effective",
-]
+__all__ = ["Backend", "ELISFrontend", "Event", "ExecResult", "FrontendConfig"]
 
 
 class ExecResult:
@@ -91,7 +77,7 @@ class ExecResult:
 
 
 class Backend(abc.ABC):
-    """Execution backend behind the frontend (simulator or live engine).
+    """Execution backend behind the frontend (the live engine).
 
     ``execute`` runs one scheduling window for a batch and reports the new
     tokens (which the frontend re-emits as per-window ``TokenChunk``\\ s);
@@ -107,27 +93,6 @@ class Backend(abc.ABC):
 
     @abc.abstractmethod
     def evict(self, node: int, job: Job) -> None: ...
-
-    def offload(self, node: int, job: Job) -> bool:
-        """Preempt ``job`` but *keep* its KV by swapping it to host memory
-        (ALISE tier).  Returns False when the backend cannot swap (no
-        cache, unsupported family) — the caller then falls back to
-        :meth:`evict` + recompute-on-resume.  Backends that support it
-        must restore the cache transparently when the job is next
-        executed."""
-        return False
-
-    def restore(self, node: int, job: Job) -> bool:
-        """Explicitly swap a previously offloaded job's KV back in.
-        Optional — ``execute`` must restore lazily regardless."""
-        return False
-
-    def preempt_costs(self, node: int, job: Job
-                      ) -> Optional[Tuple[float, float]]:
-        """(swap_round_trip_s, recompute_s) estimates for preempting
-        ``job`` — the ``auto`` preempt policy's break-even input.  None =
-        the backend cannot price the trade (caller recomputes)."""
-        return None
 
     def capacity(self, node: int) -> Optional[int]:
         """Max concurrent jobs node can hold; None = unbounded."""
@@ -474,16 +439,8 @@ class ELISFrontend:
         if not batch:
             self.node_busy[node] = False
             return
-        pc = self.cfg.scheduler.prefill_chunk
-        if pc is not None:
-            # kwarg only when configured: Backend.execute's positional
-            # signature is unchanged for chunk-unaware backends
-            res = self.executor.execute(node, batch,
-                                        self.cfg.scheduler.window, now,
-                                        prefill_chunk=pc)
-        else:
-            res = self.executor.execute(node, batch,
-                                        self.cfg.scheduler.window, now)
+        res = self.executor.execute(node, batch, self.cfg.scheduler.window,
+                                    now)
         end = now + res.duration
         # the horizon this window runs to — least_eta placement reads it
         self.state.note_busy(node, end)
@@ -578,10 +535,11 @@ class ELISFrontend:
                 self.state.set_work(
                     j.job_id, max(cached_expected_remaining(j), 0.0))
 
-        # backend capacity snapshot BEFORE preemption: a swap is net-zero on
-        # residency (victim evicted now, replacement occupies the slot at
-        # dispatch), so reading free_capacity after the evictions would
-        # double-count the freed slots and overfill the backend
+        # backend capacity snapshot BEFORE preemption: a preemption is
+        # net-zero on residency (victim evicted now, replacement occupies
+        # the slot at dispatch), so reading free_capacity after the
+        # evictions would double-count the freed slots and overfill the
+        # backend
         fc = getattr(self.executor, "free_capacity", None)
         backend_free = fc(node) if fc is not None else None
 
@@ -590,36 +548,20 @@ class ELISFrontend:
             list(zip(run_eff, running)), list(zip(wait_eff, waiting)),
             self.cfg.preemption,
         )
-        pcfg = self.cfg.preemption
         for victim, repl in swaps:
             running.remove(victim)
             victim.state = JobState.PREEMPTED
             victim.n_preemptions += 1
             victim.record_enqueue(now)
             waiting.append(victim)
-            # swap-vs-recompute (PreemptionConfig.policy): costs are priced
-            # BEFORE the offload/evict mutates the victim's cache state
-            mode = "recompute"
-            if pcfg.policy != "recompute":
-                mode = decide_preempt(
-                    pcfg, self.executor.preempt_costs(node, victim),
-                    cached_expected_remaining(victim))
-            if mode == "swap" and not self.executor.offload(node, victim):
-                mode = "recompute"  # backend can't swap this job
-            if mode == "recompute":
-                self.executor.evict(node, victim)
+            self.executor.evict(node, victim)
             out.append(Event(now, "preempted", victim.job_id))
             # freshly re-enqueued at ``now`` ⇒ zero aging: re-band the same
             # (possibly stale-decayed) raw priority this window's scoring
             # pass used — NOT the undecayed cached prediction, which would
-            # rank the victim inconsistently against stale-scored waiters.
-            # The prefill debt is re-read AFTER the evict/offload above: a
-            # recompute-evicted victim's debt is its whole context, a
-            # swapped one's is unchanged
+            # rank the victim inconsistently against stale-scored waiters
             eff[victim.job_id] = effective_priority(
-                self.cfg.scheduler, victim,
-                cached_raw_priority(victim)
-                + prefill_debt(self.cfg.scheduler, victim), now)
+                self.cfg.scheduler, victim, cached_raw_priority(victim), now)
             eff.pop(repl.job_id, None)
             waiting.remove(repl)
             repl.state = JobState.RUNNING

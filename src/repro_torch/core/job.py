@@ -36,10 +36,8 @@ class Job:
     prompt: str
     prompt_tokens: List[int]
     arrival_time: float
-    #: ground-truth response length — known to the generator/oracle only
+    #: ground-truth response length — known to the oracle only
     true_output_len: int = 0
-    #: precomputed response token stream (simulator replays it)
-    output_tokens: List[int] = field(default_factory=list)
 
     node: int = -1
     state: JobState = JobState.WAITING
@@ -65,12 +63,6 @@ class Job:
 
     generated: List[int] = field(default_factory=list)
     finished: bool = False
-    #: tokens of context currently materialised in the backend's KV cache
-    #: for this job (prompt + generated).  Mid-chunked-prefill it lags
-    #: ``len(prompt_tokens)``; a recompute-eviction resets it to 0 while a
-    #: KV swap-out preserves it.  ``prefill_debt`` (scheduler) and the
-    #: swap-vs-recompute break-even both read this cursor.
-    prefilled_tokens: int = 0
 
     # request-lifecycle fields (populated from api.RequestOptions)
     #: absolute deadline on the serving clock; None = no deadline

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import List, Optional, Protocol, Sequence, Tuple
+from typing import List, Protocol, Sequence, Tuple
 
 import numpy as np
 
@@ -96,12 +96,6 @@ class LengthPrediction:
     mean: float
     std: float = 0.0
     quantiles: Tuple[Tuple[float, float], ...] = ()
-    #: ranking-head score: a token-scale pseudo-length whose ORDER across a
-    #: pool is meaningful but whose magnitude is uncalibrated.  The
-    #: scheduler orders on it under ``SchedulerConfig.rank_by =
-    #: "rank_score"``; ``expected_remaining`` / predicted-work accounting
-    #: never read it.  None for single-head predictors.
-    rank_score: Optional[float] = None
 
     def quantile(self, q: float) -> float:
         """The q-th quantile of the predicted remaining length."""

@@ -13,9 +13,9 @@ the head-of-line-blocking direction).
 This module owns the whole scoring pipeline:
 
 * :func:`score_pool` — ONE fused scoring pass per scheduling window over
-  ``running + waiting`` (a single batched predictor dispatch when the
-  predictor supports :meth:`~repro_torch.core.predictor.BGEPredictor.predict_jobs`),
-  split back into per-queue effective priorities by the caller;
+  ``running + waiting`` (a single batched predictor dispatch through
+  :func:`~repro_torch.core.predictor.predict_lengths`), split back into
+  per-queue effective priorities by the caller;
 * :func:`effective_priority` — the single source of truth for
   priority-class banding and anti-starvation aging (an aging term subtracts
   ``aging_rate * wait_seconds`` so long-waiting jobs eventually run
@@ -24,21 +24,19 @@ This module owns the whole scoring pipeline:
   between full re-scores a job reuses its cached prediction minus the
   tokens it generated since it was last scored, so the encoder runs on a
   configurable cadence instead of every window.
+
+Preemption here is recompute only: a victim's KV cache is discarded and
+rebuilt by a prefill when it resumes.  Chunked prefill and KV swap, with
+the ranking head's ``rank_by`` ordering, are later slices of the port.
 """
 from __future__ import annotations
 
-import heapq
-import itertools
 import math
-from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.core.job import Job
-from repro_torch.core.predictor import (
-    LengthPrediction,
-    Predictor,
-    predict_lengths,
-)
+from repro_torch.core.predictor import Predictor, predict_lengths
 
 
 @dataclass
@@ -69,25 +67,6 @@ class SchedulerConfig:
     #: re-predict (ISRTF) are affected; newly arrived jobs are always
     #: scored on first sight regardless of the stride.
     repredict_every: int = 1
-    #: chunked prefill: split prompt ingestion into chunks of this many
-    #: tokens, at most one chunk per scheduling window, interleaved with
-    #: the running decodes (Sarathi-style stall removal — a long prompt no
-    #: longer freezes every decode for a full window).  None = one-shot
-    #: prefill (the pre-chunking behaviour, bit-compatible).  When set,
-    #: ISRTF ranks partially-prefilled jobs by *total* remaining work:
-    #: predicted remaining output plus the unprefilled prompt tail
-    #: (:func:`prefill_debt`).
-    prefill_chunk: Optional[int] = None
-    #: what a re-predicting policy ORDERS the pool by: ``"magnitude"`` (the
-    #: calibrated mean, or its ``risk_quantile``) or ``"rank_score"`` (the
-    #: learning-to-rank head's score — ISRTF only needs the order of
-    #: remaining lengths, and a head trained to rank beats the point
-    #: regressor at exactly that).  Requires predictions carrying
-    #: :attr:`~repro_torch.core.predictor.LengthPrediction.rank_score` (a ranked
-    #: predictor).  Either way ``Job.expected_remaining`` and all cluster
-    #: predicted-work accounting stay on the calibrated mean — rank scores
-    #: never leak into load totals (see ``cached_expected_remaining``).
-    rank_by: str = "magnitude"
 
 
 class Policy:
@@ -164,10 +143,6 @@ POLICIES = {
     "mlfq": MLFQPolicy,
 }
 
-#: valid pool-ordering sources for re-predicting policies
-RANK_BY = ("magnitude", "rank_score")
-
-
 def make_policy(cfg: SchedulerConfig, predictor: Optional[Predictor]) -> Policy:
     try:
         cls = POLICIES[cfg.policy]
@@ -175,14 +150,6 @@ def make_policy(cfg: SchedulerConfig, predictor: Optional[Predictor]) -> Policy:
         raise ValueError(f"unknown policy {cfg.policy!r}") from None
     if cls in (SJFPolicy, ISRTFPolicy) and predictor is None:
         raise ValueError(f"{cfg.policy} requires a predictor")
-    if cfg.rank_by not in RANK_BY:
-        raise ValueError(
-            f"unknown rank_by {cfg.rank_by!r} (choose one of {RANK_BY})")
-    if cfg.rank_by == "rank_score" and cfg.risk_quantile is not None:
-        raise ValueError(
-            "rank_by='rank_score' and risk_quantile are mutually exclusive: "
-            "the ranking head orders the pool directly, quantiles order "
-            "magnitudes — pick one")
     return cls(cfg, predictor)
 
 
@@ -207,35 +174,6 @@ def effective_priority(cfg: SchedulerConfig, job: Job, raw: float,
     return eff
 
 
-def prefill_debt(cfg: SchedulerConfig, job: Job) -> float:
-    """Context tokens the backend still has to materialise before ``job``
-    can decode: ``prompt + generated - prefilled``.  Zero whenever chunked
-    prefill is off (``cfg.prefill_chunk is None``) so legacy traces are
-    untouched; with chunking on, this is the unprefilled prompt tail for a
-    mid-prefill job and the full context for a recompute-evicted one.
-    Added to the *raw* priority at ranking time (never stored in
-    ``job.priority`` — predictions stay pure remaining-output estimates)."""
-    if cfg.prefill_chunk is None:
-        return 0.0
-    return float(max(
-        len(job.prompt_tokens) + job.tokens_generated - job.prefilled_tokens,
-        0))
-
-
-def _rank_scores(preds: Sequence[LengthPrediction]) -> List[float]:
-    """Pool ordering from the ranking head — loud when it isn't there."""
-    out = []
-    for p in preds:
-        if p.rank_score is None:
-            raise ValueError(
-                "rank_by='rank_score' needs predictions carrying a "
-                "rank_score — use a two-head ranked predictor "
-                "(make_predictor('ranked', bge=...)); this predictor "
-                "returned none")
-        out.append(float(p.rank_score))
-    return out
-
-
 def score_jobs(policy: Policy, jobs: Sequence[Job], now: float) -> List[float]:
     """Fresh raw priorities for ``jobs`` — at most ONE predictor dispatch
     (batched through :func:`~repro_torch.core.predictor.predict_lengths`, the
@@ -255,9 +193,7 @@ def score_jobs(policy: Policy, jobs: Sequence[Job], now: float) -> List[float]:
     if policy.repredicts and pred is not None:
         preds = predict_lengths(pred, jobs)
         q = policy.cfg.risk_quantile
-        if policy.cfg.rank_by == "rank_score":
-            raw = _rank_scores(preds)
-        elif q is None:
+        if q is None:
             raw = [p.mean for p in preds]
         else:
             raw = [p.quantile(q) for p in preds]
@@ -301,15 +237,6 @@ def cached_expected_remaining(job: Job) -> float:
                - (job.tokens_generated - job.tokens_at_last_score), 0.0)
 
 
-def batch_effective(policy: Policy, jobs: Sequence[Job],
-                    now: float) -> List[float]:
-    """Score ``jobs`` fresh and return effective priorities (one fused
-    predictor dispatch; see :func:`score_jobs`)."""
-    raw = score_jobs(policy, jobs, now)
-    return [effective_priority(policy.cfg, j, p, now)
-            for j, p in zip(jobs, raw)]
-
-
 def score_pool(policy: Policy, running: Sequence[Job], waiting: Sequence[Job],
                now: float, *, full: bool = True
                ) -> Tuple[List[float], List[float]]:
@@ -336,35 +263,9 @@ def score_pool(policy: Policy, running: Sequence[Job], waiting: Sequence[Job],
                      for j, p in zip(fresh, score_jobs(policy, fresh, now))}
         raw = [fresh_raw[id(j)] if id(j) in fresh_raw
                else cached_raw_priority(j) for j in pool]
-    eff = [effective_priority(policy.cfg, j, p + prefill_debt(policy.cfg, j),
-                              now)
+    eff = [effective_priority(policy.cfg, j, p, now)
            for j, p in zip(pool, raw)]
     return eff[: len(running)], eff[len(running):]
-
-
-# --------------------------------------------------------------------------- #
-# PriorityBuffer (paper §4.1: one priority queue per backend node)
-# --------------------------------------------------------------------------- #
-
-
-class PriorityBuffer:
-    def __init__(self):
-        self._heaps: Dict[int, List] = {}
-        self._count = itertools.count()
-
-    def push(self, node: int, prio: float, job: Job) -> None:
-        heapq.heappush(self._heaps.setdefault(node, []),
-                       (prio, next(self._count), job))
-
-    def pop_batch(self, node: int, k: int) -> List[Job]:
-        heap = self._heaps.get(node, [])
-        out = []
-        while heap and len(out) < k:
-            out.append(heapq.heappop(heap)[2])
-        return out
-
-    def depth(self, node: int) -> int:
-        return len(self._heaps.get(node, []))
 
 
 # --------------------------------------------------------------------------- #
@@ -374,7 +275,8 @@ class PriorityBuffer:
 
 @dataclass
 class PreemptionConfig:
-    """Knobs for 'adjusting the frequency of preemption' (paper §1, §3.4)."""
+    """Knobs for 'adjusting the frequency of preemption' (paper §1, §3.4).
+    A victim is evicted and pays a full re-prefill when it resumes."""
 
     enabled: bool = True
     #: a waiting job must beat a running job's priority by this many tokens
@@ -382,54 +284,6 @@ class PreemptionConfig:
     margin: float = 50.0
     #: at most this fraction of a batch may be preempted per iteration
     max_fraction: float = 0.25
-    #: per-preemption cost charged when the victim resumes (KV recompute),
-    #: expressed in prompt-tokens re-prefilled
-    recompute_tokens: bool = True
-    #: what happens to a victim's KV cache (ALISE, arXiv 2410.23537):
-    #: ``recompute`` discards it (resume pays a full re-prefill — the
-    #: pre-offload behaviour), ``swap`` copies it to host memory and back,
-    #: ``auto`` picks per victim via the :func:`decide_preempt` break-even
-    #: on the backend's (swap_s, recompute_s) estimates and the victim's
-    #: predicted remaining length
-    policy: str = "recompute"
-    #: ``auto`` penalty per predicted-remaining token for *holding* a
-    #: swapped cache in host memory — a job expected to run long after
-    #: resume ties up host KV (and risks a second swap) longer, so the
-    #: break-even tilts toward recompute for it
-    swap_hold_s_per_token: float = 1e-3
-    #: watermark (in stashed context tokens) bounding the live engine's
-    #: host swap pool.  When a new swap-out would push the pool past the
-    #: watermark, the COLDEST stashed victims (oldest swap-outs) are
-    #: evicted to the recompute-fallback path with a loud once-per-engine
-    #: warning; if the fresh stash alone exceeds the pool it is refused
-    #: and the victim recomputes.  None = unbounded (the pre-watermark
-    #: behaviour).  Threaded onto each engine by ``EngineExecutor``.
-    swap_pool_tokens: Optional[int] = None
-
-
-PREEMPT_POLICIES = ("recompute", "swap", "auto")
-
-
-def decide_preempt(cfg: PreemptionConfig,
-                   costs: Optional[Tuple[float, float]],
-                   predicted_remaining: Optional[float]) -> str:
-    """Resolve a victim's preemption treatment to ``"swap"`` or
-    ``"recompute"``.  ``costs`` is the backend's ``(swap_round_trip_s,
-    recompute_s)`` estimate (None = backend can't price it → recompute);
-    ``predicted_remaining`` feeds the hold-cost term under ``auto``."""
-    if cfg.policy not in PREEMPT_POLICIES:
-        raise ValueError(
-            f"unknown preempt policy {cfg.policy!r}; "
-            f"choose one of {PREEMPT_POLICIES}")
-    if cfg.policy != "auto":
-        return cfg.policy
-    if costs is None:
-        return "recompute"
-    swap_s, rec_s = costs
-    r_hat = max(float(predicted_remaining or 0.0), 0.0)
-    return ("swap"
-            if swap_s + cfg.swap_hold_s_per_token * r_hat < rec_s
-            else "recompute")
 
 
 def select_fills(waiting_eff: Sequence[float], free: int) -> List[int]:
@@ -437,9 +291,7 @@ def select_fills(waiting_eff: Sequence[float], free: int) -> List[int]:
     best-first: ordered by (effective priority, queue position) — queue
     position breaks ties so equal-priority jobs dispatch in enqueue order.
 
-    The single fill-selection rule, shared by the exact event loop
-    (``ELISFrontend._form_batch``) and the vectorized fast path
-    (``repro.simulate.scale``) so the two can never drift."""
+    The single fill-selection rule of ``ELISFrontend._form_batch``."""
     if free <= 0 or not waiting_eff:
         return []
     order = sorted(range(len(waiting_eff)),

@@ -29,71 +29,13 @@
 // card's 132 SMs.  Splitting the KV axis across blocks, with a combine pass,
 // is the next step.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kTile = 32;  // keys per tile: one per lane
+using namespace attn;
+
 constexpr int kMaxGroup = 16;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Stage keys [t0, t0 + kTile) of K and V (rows of `row` elements apart,
-// 16-byte aligned) into shared memory as fp32, zero past `hi`.  Each thread
-// issues four 16-byte loads of K and four of V before it converts any, so a
-// tile costs about one round trip to memory instead of one per element.
-template <typename T, int D>
-__device__ __forceinline__ void stage_tile(float* ks, float* vs, const T* kb,
-                                           const T* vb, size_t row, int t0,
-                                           int hi) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = D / VEC;  // vectors per key row
-  constexpr int NV = kTile * VPR;
-  constexpr int DP = D + 1;
-  for (int base = threadIdx.x; base < NV; base += 4 * blockDim.x) {
-    uint4 kr[4], vr[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = base + u * blockDim.x, t = t0 + i / VPR;
-      const size_t off = (size_t)t * row + (i % VPR) * VEC;
-      const bool in = i < NV && t < hi;
-      kr[u] = in ? *reinterpret_cast<const uint4*>(kb + off) : make_uint4(0, 0, 0, 0);
-      vr[u] = in ? *reinterpret_cast<const uint4*>(vb + off) : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = base + u * blockDim.x;
-      if (i >= NV) break;
-      const int j = i / VPR, c = (i % VPR) * VEC;
-      const T* ke = reinterpret_cast<const T*>(&kr[u]);
-      const T* ve = reinterpret_cast<const T*>(&vr[u]);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        ks[j * DP + c + e] = to_f(ke[e]);
-        vs[j * D + c + e] = to_f(ve[e]);
-      }
-    }
-  }
-}
 
 template <typename T, int D>
 __global__ void decode_kernel(const T* __restrict__ q, const T* __restrict__ k,

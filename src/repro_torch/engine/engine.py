@@ -259,11 +259,6 @@ class InferenceEngine:
         self._decode_jobs(jobs, window, results)
         out_tokens = [list(results[j.job_id][0]) for j in jobs]
         finished = [results[j.job_id][1] for j in jobs]
-        # publish each job's materialized context (prompt + generated KV,
-        # incl. the seed token) — the scheduler's prefill-debt ranking reads it
-        for job, seq in zip(jobs, out_tokens):
-            job.prefilled_tokens = (len(job.prompt_tokens)
-                                    + job.tokens_generated + len(seq))
         return out_tokens, finished
 
     def _decode_jobs(self, jobs: Sequence[Job], window: int,
@@ -382,7 +377,6 @@ class EngineExecutor(Backend):
 
     def evict(self, node: int, job: Job) -> None:
         self.engines[node].evict_job(job.job_id)
-        job.prefilled_tokens = 0
 
     # ------------------------------------------------------------------ #
     def node_counters(self) -> Dict[int, Dict[str, int]]:

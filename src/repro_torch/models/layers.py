@@ -201,7 +201,7 @@ def attention_block(
     window = cfg.swa_window if cfg.attention_type == "swa" else None
 
     if cache is None:
-        if attn_impl == "kernel" and s > 1:
+        if attn_impl == "kernel":
             out = ops.flash_attention(q, k, v, window=window)
         else:
             out = sdpa(q, k, v, causal=True, window=window)

@@ -92,13 +92,12 @@ def test_engine_greedy_tokens_match_jax_engine(setup):
         assert getattr(teng, attr) == getattr(jeng, attr), attr
 
 
-def _serve(server_cls, cfg_cls, sched_cls, pre_cls, oracle_cls, req_cls,
+def _serve(server_cls, cfg_cls, sched_cls, preemption, oracle_cls, req_cls,
            executor, requests):
     server = server_cls(
         cfg_cls(n_nodes=1,
                 scheduler=sched_cls(policy="isrtf", window=4, batch_size=2),
-                preemption=pre_cls(enabled=True, policy="recompute"),
-                observe_in_flight=False),
+                preemption=preemption, observe_in_flight=False),
         oracle_cls(), executor)
     for r in requests:
         server.submit(req_cls(**r))
@@ -121,8 +120,8 @@ def test_server_streams_match_jax_server(setup):
             max_slots=2, max_len=128, max_output=16, eos_id=eos_id,
             respect_job_max=True), device="cpu")
         return _serve(ElisServer, FrontendConfig, SchedulerConfig,
-                      PreemptionConfig, OraclePredictor, Request,
-                      EngineExecutor({0: eng}), requests)
+                      PreemptionConfig(enabled=True), OraclePredictor,
+                      Request, EngineExecutor({0: eng}), requests)
 
     # an id the greedy streams emit mid-window becomes the EOS token
     free_run = port(-1)
@@ -132,11 +131,59 @@ def test_server_streams_match_jax_server(setup):
         max_slots=2, max_len=128, max_output=16, eos_id=eos,
         respect_job_max=True, attn_impl="xla"))
     want = _serve(JaxServer, JaxFrontendConfig, JaxSchedulerConfig,
-                  JaxPreemptionConfig, JaxOracle, JaxRequest,
-                  JaxExecutor({0: jeng}), requests)
+                  JaxPreemptionConfig(enabled=True, policy="recompute"),
+                  JaxOracle, JaxRequest, JaxExecutor({0: jeng}), requests)
     assert got == want
     assert all(status == "finished" for status, _, _ in got.values())
     assert any(toks and toks[-1] == eos for _, toks, _ in got.values())
+
+
+def _serve_with_late_arrivals(server_cls, cfg_cls, sched_cls, preemption,
+                              oracle_cls, req_cls, executor, first, late):
+    """Submit ``first``, run its first window, then submit ``late`` (dated
+    at the current clock) and drain: the late short jobs preempt the long
+    one at the next window boundary whatever the windows' wall times."""
+    server = server_cls(
+        cfg_cls(n_nodes=1,
+                scheduler=sched_cls(policy="isrtf", window=4, batch_size=2),
+                preemption=preemption, observe_in_flight=False),
+        oracle_cls(), executor)
+    server.submit(req_cls(**first))
+    server.step()  # the arrival
+    server.step()  # its first window
+    for r in late:
+        server.submit(req_cls(**r))
+    return {r.request_id: (r.status.value, r.tokens, r.n_preemptions)
+            for r in server.drain()}
+
+
+def test_recompute_preemption_matches_jax_server(setup):
+    """ISRTF preempts a long job for two short late arrivals; the victim is
+    evicted and resumes by recompute.  Token streams and preemption counts
+    match the JAX server's."""
+    jcfg, cfg, jp, tp = setup
+    prompts = _prompts(7, [11, 6, 9])
+    first = dict(prompt="long", prompt_tokens=prompts[0], arrival_time=0.0,
+                 request_id=0, true_output_len=30)
+    late = [dict(prompt=f"short{i}", prompt_tokens=p, arrival_time=0.0,
+                 request_id=i, true_output_len=5)
+            for i, p in enumerate(prompts[1:], start=1)]
+    kw = dict(max_slots=2, max_len=64, max_output=32, eos_id=-1,
+              respect_job_max=True)
+    got = _serve_with_late_arrivals(
+        ElisServer, FrontendConfig, SchedulerConfig,
+        PreemptionConfig(enabled=True, margin=8.0), OraclePredictor, Request,
+        EngineExecutor({0: InferenceEngine(cfg, tp, EngineConfig(**kw),
+                                           device="cpu")}), first, late)
+    want = _serve_with_late_arrivals(
+        JaxServer, JaxFrontendConfig, JaxSchedulerConfig,
+        JaxPreemptionConfig(enabled=True, margin=8.0, policy="recompute"),
+        JaxOracle, JaxRequest,
+        JaxExecutor({0: JaxEngine(jcfg, jp, JaxEngineConfig(
+            attn_impl="xla", **kw))}), first, late)
+    assert got == want
+    assert got[0][2] == 1 and len(got[0][1]) == 30
+    assert all(status == "finished" for status, _, _ in got.values())
 
 
 def test_dispatch_shapes_stay_within_bucket_bounds(setup):

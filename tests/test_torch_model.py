@@ -122,6 +122,44 @@ def test_prefill_logits_and_cache_match_reference(setup, impl):
     _close(tc["kv"].v, jc["kv"].v)
 
 
+def test_one_token_prefill_matches_reference(setup):
+    """A prompt bucket of one token (``EngineConfig.prefill_bucket=1``) goes
+    through the prefill attention path like any other."""
+    jcfg, cfg, jp, tp = setup
+    toks = np.array([[17], [300]], np.int32)
+    jl, jc = JT.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)},
+                        JT.init_cache(jcfg, 2, 16), attn_impl="pallas")
+    tl, tc = T.prefill(tp, cfg, {"tokens": _t(toks)},
+                       T.init_cache(cfg, 2, 16, "cpu"), attn_impl="kernel")
+    _close(tl, jl)
+    _close(tc["kv"].k, jc["kv"].k)
+
+
+@pytest.mark.gpu
+def test_one_token_prefill_launches_the_kernel_on_card(setup):
+    """On the card a one-token prefill runs the flash-attention kernel in
+    every layer (no route to the plain version) and agrees with the plain
+    path (fp32, TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, cfg, _, tp = setup
+    params = jax.tree_util.tree_map(lambda t: t.to("cuda"), tp)
+    toks = torch.tensor([[17], [300]], dtype=torch.int32, device="cuda")
+    out = {}
+    for impl in ("kernel", "torch"):
+        n = ops.flash_attention.launches
+        out[impl], _ = T.prefill(params, cfg, {"tokens": toks},
+                                 T.init_cache(cfg, 2, 16, "cuda"),
+                                 attn_impl=impl)
+        launched = ops.flash_attention.launches - n
+        assert launched == (cfg.n_layers if impl == "kernel" else 0)
+    _close(out["kernel"].cpu(), out["torch"].cpu())
+
+
 @pytest.mark.parametrize("timpl", ["torch", "kernel"])
 def test_decode_step_with_mixed_active_mask(setup, timpl):
     """Live rows match the reference; frozen rows keep their cache bit for
