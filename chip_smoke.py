@@ -7,26 +7,30 @@ Phases (any failure raises and exits non-zero):
   1. device: name, count, power limit, torch and CUDA versions;
   2. build: every kernel of ``src/repro_torch/csrc`` with nvcc, in parallel;
   3. kernels against their plain PyTorch versions at the served shapes,
-     bf16 and fp32, with times (kernel, plain version, PyTorch's
-     ``scaled_dot_product_attention`` as a yardstick) and the bound;
-  4. the served path at full width: ``ElisServer`` -> ISRTF with the oracle
-     predictor -> ``EngineExecutor`` -> ``InferenceEngine(attn_impl="kernel")``
-     serving qwen2-1.5b (28 layers, bf16, random weights from a seed) to a
-     dozen requests; every kernel's launch count is read from this run;
-     one decode window of it is then profiled (device busy share, kernels);
-  5. kernel path against plain path: identical greedy tokens at full width
-     with 2 layers in fp32, and agreeing first prefill logits at full width
-     and depth in bf16.
+     bf16 and fp32, with times (kernel, plain version, and PyTorch's
+     ``scaled_dot_product_attention`` as the attention kernels' yardstick)
+     and the bound;
+  4. the served paths at full width: ``ElisServer`` -> ISRTF with the
+     oracle predictor -> ``EngineExecutor`` ->
+     ``InferenceEngine(attn_impl="kernel")`` serving a dozen requests to
+     qwen2-1.5b (28 layers) and then to mamba2-130m (24 layers), bf16,
+     random weights from a seed; each path's kernel launch counts are set
+     to 0 just before it and read just after; one decode window of each is
+     then profiled (device busy share, kernels);
+  5. kernel path against plain path, per model: identical greedy tokens at
+     full width with 2 layers in fp32 through evictions and recompute
+     resumes, and agreeing first prefill logits at full width and depth in
+     bf16.
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
 
     python3 chip_smoke.py --planted-fault drop_first_tile
 
-checks the checks instead: it builds both kernels from a copy of
-``csrc`` with one deliberate fault (``PLANTED_FAULTS``) in a temporary
-directory, runs phase 3's comparisons and phase 5's bf16 logit comparison
-against it, and prints how many of them caught the fault.
+checks the checks instead: it builds the kernels from a copy of ``csrc``
+with one deliberate fault (``PLANTED_FAULTS``) in a temporary directory,
+runs phase 3's comparisons and phase 5's comparisons against it, and
+prints how many of them caught the fault.
 """
 from __future__ import annotations
 
@@ -46,8 +50,10 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 0
 #: where the model runs (a CPU rehearsal of phases 4-5 may set "cpu")
 DEVICE = "cuda"
-#: the served path's widths: qwen2-1.5b heads and the engine's slot cache
+#: the served paths' widths: qwen2-1.5b heads and the engine's slot cache
 HEADS, KV_HEADS, HEAD_DIM, MAX_LEN = 12, 2, 128, 512
+#: mamba2-130m's SSD widths: SSM heads, head dim, state dim
+SSM_HEADS, SSM_HEAD_DIM, SSM_STATE = 24, 64, 128
 #: published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
 #: flop/s by operand type (bf16 on the tensor cores, fp32 outside them)
 HBM_BYTES_S = 3.35e12
@@ -57,6 +63,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 #: differ only by summation order (online vs full softmax).  In bf16 each
 #: rounds its fp32 result to bf16, so they differ by at most one bf16 ulp,
 #: which is at most 2^-7 of the value, plus the fp32 difference near 0.
+#: The SSD scan's outputs are sums of up to chunk x N products whose size
+#: follows the inputs', so its atol is taken relative to the output's
+#: largest |plain value| (``max_err(scaled=True)``); its ``a_cum`` is
+#: summed in fp64 on both sides (kernels/ref.py), so only the order of the
+#: product sums differs.
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-5, 2.0 ** -7)}
 #: bf16 full-depth prefill logits, kernel engine vs plain engine.  On an
 #: H100 the correct kernels gave a gap of 0.043 (|logit| <= 3.6), one-ulp
@@ -64,6 +75,15 @@ TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-5, 2.0 ** -7)}
 #: (``bf16_accumulate``) and 5.06 (``drop_first_tile``).  The limit lies
 #: between the correct reading and the nearest faulty one.
 LOGIT_TOL_BF16 = 0.1
+#: bf16 full-depth prefill logits of mamba2-130m: the kernel engine against
+#: the same model with the kernel swapped for its plain version on the
+#: kernel's own inputs.  The plain engine is no yardstick here: it casts
+#: ``a`` to bf16 before its scan (as the reference's plain path does), so
+#: it computes another function, and on an H100 it differed from the
+#: correct kernel by 0.094 and from the ``drop_carried_state`` fault by
+#: 0.090 (|logit| <= 2.6).  Against the plain scan the correct kernel gave
+#: 0 and the fault 0.047; the limit lies between them.
+SSM_LOGIT_TOL_BF16 = 0.02
 #: one-line faults for ``--planted-fault``: (source, regex, replacement)
 PLANTED_FAULTS = {
     # skip the oldest 32-key tile of every row that sees more than 32 keys
@@ -78,6 +98,12 @@ PLANTED_FAULTS = {
          r"(acc(?:\[r\])?\[i\]) \+= (pj \* vs\[j \* D \+ lane \+ 32 \* i\]);",
          r"\1 = to_f(from_f<T>(\1 + \2));")
         for src in ("decode_attention.cu", "flash_attention.cu")],
+    # drop the carried-state term exp(a_cum) C h_in of every query row; it
+    # changes nothing when S <= chunk (the state carried in is zero)
+    "drop_carried_state": [
+        ("ssd_scan.cu",
+         r"const float e = row < nq \? expf\(acum\[q0 \+ row\]\) : 0\.f;",
+         "const float e = 0.f;")],
 }
 
 
@@ -137,10 +163,17 @@ def eager_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def max_err(out, want, dtype_name: str):
+def max_err(out, want, dtype_name: str, scaled: bool = False):
     """(max |out - want|, the largest share of the tolerance that an
-    element uses: the check passes when it is at most 1)."""
+    element uses: the check passes when it is at most 1).  ``out`` and
+    ``want`` may be tuples of tensors; ``scaled`` takes atol relative to
+    each output's largest |want| (the SSD scan)."""
+    if isinstance(out, tuple):
+        errs = [max_err(o, w, dtype_name, scaled) for o, w in zip(out, want)]
+        return max(e[0] for e in errs), max(e[1] for e in errs)
     atol, rtol = TOL[dtype_name]
+    if scaled:
+        atol *= float(want.float().abs().max())
     diff = (out.float() - want.float()).abs()
     share = diff / (atol + rtol * want.float().abs())
     return float(diff.max()), float(share.max())
@@ -177,27 +210,66 @@ def bound(bytes_moved: float, flops: float, dtype_name: str):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ssd_case(S: int, pad: int, dtype, gen):
+    """ssd_scan inputs at mamba2-130m's widths (B=1): the model's
+    ``x * dt``, ``a = dt * A``, B and C, with a trained Mamba2's long memory
+    (dt in [1e-3, 0.1], A in [-16, -1]) so that the carried state and the
+    far off-diagonal scores matter; the last ``pad`` positions are zero, as
+    the model pads a prompt to a multiple of the chunk."""
+    import math
+
+    import torch
+    shape = (1, S, SSM_HEADS)
+    lo, hi = math.log(1e-3), math.log(0.1)
+    dt = torch.exp(torch.rand(shape, generator=gen, device="cuda")
+                   * (hi - lo) + lo)
+    A = torch.rand((SSM_HEADS,), generator=gen, device="cuda") * 15 + 1
+    x = torch.randn(shape + (SSM_HEAD_DIM,), generator=gen,
+                    device="cuda") * dt[..., None]
+    bm = torch.randn(shape + (SSM_STATE,), generator=gen, device="cuda") * 0.5
+    cm = torch.randn(shape + (SSM_STATE,), generator=gen, device="cuda") * 0.5
+    a = -dt * A
+    if pad:
+        for t in (x, a, bm, cm):
+            t[:, S - pad:] = 0
+    return x.to(dtype), a, bm.to(dtype), cm.to(dtype)
+
+
+def ssd_work(S: int, chunk: int, es: int):
+    """(bytes, flops) the scan needs at B=1 and mamba2-130m's widths: x, a,
+    B, C read once, y and the final state written once; per head and chunk
+    the causal scores (c(c+1)/2 pairs x 2N), their product with x (x 2P),
+    and the carried-state term and state update (4cPN)."""
+    H, P, N = SSM_HEADS, SSM_HEAD_DIM, SSM_STATE
+    bytes_moved = (2 * S * H * P * es + 4 * S * H + 2 * S * H * N * es
+                   + H * P * N * es)
+    pairs = chunk * (chunk + 1) // 2
+    flops = H * (S // chunk) * (2 * pairs * (N + P) + 4 * chunk * P * N)
+    return bytes_moved, flops
+
+
 def check_kernels(timed: bool = True):
     """Phase 3: every kernel against its plain version at the served
-    shapes; with ``timed`` also the times of both and of the library call.
-    Returns (rows, failures)."""
+    shapes; with ``timed`` also the times of both and of the library call
+    (where there is one).  Returns (rows, failures)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = {"flash_decode": [], "flash_attention": []}
+    rows = {"flash_decode": [], "flash_attention": [], "ssd_scan": []}
     failures = []
 
     def record(name, row, run, plain, lib, iters):
         out, want = run(), plain()
         torch.cuda.synchronize()
-        row["max_abs_err"], row["tol_share"] = max_err(out, want, row["dtype"])
+        row["max_abs_err"], row["tol_share"] = max_err(
+            out, want, row["dtype"], scaled=name == "ssd_scan")
         if timed:
             row.update(ms=cuda_ms(run, iters), eager_ms=eager_ms(run, iters),
                        plain_ms=cuda_ms(plain, max(iters // 10, 5)),
-                       library_ms=cuda_ms(lib, iters))
+                       library_ms=None if lib is None else cuda_ms(lib, iters))
         rows[name].append(row)
         if not row["tol_share"] <= 1.0:
             failures.append((name, row))
@@ -257,21 +329,40 @@ def check_kernels(timed: bool = True):
                         if window is None else
                         (lambda: F.scaled_dot_product_attention(
                             qt, kt, vt, attn_mask=m, enable_gqa=True)), 50)
+        # a one-chunk prompt (chunk = S = 137), two chunks (the carry), and
+        # a 300-token prompt zero-padded to two 256-long chunks
+        for S, chunk, pad in ((137, 137, 0), (512, 256, 0), (512, 256, 212)):
+            x, a, bm, cm = ssd_case(S, pad, dtype, gen)
+            b_ms, b_by = bound(*ssd_work(S, chunk, es), dn)
+            record("ssd_scan", dict(dtype=dn, B=1, S=S, chunk=chunk, pad=pad,
+                                    bound_ms=b_ms, bound_by=b_by),
+                   lambda: ops.ssd_scan(x, a, bm, cm, chunk=chunk),
+                   lambda: ref.ssd_scan(x, a, bm, cm, chunk=chunk), None, 20)
     for name, rs in rows.items():
         log(f"[kernels] {name}: kernel vs plain version on the card")
         for r in rs:
-            shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']}"
-                     if name == "flash_decode" else f"B={r['B']} S={r['S']}")
             atol, rtol = TOL[r["dtype"]]
-            line = (f"  {r['dtype']:<8} {shape} window={r['window']}: "
+            if name == "flash_decode":
+                shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
+                         f"window={r['window']}")
+            elif name == "flash_attention":
+                shape = f"B={r['B']} S={r['S']} window={r['window']}"
+            else:
+                shape = (f"B={r['B']} S={r['S']} chunk={r['chunk']} "
+                         f"pad={r['pad']} H={SSM_HEADS} P={SSM_HEAD_DIM} "
+                         f"N={SSM_STATE}")
+            line = (f"  {r['dtype']:<8} {shape}: "
                     f"max_abs_err={r['max_abs_err']:.3e}, "
-                    f"{r['tol_share']:.3f} of tol (atol {atol:g} + rtol "
+                    f"{r['tol_share']:.3f} of tol (atol {atol:g}"
+                    f"{' x max|plain|' if name == 'ssd_scan' else ''} + rtol "
                     f"{rtol:g})")
             if timed:
+                lib = ("no single PyTorch call" if r["library_ms"] is None
+                       else f"sdpa {r['library_ms']:.4f} ms")
                 line += (f"; kernel {r['ms']:.4f} ms (eager "
                          f"{r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} "
-                         f"ms, sdpa {r['library_ms']:.4f} ms, bound "
-                         f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+                         f"ms, {lib}, bound {r['bound_ms']:.5f} ms "
+                         f"({r['bound_by']})")
             log(line)
     return rows, failures
 
@@ -281,9 +372,11 @@ def check_kernels(timed: bool = True):
 # --------------------------------------------------------------------------- #
 
 
-def make_requests(n: int, seed: int):
-    """``n`` requests: prompt ids in [8, 8192), prompt lengths 8-200,
-    true output lengths 8-64; half arrive at 0, half staggered."""
+def make_requests(n: int, seed: int, max_prompt: int = 200,
+                  vocab: int = 8192):
+    """``n`` requests: prompt ids in [8, vocab), prompt lengths
+    8-``max_prompt``, true output lengths 8-64; half arrive at 0, half
+    staggered."""
     import numpy as np
 
     from repro_torch.core import Request
@@ -291,10 +384,10 @@ def make_requests(n: int, seed: int):
     rng = np.random.RandomState(seed)
     reqs = []
     for i in range(n):
-        plen = int(rng.randint(8, 201))
+        plen = int(rng.randint(8, max_prompt + 1))
         reqs.append(Request(
             prompt=f"request {i}",
-            prompt_tokens=[int(t) for t in rng.randint(8, 8192, size=plen)],
+            prompt_tokens=[int(t) for t in rng.randint(8, vocab, size=plen)],
             arrival_time=0.0 if i < n // 2 else 0.05 * (i - n // 2 + 1),
             request_id=i,
             true_output_len=int(rng.randint(8, 65))))
@@ -331,7 +424,23 @@ def serve(cfg, params, requests, *, attn_impl: str):
     return responses, executor, time.perf_counter() - t0
 
 
+def describe(cfg) -> str:
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        return (f"{cfg.arch_id}: {cfg.n_layers} layers, d_model "
+                f"{cfg.d_model}, {cfg.ssm_n_heads} SSM heads of head dim "
+                f"{s.head_dim}, d_state {s.d_state}, chunk {s.chunk_size}, "
+                f"vocab {cfg.vocab_size}, {cfg.dtype}")
+    return (f"{cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}, {cfg.dtype}")
+
+
 def served_path(cfg, params, requests):
+    """Serve ``requests`` through the kernel path with every launch count
+    set to 0 just before and read just after; check every request, and
+    that the path's kernels ran as often as its dispatches say.  Returns
+    the launch counts."""
     from repro_torch.core import summarize
     from repro_torch.kernels import ops
 
@@ -349,34 +458,38 @@ def served_path(cfg, params, requests):
     if any(not 0 <= t < cfg.vocab_size for r in responses for t in r.tokens):
         raise AssertionError("a generated token lies outside the vocabulary")
     decode_steps = sum(rec["window"] for rec in executor.window_log)
-    if launches["flash_decode"] != cfg.n_layers * decode_steps:
-        raise AssertionError(
-            f"flash_decode launched {launches['flash_decode']} times, want "
-            f"{cfg.n_layers} layers x {decode_steps} decode steps")
-    if launches["flash_attention"] != (cfg.n_layers
-                                       * counters["prefill_dispatches"]):
-        raise AssertionError(
-            f"flash_attention launched {launches['flash_attention']} times, "
-            f"want {cfg.n_layers} x {counters['prefill_dispatches']} "
-            "prefill dispatches")
-    for name, n in launches.items():
+    prefills = counters["prefill_dispatches"]
+    if cfg.family == "ssm":
+        want_launches = {"ssd_scan": (cfg.n_layers * prefills,
+                                      f"{cfg.n_layers} layers x {prefills} "
+                                      "prefill dispatches")}
+    else:
+        want_launches = {
+            "flash_decode": (cfg.n_layers * decode_steps,
+                             f"{cfg.n_layers} layers x {decode_steps} decode "
+                             "steps"),
+            "flash_attention": (cfg.n_layers * prefills,
+                                f"{cfg.n_layers} layers x {prefills} prefill "
+                                "dispatches")}
+    for name, (n, why) in want_launches.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times, "
+                                 f"want {n} = {why}")
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the path")
     n_tok = sum(r.n_tokens for r in responses)
     m = summarize(responses)
-    log(f"[serve] {cfg.arch_id}: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}")
+    log(f"[serve] {describe(cfg)}")
     log(f"[serve] {len(responses)}/{len(requests)} requests FINISHED with "
         f"the expected token counts; {n_tok} tokens in {wall:.3f} s wall = "
         f"{n_tok / wall:.1f} tokens/s; JCT mean {m['jct_mean']:.3f} s, p99 "
         f"{m['jct_p99']:.3f} s; queueing delay mean "
         f"{m['queuing_delay_mean']:.3f} s; TTFT mean {m['ttft_mean']:.3f} s; "
         f"preemptions {m['preemptions']}")
-    log(f"[serve] launches: flash_decode {launches['flash_decode']} = "
-        f"{cfg.n_layers} x {decode_steps} decode steps; flash_attention "
-        f"{launches['flash_attention']} = {cfg.n_layers} x "
-        f"{counters['prefill_dispatches']} prefill dispatches")
+    log("[serve] launches: " + "; ".join(
+        f"{name} {launches[name]} = {why}"
+        for name, (_, why) in want_launches.items())
+        + f" (all counts: {json.dumps(launches)})")
     log(f"[serve] engine counters: {json.dumps(counters)}")
     return launches
 
@@ -411,8 +524,9 @@ def profile_window(cfg, params, requests) -> None:
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values()) / 1e3
-    log(f"[profile] one decode window (8 steps, 4 slots, {cfg.n_layers} "
-        f"layers) under torch.profiler: wall {wall * 1e3:.2f} ms, device "
+    log(f"[profile] {cfg.arch_id}: one decode window (8 steps, 4 slots, "
+        f"{cfg.n_layers} layers) under torch.profiler: wall "
+        f"{wall * 1e3:.2f} ms, device "
         f"busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%), "
         f"{len(by_name)} kernel names")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
@@ -455,7 +569,8 @@ def greedy_streams(cfg, params, prompts, attn_impl: str, n_out: int):
 
 def greedy_parity(cfg, requests) -> bool:
     """fp32 greedy tokens of the kernel and plain engines at full width and
-    2 layers, through evictions and recompute resumes: identical?"""
+    2 layers, through evictions and recompute resumes: identical (and at
+    least one eviction)?"""
     import torch
 
     from repro_torch.models import transformer as T
@@ -469,10 +584,11 @@ def greedy_parity(cfg, requests) -> bool:
     (got, evictions), (want, _) = streams["kernel"], streams["torch"]
     same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
     total = sum(len(w) for w in want)
-    log(f"[parity] fp32, full width, 2 layers: kernel engine vs plain engine "
-        f"greedy tokens identical on {same}/{total} tokens of "
-        f"{len(prompts)} requests ({evictions} evictions + recompute resumes)")
-    return got == want
+    log(f"[parity] {cfg.arch_id} fp32, full width, 2 layers: kernel engine "
+        f"vs plain engine greedy tokens identical on {same}/{total} tokens "
+        f"of {len(prompts)} requests ({evictions} evictions + recompute "
+        f"resumes)")
+    return got == want and evictions > 0
 
 
 def prefill_logit_gap(cfg, params_bf16, requests):
@@ -499,16 +615,67 @@ def prefill_logit_gap(cfg, params_bf16, requests):
     gap = float((logits["kernel"] - logits["torch"]).abs().max())
     scale = float(logits["torch"].abs().max())
     finite = bool(torch.isfinite(logits["kernel"]).all())
-    log(f"[parity] bf16, full width and depth: first prefill logits "
+    log(f"[parity] {cfg.arch_id} bf16, full width and depth: first prefill "
+        f"logits "
         f"{tuple(logits['kernel'].shape)}, max |kernel - plain| = {gap:.4e} "
         f"(tol {LOGIT_TOL_BF16}), max |logit| = {scale:.3f}, finite={finite}")
     return gap, finite
 
 
-def planted_fault(kind: str, cfg, params, requests) -> dict:
-    """Build both kernels from a temporary copy of ``csrc`` carrying the
-    fault ``kind`` and run every comparison of phases 3 and 5 against it;
-    returns how many of them caught the fault."""
+def ssm_prefill_logit_gaps(cfg, params_bf16, requests):
+    """The SSM family prefills each prompt alone at its exact length: for
+    the two longest prompts (two chunks) and the two shortest (one chunk),
+    max |kernel - x| of the first prefill logits at full width and depth in
+    bf16, where x is the plain engine ("plain") and the same model with the
+    kernel swapped for its plain version on the kernel's own inputs
+    ("plain_scan").  Returns (gaps, whether the kernel's logits are
+    finite)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as T
+
+    by_len = sorted(requests, key=lambda r: len(r.prompt_tokens))
+    prompts = [r.prompt_tokens for r in by_len[:2] + by_len[-2:]]
+
+    def first_logits(prompt, impl):
+        out, _ = T.prefill(params_bf16, cfg,
+                           {"tokens": torch.as_tensor([prompt],
+                                                      device=DEVICE)},
+                           T.init_cache(cfg, 1, MAX_LEN, DEVICE),
+                           attn_impl=impl)
+        return out.float()
+
+    gaps = {"plain": 0.0, "plain_scan": 0.0}
+    finite, scale = True, 0.0
+    kernel = ops.ssd_scan
+    for prompt in prompts:
+        got = first_logits(prompt, "kernel")
+        finite &= bool(torch.isfinite(got).all())
+        scale = max(scale, float(got.abs().max()))
+        gaps["plain"] = max(gaps["plain"], float(
+            (got - first_logits(prompt, "torch")).abs().max()))
+        ops.ssd_scan = ref.ssd_scan  # the model calls ops.ssd_scan
+        try:
+            want = first_logits(prompt, "kernel")
+        finally:
+            ops.ssd_scan = kernel
+        gaps["plain_scan"] = max(gaps["plain_scan"], float(
+            (got - want).abs().max()))
+    log(f"[parity] {cfg.arch_id} bf16, full width and depth: first prefill "
+        f"logits of prompts of {[len(p) for p in prompts]} tokens, max "
+        f"|kernel - plain engine| = {gaps['plain']:.4e}, max |kernel - "
+        f"plain scan on the kernel's inputs| = {gaps['plain_scan']:.4e} "
+        f"(tol {SSM_LOGIT_TOL_BF16}), max |logit| = {scale:.3f}, "
+        f"finite={finite}")
+    return gaps, finite
+
+
+def planted_fault(kind: str, models) -> dict:
+    """Build the kernels from a temporary copy of ``csrc`` carrying the
+    fault ``kind`` and run every comparison of phases 3 and 5 against it,
+    for each (cfg, params, requests) of ``models``; returns how many of
+    them caught the fault."""
     import tempfile
 
     from repro_torch.kernels import build
@@ -529,22 +696,31 @@ def planted_fault(kind: str, cfg, params, requests) -> dict:
         log(f"[fault] {kind}: kernels built from a faulty copy of csrc")
         rows, failures = check_kernels(timed=False)
         caught = {}
-        for dn in TOL:
-            rs = [r for rr in rows.values() for r in rr if r["dtype"] == dn]
-            caught[dn] = {
-                "caught": sum(r["tol_share"] > 1.0 for r in rs),
-                "cases": len(rs),
-                "worst_tol_share": max(r["tol_share"] for r in rs)}
-        greedy_same = greedy_parity(cfg, requests)
-        gap, finite = prefill_logit_gap(cfg, params, requests)
+        for name, rr in rows.items():
+            for dn in TOL:
+                rs = [r for r in rr if r["dtype"] == dn]
+                caught[f"{name} {dn}"] = {
+                    "caught": sum(not r["tol_share"] <= 1.0 for r in rs),
+                    "cases": len(rs),
+                    "tol_shares": [r["tol_share"] for r in rs]}
+        served = {}
+        for cfg, params, requests in models:
+            greedy_same = greedy_parity(cfg, requests)
+            if cfg.family == "ssm":
+                gaps, finite = ssm_prefill_logit_gaps(cfg, params, requests)
+                gap, tol = gaps["plain_scan"], SSM_LOGIT_TOL_BF16
+            else:
+                gap, finite = prefill_logit_gap(cfg, params, requests)
+                gaps, tol = {"plain": gap}, LOGIT_TOL_BF16
+            served[cfg.arch_id] = {
+                "greedy_fp32_caught": not greedy_same,
+                "logit_gaps_bf16": gaps, "logit_tol_bf16": tol,
+                "logit_caught": not (finite and gap <= tol)}
     finally:
         build.CSRC, build.BUILD_DIR = saved
         build._loaded.clear()
         shutil.rmtree(work, ignore_errors=True)
-    return {"planted_fault": kind, "kernel_checks": caught,
-            "greedy_fp32_caught": not greedy_same,
-            "logit_gap_bf16": gap, "logit_tol_bf16": LOGIT_TOL_BF16,
-            "logit_caught": not (finite and gap <= LOGIT_TOL_BF16)}
+    return {"planted_fault": kind, "kernel_checks": caught, **served}
 
 
 # --------------------------------------------------------------------------- #
@@ -573,15 +749,23 @@ def main(argv=None) -> None:
         f"{torch.cuda.device_count()}; nvidia-smi name, power.limit: {smi}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
-    cfg = get_config("qwen2-1.5b")
-    requests = make_requests(12, SEED)
+    models = [(get_config("qwen2-1.5b"), make_requests(12, SEED)),
+              (get_config("mamba2-130m"),
+               make_requests(12, SEED, max_prompt=400, vocab=50280))]
 
-    if args.planted_fault:
+    def random_params(cfg):
+        t0 = time.perf_counter()
         params = T.init_params(cfg, torch.Generator(device="cuda")
                                .manual_seed(SEED))
+        torch.cuda.synchronize()
+        log(f"[serve] {cfg.arch_id}: random {cfg.dtype} weights from seed "
+            f"{SEED} in {time.perf_counter() - t0:.1f} s")
+        return params
+
+    if args.planted_fault:
+        with_params = [(cfg, random_params(cfg), reqs) for cfg, reqs in models]
         for kind in args.planted_fault:
-            print(json.dumps(planted_fault(kind, cfg, params, requests)),
-                  flush=True)
+            print(json.dumps(planted_fault(kind, with_params)), flush=True)
         return
 
     t0 = time.perf_counter()
@@ -598,30 +782,39 @@ def main(argv=None) -> None:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
 
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
-    torch.cuda.synchronize()
-    log(f"[serve] random {cfg.dtype} weights from seed {SEED} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    launches = served_path(cfg, params, requests)
-    profile_window(cfg, params, requests)
-
-    if not greedy_parity(cfg, requests):
-        raise AssertionError("fp32 greedy tokens differ between the kernel "
-                             "and plain engines")
-    gap, finite = prefill_logit_gap(cfg, params, requests)
-    if not finite or not gap <= LOGIT_TOL_BF16:
-        raise AssertionError("bf16 prefill logits disagree between the "
-                             "kernel and plain paths")
+    launches = {}
+    for cfg, requests in models:
+        params = random_params(cfg)
+        path = served_path(cfg, params, requests)
+        launches.update({n: c for n, c in path.items() if c})
+        profile_window(cfg, params, requests)
+        if not greedy_parity(cfg, requests):
+            raise AssertionError(f"{cfg.arch_id}: fp32 greedy tokens differ "
+                                 "between the kernel and plain engines, or "
+                                 "no eviction was driven")
+        if cfg.family == "ssm":
+            gaps, finite = ssm_prefill_logit_gaps(cfg, params, requests)
+            gap, tol = gaps["plain_scan"], SSM_LOGIT_TOL_BF16
+        else:
+            gap, finite = prefill_logit_gap(cfg, params, requests)
+            tol = LOGIT_TOL_BF16
+        if not finite or not gap <= tol:
+            raise AssertionError(f"{cfg.arch_id}: bf16 prefill logits "
+                                 "disagree between the kernel and plain paths")
+        del params
+        torch.cuda.empty_cache()
 
     served = {"flash_decode": dict(dtype="bfloat16", B=4, window=None),
               "flash_attention": dict(dtype="bfloat16", B=4, S=512,
-                                      window=None)}
+                                      window=None),
+              "ssd_scan": dict(dtype="bfloat16", S=512, chunk=256, pad=0)}
     meta = {
         "flash_decode": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:35"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:28"),
+        "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssm_scan.py:25"),
     }
     kernels = []
     for name, key in served.items():

@@ -30,18 +30,25 @@ def _tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     return t if dtype is None else t.to(dtype)
 
 
+#: SSM parameter leaves the reference always keeps in fp32
+#: (``repro.models.ssm.init_ssm``): casting them would change the SSM's
+#: arithmetic
+FP32_LEAVES = ("A_log", "dt_bias", "D")
+
+
 def params_from_numpy(tree, device="cuda", dtype: Optional[torch.dtype] = None):
     """A nested dict/list of numpy arrays (a JAX parameter pytree after
     ``np.asarray`` of each leaf) -> the same structure of tensors on
-    ``device``, cast to ``dtype`` when it is given."""
+    ``device``, cast to ``dtype`` when it is given; the leaves named in
+    :data:`FP32_LEAVES` become fp32 whatever ``dtype`` is."""
     dev = resolve_device(device)
 
-    def conv(x):
+    def conv(x, name=None):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            return {k: conv(v, k) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return type(x)(conv(v) for v in x)
-        return _tensor(x, dev, dtype)
+        return _tensor(x, dev, torch.float32 if name in FP32_LEAVES else dtype)
 
     return conv(tree)
 
@@ -67,3 +74,14 @@ def cache_from_numpy(length, k, v, *, device="cuda",
     dev = resolve_device(device)
     return {"len": _tensor(length, dev, torch.int32),
             "kv": KVCache(_tensor(k, dev, dtype), _tensor(v, dev, dtype))}
+
+
+def ssm_cache_from_numpy(length, conv, ssm, *, device="cuda",
+                         dtype: Optional[torch.dtype] = None):
+    """A JAX SSM-family decode cache (its ``len`` vector and the stacked
+    states ``conv`` (n_layers, B, CH, d_conv - 1) and ``ssm`` (n_layers, B,
+    H, P, N), as numpy arrays) -> the port's cache dict."""
+    dev = resolve_device(device)
+    return {"len": _tensor(length, dev, torch.int32),
+            "ssm": {"conv": _tensor(conv, dev, dtype),
+                    "ssm": _tensor(ssm, dev, dtype)}}

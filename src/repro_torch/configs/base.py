@@ -1,23 +1,41 @@
-"""Model configuration for the PyTorch port (dense family only).
+"""Model configuration for the PyTorch port (dense and SSM families).
 
 A trimmed copy of ``repro.configs.base``: :class:`ModelConfig` keeps the
-fields the dense decoder reads, with the same defaults, the same
-``head_dim`` rule and the same ``reduced()`` sizes, so a reference config
-and its port describe identical parameter shapes.  The MoE, SSM, hybrid and
-encoder sub-configs arrive with the slices that port those families.
+fields the dense decoder and the Mamba2 stack read, with the same defaults,
+the same ``head_dim`` rule and the same ``reduced()`` sizes, so a reference
+config and its port describe identical parameter shapes.  The MoE, hybrid
+and encoder sub-configs arrive with the slices that port those families.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Dict, Tuple
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) block configuration."""
+
+    d_state: int = 0
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk_size: int = 256
+    #: A init range (discretised negative real eigenvalues)
+    a_init_range: Tuple[float, float] = (1.0, 16.0)
+
+    @property
+    def enabled(self) -> bool:
+        return self.d_state > 0
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description of a dense decoder."""
+    """Architecture description of a dense decoder or a Mamba2 stack."""
 
     arch_id: str
-    family: str  # dense (the only family this port serves so far)
+    family: str  # dense | ssm (the families this port serves so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,11 +60,26 @@ class ModelConfig:
     swa_window: int = 4096
     long_context_mode: str = "sliding_window"
 
+    ssm: SSMConfig = field(default_factory=SSMConfig)
+
     dtype: str = "bfloat16"
 
     def __post_init__(self):
+        # an attention-free config (n_heads=0) keeps head_dim 0
         if self.head_dim == 0 and self.n_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm.expand * self.d_model if self.ssm.enabled else 0
+
+    @property
+    def ssm_n_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm.head_dim if self.ssm.enabled else 0
 
     def reduced(self) -> "ModelConfig":
         """Smoke-scale variant of the same family for CPU tests (the same
@@ -55,8 +88,7 @@ class ModelConfig:
         n_heads = min(self.n_heads, 4) or 4
         head_dim = max(d_model // n_heads, 16)
         n_kv = max(1, min(self.n_kv_heads, 2)) if self.n_kv_heads else 0
-        return replace(
-            self,
+        kw: Dict = dict(
             arch_id=self.arch_id + "-reduced",
             n_layers=min(self.n_layers, 2),
             d_model=d_model,
@@ -69,6 +101,12 @@ class ModelConfig:
             swa_window=64,
             dtype="float32",
         )
+        if self.ssm.enabled:
+            kw["ssm"] = replace(
+                self.ssm, d_state=min(self.ssm.d_state, 16), head_dim=32,
+                chunk_size=32,
+            )
+        return replace(self, **kw)
 
 
 # --------------------------------------------------------------------------- #
@@ -108,4 +146,4 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     # import every per-arch module for its registration side effect
-    from repro_torch.configs import qwen2_1_5b  # noqa: F401
+    from repro_torch.configs import mamba2_130m, qwen2_1_5b  # noqa: F401

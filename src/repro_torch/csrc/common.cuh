@@ -1,7 +1,8 @@
-// Pieces shared by the attention kernels (decode_attention.cu and
-// flash_attention.cu): dtype conversion, warp reductions, and the staging of
-// one K/V tile into shared memory.  kernels/build.py hashes this header with
-// each source, so an edit here rebuilds both libraries.
+// Pieces shared by the kernels: dtype conversion (all three sources), and
+// warp reductions and the staging of one K/V tile into shared memory (the
+// attention kernels, decode_attention.cu and flash_attention.cu).
+// kernels/build.py hashes this header with each source, so an edit here
+// rebuilds every library.
 #pragma once
 
 #include <cuda_bf16.h>

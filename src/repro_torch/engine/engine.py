@@ -1,9 +1,9 @@
 """PyTorch inference engine — the port of ``repro.engine.engine``.
 
 A fixed-capacity **slot** cache: every decode slot owns a contiguous KV
-region of a statically-shaped batched cache, and slots advance
-independently (per-slot ``len`` vector).  Preemption is slot eviction plus
-recompute on resume.
+region (dense family) or a recurrent state (SSM family) of a
+statically-shaped batched cache, and slots advance independently (per-slot
+``len`` vector).  Preemption is slot eviction plus recompute on resume.
 
 The paper's two additions to the serving engine are kept:
   * **iteration-wise execution** — ``run_window`` executes exactly K tokens
@@ -13,14 +13,18 @@ The paper's two additions to the serving engine are kept:
 
 Fast path, as in the reference:
   * **batched bucketed prefill** — every newly scheduled job is admitted in
-    ONE right-padded ``(batch_bucket, seq_bucket)`` prefill dispatch;
+    ONE right-padded ``(batch_bucket, seq_bucket)`` prefill dispatch; the
+    recurrent families (:data:`EXACT_PREFILL_FAMILIES`) admit serially, one
+    batch-1 dispatch at the exact prompt length each;
   * **masked decode windows** — each decode step carries a per-slot
     ``active`` mask; below capacity the engine gathers the scheduled slots
     into a ``batch_bucket``-sized sub-cache, decodes it and scatters it
     back; a slot that emits EOS is frozen for the rest of the window;
-  * **attention kernels** — ``attn_impl="kernel"`` runs prefill through the
-    hand-written flash-attention kernel and every decode step through the
-    flash-decode kernel (``"torch"`` is the plain reference path).
+  * **kernels** — ``attn_impl="kernel"`` runs prefill through the
+    hand-written flash-attention (dense) or SSD-scan (SSM) kernel and every
+    dense decode step through the flash-decode kernel; the SSM decode step
+    is plain PyTorch, as in the reference (``"torch"`` is the plain
+    reference path throughout).
 
 PyTorch runs eagerly, so a decode window is a Python loop of steps and the
 ``num_*_traces`` counters count distinct dispatch shapes first seen (the
@@ -45,6 +49,10 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.engine.sampler import SamplerConfig, sample
 from repro_torch.models import transformer as T
 
+#: recurrent-state families prefill at exact length (pad positions would be
+#: absorbed into the state), so they keep serial batch-1 admission
+EXACT_PREFILL_FAMILIES = ("ssm", "hybrid")
+
 
 @dataclass(frozen=True)
 class EngineConfig:
@@ -56,7 +64,7 @@ class EngineConfig:
     #: power-of-two ``seq_bucket`` ladder up to ``max_len``
     prefill_bucket: int = 16
     sampler: SamplerConfig = field(default_factory=SamplerConfig)
-    #: attention implementation: "kernel" (the hand-written CUDA kernels;
+    #: kernel implementation: "kernel" (the hand-written CUDA kernels;
     #: their plain versions on CPU tensors) or "torch" (plain PyTorch)
     attn_impl: str = "kernel"
     #: honour each request's own token budget (job.true_output_len acts as
@@ -69,11 +77,20 @@ class EngineConfig:
 # --------------------------------------------------------------------------- #
 
 
+def _layer_leaves(cache) -> Dict[str, torch.Tensor]:
+    """The cache's per-layer buffers by name; each has its slot (batch) axis
+    at 1, after the layer axis (``len`` is the only leaf with it at 0)."""
+    if "kv" in cache:
+        return {"k": cache["kv"].k, "v": cache["kv"].v}
+    return dict(cache["ssm"])
+
+
 def _gather_slots(cache, idx: torch.Tensor):
     """Copy slot rows ``idx`` of the cache into a sub-cache."""
-    kv = cache["kv"]
-    return {"len": cache["len"][idx],
-            "kv": T.KVCache(kv.k[:, idx], kv.v[:, idx])}
+    sub = {k: v[:, idx] for k, v in _layer_leaves(cache).items()}
+    if "kv" in cache:
+        return {"len": cache["len"][idx], "kv": T.KVCache(sub["k"], sub["v"])}
+    return {"len": cache["len"][idx], "ssm": sub}
 
 
 def _scatter_slots(big, small, slots: Sequence[int], n: int):
@@ -82,8 +99,9 @@ def _scatter_slots(big, small, slots: Sequence[int], n: int):
     sl = torch.as_tensor(list(slots)[:n], dtype=torch.long,
                          device=big["len"].device)
     big["len"][sl] = small["len"][:n]
-    big["kv"].k[:, sl] = small["kv"].k[:, :n]
-    big["kv"].v[:, sl] = small["kv"].v[:, :n]
+    small_leaves = _layer_leaves(small)
+    for name, buf in _layer_leaves(big).items():
+        buf[:, sl] = small_leaves[name][:, :n]
     return big
 
 
@@ -129,7 +147,9 @@ class InferenceEngine:
         return len(self._decode_shapes)
 
     def prefill_shape_bound(self) -> int:
-        """Upper bound on distinct prefill shapes the bucketing can emit."""
+        """Upper bound on distinct prefill shapes the bucketing can emit
+        (attention families; exact-length families have one shape per
+        prompt length, unbounded by design)."""
         return n_shape_buckets(self.cfg.max_slots, self.cfg.max_len,
                                self.cfg.prefill_bucket)
 
@@ -158,20 +178,27 @@ class InferenceEngine:
         return list(job.prompt_tokens)
 
     def add_jobs(self, jobs: Sequence[Job]) -> List[int]:
-        """Admit every job not yet holding a slot, in ONE padded
-        ``(batch_bucket, seq_bucket)`` prefill dispatch.  Returns each
+        """Admit every job not yet holding a slot: attention families in
+        ONE padded ``(batch_bucket, seq_bucket)`` prefill dispatch,
+        exact-length families in serial batch-1 dispatches.  Returns each
         job's slot."""
         todo = [j for j in jobs if not self.has_job(j.job_id)]
         if todo:
-            self._admit(todo)
+            if len(todo) > self.free_slots():
+                # all-or-nothing: fail before any partial serial admission
+                raise RuntimeError(
+                    f"admitting {len(todo)} jobs needs {len(todo)} free "
+                    f"slots, engine has {self.free_slots()}")
+            if self.model_cfg.family in EXACT_PREFILL_FAMILIES:
+                for j in todo:
+                    self._admit([j])
+            else:
+                self._admit(todo)
         return [self.slot_of[j.job_id] for j in jobs]
 
     def _admit(self, jobs: Sequence[Job]) -> List[int]:
-        """One prefill dispatch admitting ``jobs``."""
-        if len(jobs) > self.free_slots():
-            raise RuntimeError(
-                f"admitting {len(jobs)} jobs needs {len(jobs)} free slots, "
-                f"engine has {self.free_slots()}")
+        """One prefill dispatch admitting ``jobs`` (``add_jobs`` has checked
+        that they fit)."""
         token_lists = [self._resume_tokens(j) for j in jobs]
         true_lens = [len(t) for t in token_lists]
         longest = max(true_lens)
@@ -179,9 +206,14 @@ class InferenceEngine:
             raise ValueError(
                 f"prompt of {longest} tokens exceeds max_len="
                 f"{self.cfg.max_len}")
-        bb = batch_bucket(len(jobs))
-        sl = seq_bucket(longest, self.cfg.max_len,
-                        min_bucket=self.cfg.prefill_bucket)
+        if self.model_cfg.family in EXACT_PREFILL_FAMILIES:
+            # recurrent state must stay clean: exact length, batch 1
+            assert len(jobs) == 1, "exact-length families admit serially"
+            bb, sl = 1, true_lens[0]
+        else:
+            bb = batch_bucket(len(jobs))
+            sl = seq_bucket(longest, self.cfg.max_len,
+                            min_bucket=self.cfg.prefill_bucket)
         toks = np.full((bb, sl), PAD_ID, np.int32)
         last_index = np.zeros((bb,), np.int32)
         for i, t in enumerate(token_lists):

@@ -20,7 +20,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("decode_attention", "flash_attention")
+SOURCES = ("decode_attention", "flash_attention", "ssd_scan")
 #: headers in ``csrc`` that every source includes
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,6 +35,7 @@ SIGNATURES = {
                          + [ctypes.c_float, _P]),
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float, _P]),
+    "ssd_scan": ("ssd_scan_launch", [_P] * 6 + [_I] * 7 + [_P]),
 }
 
 #: launch functions already loaded, by source name

@@ -121,8 +121,66 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_decode.launches = 0
 
-#: every kernel wrapper of the served path, by name
-KERNELS = {"flash_attention": flash_attention, "flash_decode": flash_decode}
+#: (head dim P, state dim N) pairs the SSD-scan kernel is built for
+SSD_SHAPES = ((32, 16), (32, 128), (64, 16), (64, 128))
+#: longest chunk the SSD-scan kernel takes (its running sum of ``a`` is
+#: held in shared memory)
+SSD_MAX_CHUNK = 256
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, *, chunk: int = 256):
+    """Chunked SSD scan (Mamba2): x (B,S,H,P) already multiplied by dt, a
+    (B,S,H) fp32 log decay, Bm/Cm (B,S,H,N) in x's dtype, ``S % chunk ==
+    0``.  Returns (y (B,S,H,P), final state (B,H,P,N)) in x's dtype."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan(x, a, Bm, Cm, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: tensors must be on cuda or cpu, got "
+                         f"{x.device}")
+    for t in (a, Bm, Cm):
+        if t.device != x.device:
+            raise ValueError("ssd_scan: x, a, Bm, Cm must share a device")
+    if x.dtype not in DTYPE_CODES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise ValueError(f"ssd_scan: x, Bm, Cm must share a dtype of float32 "
+                         f"or bfloat16, got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if a.dtype != torch.float32:
+        raise ValueError(f"ssd_scan: a must be float32, got {a.dtype}")
+    if x.ndim != 4 or Bm.ndim != 4 or Bm.shape != Cm.shape:
+        raise ValueError(f"ssd_scan: want x (B,S,H,P) and Bm == Cm (B,S,H,N), "
+                         f"got {tuple(x.shape)}, {tuple(Bm.shape)}, "
+                         f"{tuple(Cm.shape)}")
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    if tuple(a.shape) != (b, s, h) or tuple(Bm.shape[:3]) != (b, s, h):
+        raise ValueError(f"ssd_scan: shapes {tuple(x.shape)}, {tuple(a.shape)}"
+                         f", {tuple(Bm.shape)} do not match")
+    if (p, n) not in SSD_SHAPES:
+        raise ValueError(f"ssd_scan: (head dim, state dim) {(p, n)} not in "
+                         f"{SSD_SHAPES}")
+    if not 1 <= chunk <= SSD_MAX_CHUNK or s % chunk:
+        raise ValueError(f"ssd_scan: chunk {chunk} must lie in [1, "
+                         f"{SSD_MAX_CHUNK}] and divide S={s}")
+    if not all(t.is_contiguous() for t in (x, a, Bm, Cm)):
+        raise ValueError("ssd_scan: x, a, Bm, Cm must be contiguous")
+    if x.data_ptr() % 16 or Bm.data_ptr() % 16 or Cm.data_ptr() % 16:
+        raise ValueError("ssd_scan: x, Bm and Cm must start on a 16-byte "
+                         "boundary (the kernel reads them in 16-byte vectors)")
+    y = torch.empty_like(x)
+    final = torch.empty((b, h, p, n), dtype=x.dtype, device=x.device)
+    _launch("ssd_scan", build.load("ssd_scan"),
+            x.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            y.data_ptr(), final.data_ptr(), b, s, h, p, n, int(chunk),
+            DTYPE_CODES[x.dtype], _stream(x.device))
+    ssd_scan.launches += 1
+    return y, final
+
+
+ssd_scan.launches = 0
+
+#: every kernel wrapper of the served paths, by name
+KERNELS = {"flash_attention": flash_attention, "flash_decode": flash_decode,
+           "ssd_scan": ssd_scan}
 
 
 def reset_launches() -> None:

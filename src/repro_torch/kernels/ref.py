@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the attention kernels (their oracles).
+"""Plain PyTorch versions of the kernels (their oracles).
 
-The arithmetic is that of ``repro.kernels.ref`` and ``repro.models.layers.sdpa``:
-scores in fp32, masked entries set to -1e30 before the softmax, rows with no
-unmasked key give 0, and the result is cast back to the query's dtype.
+Attention: the arithmetic of ``repro.kernels.ref`` and
+``repro.models.layers.sdpa``: scores in fp32, masked entries set to -1e30
+before the softmax, rows with no unmasked key give 0, and the result is
+cast back to the query's dtype.  SSD scan: the arithmetic of the Pallas
+kernel ``repro.kernels.ssm_scan._ssd_kernel``, in fp32.
 On a CPU tensor the kernel wrappers in :mod:`repro_torch.kernels.ops` run
 these; on the card ``chip_smoke.py`` holds each kernel against them.
 """
@@ -75,3 +77,46 @@ def flash_decode(q, k, v, *, kv_len, q_offset,
     cache k/v (B, L, KH, D) with per-slot ``kv_len`` and ``q_offset``."""
     return reference_attention(q, k, v, causal=True, window=window,
                                q_offset=q_offset, kv_len=kv_len)
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, *, chunk: int):
+    """Plain version of the SSD-scan kernel: x (B,S,H,P) already multiplied
+    by dt, a (B,S,H) fp32 log decay, Bm/Cm (B,S,H,N), ``S % chunk == 0``.
+
+    Per (batch, head), chunk after chunk, with the (P, N) state carried in
+    fp32 from zero: ``y = (C B^T o L) x + exp(a_cum) C h_in^T`` and
+    ``h_out = exp(a_cum[-1]) h_in + (x o decay)^T B``, where ``a_cum`` is the
+    chunk's running sum of ``a`` and ``L[t, s] = exp(a_cum[t] - a_cum[s])``
+    for ``s <= t``, else 0.  ``a_cum`` is summed in fp64 and rounded to fp32
+    (the kernel does the same), so that it does not depend on the order of
+    the sum: at |a_cum| ~ 1e3 an fp32 sum in another order moves
+    ``a_cum[t] - a_cum[s]`` by ~1e-4.  Returns (y (B,S,H,P), final state
+    (B,H,P,N)), both in x's dtype."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    if s % chunk:
+        raise ValueError(f"ssd_scan: S={s} is not a multiple of chunk={chunk}")
+    nc = s // chunk
+    xc = x.float().reshape(b, nc, chunk, h, p)
+    bc = Bm.float().reshape(b, nc, chunk, h, n)
+    cc = Cm.float().reshape(b, nc, chunk, h, n)
+    a_cum = torch.cumsum(a.double().reshape(b, nc, chunk, h), dim=2).float()
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))[None, :, :, None]
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for z in range(nc):
+        ac = a_cum[:, z]  # (B, c, H)
+        seg = ac[:, :, None, :] - ac[:, None, :, :]  # (B, t, s, H)
+        L = torch.where(tri, torch.exp(torch.where(tri, seg, 0.0)), 0.0)
+        scores = torch.einsum("bthn,bshn->btsh", cc[:, z], bc[:, z]) * L
+        y = torch.einsum("btsh,bshp->bthp", scores, xc[:, z])
+        y = y + torch.exp(ac)[..., None] * torch.einsum(
+            "bthn,bhpn->bthp", cc[:, z], state)
+        decay = torch.exp(ac[:, -1:] - ac)  # (B, c, H)
+        state = state * torch.exp(ac[:, -1])[..., None, None] + torch.einsum(
+            "bshp,bshn->bhpn", xc[:, z] * decay[..., None], bc[:, z])
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(b, s, h, p)
+    return y.to(x.dtype), state.to(x.dtype)

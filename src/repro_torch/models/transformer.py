@@ -1,6 +1,8 @@
-"""Model assembly in PyTorch: the dense family of ``repro.models.transformer``.
+"""Model assembly in PyTorch: the dense and SSM families of
+``repro.models.transformer``.
 
-    [norm -> GQA attn -> norm -> gated MLP] x L
+    dense : [norm -> GQA attn -> norm -> gated MLP] x L
+    ssm   : [norm -> Mamba2] x L
 
 Parameters keep the reference's pytree layout (layers stacked on a leading
 axis), so a converted JAX tree (:mod:`repro_torch.bridge`) and a tree from
@@ -22,6 +24,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -34,10 +37,18 @@ def _dtype(cfg) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
+#: families this port serves
+FAMILIES = ("dense", "ssm")
+
+
 def _check_family(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            "family 'hybrid' (zamba2) is not ported yet: it is the next "
+            "slice (shared attention at head dim 112, the groups_ssm axis)")
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ported: {FAMILIES})")
 
 
 # =========================================================================== #
@@ -59,13 +70,17 @@ def init_params(cfg, generator: torch.Generator) -> Params:
     params: Params = {
         "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": norm(),
-        "layers": {
+    }
+    if cfg.family == "ssm":
+        params["layers"] = {"norm": norm((n,)),
+                            "ssm": S.init_ssm(generator, cfg, n, dtype)}
+    else:
+        params["layers"] = {
             "attn_norm": norm((n,)),
             "attn": L.init_attention(generator, cfg, n, dtype),
             "mlp_norm": norm((n,)),
             "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, n, dtype),
-        },
-    }
+        }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(generator, cfg.d_model,
                                          cfg.vocab_size, dtype)
@@ -110,7 +125,7 @@ def unembed(params: Params, cfg, h: torch.Tensor) -> torch.Tensor:
 
 
 # =========================================================================== #
-# Layer body
+# Layer bodies
 # =========================================================================== #
 
 
@@ -125,25 +140,50 @@ def _dense_body(cfg, attn_impl, lp: Params, x, cos_sin, cache=None,
     return x + L.mlp_block(lp["mlp"], cfg, h), kv
 
 
+def _ssm_body(cfg, impl, lp: Params, x, state=None, active=None):
+    """Prefill (``state is None``): returns (x + out, decode state).
+    Decode: returns (x + out, new state); rows with ``active=False`` keep
+    their state bit for bit."""
+    h = L.apply_norm(cfg, lp["norm"], x)
+    if state is None:
+        out, new_state = S.ssm_forward(lp["ssm"], cfg, h, impl=impl,
+                                       return_state=True)
+        return x + out, new_state
+    out, new_state = S.ssm_decode_step(lp["ssm"], cfg, h, state)
+    if active is not None:
+        new_state = {
+            k: torch.where(active.reshape((-1,) + (1,) * (v.ndim - 1)), v,
+                           state[k])
+            for k, v in new_state.items()}
+    return x + out, new_state
+
+
 # =========================================================================== #
-# KV cache
+# KV / state caches
 # =========================================================================== #
 
 
 def init_cache(cfg, batch: int, max_len: int, device, dtype=None) -> Cache:
-    """Slot cache: per-slot lengths ``len`` (B,) int32 and K/V buffers
-    (n_layers, B, max_len, KH, D)."""
+    """Slot cache: per-slot lengths ``len`` (B,) int32, and for the dense
+    family K/V buffers (n_layers, B, max_len, KH, D), for the SSM family
+    the recurrent states ``{"conv": (n_layers, B, CH, d_conv - 1), "ssm":
+    (n_layers, B, H, P, N)}``."""
     _check_family(cfg)
+    dtype = dtype or _dtype(cfg)
+    cache: Cache = {"len": torch.zeros((batch,), dtype=torch.int32,
+                                       device=device)}
+    if cfg.family == "ssm":
+        state = S.init_ssm_state(cfg, batch, dtype, device)
+        cache["ssm"] = {k: v.new_zeros((cfg.n_layers,) + v.shape)
+                        for k, v in state.items()}
+        return cache
     if cfg.attention_type == "swa" and cfg.swa_window < max_len:
         raise NotImplementedError("ring (sliding-window) KV caches are not "
                                   "ported yet")
-    dtype = dtype or _dtype(cfg)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "kv": KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                      torch.zeros(shape, dtype=dtype, device=device)),
-    }
+    cache["kv"] = KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                          torch.zeros(shape, dtype=dtype, device=device))
+    return cache
 
 
 # =========================================================================== #
@@ -154,19 +194,29 @@ def init_cache(cfg, batch: int, max_len: int, device, dtype=None) -> Cache:
 def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
             attn_impl: str = "kernel",
             last_index: Optional[torch.Tensor] = None):
-    """Process the full (right-padded) prompt batch, write its K/V into
-    rows ``[0, S)`` of every slot of ``cache`` in place, set ``len`` to S,
-    and return the logits (B, 1, V) at ``last_index`` (B,) — each row's
-    true last position — or at the last position."""
+    """Process the full (right-padded) prompt batch, set ``len`` to S, and
+    return the logits (B, 1, V) at ``last_index`` (B,) — each row's true
+    last position — or at the last position.  The dense family writes its
+    K/V into rows ``[0, S)`` of every slot of ``cache``, the SSM family its
+    decode states, in place.  ``attn_impl`` picks the kernels ("kernel") or
+    the plain path ("torch") for attention and for the SSD scan alike."""
     _check_family(cfg)
     h, pos = embed_inputs(params, cfg, batch)
     s = h.shape[1]
-    cos_sin = L.positional_cos_sin(cfg, pos)
-    kvc = cache["kv"]
-    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-        h, (k, v) = _dense_body(cfg, attn_impl, lp, h, cos_sin)
-        kvc.k[i, :, :s] = k
-        kvc.v[i, :, :s] = v
+    layers = _unstack(params["layers"], cfg.n_layers)
+    if cfg.family == "ssm":
+        states = cache["ssm"]
+        for i, lp in enumerate(layers):
+            h, st = _ssm_body(cfg, attn_impl, lp, h)
+            for k, v in st.items():
+                states[k][i] = v
+    else:
+        cos_sin = L.positional_cos_sin(cfg, pos)
+        kvc = cache["kv"]
+        for i, lp in enumerate(layers):
+            h, (k, v) = _dense_body(cfg, attn_impl, lp, h, cos_sin)
+            kvc.k[i, :, :s] = k
+            kvc.v[i, :, :s] = v
     cache["len"] = torch.full((h.shape[0],), s, dtype=torch.int32,
                               device=h.device)
     if last_index is not None:
@@ -188,17 +238,28 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
     """One-token step: tokens (B, 1) -> (logits (B, 1, V), cache).
 
     ``active`` (B,) bool: inactive rows (unoccupied or EOS-frozen slots) are
-    computed but write no K/V and keep their ``len``, so their cache stays
-    bit-identical."""
+    computed but write no K/V (dense) or state (SSM) and keep their ``len``,
+    so their cache stays bit-identical.  The SSM step is plain PyTorch
+    whatever ``attn_impl`` is, as in the reference."""
     _check_family(cfg)
     cur = cache["len"]
     h = embed_tokens(params, cfg, tokens)
-    cos_sin = L.positional_cos_sin(cfg, cur[:, None])
-    kvc = cache["kv"]
-    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-        h, _ = _dense_body(cfg, attn_impl, lp, h, cos_sin,
-                           cache=KVCache(kvc.k[i], kvc.v[i]),
-                           cur_index=cur, active=active)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    if cfg.family == "ssm":
+        states = cache["ssm"]
+        for i, lp in enumerate(layers):
+            h, st = _ssm_body(cfg, attn_impl, lp, h,
+                              state={k: v[i] for k, v in states.items()},
+                              active=active)
+            for k, v in st.items():
+                states[k][i] = v
+    else:
+        cos_sin = L.positional_cos_sin(cfg, cur[:, None])
+        kvc = cache["kv"]
+        for i, lp in enumerate(layers):
+            h, _ = _dense_body(cfg, attn_impl, lp, h, cos_sin,
+                               cache=KVCache(kvc.k[i], kvc.v[i]),
+                               cur_index=cur, active=active)
     if active is not None:
         cache["len"] = torch.where(active, cur + 1, cur)
     else:

@@ -3,6 +3,8 @@
 Tolerances: the round trips are bit-exact (compared with ``array_equal``
 on the raw values); init statistics are checked to a few standard errors.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -34,16 +36,21 @@ def _leaves(tree):
 
 
 def test_config_copy_matches_reference():
-    for full in (False, True):
-        want = jax_get_config(ARCH)
-        got = get_config(ARCH)
-        if not full:
-            want, got = want.reduced(), got.reduced()
-        for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
-                  "d_ff", "vocab_size", "qkv_bias", "tie_embeddings",
-                  "norm_eps", "rope_theta", "attention_type", "swa_window",
-                  "dtype", "max_position_embeddings"):
-            assert getattr(got, f) == getattr(want, f), f
+    for arch in (ARCH, "mamba2-130m"):
+        for full in (False, True):
+            want = jax_get_config(arch)
+            got = get_config(arch)
+            if not full:
+                want, got = want.reduced(), got.reduced()
+            for f in ("family", "n_layers", "d_model", "n_heads",
+                      "n_kv_heads", "head_dim", "d_ff", "vocab_size",
+                      "qkv_bias", "tie_embeddings", "norm_eps", "rope_type",
+                      "rope_theta", "attention_type", "swa_window", "dtype",
+                      "max_position_embeddings", "attn_free", "ssm_d_inner",
+                      "ssm_n_heads"):
+                assert getattr(got, f) == getattr(want, f), (arch, f)
+            assert (dataclasses.asdict(got.ssm)
+                    == dataclasses.asdict(want.ssm)), arch
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
