@@ -9,18 +9,26 @@ Phases (any failure raises and exits non-zero):
   3. kernels against their plain PyTorch versions at the served shapes,
      bf16 and fp32, with times (kernel, plain version, and PyTorch's
      ``scaled_dot_product_attention`` as the attention kernels' yardstick)
-     and the bound;
+     and the bound; the sharded decode (``flash_decode_sharded``) at the
+     shard shapes of a TP=2 and a TP=4 pod, also bit for bit against the
+     single-device kernel;
   4. the served paths at full width: ``ElisServer`` -> ISRTF with the
      oracle predictor -> ``EngineExecutor`` ->
      ``InferenceEngine(attn_impl="kernel")`` serving a dozen requests to
-     qwen2-1.5b (28 layers) and then to mamba2-130m (24 layers), bf16,
+     qwen2-1.5b (28 layers), then to mamba2-130m (24 layers), then to
+     qwen2-1.5b on one tensor-parallel pod of 2 ranks (``dense-tp2``: on
+     two cards when there are two, else both ranks on ``cuda:0``), bf16,
      random weights from a seed; each path's kernel launch counts are set
      to 0 just before it and read just after; one decode window of each is
      then profiled (device busy share, kernels);
   5. kernel path against plain path, per model: identical greedy tokens at
      full width with 2 layers in fp32 through evictions and recompute
      resumes, and agreeing first prefill logits at full width and depth in
-     bf16.
+     bf16; for ``dense-tp2``, the TP kernel engine against the
+     single-device kernel engine and the plain engine, and a TP=4 kernel
+     engine (each rank holding the one KV head it reads) against the
+     single-device kernel engine (fp32 tokens), and the TP=2 kernel model
+     against the single-device kernel model (bf16 logits).
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -30,7 +38,15 @@ Needs one CUDA card; imports neither JAX nor the JAX package.
 checks the checks instead: it builds the kernels from a copy of ``csrc``
 with one deliberate fault (``PLANTED_FAULTS``) in a temporary directory,
 runs phase 3's comparisons and phase 5's comparisons against it, and
-prints how many of them caught the fault.
+prints how many of them caught the fault; ``drop_rank_partial`` instead
+drops one rank's attention output from the TP model's sums, in memory,
+and runs phase 5's TP comparisons.
+
+    python3 chip_smoke.py --window-bench 24
+
+times 24 decode windows of the dense cell's engine and prints them as one
+JSON line; copied into the root of another checkout it times that
+checkout's ``src``.
 """
 from __future__ import annotations
 
@@ -43,6 +59,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -84,6 +101,16 @@ LOGIT_TOL_BF16 = 0.1
 #: 0.090 (|logit| <= 2.6).  Against the plain scan the correct kernel gave
 #: 0 and the fault 0.047; the limit lies between them.
 SSM_LOGIT_TOL_BF16 = 0.02
+#: bf16 full-depth prefill logits of qwen2-1.5b, the TP=2 kernel model
+#: against the single-device kernel model.  They differ where the TP model
+#: rounds each rank's row-parallel partial to bf16 before the sum (twice a
+#: layer, 28 layers).  On an H100 (both ranks on one card) the correct
+#: model gave 0.051 (|logit| <= 3.5), and the planted ``drop_rank_partial``
+#: (one rank's attention output left out of every layer's sum) gave 4.98;
+#: the limit lies between them.  fp32 greedy identity caught that fault too.
+TP_LOGIT_TOL_BF16 = 0.1
+#: ranks of the tensor-parallel cell
+TP = 2
 #: one-line faults for ``--planted-fault``: (source, regex, replacement)
 PLANTED_FAULTS = {
     # skip the oldest 32-key tile of every row that sees more than 32 keys
@@ -161,6 +188,25 @@ def eager_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def tp_devices(tp: int = TP):
+    """The ranks of a ``tp``-way pod: distinct cards when there are ``tp``
+    of them, else every rank on the first card (or on ``DEVICE`` when it
+    is the CPU)."""
+    import torch
+    if DEVICE == "cpu":
+        return ["cpu"] * tp
+    if torch.cuda.device_count() >= tp:
+        return [f"cuda:{i}" for i in range(tp)]
+    return ["cuda:0"] * tp
+
+
+def synchronize_all() -> None:
+    import torch
+    if DEVICE != "cpu":
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 def max_err(out, want, dtype_name: str, scaled: bool = False):
@@ -258,17 +304,27 @@ def check_kernels(timed: bool = True):
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = {"flash_decode": [], "flash_attention": [], "ssd_scan": []}
+    rows = {"flash_decode": [], "flash_attention": [], "ssd_scan": [],
+            "flash_decode_sharded": []}
     failures = []
 
-    def record(name, row, run, plain, lib, iters):
+    def record(name, row, run, plain, lib, iters, timed_fns=None,
+               exact=False):
+        """Check ``run()`` against ``plain()`` (and, with ``exact``, that
+        ``row["bitwise"]`` holds); with ``timed``, time them (or the pair
+        ``timed_fns`` in their place) and ``lib``."""
         out, want = run(), plain()
-        torch.cuda.synchronize()
+        synchronize_all()
         row["max_abs_err"], row["tol_share"] = max_err(
             out, want, row["dtype"], scaled=name == "ssd_scan")
+        if exact and not row["bitwise"]:
+            failures.append((name, "not bit for bit the single-device "
+                             "kernel", row))
+        t_run, t_plain = timed_fns or (run, plain)
         if timed:
-            row.update(ms=cuda_ms(run, iters), eager_ms=eager_ms(run, iters),
-                       plain_ms=cuda_ms(plain, max(iters // 10, 5)),
+            row.update(ms=cuda_ms(t_run, iters),
+                       eager_ms=eager_ms(t_run, iters),
+                       plain_ms=cuda_ms(t_plain, max(iters // 10, 5)),
                        library_ms=None if lib is None else cuda_ms(lib, iters))
         rows[name].append(row)
         if not row["tol_share"] <= 1.0:
@@ -301,6 +357,9 @@ def check_kernels(timed: bool = True):
                                              q_offset=q_off, window=window),
                     lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=mask, enable_gqa=True), 200)
+                if B == 4 and window is None:
+                    check_sharded(record, q, k, v, kv_len, q_off, n_keys,
+                                  dn, es)
         for B in (1, 4):
             for S in (16, 128, 512):
                 for window in (None, 64):
@@ -342,7 +401,12 @@ def check_kernels(timed: bool = True):
         log(f"[kernels] {name}: kernel vs plain version on the card")
         for r in rs:
             atol, rtol = TOL[r["dtype"]]
-            if name == "flash_decode":
+            if name == "flash_decode_sharded":
+                shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
+                         f"{r['heads']} heads per rank x {r['tp']} ranks on "
+                         f"one card, bitwise == single-device kernel: "
+                         f"{r['bitwise']}; per call, all shards")
+            elif name == "flash_decode":
                 shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
                          f"window={r['window']}")
             elif name == "flash_attention":
@@ -365,6 +429,56 @@ def check_kernels(timed: bool = True):
                          f"({r['bound_by']})")
             log(line)
     return rows, failures
+
+
+def check_sharded(record, q, k, v, kv_len, q_off, n_keys, dn, es):
+    """``flash_decode_sharded`` at the shard shapes of a TP=2 and a TP=4 pod
+    with all ranks on one card: the served decode inputs split into ``tp``
+    contiguous query-head ranges, each with the KV heads it reads.  The
+    stitched output must equal the single-device kernel bit for bit and lie
+    within the tolerance of the plain version.  Times are per call, all
+    shards: the wrapper, its plain version, and ``sdpa`` over the unsplit
+    heads (one call computing the stitched function); the bound is that of
+    the whole call (each shard reads its own KV heads' rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.partition import kv_head_range
+
+    heads = SimpleNamespace(n_heads=HEADS, n_kv_heads=KV_HEADS)
+    keep = ((torch.arange(MAX_LEN, device=q.device)[None] < kv_len[:, None])
+            [:, None, None, :])
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    for tp in (2, 4):
+        ranges = [kv_head_range(heads, tp, r) for r in range(tp)]
+        qs = [c.contiguous() for c in q.chunk(tp, dim=2)]
+        ks, vs = ([x[:, :, lo:hi].contiguous() for lo, hi in ranges]
+                  for x in (k, v))
+        bitwise = bool(torch.equal(
+            torch.cat(ops.flash_decode_sharded(qs, ks, vs, kv_len=kv_len,
+                                               q_offset=q_off), dim=2),
+            ops.flash_decode(q, k, v, kv_len=kv_len, q_offset=q_off)))
+        kv_read = sum(hi - lo for lo, hi in ranges)
+        bytes_moved = (2 * q.numel() * es + 8 * q.shape[0] * tp
+                       + 2 * sum(n_keys) * kv_read * HEAD_DIM * es)
+        b_ms, b_by = bound(bytes_moved, 4 * HEADS * HEAD_DIM * sum(n_keys),
+                           dn)
+        record("flash_decode_sharded", dict(
+            dtype=dn, B=q.shape[0], L=MAX_LEN, kv_len=kv_len.tolist(), tp=tp,
+            heads=f"{HEADS // tp}/{ranges[0][1] - ranges[0][0]}",
+            bitwise=bitwise, bound_ms=b_ms, bound_by=b_by),
+            lambda: torch.cat(ops.flash_decode_sharded(
+                qs, ks, vs, kv_len=kv_len, q_offset=q_off), dim=2),
+            lambda: torch.cat(ref.flash_decode_sharded(
+                qs, ks, vs, kv_len=kv_len, q_offset=q_off), dim=2),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=keep, enable_gqa=True), 200,
+            timed_fns=(lambda: ops.flash_decode_sharded(
+                qs, ks, vs, kv_len=kv_len, q_offset=q_off),
+                lambda: ref.flash_decode_sharded(
+                    qs, ks, vs, kv_len=kv_len, q_offset=q_off)),
+            exact=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -394,11 +508,15 @@ def make_requests(n: int, seed: int, max_prompt: int = 200,
     return reqs
 
 
-def serve(cfg, params, requests, *, attn_impl: str):
-    """Drive the served path (serve.py's defaults) over ``requests``;
-    returns (responses, executor, wall seconds)."""
-    import torch
+def tp_mesh(tp: int = TP):
+    from repro_torch.launch import make_mesh
+    return make_mesh((tp,), ("model",), devices=tp_devices(tp))
 
+
+def serve(cfg, params, requests, *, attn_impl: str, mesh=None):
+    """Drive the served path (serve.py's defaults) over ``requests`` on one
+    engine (a TP pod with ``mesh``); returns (responses, executor, wall
+    seconds)."""
     from repro_torch.core import (ElisServer, FrontendConfig,
                                   OraclePredictor, PreemptionConfig,
                                   SchedulerConfig)
@@ -406,7 +524,7 @@ def serve(cfg, params, requests, *, attn_impl: str):
 
     ecfg = EngineConfig(max_slots=4, max_len=MAX_LEN, max_output=32,
                         eos_id=-1, respect_job_max=True, attn_impl=attn_impl)
-    engine = InferenceEngine(cfg, params, ecfg, device=DEVICE)
+    engine = InferenceEngine(cfg, params, ecfg, device=DEVICE, mesh=mesh)
     executor = EngineExecutor({0: engine})
     server = ElisServer(
         FrontendConfig(
@@ -417,14 +535,20 @@ def serve(cfg, params, requests, *, attn_impl: str):
         OraclePredictor(), executor)
     for r in requests:
         server.submit(r)
-    torch.cuda.synchronize()
+    synchronize_all()
     t0 = time.perf_counter()
     responses = server.drain()
-    torch.cuda.synchronize()
+    synchronize_all()
     return responses, executor, time.perf_counter() - t0
 
 
-def describe(cfg) -> str:
+def describe(cfg, mesh=None) -> str:
+    if mesh is not None:
+        return (f"{describe(cfg)}, tensor parallel over {len(mesh.ranks)} "
+                f"ranks on "
+                f"{', '.join(map(str, mesh.ranks))}"
+                + (" (both ranks share one card: no interconnect is measured)"
+                   if len(set(mesh.ranks)) == 1 else ""))
     if cfg.family == "ssm":
         s = cfg.ssm
         return (f"{cfg.arch_id}: {cfg.n_layers} layers, d_model "
@@ -436,17 +560,17 @@ def describe(cfg) -> str:
             f"{cfg.vocab_size}, {cfg.dtype}")
 
 
-def served_path(cfg, params, requests):
-    """Serve ``requests`` through the kernel path with every launch count
-    set to 0 just before and read just after; check every request, and
-    that the path's kernels ran as often as its dispatches say.  Returns
-    the launch counts."""
+def served_path(cfg, params, requests, mesh=None):
+    """Serve ``requests`` through the kernel path (on one TP pod with
+    ``mesh``) with every launch count set to 0 just before and read just
+    after; check every request, and that the path's kernels ran as often
+    as its dispatches say.  Returns the launch counts."""
     from repro_torch.core import summarize
     from repro_torch.kernels import ops
 
     ops.reset_launches()
     responses, executor, wall = serve(cfg, params, requests,
-                                      attn_impl="kernel")
+                                      attn_impl="kernel", mesh=mesh)
     launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
     counters = executor.counters()
     want = {r.request_id: min(32, r.true_output_len) for r in requests}
@@ -459,18 +583,22 @@ def served_path(cfg, params, requests):
         raise AssertionError("a generated token lies outside the vocabulary")
     decode_steps = sum(rec["window"] for rec in executor.window_log)
     prefills = counters["prefill_dispatches"]
+    tp = 1 if mesh is None else len(mesh.ranks)
+    per = f"{cfg.n_layers} layers x " + (f"{tp} ranks x " if tp > 1 else "")
     if cfg.family == "ssm":
         want_launches = {"ssd_scan": (cfg.n_layers * prefills,
-                                      f"{cfg.n_layers} layers x {prefills} "
-                                      "prefill dispatches")}
+                                      f"{per}{prefills} prefill dispatches")}
     else:
+        decode = "flash_decode" if mesh is None else "flash_decode_sharded"
         want_launches = {
-            "flash_decode": (cfg.n_layers * decode_steps,
-                             f"{cfg.n_layers} layers x {decode_steps} decode "
-                             "steps"),
-            "flash_attention": (cfg.n_layers * prefills,
-                                f"{cfg.n_layers} layers x {prefills} prefill "
-                                "dispatches")}
+            decode: (cfg.n_layers * tp * decode_steps,
+                     f"{per}{decode_steps} decode steps"),
+            "flash_attention": (cfg.n_layers * tp * prefills,
+                                f"{per}{prefills} prefill dispatches")}
+    for name in ops.KERNELS:
+        if name not in want_launches and launches[name]:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 "on a path that does not run it")
     for name, (n, why) in want_launches.items():
         if launches[name] != n:
             raise AssertionError(f"{name} launched {launches[name]} times, "
@@ -479,7 +607,7 @@ def served_path(cfg, params, requests):
             raise AssertionError(f"{name} was never launched on the path")
     n_tok = sum(r.n_tokens for r in responses)
     m = summarize(responses)
-    log(f"[serve] {describe(cfg)}")
+    log(f"[serve] {describe(cfg, mesh)}")
     log(f"[serve] {len(responses)}/{len(requests)} requests FINISHED with "
         f"the expected token counts; {n_tok} tokens in {wall:.3f} s wall = "
         f"{n_tok / wall:.1f} tokens/s; JCT mean {m['jct_mean']:.3f} s, p99 "
@@ -494,10 +622,11 @@ def served_path(cfg, params, requests):
     return launches
 
 
-def profile_window(cfg, params, requests) -> None:
+def profile_window(cfg, params, requests, mesh=None) -> None:
     """Where a steady decode window's time goes: one window of 8 steps at 4
     live slots under ``torch.profiler``; device busy time is the sum of the
-    kernels' durations (one stream, so they do not overlap)."""
+    kernels' durations (one stream per card, so they do not overlap on one
+    card; with ranks on two cards it is summed over both)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -507,24 +636,28 @@ def profile_window(cfg, params, requests) -> None:
 
     eng = InferenceEngine(cfg, params, EngineConfig(
         max_slots=4, max_len=MAX_LEN, max_output=64, eos_id=-1),
-        device=DEVICE)
+        device=DEVICE, mesh=mesh)
     jobs = [Job(job_id=r.request_id, prompt="",
                 prompt_tokens=list(r.prompt_tokens), arrival_time=0.0)
             for r in requests[:4]]
     eng.run_window(jobs, 8)  # prefill, and a first window as warm-up
-    torch.cuda.synchronize()
+    synchronize_all()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run_window(jobs, 8)
-        torch.cuda.synchronize()
+        synchronize_all()
         wall = time.perf_counter() - t0
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values()) / 1e3
-    log(f"[profile] {cfg.arch_id}: one decode window (8 steps, 4 slots, "
+    cards = 1 if mesh is None else len(set(mesh.ranks))
+    log(f"[profile] {cfg.arch_id}"
+        f"{'' if mesh is None else f' TP={len(mesh.ranks)} on {cards} card(s)'}"
+        ": one "
+        f"decode window (8 steps, 4 slots, "
         f"{cfg.n_layers} layers) under torch.profiler: wall "
         f"{wall * 1e3:.2f} ms, device "
         f"busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%), "
@@ -539,16 +672,18 @@ def profile_window(cfg, params, requests) -> None:
 # --------------------------------------------------------------------------- #
 
 
-def greedy_streams(cfg, params, prompts, attn_impl: str, n_out: int):
-    """Serve ``prompts`` on one engine with a fixed schedule: each window
-    runs the (at most 4) unfinished jobs with the fewest tokens, evicting
-    the others, so jobs are preempted and re-admitted by recompute."""
+def greedy_streams(cfg, params, prompts, attn_impl: str, n_out: int,
+                   mesh=None):
+    """Serve ``prompts`` on one engine (a TP pod with ``mesh``) with a
+    fixed schedule: each window runs the (at most 4) unfinished jobs with
+    the fewest tokens, evicting the others, so jobs are preempted and
+    re-admitted by recompute."""
     from repro_torch.core import Job
     from repro_torch.engine import EngineConfig, InferenceEngine
 
     eng = InferenceEngine(cfg, params, EngineConfig(
         max_slots=4, max_len=MAX_LEN, max_output=n_out, eos_id=-1,
-        attn_impl=attn_impl), device=DEVICE)
+        attn_impl=attn_impl), device=DEVICE, mesh=mesh)
     jobs = [Job(job_id=i, prompt="", prompt_tokens=p, arrival_time=0.0)
             for i, p in enumerate(prompts)]
     evictions = 0
@@ -567,10 +702,12 @@ def greedy_streams(cfg, params, prompts, attn_impl: str, n_out: int):
     return [list(j.generated) for j in jobs], evictions
 
 
-def greedy_parity(cfg, requests) -> bool:
+def greedy_parity(cfg, requests, meshes=()) -> bool:
     """fp32 greedy tokens of the kernel and plain engines at full width and
     2 layers, through evictions and recompute resumes: identical (and at
-    least one eviction)?"""
+    least one eviction)?  With ``meshes``, the kernel engine of each TP pod
+    against the single-device kernel engine, and the first pod's against
+    the plain engine too."""
     import torch
 
     from repro_torch.models import transformer as T
@@ -579,24 +716,37 @@ def greedy_parity(cfg, requests) -> bool:
     params2 = T.init_params(
         cfg2, torch.Generator(device=DEVICE).manual_seed(SEED + 1))
     prompts = [list(r.prompt_tokens) for r in requests[:6]]
-    streams = {impl: greedy_streams(cfg2, params2, prompts, impl, 24)
-               for impl in ("kernel", "torch")}
-    (got, evictions), (want, _) = streams["kernel"], streams["torch"]
-    same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
-    total = sum(len(w) for w in want)
-    log(f"[parity] {cfg.arch_id} fp32, full width, 2 layers: kernel engine "
-        f"vs plain engine greedy tokens identical on {same}/{total} tokens "
-        f"of {len(prompts)} requests ({evictions} evictions + recompute "
-        f"resumes)")
-    return got == want and evictions > 0
+    runs = {"kernel engine": ("kernel", None), "plain engine": ("torch", None)}
+    pairs = [] if meshes else [("kernel engine", "plain engine")]
+    for m in meshes:
+        name = f"TP={len(m.ranks)} kernel engine"
+        runs[name] = ("kernel", m)
+        pairs.append((name, "kernel engine"))
+    if meshes:
+        pairs.insert(1, (pairs[0][0], "plain engine"))
+    streams = {name: greedy_streams(cfg2, params2, prompts, impl, 24, m)
+               for name, (impl, m) in runs.items()}
+    ok = True
+    for name, other in pairs:
+        (got, evictions), (want, _) = streams[name], streams[other]
+        same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+        total = sum(len(w) for w in want)
+        log(f"[parity] {cfg.arch_id} fp32, full width, 2 layers: {name} vs "
+            f"{other} greedy tokens identical on {same}/{total} tokens of "
+            f"{len(prompts)} requests ({evictions} evictions + recompute "
+            f"resumes)")
+        ok &= got == want and evictions > 0
+    return ok
 
 
-def prefill_logit_gap(cfg, params_bf16, requests):
+def prefill_logit_gap(cfg, params_bf16, requests, mesh=None):
     """max |kernel - plain| of the first prefill logits at full width and
-    depth in bf16; returns (gap, whether the kernel's logits are finite)."""
+    depth in bf16; with ``mesh``, max |TP kernel - single-device kernel|.
+    Returns (gap, whether the kernel's logits are finite)."""
     import numpy as np
     import torch
 
+    from repro_torch.launch import shard_params
     from repro_torch.models import transformer as T
 
     toks = np.zeros((4, 256), np.int32)
@@ -604,21 +754,30 @@ def prefill_logit_gap(cfg, params_bf16, requests):
     for i, r in enumerate(requests[:4]):
         toks[i, : len(r.prompt_tokens)] = r.prompt_tokens
         last[i] = len(r.prompt_tokens) - 1
+    runs = {"kernel": ("kernel", None), "plain": ("torch", None)}
+    if mesh is not None:
+        runs = {f"TP={len(mesh.ranks)} kernel": ("kernel", mesh),
+                "kernel": runs["kernel"]}
     logits = {}
-    for impl in ("kernel", "torch"):
-        cache = T.init_cache(cfg, 4, MAX_LEN, DEVICE)
-        out, _ = T.prefill(params_bf16, cfg,
+    for name, (impl, m) in runs.items():
+        params = params_bf16 if m is None else shard_params(params_bf16, cfg,
+                                                            m)
+        out, _ = T.prefill(params, cfg,
                            {"tokens": torch.as_tensor(toks, device=DEVICE)},
-                           cache, attn_impl=impl,
-                           last_index=torch.as_tensor(last, device=DEVICE))
-        logits[impl] = out.float()
-    gap = float((logits["kernel"] - logits["torch"]).abs().max())
-    scale = float(logits["torch"].abs().max())
-    finite = bool(torch.isfinite(logits["kernel"]).all())
+                           T.init_cache(cfg, 4, MAX_LEN, DEVICE, mesh=m),
+                           attn_impl=impl,
+                           last_index=torch.as_tensor(last, device=DEVICE),
+                           mesh=m)
+        logits[name] = out.float()
+        del params
+    (got_name, got), (want_name, want) = logits.items()
+    gap = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    finite = bool(torch.isfinite(got).all())
+    tol = LOGIT_TOL_BF16 if mesh is None else TP_LOGIT_TOL_BF16
     log(f"[parity] {cfg.arch_id} bf16, full width and depth: first prefill "
-        f"logits "
-        f"{tuple(logits['kernel'].shape)}, max |kernel - plain| = {gap:.4e} "
-        f"(tol {LOGIT_TOL_BF16}), max |logit| = {scale:.3f}, finite={finite}")
+        f"logits {tuple(got.shape)}, max |{got_name} - {want_name}| = "
+        f"{gap:.4e} (tol {tol}), max |logit| = {scale:.3f}, finite={finite}")
     return gap, finite
 
 
@@ -723,15 +882,87 @@ def planted_fault(kind: str, models) -> dict:
     return {"planted_fault": kind, "kernel_checks": caught, **served}
 
 
+def tp_planted_fault(cfg, params, requests) -> dict:
+    """``drop_rank_partial``: leave the last rank's attention output (its
+    ``wo`` partial) out of every layer's sum in the TP model, in prefill and
+    decode, and run phase 5's TP=2 comparisons against it; returns whether
+    each caught the fault."""
+    import itertools
+
+    import torch
+
+    from repro_torch.models import layers as L
+
+    block, decode = L.attention_block, L.attention_decode
+    calls = itertools.count()
+
+    def faulty_block(p, lcfg, *args, **kw):
+        out, kv = block(p, lcfg, *args, **kw)
+        # the TP prefill calls each layer's ranks in order
+        if lcfg.n_heads < cfg.n_heads and next(calls) % TP == TP - 1:
+            out = torch.zeros_like(out)
+        return out, kv
+
+    def faulty_decode(*args, **kw):
+        outs = decode(*args, **kw)
+        if len(outs) > 1:
+            outs[-1] = torch.zeros_like(outs[-1])
+        return outs
+
+    L.attention_block, L.attention_decode = faulty_block, faulty_decode
+    try:
+        greedy_same = greedy_parity(cfg, requests, (tp_mesh(),))
+        gap, finite = prefill_logit_gap(cfg, params, requests, tp_mesh())
+    finally:
+        L.attention_block, L.attention_decode = block, decode
+    return {"planted_fault": "drop_rank_partial",
+            "greedy_fp32_caught": not greedy_same,
+            "logit_gap_bf16": gap, "logit_tol_bf16": TP_LOGIT_TOL_BF16,
+            "logit_caught": not (finite and gap <= TP_LOGIT_TOL_BF16)}
+
+
+def window_bench(cfg, params, n: int) -> None:
+    """Host wall time of ``n`` steady decode windows (8 steps, 4 live
+    slots) of the single-device kernel engine, devices synchronised around
+    each, after one warm-up window: the time of the served dense path's
+    Python body.  Runs unchanged against an older checkout of ``src`` (copy
+    this script into its root), to compare two versions in one call."""
+    import statistics
+
+    from repro_torch.core import Job
+    from repro_torch.engine import EngineConfig, InferenceEngine
+
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        max_slots=4, max_len=MAX_LEN, max_output=8 * (n + 1), eos_id=-1),
+        device=DEVICE)
+    jobs = [Job(job_id=i, prompt="", prompt_tokens=list(range(8, 8 + plen)),
+                arrival_time=0.0) for i, plen in enumerate((40, 90, 140, 190))]
+    eng.run_window(jobs, 8)
+    walls = []
+    for _ in range(n):
+        synchronize_all()
+        t0 = time.perf_counter()
+        eng.run_window(jobs, 8)
+        synchronize_all()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(json.dumps({"window_bench": str(ROOT), "windows": n, "steps": 8,
+                    "slots": 4, "median_ms": statistics.median(walls),
+                    "min_ms": min(walls), "ms": walls}))
+
+
 # --------------------------------------------------------------------------- #
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--planted-fault", nargs="+",
-                    choices=sorted(PLANTED_FAULTS),
+                    choices=sorted(PLANTED_FAULTS) + ["drop_rank_partial"],
                     help="check the checks against these deliberate "
-                         "kernel faults instead of running the smoke")
+                         "kernel (or TP) faults instead of running the "
+                         "smoke")
+    ap.add_argument("--window-bench", type=int, metavar="N",
+                    help="time N decode windows of the dense cell's engine "
+                         "instead of running the smoke")
     args = ap.parse_args(argv)
     import torch
 
@@ -762,10 +993,18 @@ def main(argv=None) -> None:
             f"{SEED} in {time.perf_counter() - t0:.1f} s")
         return params
 
+    if args.window_bench:
+        build.build_all()
+        window_bench(models[0][0], random_params(models[0][0]),
+                     args.window_bench)
+        return
     if args.planted_fault:
         with_params = [(cfg, random_params(cfg), reqs) for cfg, reqs in models]
         for kind in args.planted_fault:
-            print(json.dumps(planted_fault(kind, with_params)), flush=True)
+            result = (tp_planted_fault(*with_params[0])
+                      if kind == "drop_rank_partial"
+                      else planted_fault(kind, with_params))
+            print(json.dumps(result), flush=True)
         return
 
     t0 = time.perf_counter()
@@ -783,32 +1022,43 @@ def main(argv=None) -> None:
                              f"{failures}")
 
     launches = {}
-    for cfg, requests in models:
+    # the served cells: each model on one engine, then qwen2-1.5b on one
+    # tensor-parallel pod
+    cells = [(cfg, requests, None) for cfg, requests in models]
+    cells.append((models[0][0], models[0][1], tp_mesh()))
+    for cfg, requests, mesh in cells:
+        name = cfg.arch_id + ("" if mesh is None else f" TP={TP}")
         params = random_params(cfg)
-        path = served_path(cfg, params, requests)
-        launches.update({n: c for n, c in path.items() if c})
-        profile_window(cfg, params, requests)
-        if not greedy_parity(cfg, requests):
-            raise AssertionError(f"{cfg.arch_id}: fp32 greedy tokens differ "
+        path = served_path(cfg, params, requests, mesh)
+        for n, c in path.items():
+            if c:
+                launches.setdefault(n, c)
+        profile_window(cfg, params, requests, mesh)
+        if not greedy_parity(cfg, requests,
+                             () if mesh is None else (mesh, tp_mesh(4))):
+            raise AssertionError(f"{name}: fp32 greedy tokens differ "
                                  "between the kernel and plain engines, or "
                                  "no eviction was driven")
         if cfg.family == "ssm":
             gaps, finite = ssm_prefill_logit_gaps(cfg, params, requests)
             gap, tol = gaps["plain_scan"], SSM_LOGIT_TOL_BF16
         else:
-            gap, finite = prefill_logit_gap(cfg, params, requests)
-            tol = LOGIT_TOL_BF16
+            gap, finite = prefill_logit_gap(cfg, params, requests, mesh)
+            tol = LOGIT_TOL_BF16 if mesh is None else TP_LOGIT_TOL_BF16
         if not finite or not gap <= tol:
-            raise AssertionError(f"{cfg.arch_id}: bf16 prefill logits "
-                                 "disagree between the kernel and plain paths")
+            raise AssertionError(f"{name}: bf16 prefill logits disagree "
+                                 "with the reference path")
         del params
         torch.cuda.empty_cache()
 
     served = {"flash_decode": dict(dtype="bfloat16", B=4, window=None),
               "flash_attention": dict(dtype="bfloat16", B=4, S=512,
                                       window=None),
-              "ssd_scan": dict(dtype="bfloat16", S=512, chunk=256, pad=0)}
+              "ssd_scan": dict(dtype="bfloat16", S=512, chunk=256, pad=0),
+              "flash_decode_sharded": dict(dtype="bfloat16", B=4, tp=TP)}
     meta = {
+        "flash_decode_sharded": ("src/repro_torch/csrc/decode_attention.cu",
+                                 "src/repro/kernels/decode_attention.py:244"),
         "flash_decode": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:35"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

@@ -55,6 +55,7 @@ using attn::to_f;
 constexpr int kThreads = 256;  // a 16 x 16 grid of threads
 constexpr int kTile = 64;      // query rows, and key rows, per tile
 constexpr int kMaxChunk = 256;
+constexpr int kMaxDevices = 64;  // devices whose attribute is tracked
 
 // Stage rows [0, kTile) of a (rows, W) tile into dst (row stride ld) as
 // fp32; src rows are `row` elements apart and 16-byte aligned; rows past
@@ -271,12 +272,18 @@ template <typename T, int P, int N>
 cudaError_t launch(const void* x, const void* a, const void* bm, const void* cm, void* y,
                    void* fs, int B, int S, int H, int chunk, cudaStream_t stream) {
   const size_t smem = smem_floats<P, N>() * sizeof(float);
-  static bool smem_set = false;  // once per instantiation, before any capture
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_kernel<T, P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the attribute is set per device: once per instantiation and device,
+  // before any capture
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(ssd_kernel<T, P, N>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    smem_set = true;
+    smem_set[dev] = true;
   }
   const dim3 grid(H, B, (chunk + kTile - 1) / kTile);
   ssd_kernel<T, P, N><<<grid, kThreads, smem, stream>>>(

@@ -1,4 +1,5 @@
-from repro_torch.engine.engine import EngineConfig, EngineExecutor, InferenceEngine
+from repro_torch.engine.engine import (EngineConfig, EngineExecutor,
+                                      InferenceEngine, make_tp_pods)
 from repro_torch.engine.sampler import SamplerConfig, sample
 
 __all__ = [
@@ -6,5 +7,6 @@ __all__ = [
     "EngineExecutor",
     "InferenceEngine",
     "SamplerConfig",
+    "make_tp_pods",
     "sample",
 ]

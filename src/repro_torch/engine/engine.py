@@ -29,8 +29,15 @@ Fast path, as in the reference:
 PyTorch runs eagerly, so a decode window is a Python loop of steps and the
 ``num_*_traces`` counters count distinct dispatch shapes first seen (the
 reference counts jit traces; both are bounded by the shape buckets).
-Chunked prefill, KV swap and the live-to-simulator calibration are later
-slices of the port.
+
+Tensor parallelism: ``InferenceEngine(..., mesh=...)`` (a ``("model",)``
+mesh, :mod:`repro_torch.launch.mesh`) holds one parameter shard and one
+slot cache per rank, each on its rank's device, and drives every rank from
+this one process (:mod:`repro_torch.models.transformer`); the slot
+bookkeeping, the sampler and ``last_token`` stay on rank 0, so the executor
+and the frontend see one engine.  :func:`make_tp_pods` builds data-parallel
+pods of such engines.  Chunked prefill, KV swap and the live-to-simulator
+calibration are later slices of the port.
 """
 from __future__ import annotations
 
@@ -47,6 +54,8 @@ from repro_torch.data.dataset import batch_bucket, n_shape_buckets, seq_bucket
 from repro_torch.data.tokenizer import EOS_ID, PAD_ID
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.engine.sampler import SamplerConfig, sample
+from repro_torch.launch import partition as P
+from repro_torch.launch.mesh import make_mesh, pod_meshes
 from repro_torch.models import transformer as T
 
 #: recurrent-state families prefill at exact length (pad positions would be
@@ -85,6 +94,12 @@ def _layer_leaves(cache) -> Dict[str, torch.Tensor]:
     return dict(cache["ssm"])
 
 
+def _ranks(cache) -> List[Dict]:
+    """The per-rank caches of a tensor-parallel cache (a list), or the one
+    cache of a single-device engine."""
+    return cache if isinstance(cache, list) else [cache]
+
+
 def _gather_slots(cache, idx: torch.Tensor):
     """Copy slot rows ``idx`` of the cache into a sub-cache."""
     sub = {k: v[:, idx] for k, v in _layer_leaves(cache).items()}
@@ -107,18 +122,31 @@ def _scatter_slots(big, small, slots: Sequence[int], n: int):
 
 class InferenceEngine:
     """One backend worker's execution engine (one model, N slots) on one
-    device: ``cuda`` unless the caller passes ``device="cpu"``."""
+    device: ``cuda`` unless the caller passes ``device="cpu"``.
+
+    With ``mesh`` (a single-axis ``("model",)`` mesh: one TP pod of the
+    dense family) ``params`` is the full tree, which the engine splits by
+    ``launch.partition.shard_params``; ``device`` is then rank 0's device.
+    Every rank runs the kernels of ``attn_impl``; a layout that does not
+    split into ranks of one GQA ratio (the ``layout:`` reason of
+    ``launch.partition.kernel_decode_support``) raises ``ValueError``
+    here."""
 
     def __init__(self, model_cfg, params, cfg: Optional[EngineConfig] = None,
-                 *, device="cuda", seed: int = 0):
+                 *, mesh=None, device="cuda", seed: int = 0):
         if cfg is None:
             cfg = EngineConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = P.tp_ranks(mesh)[0]
+            params = P.shard_params(params, model_cfg, mesh)
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.params = params
         self.cache = T.init_cache(model_cfg, cfg.max_slots, cfg.max_len,
-                                  self.device)
+                                  self.device, mesh=mesh)
         self.slot_job: List[Optional[int]] = [None] * cfg.max_slots
         self.slot_of: Dict[int, int] = {}
         self.last_token = np.full((cfg.max_slots, 1), PAD_ID, np.int32)
@@ -136,6 +164,14 @@ class InferenceEngine:
         #: tokens of context re-established by resume prefills, including
         #: the +1 seed token whose KV the first decode step writes
         self.resume_context_tokens = 0
+
+    # ------------------------------------------------------------------ #
+    def _set_lens(self, cache, lens: Sequence[int]) -> None:
+        """Set ``len`` of every rank's cache to ``lens``: the ranks' lengths
+        stay equal."""
+        for c in _ranks(cache):
+            c["len"] = torch.as_tensor(list(lens), dtype=torch.int32,
+                                       device=c["len"].device)
 
     # ------------------------------------------------------------------ #
     @property
@@ -159,8 +195,9 @@ class InferenceEngine:
                     for n in range(1, self.cfg.max_slots + 1)})
 
     def synchronize(self) -> None:
-        """Wait for this engine's queued device work."""
-        synchronize(self.device)
+        """Wait for this engine's queued device work, on every rank."""
+        for dev in dict.fromkeys(c["len"].device for c in _ranks(self.cache)):
+            synchronize(dev)
 
     # ------------------------------------------------------------------ #
     def free_slots(self) -> int:
@@ -220,22 +257,22 @@ class InferenceEngine:
             toks[i, : len(t)] = t
             last_index[i] = len(t) - 1
         cache_n = T.init_cache(self.model_cfg, bb, self.cfg.max_len,
-                               self.device)
+                               self.device, mesh=self.mesh)
         self._prefill_shapes.add((bb, sl))
         self.num_prefill_dispatches += 1
         logits, cache_n = T.prefill(
             self.params, self.model_cfg,
             {"tokens": torch.as_tensor(toks, device=self.device)}, cache_n,
             attn_impl=self.cfg.attn_impl,
-            last_index=torch.as_tensor(last_index, device=self.device))
+            last_index=torch.as_tensor(last_index, device=self.device),
+            mesh=self.mesh)
         # per-row true lengths (prefill stamps the padded length); rows past
         # a slot's len hold pad K/V that the kv_len mask hides
-        cache_n["len"] = torch.as_tensor(
-            true_lens + [0] * (bb - len(jobs)), dtype=torch.int32,
-            device=self.device)
+        self._set_lens(cache_n, true_lens + [0] * (bb - len(jobs)))
         slots = [s for s, owner in enumerate(self.slot_job)
                  if owner is None][: len(jobs)]
-        _scatter_slots(self.cache, cache_n, slots, len(jobs))
+        for big, small in zip(_ranks(self.cache), _ranks(cache_n)):
+            _scatter_slots(big, small, slots, len(jobs))
         first_tokens = torch.argmax(logits[:, -1], dim=-1).tolist()
         for i, (job, slot) in enumerate(zip(jobs, slots)):
             self.slot_job[slot] = job.job_id
@@ -269,7 +306,7 @@ class InferenceEngine:
         for _ in range(window):
             logits, cache = T.decode_step(self.params, mc, toks, cache,
                                           attn_impl=ec.attn_impl,
-                                          active=alive)
+                                          active=alive, mesh=self.mesh)
             nxt = sample(logits[:, -1, :], self._gen, ec.sampler,
                          active=alive, pad_token=PAD_ID)
             # EOS freezes the slot for the rest of the window: no KV write,
@@ -298,7 +335,7 @@ class InferenceEngine:
         """One masked/compacted decode dispatch for ``jobs`` (all holding
         prefilled slots); writes (tokens, finished) into ``results``."""
         slots = [self.slot_of[job.job_id] for job in jobs]
-        prev_lens = self.cache["len"].tolist()
+        prev_lens = _ranks(self.cache)[0]["len"].tolist()
         ms = self.cfg.max_slots
         order = sorted(slots)
         db = min(batch_bucket(len(order)), ms)
@@ -309,8 +346,10 @@ class InferenceEngine:
             # frozen no-ops and are never scattered back)
             gidx = np.asarray(order + [order[0]] * (db - len(order)),
                               np.int64)
-            sub_cache = _gather_slots(
-                self.cache, torch.as_tensor(gidx, device=self.device))
+            subs = [_gather_slots(c, torch.as_tensor(gidx,
+                                                     device=c["len"].device))
+                    for c in _ranks(self.cache)]
+            sub_cache = subs if self.mesh is not None else subs[0]
             sub_last = self.last_token[gidx]
             alive0 = np.zeros((db,), bool)
             alive0[: len(order)] = True
@@ -328,7 +367,8 @@ class InferenceEngine:
             torch.as_tensor(alive0, device=self.device), window)
         toks = toks.cpu().numpy()  # (rows, K)
         if compact:
-            _scatter_slots(self.cache, new_cache, order, len(order))
+            for big, small in zip(_ranks(self.cache), _ranks(new_cache)):
+                _scatter_slots(big, small, order, len(order))
         lens = list(prev_lens)
         for job in jobs:
             slot = self.slot_of[job.job_id]
@@ -364,8 +404,35 @@ class InferenceEngine:
             # the cache pointer advances exactly one position per consumed
             # write — robust to EOS freezing and to cap truncation
             lens[slot] = prev_lens[slot] + max(consumed_scanned, 0)
-        self.cache["len"] = torch.as_tensor(lens, dtype=torch.int32,
-                                            device=self.device)
+        self._set_lens(self.cache, lens)
+
+
+def make_tp_pods(model_cfg, params, cfg: Optional[EngineConfig] = None, *,
+                 n_pods: int = 1, tp: int = 1, devices=None
+                 ) -> Dict[int, InferenceEngine]:
+    """``n_pods`` data-parallel serving pods, each a ``tp``-way
+    tensor-parallel :class:`InferenceEngine` on its own ``("model",)``
+    mesh: the pods are the rows of a ``(n_pods, tp)`` ``("data", "model")``
+    mesh over ``devices`` (default: every visible CUDA device once; a
+    device may be listed more than once), so pod n takes
+    ``devices[n * tp:(n + 1) * tp]``.  Each pod registers as one node with
+    the frontend, and nothing crosses pods.  ``tp=1`` pods are plain
+    single-device engines, with ``params`` copied to their device.  Raises
+    ``RuntimeError`` when there are too few devices."""
+    pods = pod_meshes(make_mesh((n_pods, tp), ("data", "model"),
+                                devices=devices))
+    if tp <= 1:
+        return {n: InferenceEngine(model_cfg, _to_device(params, pod.ranks[0]),
+                                   cfg, device=pod.ranks[0])
+                for n, pod in enumerate(pods)}
+    return {n: InferenceEngine(model_cfg, params, cfg, mesh=pod)
+            for n, pod in enumerate(pods)}
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(resolve_device(device))
 
 
 # --------------------------------------------------------------------------- #

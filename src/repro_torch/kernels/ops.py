@@ -2,15 +2,15 @@
 
 A wrapper given CPU tensors runs the kernel's plain PyTorch version
 (:mod:`repro_torch.kernels.ref`).  Given CUDA tensors it checks them,
-launches the kernel on the current stream and adds one to its ``launches``
-count, or raises: there is no fallback from the kernel to the plain
-version.  The kernels are built from ``repro_torch/csrc`` at first use
-(:mod:`repro_torch.kernels.build`).
+launches the kernel on the tensors' device and that device's current
+stream, and adds one to its ``launches`` count, or raises: there is no
+fallback from the kernel to the plain version.  The kernels are built from
+``repro_torch/csrc`` at first use (:mod:`repro_torch.kernels.build`).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -57,8 +57,12 @@ def _slot_vector(x, b: int, device: torch.device) -> torch.Tensor:
     return torch.full((b,), int(x), dtype=torch.int32, device=device)
 
 
-def _launch(name: str, fn, *args) -> None:
-    err = fn(*args)
+def _launch(name: str, device: torch.device, fn, *args) -> None:
+    """Call the launch function ``fn`` with ``device`` current: the CUDA
+    runtime launches on the current device, which must be the one that
+    holds the tensors and the stream."""
+    with torch.cuda.device(device):
+        err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
 
@@ -79,7 +83,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    _launch("flash_attention", build.load("flash_attention"),
+    _launch("flash_attention", q.device, build.load("flash_attention"),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, sq, skv, h, kh, d, DTYPE_CODES[q.dtype], int(q_offset),
             int(window or 0), 1.0 / math.sqrt(d), _stream(q.device))
@@ -90,15 +94,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
-def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 kv_len, q_offset,
-                 window: Optional[int] = None) -> torch.Tensor:
-    """One-token attention over the slot cache: q (B,1,H,D), k/v
-    (B,L,KH,D); ``kv_len`` and ``q_offset`` are per-slot (B,) int32 vectors
-    (or ints) that the kernel reads on the device.  Returns (B,1,H,D)."""
-    if q.device.type == "cpu":
-        return ref.flash_decode(q, k, v, kv_len=kv_len, q_offset=q_offset,
-                                window=window)
+def _decode_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   kv_len, q_offset, window: Optional[int]) -> torch.Tensor:
+    """Check the CUDA tensors and launch the decode kernel (uncounted)."""
     _check("flash_decode", q, k, v)
     b, sq, h, d = q.shape
     L, kh = k.shape[1], k.shape[2]
@@ -110,16 +108,74 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_len, q_offset = (_slot_vector(x, b, q.device)
                         for x in (kv_len, q_offset))
     out = torch.empty_like(q)
-    _launch("flash_decode", build.load("decode_attention"),
+    _launch("flash_decode", q.device, build.load("decode_attention"),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
             q_offset.data_ptr(), out.data_ptr(), b, L, h, kh, d,
             DTYPE_CODES[q.dtype], int(window or 0), 1.0 / math.sqrt(d),
             _stream(q.device))
+    return out
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 kv_len, q_offset,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """One-token attention over the slot cache: q (B,1,H,D), k/v
+    (B,L,KH,D); ``kv_len`` and ``q_offset`` are per-slot (B,) int32 vectors
+    (or ints) that the kernel reads on the device.  Returns (B,1,H,D)."""
+    if q.device.type == "cpu":
+        return ref.flash_decode(q, k, v, kv_len=kv_len, q_offset=q_offset,
+                                window=window)
+    out = _decode_launch(q, k, v, kv_len, q_offset, window)
     flash_decode.launches += 1
     return out
 
 
 flash_decode.launches = 0
+
+
+def flash_decode_sharded(qs: Sequence[torch.Tensor],
+                         ks: Sequence[torch.Tensor],
+                         vs: Sequence[torch.Tensor], *, kv_len, q_offset,
+                         window: Optional[int] = None) -> List[torch.Tensor]:
+    """:func:`flash_decode` under tensor parallelism: ``qs[r]`` (B,1,H/tp,D)
+    and ``ks[r]``/``vs[r]`` (B,L,KHr,D) are rank r's contiguous ranges of
+    whole query heads and of the KV heads they read, on rank r's device
+    (ranks may share one); ``kv_len`` and ``q_offset`` are the per-slot
+    vectors (or ints) every rank shares.
+
+    The decode kernel runs once per shard on that shard's device, over its
+    local heads only, and each launch adds one to this wrapper's count
+    (not to :func:`flash_decode`'s).  The kernel's blocks, one per (slot,
+    KV head), are independent, and each warp computes one query head
+    whatever the group size, so no collective runs and the shards'
+    outputs, side by side, are bit for bit the single-device kernel's.
+    Returns the per-rank outputs (B,1,H/tp,D).  Raises ``ValueError`` when
+    the shards are not equal numbers of whole heads."""
+    tp = len(qs)
+    if tp == 0 or len(ks) != tp or len(vs) != tp:
+        raise ValueError(f"flash_decode_sharded: want one q, k and v per "
+                         f"rank, got {len(qs)}, {len(ks)}, {len(vs)}")
+    hs = {q.shape[2] for q in qs}
+    khs = {k.shape[2] for k in ks}
+    if len(hs) != 1 or len(khs) != 1:
+        raise ValueError(
+            f"flash_decode_sharded: heads ({sorted(hs)} q / {sorted(khs)} kv "
+            f"per rank) must divide the {tp} ranks into equal shards of "
+            "whole heads")
+    if all(q.device.type == "cpu" for q in qs):
+        return ref.flash_decode_sharded(qs, ks, vs, kv_len=kv_len,
+                                        q_offset=q_offset, window=window)
+    outs = []
+    for q, k, v in zip(qs, ks, vs):
+        if q.device.type != "cuda":
+            raise ValueError("flash_decode_sharded: shards must all lie on "
+                             f"cuda or all on cpu, got {q.device}")
+        outs.append(_decode_launch(q, k, v, kv_len, q_offset, window))
+        flash_decode_sharded.launches += 1
+    return outs
+
+
+flash_decode_sharded.launches = 0
 
 #: (head dim P, state dim N) pairs the SSD-scan kernel is built for
 SSD_SHAPES = ((32, 16), (32, 128), (64, 16), (64, 128))
@@ -168,7 +224,7 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
                          "boundary (the kernel reads them in 16-byte vectors)")
     y = torch.empty_like(x)
     final = torch.empty((b, h, p, n), dtype=x.dtype, device=x.device)
-    _launch("ssd_scan", build.load("ssd_scan"),
+    _launch("ssd_scan", x.device, build.load("ssd_scan"),
             x.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             y.data_ptr(), final.data_ptr(), b, s, h, p, n, int(chunk),
             DTYPE_CODES[x.dtype], _stream(x.device))
@@ -180,7 +236,7 @@ ssd_scan.launches = 0
 
 #: every kernel wrapper of the served paths, by name
 KERNELS = {"flash_attention": flash_attention, "flash_decode": flash_decode,
-           "ssd_scan": ssd_scan}
+           "flash_decode_sharded": flash_decode_sharded, "ssd_scan": ssd_scan}
 
 
 def reset_launches() -> None:

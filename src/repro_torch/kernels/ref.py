@@ -79,6 +79,15 @@ def flash_decode(q, k, v, *, kv_len, q_offset,
                                q_offset=q_offset, kv_len=kv_len)
 
 
+def flash_decode_sharded(qs, ks, vs, *, kv_len, q_offset,
+                         window: Optional[int] = None):
+    """Plain version of the sharded decode: :func:`flash_decode` on each
+    rank's shard of whole heads (q (B,1,H/tp,D), k/v (B,L,KHr,D));
+    returns the per-rank outputs."""
+    return [flash_decode(q, k, v, kv_len=kv_len, q_offset=q_offset,
+                         window=window) for q, k, v in zip(qs, ks, vs)]
+
+
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, *, chunk: int):
     """Plain version of the SSD-scan kernel: x (B,S,H,P) already multiplied

@@ -9,13 +9,15 @@ hand-written kernels (``attn_impl="kernel"``, through
 
 Unlike the reference, KV caches are updated in place: a decode step writes
 its row into the cache buffers it was given, which saves a copy of the
-whole cache per layer and step.
+whole cache per layer and step.  The decode step takes the ranks of a
+tensor-parallel layer together (:func:`attention_decode`), one rank on a
+single device.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -157,30 +159,9 @@ def init_attention(gen: torch.Generator, cfg, n_layers: int,
     return p
 
 
-def attention_block(
-    p: Params,
-    cfg,
-    x: torch.Tensor,
-    cos_sin,
-    *,
-    cache: Optional[KVCache] = None,
-    cur_index: Optional[torch.Tensor] = None,
-    attn_impl: str = "kernel",
-    active: Optional[torch.Tensor] = None,
-):
-    """proj -> rope -> (cache update) -> attention -> out proj.
-
-    Prefill: ``cache is None`` -> full-sequence causal attention, returns
-    (out, (k, v)) for cache seeding.
-    Decode: ``cache`` is a :class:`KVCache` with buffers (B, L, KH, D),
-    ``cur_index`` the per-slot token count (B,) and x is (B, 1, d_model).
-    The new K/V row is written into ``cache`` in place; rows with
-    ``active=False`` are left bit-identical.  Returns (out, cache).
-    Chunked prefill, ring and int8 caches are later slices of the port.
-    """
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
-                         f"got {attn_impl!r}")
+def project_qkv(p: Params, cfg, x: torch.Tensor, cos_sin):
+    """proj -> rope: x (B, S, d_model) -> q (B, S, H, D), k and v
+    (B, S, KH, D)."""
     b, s, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["wq"]
@@ -197,32 +178,73 @@ def attention_block(
         cos, sin = cos_sin
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
+    return q, k, v
 
+
+def attention_block(p: Params, cfg, x: torch.Tensor, cos_sin, *,
+                    attn_impl: str = "kernel"):
+    """Prefill attention: proj -> rope -> full-sequence causal attention ->
+    out proj.  Returns (out, (k, v)) for cache seeding.  The one-token
+    decode step is :func:`attention_decode`; chunked prefill, ring and
+    int8 caches are later slices of the port."""
+    _check_impl(attn_impl)
+    b, s, _ = x.shape
+    q, k, v = project_qkv(p, cfg, x, cos_sin)
     window = cfg.swa_window if cfg.attention_type == "swa" else None
-
-    if cache is None:
-        if attn_impl == "kernel":
-            out = ops.flash_attention(q, k, v, window=window)
-        else:
-            out = sdpa(q, k, v, causal=True, window=window)
-        new_kv = (k, v)
+    if attn_impl == "kernel":
+        out = ops.flash_attention(q, k, v, window=window)
     else:
-        if s != 1:
-            raise NotImplementedError(
-                "only one-token decode over the KV cache is ported; "
-                "chunked prefill is a later slice")
-        cur = cur_index
-        masked_row_write(cache.k, cur, k[:, 0], active)
-        masked_row_write(cache.v, cur, v[:, 0], active)
-        if attn_impl == "kernel":
-            out = ops.flash_decode(q, cache.k, cache.v, kv_len=cur + 1,
-                                   q_offset=cur, window=window)
-        else:
-            out = sdpa(q, cache.k, cache.v, causal=True, q_offset=cur,
-                       kv_len=cur + 1, window=window)
-        new_kv = cache
-    out = out.reshape(b, s, h * hd)
-    return out @ p["wo"], new_kv
+        out = sdpa(q, k, v, causal=True, window=window)
+    return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"], (k, v)
+
+
+def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
+                     cos_sins, caches: Sequence[KVCache],
+                     curs: Sequence[torch.Tensor], *,
+                     attn_impl: str = "kernel",
+                     actives: Optional[Sequence] = None) -> List[torch.Tensor]:
+    """One-token decode attention of every tensor-parallel rank of a layer
+    (a single device is one rank): for rank r, proj -> rope -> write the
+    new K/V row into ``caches[r]`` (buffers (B, L, KHr, D)) in place at the
+    per-slot position ``curs[r]`` (B,) -> attention over the cache -> out
+    proj, with ``cfg`` the rank's config; x is (B, 1, d_model).  Rows whose
+    ``actives[r]`` entry is False write nothing, so their cache stays bit
+    for bit.  The kernel path reads all ranks with one
+    ``ops.flash_decode_sharded`` call (one rank: ``ops.flash_decode``).
+    Returns each rank's (B, 1, d_model) output (a partial sum when there
+    are several ranks)."""
+    _check_impl(attn_impl)
+    if xs[0].shape[1] != 1:
+        raise NotImplementedError("only one-token decode over the KV cache "
+                                  "is ported; chunked prefill is a later "
+                                  "slice")
+    actives = actives or [None] * len(ps)
+    qs = []
+    for p, x, cs, c, cur, act in zip(ps, xs, cos_sins, caches, curs, actives):
+        q, k, v = project_qkv(p, cfg, x, cs)
+        masked_row_write(c.k, cur, k[:, 0], act)
+        masked_row_write(c.v, cur, v[:, 0], act)
+        qs.append(q)
+    ks, vs = [c.k for c in caches], [c.v for c in caches]
+    window = cfg.swa_window if cfg.attention_type == "swa" else None
+    if attn_impl == "torch":
+        outs = [sdpa(q, k, v, causal=True, q_offset=cur, kv_len=cur + 1,
+                     window=window) for q, k, v, cur in zip(qs, ks, vs, curs)]
+    elif len(qs) == 1:
+        outs = [ops.flash_decode(qs[0], ks[0], vs[0], kv_len=curs[0] + 1,
+                                 q_offset=curs[0], window=window)]
+    else:
+        outs = ops.flash_decode_sharded(qs, ks, vs, kv_len=curs[0] + 1,
+                                        q_offset=curs[0], window=window)
+    b = xs[0].shape[0]
+    return [o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+            for o, p in zip(outs, ps)]
+
+
+def _check_impl(attn_impl: str) -> None:
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
+                         f"got {attn_impl!r}")
 
 
 # --------------------------------------------------------------------------- #

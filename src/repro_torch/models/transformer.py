@@ -16,6 +16,22 @@ Public API:
 
 ``prefill`` and ``decode_step`` update the cache they are given in place and
 return it (the reference returns a new pytree).
+
+Tensor parallelism (``mesh=``, a ``("model",)`` mesh of
+:mod:`repro_torch.launch.mesh`; dense family): ``params`` is then the list
+of per-rank trees from ``launch.partition.shard_params`` and ``cache`` the
+list of per-rank caches from ``init_cache(..., mesh=mesh)``.  The dense
+forward is one body over a list of ranks, a single device being one rank.
+One process drives every rank, layer by layer, each rank with its share
+of the heads and of the FFN (``launch.partition.local_config``); the
+row-parallel partials (after ``wo``, after ``w_down``, the vocab-parallel
+embedding) are summed in rank order on rank 0's device and copied back to
+every rank, and the vocab-parallel logits are concatenated there, so two
+runs agree bit for bit.  The decode read of all ranks is one
+``ops.flash_decode_sharded`` call.  Prefill launches ``flash_attention``
+on each rank's local heads: the reference downgrades prefill under a mesh
+to XLA only because its Pallas prefill kernel has no ``shard_map``
+wrapper, and computes the same function either way.
 """
 from __future__ import annotations
 
@@ -23,6 +39,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch.launch import partition as P
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
@@ -107,16 +124,6 @@ def embed_tokens(params: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long().clamp(0, cfg.vocab_size - 1)]
 
 
-def embed_inputs(params: Params, cfg, batch: Dict):
-    """Returns (hidden (B,S,d), positions (B,S))."""
-    h = embed_tokens(params, cfg, batch["tokens"])
-    b, s = h.shape[:2]
-    pos = batch.get("positions")
-    if pos is None:
-        pos = torch.arange(s, device=h.device)[None, :].expand(b, s)
-    return h, pos
-
-
 def unembed(params: Params, cfg, h: torch.Tensor) -> torch.Tensor:
     h = L.apply_norm(cfg, params["final_norm"], h)
     if cfg.tie_embeddings:
@@ -127,17 +134,6 @@ def unembed(params: Params, cfg, h: torch.Tensor) -> torch.Tensor:
 # =========================================================================== #
 # Layer bodies
 # =========================================================================== #
-
-
-def _dense_body(cfg, attn_impl, lp: Params, x, cos_sin, cache=None,
-                cur_index=None, active=None):
-    h = L.apply_norm(cfg, lp["attn_norm"], x)
-    attn_out, kv = L.attention_block(
-        lp["attn"], cfg, h, cos_sin, cache=cache, cur_index=cur_index,
-        attn_impl=attn_impl, active=active)
-    x = x + attn_out
-    h = L.apply_norm(cfg, lp["mlp_norm"], x)
-    return x + L.mlp_block(lp["mlp"], cfg, h), kv
 
 
 def _ssm_body(cfg, impl, lp: Params, x, state=None, active=None):
@@ -163,11 +159,18 @@ def _ssm_body(cfg, impl, lp: Params, x, state=None, active=None):
 # =========================================================================== #
 
 
-def init_cache(cfg, batch: int, max_len: int, device, dtype=None) -> Cache:
+def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
+               mesh=None):
     """Slot cache: per-slot lengths ``len`` (B,) int32, and for the dense
     family K/V buffers (n_layers, B, max_len, KH, D), for the SSM family
     the recurrent states ``{"conv": (n_layers, B, CH, d_conv - 1), "ssm":
-    (n_layers, B, H, P, N)}``."""
+    (n_layers, B, H, P, N)}``.  With ``mesh``: one cache per rank on the
+    rank's device, with the KV heads the rank's query heads read
+    (``launch.partition.kv_head_range``), each with its own ``len``."""
+    if mesh is not None:
+        ranks = P.tp_ranks(mesh)
+        lcfg = P.local_config(cfg, len(ranks))
+        return [init_cache(lcfg, batch, max_len, d, dtype) for d in ranks]
     _check_family(cfg)
     dtype = dtype or _dtype(cfg)
     cache: Cache = {"len": torch.zeros((batch,), dtype=torch.int32,
@@ -193,38 +196,50 @@ def init_cache(cfg, batch: int, max_len: int, device, dtype=None) -> Cache:
 
 def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
             attn_impl: str = "kernel",
-            last_index: Optional[torch.Tensor] = None):
+            last_index: Optional[torch.Tensor] = None, mesh=None):
     """Process the full (right-padded) prompt batch, set ``len`` to S, and
     return the logits (B, 1, V) at ``last_index`` (B,) — each row's true
     last position — or at the last position.  The dense family writes its
     K/V into rows ``[0, S)`` of every slot of ``cache``, the SSM family its
     decode states, in place.  ``attn_impl`` picks the kernels ("kernel") or
-    the plain path ("torch") for attention and for the SSD scan alike."""
-    _check_family(cfg)
-    h, pos = embed_inputs(params, cfg, batch)
-    s = h.shape[1]
-    layers = _unstack(params["layers"], cfg.n_layers)
+    the plain path ("torch") for attention and for the SSD scan alike.
+    With ``mesh``, see the module docstring; the logits lie on rank 0's
+    device."""
+    shards, caches, ranks, lcfg = _ranks(params, cfg, cache, mesh)
+    hs = _embed(shards, cfg, batch["tokens"], ranks)
+    b, s = hs[0].shape[:2]
+    layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
     if cfg.family == "ssm":
-        states = cache["ssm"]
-        for i, lp in enumerate(layers):
+        h, states = hs[0], caches[0]["ssm"]
+        for i, lp in enumerate(layers[0]):
             h, st = _ssm_body(cfg, attn_impl, lp, h)
             for k, v in st.items():
                 states[k][i] = v
+        hs = [h]
     else:
-        cos_sin = L.positional_cos_sin(cfg, pos)
-        kvc = cache["kv"]
-        for i, lp in enumerate(layers):
-            h, (k, v) = _dense_body(cfg, attn_impl, lp, h, cos_sin)
-            kvc.k[i, :, :s] = k
-            kvc.v[i, :, :s] = v
-    cache["len"] = torch.full((h.shape[0],), s, dtype=torch.int32,
-                              device=h.device)
+        pos = batch.get("positions")
+        if pos is None:
+            pos = torch.arange(s, device=ranks[0])[None, :].expand(b, s)
+        cos_sins = [L.positional_cos_sin(cfg, pos.to(d)) for d in ranks]
+        for i in range(cfg.n_layers):
+            lps = [per[i] for per in layers]
+            parts = []
+            for lp, h, cs, c in zip(lps, hs, cos_sins, caches):
+                out, (k, v) = L.attention_block(
+                    lp["attn"], lcfg, L.apply_norm(cfg, lp["attn_norm"], h),
+                    cs, attn_impl=attn_impl)
+                c["kv"].k[i, :, :s] = k
+                c["kv"].v[i, :, :s] = v
+                parts.append(out)
+            hs = _mlp(cfg, lcfg, lps, _add_sum(hs, parts))
+    for c, d in zip(caches, ranks):
+        c["len"] = torch.full((b,), s, dtype=torch.int32, device=d)
     if last_index is not None:
-        rows = torch.arange(h.shape[0], device=h.device)
-        hsel = h[rows, last_index.long()][:, None, :]
+        hs = [h[torch.arange(b, device=h.device),
+                last_index.to(h.device).long()][:, None, :] for h in hs]
     else:
-        hsel = h[:, -1:, :]
-    return unembed(params, cfg, hsel), cache
+        hs = [h[:, -1:, :] for h in hs]
+    return _unembed(shards, cfg, hs), cache
 
 
 # =========================================================================== #
@@ -234,34 +249,104 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
 
 def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
                 attn_impl: str = "kernel",
-                active: Optional[torch.Tensor] = None):
+                active: Optional[torch.Tensor] = None, mesh=None):
     """One-token step: tokens (B, 1) -> (logits (B, 1, V), cache).
 
     ``active`` (B,) bool: inactive rows (unoccupied or EOS-frozen slots) are
     computed but write no K/V (dense) or state (SSM) and keep their ``len``,
     so their cache stays bit-identical.  The SSM step is plain PyTorch
-    whatever ``attn_impl`` is, as in the reference."""
-    _check_family(cfg)
-    cur = cache["len"]
-    h = embed_tokens(params, cfg, tokens)
-    layers = _unstack(params["layers"], cfg.n_layers)
+    whatever ``attn_impl`` is, as in the reference.  With ``mesh``, see
+    the module docstring; the logits lie on rank 0's device."""
+    shards, caches, ranks, lcfg = _ranks(params, cfg, cache, mesh)
+    curs = [c["len"] for c in caches]
+    acts = [None if active is None else active.to(d) for d in ranks]
+    hs = _embed(shards, cfg, tokens, ranks)
+    layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
     if cfg.family == "ssm":
-        states = cache["ssm"]
-        for i, lp in enumerate(layers):
+        h, states = hs[0], caches[0]["ssm"]
+        for i, lp in enumerate(layers[0]):
             h, st = _ssm_body(cfg, attn_impl, lp, h,
                               state={k: v[i] for k, v in states.items()},
                               active=active)
             for k, v in st.items():
                 states[k][i] = v
+        hs = [h]
     else:
-        cos_sin = L.positional_cos_sin(cfg, cur[:, None])
-        kvc = cache["kv"]
-        for i, lp in enumerate(layers):
-            h, _ = _dense_body(cfg, attn_impl, lp, h, cos_sin,
-                               cache=KVCache(kvc.k[i], kvc.v[i]),
-                               cur_index=cur, active=active)
-    if active is not None:
-        cache["len"] = torch.where(active, cur + 1, cur)
-    else:
-        cache["len"] = cur + 1
-    return unembed(params, cfg, h), cache
+        cos_sins = [L.positional_cos_sin(cfg, cur[:, None]) for cur in curs]
+        for i in range(cfg.n_layers):
+            lps = [per[i] for per in layers]
+            parts = L.attention_decode(
+                [lp["attn"] for lp in lps], lcfg,
+                [L.apply_norm(cfg, lp["attn_norm"], h)
+                 for lp, h in zip(lps, hs)], cos_sins,
+                [KVCache(c["kv"].k[i], c["kv"].v[i]) for c in caches], curs,
+                attn_impl=attn_impl, actives=acts)
+            hs = _mlp(cfg, lcfg, lps, _add_sum(hs, parts))
+    for c, cur, act in zip(caches, curs, acts):
+        c["len"] = cur + 1 if act is None else torch.where(act, cur + 1, cur)
+    return _unembed(shards, cfg, hs), cache
+
+
+# =========================================================================== #
+# Ranks (a single device is one rank)
+# =========================================================================== #
+
+
+def _ranks(params, cfg, cache, mesh):
+    """(per-rank params, per-rank caches, rank devices, rank config): one
+    rank on the params' device without ``mesh``."""
+    _check_family(cfg)
+    if mesh is None:
+        return [params], [cache], [params["embed"].device], cfg
+    ranks = P.tp_ranks(mesh)
+    return params, cache, ranks, P.local_config(cfg, len(ranks))
+
+
+def _all_reduce(parts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Sum the ranks' partials in rank order on rank 0's device; returns a
+    copy of the sum on every rank's device (ranks on one device share it),
+    so the sum is the same on every rank and in every run."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(total.device)
+    return [total.to(p.device) for p in parts]
+
+
+def _add_sum(hs: List[torch.Tensor], parts: List[torch.Tensor]):
+    """The residual stream plus the sum of the ranks' partials."""
+    if len(parts) == 1:
+        return [hs[0] + parts[0]]
+    return [h + s for h, s in zip(hs, _all_reduce(parts))]
+
+
+def _embed(shards: List[Params], cfg, tokens: torch.Tensor, ranks):
+    """The embedded tokens on every rank, ids clamped to [0, vocab - 1] as
+    :func:`embed_tokens` does.  Over several ranks the lookup is
+    vocab-parallel: each rank looks up the ids in its vocab range (zeros
+    elsewhere), and the ranks sum."""
+    if len(shards) == 1:
+        return [embed_tokens(shards[0], cfg, tokens.to(ranks[0]))]
+    vl = cfg.vocab_size // len(shards)
+    parts = []
+    for r, (p, d) in enumerate(zip(shards, ranks)):
+        ids = tokens.to(d).long().clamp(0, cfg.vocab_size - 1) - r * vl
+        own = (ids >= 0) & (ids < vl)
+        e = p["embed"][ids.clamp(0, vl - 1)]
+        parts.append(torch.where(own[..., None], e, torch.zeros_like(e)))
+    return _all_reduce(parts)
+
+
+def _unembed(shards: List[Params], cfg, hs: List[torch.Tensor]):
+    """Final norm and logits; over several ranks each rank's vocab range,
+    concatenated in rank order on rank 0's device."""
+    outs = [unembed(p, cfg, h) for p, h in zip(shards, hs)]
+    if len(outs) == 1:
+        return outs[0]
+    return torch.cat([o.to(outs[0].device) for o in outs], dim=-1)
+
+
+def _mlp(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor]):
+    """The residual stream after each rank's (column/row-parallel) MLP."""
+    return _add_sum(hs, [
+        L.mlp_block(lp["mlp"], lcfg, L.apply_norm(cfg, lp["mlp_norm"], h))
+        for lp, h in zip(lps, hs)])
