@@ -11,7 +11,9 @@ Phases (any failure raises and exits non-zero):
      ``scaled_dot_product_attention`` as the attention kernels' yardstick)
      and the bound; the sharded decode (``flash_decode_sharded``) at the
      shard shapes of a TP=2 and a TP=4 pod, also bit for bit against the
-     single-device kernel;
+     single-device kernel; the int8 decode (``flash_decode_int8``) at the
+     served shape, at other head dims, group sizes and windows, and at one
+     layer of the decode_32k cache (B=128, L=32768);
   4. the served paths at full width: ``ElisServer`` -> ISRTF with the
      oracle predictor -> ``EngineExecutor`` ->
      ``InferenceEngine(attn_impl="kernel")`` serving a dozen requests to
@@ -20,7 +22,12 @@ Phases (any failure raises and exits non-zero):
      two cards when there are two, else both ranks on ``cuda:0``), bf16,
      random weights from a seed; each path's kernel launch counts are set
      to 0 just before it and read just after; one decode window of each is
-     then profiled (device busy share, kernels);
+     then profiled (device busy share, kernels); then the step entry points
+     (``launch.steps``) of qwen2-1.5b over ``launch.shapes.input_specs``
+     int8 caches: prefill and 32 serve steps over a 4 x 512 cache (launch
+     counts reset before and read after), one step over the long_500k ring
+     (no kernel), and last, after every earlier tensor is freed, 6 steps at
+     decode_32k (B=128 over 32768 rows: a 61 GB int8 cache);
   5. kernel path against plain path, per model: identical greedy tokens at
      full width with 2 layers in fp32 through evictions and recompute
      resumes, and agreeing first prefill logits at full width and depth in
@@ -28,7 +35,9 @@ Phases (any failure raises and exits non-zero):
      single-device kernel engine and the plain engine, and a TP=4 kernel
      engine (each rank holding the one KV head it reads) against the
      single-device kernel engine (fp32 tokens), and the TP=2 kernel model
-     against the single-device kernel model (bf16 logits).
+     against the single-device kernel model (bf16 logits); for the int8
+     step path, identical fp32 greedy tokens and agreeing bf16 decode
+     logits.
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -37,8 +46,10 @@ Needs one CUDA card; imports neither JAX nor the JAX package.
 
 checks the checks instead: it builds the kernels from a copy of ``csrc``
 with one deliberate fault (``PLANTED_FAULTS``) in a temporary directory,
-runs phase 3's comparisons and phase 5's comparisons against it, and
-prints how many of them caught the fault; ``drop_rank_partial`` instead
+runs phase 3's comparisons and phase 5's comparisons (the int8 ones too)
+against it, and prints how many of them caught the fault
+(``drop_v_scale``: the int8 decode ignores V's scales);
+``drop_rank_partial`` instead
 drops one rank's attention output from the TP model's sums, in memory,
 and runs phase 5's TP comparisons.
 
@@ -52,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -109,10 +121,21 @@ SSM_LOGIT_TOL_BF16 = 0.02
 #: (one rank's attention output left out of every layer's sum) gave 4.98;
 #: the limit lies between them.  fp32 greedy identity caught that fault too.
 TP_LOGIT_TOL_BF16 = 0.1
+#: bf16 logits of the first decode step after prefill over an int8 cache
+#: (full width and depth): the kernel path (dequantize in fp32) against the
+#: plain path (dequantize to bf16, then sdpa, as the reference reads it).
+#: On an H100 the correct kernel gave 0.047 (|logit| <= 4.1), and the
+#: planted ``drop_v_scale`` 1.38; the limit lies between them.
+INT8_LOGIT_TOL_BF16 = 0.1
 #: ranks of the tensor-parallel cell
 TP = 2
 #: one-line faults for ``--planted-fault``: (source, regex, replacement)
 PLANTED_FAULTS = {
+    # the int8 decode ignores V's scales (V read as its raw codes)
+    "drop_v_scale": [
+        ("decode_attention.cu",
+         r"(vs\[j \* D \+ c \+ e\] = static_cast<float>\(ve\[e\]\)) "
+         r"\* sv\[u\];", r"\1;")],
     # skip the oldest 32-key tile of every row that sees more than 32 keys
     "drop_first_tile": [
         (src, r"for \(int t0 = lo; t0 < hi; t0 \+= kTile\)",
@@ -305,7 +328,7 @@ def check_kernels(timed: bool = True):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {"flash_decode": [], "flash_attention": [], "ssd_scan": [],
-            "flash_decode_sharded": []}
+            "flash_decode_sharded": [], "flash_decode_int8": []}
     failures = []
 
     def record(name, row, run, plain, lib, iters, timed_fns=None,
@@ -324,7 +347,8 @@ def check_kernels(timed: bool = True):
         if timed:
             row.update(ms=cuda_ms(t_run, iters),
                        eager_ms=eager_ms(t_run, iters),
-                       plain_ms=cuda_ms(t_plain, max(iters // 10, 5)),
+                       plain_ms=None if t_plain is None
+                       else cuda_ms(t_plain, max(iters // 10, 5)),
                        library_ms=None if lib is None else cuda_ms(lib, iters))
         rows[name].append(row)
         if not row["tol_share"] <= 1.0:
@@ -360,6 +384,7 @@ def check_kernels(timed: bool = True):
                 if B == 4 and window is None:
                     check_sharded(record, q, k, v, kv_len, q_off, n_keys,
                                   dn, es)
+        check_int8(record, gen, dtype)
         for B in (1, 4):
             for S in (16, 128, 512):
                 for window in (None, 64):
@@ -409,6 +434,10 @@ def check_kernels(timed: bool = True):
             elif name == "flash_decode":
                 shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
                          f"window={r['window']}")
+            elif name == "flash_decode_int8":
+                shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
+                         f"{r['heads']} heads D={r['D']} "
+                         f"window={r['window']}{r['note']}")
             elif name == "flash_attention":
                 shape = f"B={r['B']} S={r['S']} window={r['window']}"
             else:
@@ -421,12 +450,15 @@ def check_kernels(timed: bool = True):
                     f"{' x max|plain|' if name == 'ssd_scan' else ''} + rtol "
                     f"{rtol:g})")
             if timed:
-                lib = ("no single PyTorch call" if r["library_ms"] is None
-                       else f"sdpa {r['library_ms']:.4f} ms")
+                lib = (r.get("no_library", "no single PyTorch call")
+                       if r["library_ms"] is None
+                       else f"{r.get('library', 'sdpa')} "
+                            f"{r['library_ms']:.4f} ms")
+                plain = ("" if r["plain_ms"] is None
+                         else f"plain {r['plain_ms']:.4f} ms, ")
                 line += (f"; kernel {r['ms']:.4f} ms (eager "
-                         f"{r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} "
-                         f"ms, {lib}, bound {r['bound_ms']:.5f} ms "
-                         f"({r['bound_by']})")
+                         f"{r['eager_ms']:.4f}), {plain}{lib}, bound "
+                         f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
             log(line)
     return rows, failures
 
@@ -479,6 +511,121 @@ def check_sharded(record, q, k, v, kv_len, q_off, n_keys, dn, es):
                 lambda: ref.flash_decode_sharded(
                     qs, ks, vs, kv_len=kv_len, q_offset=q_off)),
             exact=True)
+
+
+#: int8 decode cases of phase 3: (B, L, heads, KV heads, head dim, kv_len
+#: per slot, window); the first is the served shape; kv_len 0 and L + 1 (a
+#: step at len == L) are among them
+INT8_CASES = [
+    (4, MAX_LEN, HEADS, KV_HEADS, HEAD_DIM, [1, 200, 377, MAX_LEN], None),
+    (4, MAX_LEN, HEADS, KV_HEADS, HEAD_DIM, [1, 200, 377, MAX_LEN], 64),
+    (4, MAX_LEN, 4, 4, 32, [0, 17, 300, MAX_LEN + 1], None),
+    (4, MAX_LEN, 16, 1, 64, [5, 129, MAX_LEN + 1, MAX_LEN], 100),
+]
+#: slots of the decode_32k layer compared with (and timed against) the
+#: plain version: a full layer's K and V dequantized would take 8.6 GB
+#: in fp32
+SUB_BATCH = 8
+
+
+def int8_kv(B: int, L: int, kh: int, d: int, gen):
+    """Random int8 K/V codes (B, L, KH, D) in [-127, 127] and positive fp32
+    scales (B, L), filled in place on the card."""
+    import torch
+    k, v = (torch.empty((B, L, kh, d), dtype=torch.int8, device="cuda")
+            .random_(-127, 128, generator=gen) for _ in range(2))
+    ks, vs = (torch.empty((B, L), device="cuda").uniform_(
+        0.005, 0.025, generator=gen) for _ in range(2))
+    return k, v, ks, vs
+
+
+def int8_bytes(q, kh: int, d: int, n_keys: int) -> float:
+    """Bytes a flash_decode_int8 call must move: q read and out written,
+    the two per-slot vectors, and per visible key its K and V codes and
+    its two fp32 scales."""
+    return (2 * q.numel() * q.element_size() + 8 * q.shape[0]
+            + n_keys * (2 * kh * d + 8))
+
+
+def check_int8(record, gen, dtype) -> None:
+    """``flash_decode_int8`` against its plain version (dequantize in fp32,
+    then the plain decode) in ``INT8_CASES``, and at one layer of the
+    ``decode_32k`` cache (B=128, L=32768, every slot at depth 32767): the
+    full batch for the kernel's time, checked on its first ``SUB_BATCH``
+    slots, and the sub-batch alone for kernel, plain and library times
+    on the same inputs.  The library call is ``sdpa`` (GQA) over K/V
+    already dequantized to bf16, the dequantize left out of its time:
+    PyTorch has no single call over int8 K/V."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.shapes import SHAPES
+
+    dn = str(dtype).split(".")[1]
+
+    def case(q, k, v, ks, vs, kv_len, q_off, window, note, iters):
+        B, L, kh, d = k.shape
+        lens = kv_len.tolist()
+        n_keys = sum(visible_keys(o, min(n, L), window)
+                     for o, n in zip(q_off.tolist(), lens))
+        b_ms, b_by = bound(int8_bytes(q, kh, d, n_keys),
+                           4 * q.shape[2] * d * n_keys, dn)
+        pos = torch.arange(L, device="cuda")
+        keep = (pos[None] < kv_len[:, None]) & (pos[None] <= q_off[:, None])
+        if window is not None:
+            keep &= pos[None] > q_off[:, None] - window
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (ref.dequantize(c, s).to(torch.bfloat16).transpose(1, 2)
+                  .contiguous() for c, s in ((k, ks), (v, vs)))
+        kw = dict(kv_len=kv_len, q_offset=q_off, window=window)
+        row = dict(dtype=dn, B=B, L=L, kv_len=lens, heads=f"{q.shape[2]}/"
+                   f"{kh}", D=d, window=window, note=note, bound_ms=b_ms,
+                   bound_by=b_by, library="sdpa over bf16-dequantized K/V "
+                   "(dequantize not timed)")
+        record("flash_decode_int8", row,
+               lambda: ops.flash_decode_int8(q, k, v, ks, vs, **kw),
+               lambda: ref.flash_decode_int8(q, k, v, ks, vs, **kw),
+               lambda: F.scaled_dot_product_attention(
+                   qt.to(torch.bfloat16), kt, vt, attn_mask=keep[:, None,
+                                                                 None, :],
+                   enable_gqa=True), iters)
+
+    for B, L, h, kh, d, lens, window in INT8_CASES:
+        q = torch.randn((B, 1, h, d), generator=gen, device="cuda",
+                        dtype=dtype)
+        k, v, ks, vs = int8_kv(B, L, kh, d, gen)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        case(q, k, v, ks, vs, kv_len, (kv_len - 1).clamp(0, L), window, "",
+             200)
+    # one layer of the decode_32k cache
+    shape = SHAPES["decode_32k"]
+    B, L = shape.global_batch, shape.seq_len
+    q = torch.randn((B, 1, HEADS, HEAD_DIM), generator=gen, device="cuda",
+                    dtype=dtype)
+    k, v, ks, vs = int8_kv(B, L, KV_HEADS, HEAD_DIM, gen)
+    kv_len = torch.full((B,), L, dtype=torch.int32, device="cuda")
+    q_off = kv_len - 1
+    n_keys = B * L
+    b_ms, b_by = bound(int8_bytes(q, KV_HEADS, HEAD_DIM, n_keys),
+                       4 * HEADS * HEAD_DIM * n_keys, dn)
+    n = SUB_BATCH
+    kw = dict(kv_len=kv_len, q_offset=q_off)
+    sub = dict(kv_len=kv_len[:n], q_offset=q_off[:n])
+    record("flash_decode_int8", dict(
+        dtype=dn, B=B, L=L, kv_len=f"{L} x {B}", heads=f"{HEADS}/{KV_HEADS}",
+        D=HEAD_DIM, window=None, bound_ms=b_ms, bound_by=b_by,
+        note=f" (decode_32k layer; checked on its first {n} slots)",
+        no_library=f"plain and library timed on the {n}-slot row"),
+        lambda: ops.flash_decode_int8(q, k, v, ks, vs, **kw)[:n],
+        lambda: ref.flash_decode_int8(q[:n], k[:n], v[:n], ks[:n], vs[:n],
+                                      **sub),
+        None, 20, timed_fns=(
+            lambda: ops.flash_decode_int8(q, k, v, ks, vs, **kw), None))
+    case(q[:n], k[:n], v[:n], ks[:n], vs[:n], kv_len[:n], q_off[:n], None,
+         f" (decode_32k, first {n} slots)", 20)
+    del q, k, v, ks, vs
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------- #
@@ -560,6 +707,21 @@ def describe(cfg, mesh=None) -> str:
             f"{cfg.vocab_size}, {cfg.dtype}")
 
 
+def check_launches(launches, want) -> None:
+    """Every count in ``want`` (name -> (count, why)) as stated and above
+    0, and every other kernel not launched."""
+    for name, n in launches.items():
+        if name not in want and n:
+            raise AssertionError(f"{name} launched {n} times on a path that "
+                                 "does not run it")
+    for name, (n, why) in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times, "
+                                 f"want {n} = {why}")
+        if n <= 0:
+            raise AssertionError(f"{name} was never launched on the path")
+
+
 def served_path(cfg, params, requests, mesh=None):
     """Serve ``requests`` through the kernel path (on one TP pod with
     ``mesh``) with every launch count set to 0 just before and read just
@@ -595,16 +757,7 @@ def served_path(cfg, params, requests, mesh=None):
                      f"{per}{decode_steps} decode steps"),
             "flash_attention": (cfg.n_layers * tp * prefills,
                                 f"{per}{prefills} prefill dispatches")}
-    for name in ops.KERNELS:
-        if name not in want_launches and launches[name]:
-            raise AssertionError(f"{name} launched {launches[name]} times "
-                                 "on a path that does not run it")
-    for name, (n, why) in want_launches.items():
-        if launches[name] != n:
-            raise AssertionError(f"{name} launched {launches[name]} times, "
-                                 f"want {n} = {why}")
-        if n <= 0:
-            raise AssertionError(f"{name} was never launched on the path")
+    check_launches(launches, want_launches)
     n_tok = sum(r.n_tokens for r in responses)
     m = summarize(responses)
     log(f"[serve] {describe(cfg, mesh)}")
@@ -624,13 +777,7 @@ def served_path(cfg, params, requests, mesh=None):
 
 def profile_window(cfg, params, requests, mesh=None) -> None:
     """Where a steady decode window's time goes: one window of 8 steps at 4
-    live slots under ``torch.profiler``; device busy time is the sum of the
-    kernels' durations (one stream per card, so they do not overlap on one
-    card; with ranks on two cards it is summed over both)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    live slots under ``torch.profiler`` (:func:`profiled`)."""
     from repro_torch.core import Job
     from repro_torch.engine import EngineConfig, InferenceEngine
 
@@ -641,11 +788,26 @@ def profile_window(cfg, params, requests, mesh=None) -> None:
                 prompt_tokens=list(r.prompt_tokens), arrival_time=0.0)
             for r in requests[:4]]
     eng.run_window(jobs, 8)  # prefill, and a first window as warm-up
+    cards = 1 if mesh is None else len(set(mesh.ranks))
+    profiled(f"{cfg.arch_id}"
+             f"{'' if mesh is None else f' TP={len(mesh.ranks)} on {cards} card(s)'}"
+             f": one decode window (8 steps, 4 slots, {cfg.n_layers} layers)",
+             lambda: eng.run_window(jobs, 8))
+
+
+def profiled(what: str, fn) -> None:
+    """Run ``fn()`` once under ``torch.profiler`` and log its host wall
+    time, the device's busy time (the sum of the kernels' durations: one
+    stream per card, so they do not overlap on one card; with ranks on two
+    cards it is summed over both) and the kernels that took most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     synchronize_all()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run_window(jobs, 8)
+        fn()
         synchronize_all()
         wall = time.perf_counter() - t0
     by_name = {}
@@ -653,18 +815,267 @@ def profile_window(cfg, params, requests, mesh=None) -> None:
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values()) / 1e3
-    cards = 1 if mesh is None else len(set(mesh.ranks))
-    log(f"[profile] {cfg.arch_id}"
-        f"{'' if mesh is None else f' TP={len(mesh.ranks)} on {cards} card(s)'}"
-        ": one "
-        f"decode window (8 steps, 4 slots, "
-        f"{cfg.n_layers} layers) under torch.profiler: wall "
-        f"{wall * 1e3:.2f} ms, device "
-        f"busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%), "
+    log(f"[profile] {what} under torch.profiler: wall {wall * 1e3:.2f} ms, "
+        f"device busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%), "
         f"{len(by_name)} kernel names")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[profile]   {us / 1e3:8.3f} ms {100 * us / 1e3 / busy:5.1f}% "
             f"of busy  {name[:90]}")
+
+
+# --------------------------------------------------------------------------- #
+# Phases 4-5 for the step entry points (launch/steps.py) over int8 caches
+# --------------------------------------------------------------------------- #
+
+#: the small int8 step path: B slots of a cache of MAX_LEN rows, prompts of
+#: PROMPT ids (the reference's prefill_step takes no last_index, so the
+#: prompts share one length), STEPS greedy serve steps
+STEP_SLOTS, STEP_PROMPT, STEPS = 4, 128, 32
+
+
+def step_prompts():
+    """``STEP_SLOTS`` prompts of ``STEP_PROMPT`` ids, cut from the served
+    cells' requests."""
+    prompts = [r.prompt_tokens[:STEP_PROMPT] for r in make_requests(64, SEED)
+               if len(r.prompt_tokens) >= STEP_PROMPT][:STEP_SLOTS]
+    if len(prompts) < STEP_SLOTS:
+        raise AssertionError("too few requests with long enough prompts")
+    return prompts
+
+
+def small_cache(cfg, kv_dtype="int8"):
+    """An input_specs cache of ``STEP_SLOTS`` x ``MAX_LEN`` rows."""
+    from repro_torch.launch.shapes import InputShape, input_specs
+    shape = InputShape("serve_512", MAX_LEN, STEP_SLOTS, "decode")
+    return input_specs(cfg, shape, kv_dtype=kv_dtype, device=DEVICE)["cache"]
+
+
+def run_steps(cfg, params, attn_impl: str, n_steps: int = STEPS):
+    """``make_prefill_step`` over the prompts into a fresh int8 cache, then
+    ``n_steps`` greedy ``make_serve_step`` steps; returns (tokens (B, 1 +
+    n_steps), host wall seconds of each step, devices synchronised)."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    prompts = torch.as_tensor(step_prompts(), device=DEVICE)
+    logits, cache = make_prefill_step(cfg, attn_impl=attn_impl)(
+        params, {"tokens": prompts, "cache": small_cache(cfg)})
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    serve = make_serve_step(cfg, attn_impl=attn_impl)
+    toks, walls = [tok], []
+    for _ in range(n_steps):
+        synchronize_all()
+        t0 = time.perf_counter()
+        tok, cache = serve(params, tok[:, None], cache)
+        synchronize_all()
+        walls.append(time.perf_counter() - t0)
+        toks.append(tok)
+    return torch.stack(toks, dim=1), walls
+
+
+def int8_step_path(cfg, params) -> int:
+    """Phase 4, small cache: prefill and ``STEPS`` serve steps through the
+    kernels with every launch count set to 0 just before and read just
+    after.  Returns ``flash_decode_int8``'s count."""
+    import statistics
+
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    toks, walls = run_steps(cfg, params, "kernel")
+    launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
+    n = cfg.n_layers
+    check_launches(launches, {
+        "flash_attention": (n, f"{n} layers x 1 prefill"),
+        "flash_decode_int8": (n * STEPS, f"{n} layers x {STEPS} steps")})
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("a generated token lies outside the vocabulary")
+    med = statistics.median(walls) * 1e3
+    log(f"[int8] make_prefill_step + make_serve_step over an input_specs "
+        f"int8 cache ({STEP_SLOTS} slots x {MAX_LEN} rows), "
+        f"{describe(cfg)}: {STEP_SLOTS} prompts of {STEP_PROMPT} ids, "
+        f"{STEPS} greedy steps; step wall median {med:.2f} ms (min "
+        f"{min(walls) * 1e3:.2f}), {STEP_SLOTS / (med / 1e3):.1f} tokens/s")
+    log(f"[int8] launches: flash_attention {launches['flash_attention']} = "
+        f"{n} x 1 prefill; flash_decode_int8 "
+        f"{launches['flash_decode_int8']} = {n} x {STEPS} steps; "
+        f"flash_decode {launches['flash_decode']} (all counts: "
+        f"{json.dumps(launches)})")
+    return launches["flash_decode_int8"]
+
+
+def fill_int8(kv, gen, length: int, lens) -> None:
+    """Fill an int8 cache layer by layer, in place: codes in [-127, 127],
+    scales in [0.005, 0.025], and every slot's ``len`` set to ``length``."""
+    for i in range(kv.k.shape[0]):
+        for codes in (kv.k[i], kv.v[i]):
+            codes.random_(-127, 128, generator=gen)
+        for scale in (kv.k_scale[i], kv.v_scale[i]):
+            scale.uniform_(0.005, 0.025, generator=gen)
+    lens.fill_(length)
+
+
+def ring_step(cfg, params) -> None:
+    """Phase 4, ring cache: one ``make_serve_step`` at long_500k (B=1, an
+    int8 ring of 8192 rows, filled, at position 524287): read plain, as the
+    reference reads a ring, so no decode kernel launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.shapes import SHAPES, input_specs
+    from repro_torch.launch.steps import make_serve_step
+
+    shape = SHAPES["long_500k"]
+    specs = input_specs(cfg, shape, kv_dtype="int8", device=DEVICE)
+    cache = specs["cache"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    fill_int8(cache["kv"], gen, shape.seq_len - 1, cache["len"])
+    tokens = torch.randint(8, cfg.vocab_size, (shape.global_batch, 1),
+                           generator=gen, device=DEVICE, dtype=torch.int32)
+    ops.reset_launches()
+    tok, cache = make_serve_step(cfg)(params, tokens, cache)
+    synchronize_all()
+    launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
+    if any(launches.values()):
+        raise AssertionError(f"the ring step launched a kernel: {launches}")
+    if not (0 <= int(tok[0]) < cfg.vocab_size and cache["kv"].ring):
+        raise AssertionError("long_500k ring step: bad token or cache")
+    log(f"[int8] long_500k: make_serve_step over an int8 ring of "
+        f"{cache['kv'].k.shape[2]} rows (B={shape.global_batch}, position "
+        f"{shape.seq_len - 1}): token {int(tok[0])}; read plain as in the "
+        f"reference, no decode kernel launched ({json.dumps(launches)})")
+
+
+def int8_greedy_parity(cfg) -> bool:
+    """Phase 5: fp32 greedy tokens of the small int8 step path at full
+    width and 2 layers, kernel path against plain path: identical?"""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params2 = T.init_params(
+        cfg2, torch.Generator(device=DEVICE).manual_seed(SEED + 1))
+    got, _ = run_steps(cfg2, params2, "kernel")
+    want, _ = run_steps(cfg2, params2, "torch")
+    same = int((got == want).sum())
+    log(f"[parity] {cfg.arch_id} fp32, full width, 2 layers, int8 cache: "
+        f"step functions' greedy tokens, kernel path vs plain path, "
+        f"identical on {same}/{want.numel()} tokens ({STEP_SLOTS} slots x "
+        f"{1 + STEPS})")
+    return bool(torch.equal(got, want))
+
+
+def int8_logit_gaps(cfg, params):
+    """Phase 5, bf16 at full width and depth: the prompts prefilled into an
+    int8 cache through the kernels, then one decode step over copies of
+    that cache through the kernel path and the plain path.  Returns
+    (max |kernel - plain| of the step's logits, max |int8 kernel - the same
+    step over a bf16 cache| (quantization error, reported only), whether
+    the kernel's logits are finite)."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    prompts = torch.as_tensor(step_prompts(), device=DEVICE)
+
+    def step_logits(kv_dtype, impls):
+        logits, cache = T.prefill(params, cfg, {"tokens": prompts},
+                                  small_cache(cfg, kv_dtype))
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        return [T.decode_step(params, cfg, tok, copy.deepcopy(cache),
+                              attn_impl=impl)[0].float() for impl in impls]
+
+    kernel, plain = step_logits("int8", ("kernel", "torch"))
+    (dense,) = step_logits(None, ("kernel",))
+    gap = float((kernel - plain).abs().max())
+    quant = float((kernel - dense).abs().max())
+    finite = bool(torch.isfinite(kernel).all())
+    log(f"[parity] {cfg.arch_id} bf16, full width and depth, int8 cache: "
+        f"first decode step's logits {tuple(kernel.shape)}, max |kernel - "
+        f"plain| = {gap:.4e} (tol {INT8_LOGIT_TOL_BF16}), max |logit| = "
+        f"{float(plain.abs().max()):.3f}, finite={finite}; reported, not "
+        f"checked: max |int8 kernel - bf16 cache kernel| = {quant:.4e} "
+        f"(quantization error)")
+    return gap, quant, finite
+
+
+def decode_32k_steps(cfg) -> None:
+    """Phase 4, large cache: ``make_serve_step`` at decode_32k (B=128,
+    L=32768) over an int8 cache built by ``input_specs`` on the card and
+    filled in place, every slot at depth 32767: one warm-up step and 5
+    timed ones (devices synchronised; median), with their launches, the
+    cache's bytes, the peak memory and the step's bound.  The bf16 cache
+    this shape would need is computed, never allocated."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.shapes import SHAPES, input_specs
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as T
+
+    free, total = torch.cuda.mem_get_info()
+    log(f"[int8] decode_32k: device memory free {free / 1e9:.2f} of "
+        f"{total / 1e9:.2f} GB before its weights and cache")
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, torch.Generator(device=DEVICE)
+                           .manual_seed(SEED))
+    shape = SHAPES["decode_32k"]
+    cache = input_specs(cfg, shape, kv_dtype="int8", device=DEVICE)["cache"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    fill_int8(cache["kv"], gen, shape.seq_len - 1, cache["len"])
+    tok = torch.randint(8, cfg.vocab_size, (shape.global_batch,),
+                        generator=gen, device=DEVICE, dtype=torch.int32)
+    kv = cache["kv"]
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in (kv.k, kv.v, kv.k_scale, kv.v_scale))
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      _tensors(params))
+    bf16_cache = 2 * kv.k.numel() * 2
+    serve = make_serve_step(cfg)
+    ops.reset_launches()
+    walls = []
+    for i in range(6):
+        synchronize_all()
+        t0 = time.perf_counter()
+        tok, cache = serve(params, tok[:, None], cache)
+        synchronize_all()
+        if i:
+            walls.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
+    n = cfg.n_layers
+    check_launches(launches, {"flash_decode_int8": (
+        6 * n, f"{n} layers x 6 steps")})
+    if not bool(((tok >= 0) & (tok < cfg.vocab_size)).all()):
+        raise AssertionError("decode_32k: a token lies outside the vocabulary")
+    peak = torch.cuda.max_memory_allocated()
+    step_bound = (cache_bytes + param_bytes) / HBM_BYTES_S * 1e3
+    log(f"[int8] decode_32k: make_serve_step, B={shape.global_batch}, int8 "
+        f"cache of {shape.seq_len} rows ({cache_bytes / 1e9:.2f} GB: codes "
+        f"and fp32 scales), every slot at depth {shape.seq_len - 1}, "
+        f"{describe(cfg)} ({param_bytes / 1e9:.2f} GB of weights): step "
+        f"wall median {statistics.median(walls) * 1e3:.2f} ms over 5 "
+        f"(min {min(walls) * 1e3:.2f}; after 1 warm-up); bound "
+        f"{step_bound:.2f} ms (cache and weights read once at 3.35 TB/s)")
+    log(f"[int8] decode_32k: flash_decode_int8 {launches['flash_decode_int8']}"
+        f" = {n} x 6 steps; peak memory allocated {peak / 1e9:.2f} GB; a "
+        f"bf16 cache of this shape would need {bf16_cache / 1e9:.1f} GB "
+        f"(computed, not allocated)")
+    profiled(f"decode_32k: one make_serve_step (B={shape.global_batch})",
+             lambda: serve(params, tok[:, None], cache))
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        yield tree
 
 
 # --------------------------------------------------------------------------- #
@@ -875,6 +1286,14 @@ def planted_fault(kind: str, models) -> dict:
                 "greedy_fp32_caught": not greedy_same,
                 "logit_gaps_bf16": gaps, "logit_tol_bf16": tol,
                 "logit_caught": not (finite and gap <= tol)}
+            if cfg.family == "dense":
+                gap8, _, finite8 = int8_logit_gaps(cfg, params)
+                served[cfg.arch_id].update(
+                    int8_greedy_fp32_caught=not int8_greedy_parity(cfg),
+                    int8_logit_gap_bf16=gap8,
+                    int8_logit_tol_bf16=INT8_LOGIT_TOL_BF16,
+                    int8_logit_caught=not (finite8
+                                           and gap8 <= INT8_LOGIT_TOL_BF16))
     finally:
         build.CSRC, build.BUILD_DIR = saved
         build._loaded.clear()
@@ -1051,7 +1470,26 @@ def main(argv=None) -> None:
         del params
         torch.cuda.empty_cache()
 
+    # the step entry points over int8 caches (launch/steps.py), qwen2-1.5b
+    cfg = models[0][0]
+    params = random_params(cfg)
+    launches["flash_decode_int8"] = int8_step_path(cfg, params)
+    ring_step(cfg, params)
+    if not int8_greedy_parity(cfg):
+        raise AssertionError("int8 step path: fp32 greedy tokens differ "
+                             "between the kernel and plain paths")
+    gap, _, finite = int8_logit_gaps(cfg, params)
+    if not finite or not gap <= INT8_LOGIT_TOL_BF16:
+        raise AssertionError("int8 step path: bf16 decode logits of the "
+                             "kernel path disagree with the plain path")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode_32k_steps(cfg)
+
     served = {"flash_decode": dict(dtype="bfloat16", B=4, window=None),
+              "flash_decode_int8": dict(dtype="bfloat16", B=4, D=HEAD_DIM,
+                                        window=None, note=""),
               "flash_attention": dict(dtype="bfloat16", B=4, S=512,
                                       window=None),
               "ssd_scan": dict(dtype="bfloat16", S=512, chunk=256, pad=0),
@@ -1061,6 +1499,8 @@ def main(argv=None) -> None:
                                  "src/repro/kernels/decode_attention.py:244"),
         "flash_decode": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:35"),
+        "flash_decode_int8": ("src/repro_torch/csrc/decode_attention.cu",
+                              "src/repro/kernels/decode_attention.py:81"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:28"),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",

@@ -7,7 +7,7 @@ the same nested dict keys.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -66,14 +66,34 @@ def params_to_numpy(tree) -> Any:
     return t.numpy()
 
 
-def cache_from_numpy(length, k, v, *, device="cuda",
+def cache_from_numpy(length, k, v, *, k_scale=None, v_scale=None,
+                     ring: bool = False, device="cuda",
                      dtype: Optional[torch.dtype] = None):
     """A JAX decode cache (its ``len`` vector and the dense ``KVCache``
-    buffers (n_layers, B, L, KH, D), as numpy arrays) -> the port's cache
-    dict."""
+    buffers (n_layers, B, L, KH, D), as numpy arrays, with its ``ring``
+    flag) -> the port's cache dict.  With ``k_scale``/``v_scale`` (n_layers,
+    B, L) the cache is int8: its codes stay int8 and its scales fp32
+    whatever ``dtype`` is."""
     dev = resolve_device(device)
-    return {"len": _tensor(length, dev, torch.int32),
-            "kv": KVCache(_tensor(k, dev, dtype), _tensor(v, dev, dtype))}
+    if k_scale is None:
+        kv = KVCache(_tensor(k, dev, dtype), _tensor(v, dev, dtype), ring)
+    else:
+        kv = KVCache(_tensor(k, dev, torch.int8), _tensor(v, dev, torch.int8),
+                     ring, _tensor(k_scale, dev, torch.float32),
+                     _tensor(v_scale, dev, torch.float32))
+    return {"len": _tensor(length, dev, torch.int32), "kv": kv}
+
+
+def cache_to_numpy(cache) -> Dict[str, Any]:
+    """The port's dense cache dict -> numpy arrays ``len``, ``k``, ``v``
+    (and ``k_scale``, ``v_scale`` when it is int8), the keyword arguments
+    of :func:`cache_from_numpy` less ``ring``; bfloat16 buffers come back
+    as float32."""
+    kv = cache["kv"]
+    out = {"length": cache["len"], "k": kv.k, "v": kv.v}
+    if kv.quantized:
+        out.update(k_scale=kv.k_scale, v_scale=kv.v_scale)
+    return params_to_numpy(out)
 
 
 def ssm_cache_from_numpy(length, conv, ssm, *, device="cuda",

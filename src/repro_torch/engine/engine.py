@@ -104,7 +104,8 @@ def _gather_slots(cache, idx: torch.Tensor):
     """Copy slot rows ``idx`` of the cache into a sub-cache."""
     sub = {k: v[:, idx] for k, v in _layer_leaves(cache).items()}
     if "kv" in cache:
-        return {"len": cache["len"][idx], "kv": T.KVCache(sub["k"], sub["v"])}
+        return {"len": cache["len"][idx],
+                "kv": T.KVCache(sub["k"], sub["v"], cache["kv"].ring)}
     return {"len": cache["len"][idx], "ssm": sub}
 
 

@@ -28,17 +28,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C signature of each library's launch function
-SIGNATURES = {
-    "decode_attention": ("flash_decode_launch",
-                         [_P, _P, _P, _P, _P, _P] + [_I] * 7
-                         + [ctypes.c_float, _P]),
-    "flash_attention": ("flash_attention_launch",
-                        [_P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float, _P]),
-    "ssd_scan": ("ssd_scan_launch", [_P] * 6 + [_I] * 7 + [_P]),
+#: each launch function: the source (library) that holds it, and its C
+#: signature
+ENTRIES = {
+    "flash_decode_launch": ("decode_attention",
+                            [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P]),
+    "flash_decode_int8_launch": ("decode_attention",
+                                 [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P]),
+    "flash_attention_launch": ("flash_attention",
+                               [_P] * 4 + [_I] * 9 + [ctypes.c_float, _P]),
+    "ssd_scan_launch": ("ssd_scan", [_P] * 6 + [_I] * 7 + [_P]),
 }
 
-#: launch functions already loaded, by source name
+#: launch functions already loaded, by name
 _loaded: Dict[str, object] = {}
 
 
@@ -105,14 +107,15 @@ def build_log(name: str) -> str:
     return path.read_text() if path.exists() else ""
 
 
-def load(name: str):
-    """The launch function of ``csrc/<name>.cu``, built on first use."""
-    if name not in _loaded:
+def load(entry: str):
+    """The launch function ``entry`` (a key of :data:`ENTRIES`), its
+    library built from ``csrc`` on first use."""
+    if entry not in _loaded:
+        name, argtypes = ENTRIES[entry]
         if not library_path(name).exists():
             _finish(name, *_start(name))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(library_path(name))), fn_name)
+        fn = getattr(ctypes.CDLL(str(library_path(name))), entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _loaded[name] = fn
-    return _loaded[name]
+        _loaded[entry] = fn
+    return _loaded[entry]

@@ -22,12 +22,16 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 16
 
 
-def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           kv_dtype: Optional[torch.dtype] = None):
+    """CUDA tensors the attention kernels take: k and v of ``kv_dtype``
+    (by default q's dtype)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on cuda or cpu, got {q.device}")
     for t in (k, v):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"{name}: q, k, v must share device and dtype")
+        if t.device != q.device or t.dtype != (kv_dtype or q.dtype):
+            raise ValueError(f"{name}: q, k, v must share a device, and k "
+                             f"and v must be {kv_dtype or q.dtype}")
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported "
                          f"(float32 or bfloat16)")
@@ -46,6 +50,20 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError(f"{name}: k and v must start on a 16-byte boundary "
                          "(the kernel reads them in 16-byte vectors)")
+
+
+def _check_decode(name: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, kv_dtype: Optional[torch.dtype] = None):
+    """:func:`_check`, and one query token per slot with at most
+    ``MAX_GROUP`` query heads per KV head (one warp each)."""
+    _check(name, q, k, v, kv_dtype)
+    h, kh = q.shape[2], k.shape[2]
+    if q.shape[1] != 1:
+        raise ValueError(f"{name}: one query token per slot, got "
+                         f"{q.shape[1]}")
+    if h // kh > MAX_GROUP:
+        raise ValueError(f"{name}: {h // kh} query heads per kv head exceed "
+                         f"{MAX_GROUP}")
 
 
 def _slot_vector(x, b: int, device: torch.device) -> torch.Tensor:
@@ -83,7 +101,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    _launch("flash_attention", q.device, build.load("flash_attention"),
+    _launch("flash_attention", q.device, build.load("flash_attention_launch"),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, sq, skv, h, kh, d, DTYPE_CODES[q.dtype], int(q_offset),
             int(window or 0), 1.0 / math.sqrt(d), _stream(q.device))
@@ -97,18 +115,13 @@ flash_attention.launches = 0
 def _decode_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv_len, q_offset, window: Optional[int]) -> torch.Tensor:
     """Check the CUDA tensors and launch the decode kernel (uncounted)."""
-    _check("flash_decode", q, k, v)
-    b, sq, h, d = q.shape
+    _check_decode("flash_decode", q, k, v)
+    b, _, h, d = q.shape
     L, kh = k.shape[1], k.shape[2]
-    if sq != 1:
-        raise ValueError(f"flash_decode: one query token per slot, got {sq}")
-    if h // kh > MAX_GROUP:
-        raise ValueError(f"flash_decode: {h // kh} query heads per kv head "
-                         f"exceed {MAX_GROUP}")
     kv_len, q_offset = (_slot_vector(x, b, q.device)
                         for x in (kv_len, q_offset))
     out = torch.empty_like(q)
-    _launch("flash_decode", q.device, build.load("decode_attention"),
+    _launch("flash_decode", q.device, build.load("flash_decode_launch"),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
             q_offset.data_ptr(), out.data_ptr(), b, L, h, kh, d,
             DTYPE_CODES[q.dtype], int(window or 0), 1.0 / math.sqrt(d),
@@ -177,6 +190,51 @@ def flash_decode_sharded(qs: Sequence[torch.Tensor],
 
 flash_decode_sharded.launches = 0
 
+def flash_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      k_scale: torch.Tensor, v_scale: torch.Tensor, *,
+                      kv_len, q_offset,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """:func:`flash_decode` over an int8 cache: q (B,1,H,D) fp32 or bf16,
+    k/v (B,L,KH,D) int8 codes, ``k_scale``/``v_scale`` (B,L) fp32 per-token
+    scales (a key is ``code * scale``).  Returns (B,1,H,D) in q's dtype.
+    Raises ``ValueError`` on other types or shapes, on any device."""
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise ValueError(f"flash_decode_int8: k and v must be int8, got "
+                         f"{k.dtype}, {v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_decode_int8: want q (B,1,H,D) and k == v "
+                         f"(B,L,KH,D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    for s in (k_scale, v_scale):
+        if s.dtype != torch.float32 or tuple(s.shape) != tuple(k.shape[:2]):
+            raise ValueError(f"flash_decode_int8: scales must be float32 "
+                             f"(B,L) = {tuple(k.shape[:2])}, got {s.dtype} "
+                             f"{tuple(s.shape)}")
+    if q.device.type == "cpu":
+        return ref.flash_decode_int8(q, k, v, k_scale, v_scale, kv_len=kv_len,
+                                     q_offset=q_offset, window=window)
+    _check_decode("flash_decode_int8", q, k, v, torch.int8)
+    if any(s.device != q.device or not s.is_contiguous()
+           for s in (k_scale, v_scale)):
+        raise ValueError("flash_decode_int8: the scales must be contiguous, "
+                         "on q's device")
+    b, _, h, d = q.shape
+    L, kh = k.shape[1], k.shape[2]
+    kv_len, q_offset = (_slot_vector(x, b, q.device)
+                        for x in (kv_len, q_offset))
+    out = torch.empty_like(q)
+    _launch("flash_decode_int8", q.device,
+            build.load("flash_decode_int8_launch"),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), kv_len.data_ptr(), q_offset.data_ptr(),
+            out.data_ptr(), b, L, h, kh, d, DTYPE_CODES[q.dtype],
+            int(window or 0), 1.0 / math.sqrt(d), _stream(q.device))
+    flash_decode_int8.launches += 1
+    return out
+
+
+flash_decode_int8.launches = 0
+
 #: (head dim P, state dim N) pairs the SSD-scan kernel is built for
 SSD_SHAPES = ((32, 16), (32, 128), (64, 16), (64, 128))
 #: longest chunk the SSD-scan kernel takes (its running sum of ``a`` is
@@ -224,7 +282,7 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
                          "boundary (the kernel reads them in 16-byte vectors)")
     y = torch.empty_like(x)
     final = torch.empty((b, h, p, n), dtype=x.dtype, device=x.device)
-    _launch("ssd_scan", x.device, build.load("ssd_scan"),
+    _launch("ssd_scan", x.device, build.load("ssd_scan_launch"),
             x.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             y.data_ptr(), final.data_ptr(), b, s, h, p, n, int(chunk),
             DTYPE_CODES[x.dtype], _stream(x.device))
@@ -234,9 +292,10 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
 
 ssd_scan.launches = 0
 
-#: every kernel wrapper of the served paths, by name
+#: every kernel wrapper, by name
 KERNELS = {"flash_attention": flash_attention, "flash_decode": flash_decode,
-           "flash_decode_sharded": flash_decode_sharded, "ssd_scan": ssd_scan}
+           "flash_decode_sharded": flash_decode_sharded,
+           "flash_decode_int8": flash_decode_int8, "ssd_scan": ssd_scan}
 
 
 def reset_launches() -> None:

@@ -3,7 +3,9 @@
 Attention: the arithmetic of ``repro.kernels.ref`` and
 ``repro.models.layers.sdpa``: scores in fp32, masked entries set to -1e30
 before the softmax, rows with no unmasked key give 0, and the result is
-cast back to the query's dtype.  SSD scan: the arithmetic of the Pallas
+cast back to the query's dtype.  The int8 decode dequantizes its K/V in
+fp32 first, as ``repro.kernels.decode_attention._decode_kernel_int8``
+does.  SSD scan: the arithmetic of the Pallas
 kernel ``repro.kernels.ssm_scan._ssd_kernel``, in fp32.
 On a CPU tensor the kernel wrappers in :mod:`repro_torch.kernels.ops` run
 these; on the card ``chip_smoke.py`` holds each kernel against them.
@@ -27,13 +29,17 @@ def reference_attention(
     window: Optional[int] = None,
     q_offset=0,
     kv_len=None,
+    ring_offset=None,
 ) -> torch.Tensor:
     """GQA attention with the reference masks.
 
     ``q_offset`` is the absolute position of ``q[:, 0]`` and ``kv_len`` the
     number of valid cache rows; each is an int or a (B,) tensor (decode slots
     sit at different depths).  ``window`` masks keys older than
-    ``q_pos - window + 1``."""
+    ``q_pos - window + 1``.  ``ring_offset``, for a ring buffer, holds the
+    absolute position of each buffer row, (Skv,) or (B, Skv); the causal
+    and window masks then read it in place of the row index (``kv_len``
+    still masks by row index, as in the reference)."""
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     rep = h // kh
@@ -46,7 +52,10 @@ def reference_attention(
     if isinstance(q_offset, torch.Tensor):
         q_offset = q_offset.to(dev).reshape(-1, 1)
     q_pos = (torch.arange(sq, device=dev)[None, :] + q_offset)[:, None, :, None]
-    k_pos = torch.arange(skv, device=dev)[None, None, None, :]
+    row = torch.arange(skv, device=dev)[None, None, None, :]
+    k_pos = row
+    if ring_offset is not None:
+        k_pos = ring_offset.to(dev).reshape(-1, skv)[:, None, None, :]
     mask = torch.ones_like(s, dtype=torch.bool)
     if causal:
         mask &= k_pos <= q_pos
@@ -55,7 +64,7 @@ def reference_attention(
     if kv_len is not None:
         if isinstance(kv_len, torch.Tensor):
             kv_len = kv_len.to(dev).reshape(-1, 1, 1, 1)
-        mask &= k_pos < kv_len
+        mask &= row < kv_len
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
@@ -77,6 +86,19 @@ def flash_decode(q, k, v, *, kv_len, q_offset,
     cache k/v (B, L, KH, D) with per-slot ``kv_len`` and ``q_offset``."""
     return reference_attention(q, k, v, causal=True, window=window,
                                q_offset=q_offset, kv_len=kv_len)
+
+
+def dequantize(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 codes (..., L, KH, D) times per-token scales (..., L), in fp32."""
+    return codes.float() * scale.float()[..., None, None]
+
+
+def flash_decode_int8(q, k, v, k_scale, v_scale, *, kv_len, q_offset,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the int8 decode kernel: :func:`flash_decode` over
+    K/V dequantized in fp32 (``code * scale``), the result in q's dtype."""
+    return flash_decode(q, dequantize(k, k_scale), dequantize(v, v_scale),
+                        kv_len=kv_len, q_offset=q_offset, window=window)
 
 
 def flash_decode_sharded(qs, ks, vs, *, kv_len, q_offset,

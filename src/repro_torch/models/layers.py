@@ -11,7 +11,8 @@ Unlike the reference, KV caches are updated in place: a decode step writes
 its row into the cache buffers it was given, which saves a copy of the
 whole cache per layer and step.  The decode step takes the ranks of a
 tensor-parallel layer together (:func:`attention_decode`), one rank on a
-single device.
+single device.  A cache may be a ring (sliding window) and may hold int8
+codes with per-token fp32 scales, as in the reference.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import reference_attention as sdpa
 
 Params = Dict[str, torch.Tensor]
@@ -32,11 +33,45 @@ ATTN_IMPLS = ("kernel", "torch")
 @dataclass
 class KVCache:
     """K/V buffers (..., batch, buf_len, kv_heads, head_dim); a leading
-    layer axis is present in the model cache and absent per layer.  Ring
-    (sliding-window) and int8 caches are later slices of the port."""
+    layer axis is present in the model cache and absent per layer.
+
+    ``ring``: the buffer is a ring over the last ``buf_len`` positions
+    (position p lives in row ``p % buf_len``).  Quantized mode (``k_scale``
+    given): the buffers hold int8 codes with per-token fp32 scales
+    ``k_scale``/``v_scale`` (..., batch, buf_len), written by
+    :func:`quantize_kv` (one scale over a token's heads x dims)."""
 
     k: torch.Tensor
     v: torch.Tensor
+    ring: bool = False
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def layer(self, i: int) -> "KVCache":
+        """Layer ``i`` of a model cache (views)."""
+        return KVCache(self.k[i], self.v[i], self.ring,
+                       *(None if s is None else s[i]
+                         for s in (self.k_scale, self.v_scale)))
+
+
+def quantize_kv(x: torch.Tensor):
+    """x (B, S, KH, D) -> (int8 codes, fp32 scales (B, S)): symmetric, one
+    scale per token, ``max(amax / 127, 1e-8)`` over its heads x dims; codes
+    are ``x / scale`` rounded half to even and clipped to +-127 (the
+    reference divides, so the port does too)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=(-1, -2)) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None, None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """int8 codes (..., KH, D) x scales (...) -> ``dtype``, via fp32."""
+    return ref.dequantize(q, scale).to(dtype)
 
 
 def masked_row_write(buf: torch.Tensor, slot: torch.Tensor, val: torch.Tensor,
@@ -206,11 +241,18 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
     """One-token decode attention of every tensor-parallel rank of a layer
     (a single device is one rank): for rank r, proj -> rope -> write the
     new K/V row into ``caches[r]`` (buffers (B, L, KHr, D)) in place at the
-    per-slot position ``curs[r]`` (B,) -> attention over the cache -> out
-    proj, with ``cfg`` the rank's config; x is (B, 1, d_model).  Rows whose
-    ``actives[r]`` entry is False write nothing, so their cache stays bit
-    for bit.  The kernel path reads all ranks with one
-    ``ops.flash_decode_sharded`` call (one rank: ``ops.flash_decode``).
+    per-slot position ``curs[r]`` (B,) (``curs[r] % L`` in a ring) ->
+    attention over the cache -> out proj, with ``cfg`` the rank's config;
+    x is (B, 1, d_model).  Rows whose ``actives[r]`` entry is False write
+    nothing, so their cache stays bit for bit.  An int8 cache stores the
+    row's codes and scales (:func:`quantize_kv`).
+
+    Reads: the kernel path reads all ranks with one
+    ``ops.flash_decode_sharded`` call (one rank: ``ops.flash_decode``, or
+    ``ops.flash_decode_int8`` over an int8 cache, which dequantizes in
+    fp32); the plain path dequantizes an int8 cache to q's dtype and calls
+    ``sdpa``, as the reference does.  A ring is read plain whatever
+    ``attn_impl`` is, as in the reference, which has no kernel for it.
     Returns each rank's (B, 1, d_model) output (a partial sum when there
     are several ranks)."""
     _check_impl(attn_impl)
@@ -218,27 +260,64 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
         raise NotImplementedError("only one-token decode over the KV cache "
                                   "is ported; chunked prefill is a later "
                                   "slice")
+    if caches[0].quantized and len(caches) > 1:
+        raise NotImplementedError(
+            "an int8 KV cache under tensor parallelism is not ported: the "
+            "scale spans all KV heads of a token, so per-rank scales would "
+            "compute another function")
     actives = actives or [None] * len(ps)
     qs = []
     for p, x, cs, c, cur, act in zip(ps, xs, cos_sins, caches, curs, actives):
         q, k, v = project_qkv(p, cfg, x, cs)
-        masked_row_write(c.k, cur, k[:, 0], act)
-        masked_row_write(c.v, cur, v[:, 0], act)
+        slot = cur % c.k.shape[1] if c.ring else cur
+        rows = [(c.k, k), (c.v, v)]
+        if c.quantized:
+            (kq, ksc), (vq, vsc) = quantize_kv(k), quantize_kv(v)
+            rows = [(c.k, kq), (c.v, vq), (c.k_scale, ksc), (c.v_scale, vsc)]
+        for buf, val in rows:
+            masked_row_write(buf, slot, val[:, 0], act)
         qs.append(q)
-    ks, vs = [c.k for c in caches], [c.v for c in caches]
     window = cfg.swa_window if cfg.attention_type == "swa" else None
-    if attn_impl == "torch":
-        outs = [sdpa(q, k, v, causal=True, q_offset=cur, kv_len=cur + 1,
-                     window=window) for q, k, v, cur in zip(qs, ks, vs, curs)]
+    c0 = caches[0]
+    if c0.ring or attn_impl == "torch":
+        outs = [_plain_read(q, c, cur, window)
+                for q, c, cur in zip(qs, caches, curs)]
+    elif c0.quantized:
+        outs = [ops.flash_decode_int8(qs[0], c0.k, c0.v, c0.k_scale,
+                                      c0.v_scale, kv_len=curs[0] + 1,
+                                      q_offset=curs[0], window=window)]
     elif len(qs) == 1:
-        outs = [ops.flash_decode(qs[0], ks[0], vs[0], kv_len=curs[0] + 1,
+        outs = [ops.flash_decode(qs[0], c0.k, c0.v, kv_len=curs[0] + 1,
                                  q_offset=curs[0], window=window)]
     else:
-        outs = ops.flash_decode_sharded(qs, ks, vs, kv_len=curs[0] + 1,
-                                        q_offset=curs[0], window=window)
+        outs = ops.flash_decode_sharded(
+            qs, [c.k for c in caches], [c.v for c in caches],
+            kv_len=curs[0] + 1, q_offset=curs[0], window=window)
     b = xs[0].shape[0]
     return [o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
             for o, p in zip(outs, ps)]
+
+
+def _plain_read(q: torch.Tensor, c: KVCache, cur: torch.Tensor, window):
+    """The reference's XLA read of one rank's cache after the write: an
+    int8 cache dequantized to q's dtype; a ring attends with each row's
+    absolute position, the largest p <= cur with p % L == row (rows not
+    yet written get -1e9, which only a window masks, as in the
+    reference)."""
+    kread, vread = c.k, c.v
+    if c.quantized:
+        kread = dequantize_kv(c.k, c.k_scale, q.dtype)
+        vread = dequantize_kv(c.v, c.v_scale, q.dtype)
+    if not c.ring:
+        return sdpa(q, kread, vread, causal=True, q_offset=cur,
+                    kv_len=cur + 1, window=window)
+    L = c.k.shape[1]
+    idx = torch.arange(L, device=cur.device)[None, :]
+    k_pos = idx + torch.div(cur.long()[:, None] - idx, L,
+                            rounding_mode="floor") * L
+    k_pos = torch.where(k_pos < 0, -1_000_000_000, k_pos)
+    return sdpa(q, kread, vread, causal=True, q_offset=cur, window=window,
+                ring_offset=k_pos)
 
 
 def _check_impl(attn_impl: str) -> None:

@@ -10,7 +10,8 @@ axis), so a converted JAX tree (:mod:`repro_torch.bridge`) and a tree from
 
 Public API:
   init_params(cfg, generator)                 -> params dict
-  init_cache(cfg, batch, max_len, device)     -> cache dict
+  init_cache(cfg, batch, max_len, device)     -> cache dict (kv_dtype="int8",
+                                                 sliding_window= for a ring)
   prefill(params, cfg, batch, cache)          -> (last_logits, cache)
   decode_step(params, cfg, tokens, cache)     -> (logits, cache)
 
@@ -159,18 +160,42 @@ def _ssm_body(cfg, impl, lp: Params, x, state=None, active=None):
 # =========================================================================== #
 
 
+def kv_buffer_len(cfg, max_len: int) -> int:
+    """Physical KV buffer length: ring-bounded for SWA configs."""
+    if cfg.attention_type == "swa":
+        return min(max_len, cfg.swa_window)
+    return max_len
+
+
+KV_DTYPES = (None, "int8")
+
+
 def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
-               mesh=None):
+               mesh=None, kv_dtype: Optional[str] = None,
+               sliding_window: Optional[int] = None):
     """Slot cache: per-slot lengths ``len`` (B,) int32, and for the dense
-    family K/V buffers (n_layers, B, max_len, KH, D), for the SSM family
-    the recurrent states ``{"conv": (n_layers, B, CH, d_conv - 1), "ssm":
-    (n_layers, B, H, P, N)}``.  With ``mesh``: one cache per rank on the
-    rank's device, with the KV heads the rank's query heads read
-    (``launch.partition.kv_head_range``), each with its own ``len``."""
+    family K/V buffers (n_layers, B, buf, KH, D), for the SSM family the
+    recurrent states ``{"conv": (n_layers, B, CH, d_conv - 1), "ssm":
+    (n_layers, B, H, P, N)}``.  ``buf`` is :func:`kv_buffer_len`, cut to
+    ``sliding_window`` when it is given; the buffer is a ring when ``buf <
+    max_len``.  ``kv_dtype="int8"`` makes the K/V buffers int8 codes with
+    fp32 scales (n_layers, B, buf); it does nothing for the SSM family, as
+    in the reference.  With ``mesh``: one cache per rank on the rank's
+    device, with the KV heads the rank's query heads read
+    (``launch.partition.kv_head_range``), each with its own ``len``; an
+    int8 cache under a mesh raises ``NotImplementedError``."""
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
+                         f"{kv_dtype!r}")
     if mesh is not None:
+        if kv_dtype is not None:
+            raise NotImplementedError(
+                "an int8 KV cache under tensor parallelism is not ported "
+                "(its per-token scale spans every rank's KV heads)")
         ranks = P.tp_ranks(mesh)
         lcfg = P.local_config(cfg, len(ranks))
-        return [init_cache(lcfg, batch, max_len, d, dtype) for d in ranks]
+        return [init_cache(lcfg, batch, max_len, d, dtype,
+                           sliding_window=sliding_window) for d in ranks]
     _check_family(cfg)
     dtype = dtype or _dtype(cfg)
     cache: Cache = {"len": torch.zeros((batch,), dtype=torch.int32,
@@ -180,13 +205,44 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
         cache["ssm"] = {k: v.new_zeros((cfg.n_layers,) + v.shape)
                         for k, v in state.items()}
         return cache
-    if cfg.attention_type == "swa" and cfg.swa_window < max_len:
-        raise NotImplementedError("ring (sliding-window) KV caches are not "
-                                  "ported yet")
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    cache["kv"] = KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                          torch.zeros(shape, dtype=dtype, device=device))
+    buf = kv_buffer_len(cfg, max_len)
+    if sliding_window is not None:
+        buf = min(buf, sliding_window)
+    shape = (cfg.n_layers, batch, buf, cfg.n_kv_heads, cfg.head_dim)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if kv_dtype == "int8":
+        cache["kv"] = KVCache(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                              buf < max_len, zeros(shape[:3], torch.float32),
+                              zeros(shape[:3], torch.float32))
+    else:
+        cache["kv"] = KVCache(zeros(shape, dtype), zeros(shape, dtype),
+                              buf < max_len)
     return cache
+
+
+def _write_prompt(kvc: KVCache, i: int, k: torch.Tensor,
+                  v: torch.Tensor) -> None:
+    """Write a prompt's K/V (B, S, KH, D) into layer ``i`` of the cache, in
+    place: rows [0, S), or in a ring the last ``min(S, L)`` tokens at rows
+    ``pos % L``; an int8 cache takes their codes and scales.  The prompt's
+    own attention read the fresh K/V, unquantized, as in the reference."""
+    pairs = [(kvc.k, k), (kvc.v, v)]
+    if kvc.quantized:
+        (kq, ks), (vq, vs) = L.quantize_kv(k), L.quantize_kv(v)
+        pairs = [(kvc.k, kq), (kvc.v, vq), (kvc.k_scale, ks),
+                 (kvc.v_scale, vs)]
+    s, buf = k.shape[1], kvc.k.shape[2]
+    if kvc.ring:
+        take = min(s, buf)
+        slots = torch.arange(s - take, s, device=k.device) % buf
+        for dst, src in pairs:
+            dst[i][:, slots] = src[:, s - take:]
+    else:
+        for dst, src in pairs:
+            dst[i, :, :s] = src
 
 
 # =========================================================================== #
@@ -200,8 +256,9 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
     """Process the full (right-padded) prompt batch, set ``len`` to S, and
     return the logits (B, 1, V) at ``last_index`` (B,) — each row's true
     last position — or at the last position.  The dense family writes its
-    K/V into rows ``[0, S)`` of every slot of ``cache``, the SSM family its
-    decode states, in place.  ``attn_impl`` picks the kernels ("kernel") or
+    K/V into rows ``[0, S)`` of every slot of ``cache`` (a ring keeps the
+    last tokens, an int8 cache their codes), the SSM family its decode
+    states, in place.  ``attn_impl`` picks the kernels ("kernel") or
     the plain path ("torch") for attention and for the SSD scan alike.
     With ``mesh``, see the module docstring; the logits lie on rank 0's
     device."""
@@ -228,8 +285,7 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
                 out, (k, v) = L.attention_block(
                     lp["attn"], lcfg, L.apply_norm(cfg, lp["attn_norm"], h),
                     cs, attn_impl=attn_impl)
-                c["kv"].k[i, :, :s] = k
-                c["kv"].v[i, :, :s] = v
+                _write_prompt(c["kv"], i, k, v)
                 parts.append(out)
             hs = _mlp(cfg, lcfg, lps, _add_sum(hs, parts))
     for c, d in zip(caches, ranks):
@@ -279,7 +335,7 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
                 [lp["attn"] for lp in lps], lcfg,
                 [L.apply_norm(cfg, lp["attn_norm"], h)
                  for lp, h in zip(lps, hs)], cos_sins,
-                [KVCache(c["kv"].k[i], c["kv"].v[i]) for c in caches], curs,
+                [c["kv"].layer(i) for c in caches], curs,
                 attn_impl=attn_impl, actives=acts)
             hs = _mlp(cfg, lcfg, lps, _add_sum(hs, parts))
     for c, cur, act in zip(caches, curs, acts):
