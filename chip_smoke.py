@@ -13,7 +13,9 @@ Phases (any failure raises and exits non-zero):
      shard shapes of a TP=2 and a TP=4 pod, also bit for bit against the
      single-device kernel; the int8 decode (``flash_decode_int8``) at the
      served shape, at other head dims, group sizes and windows, and at one
-     layer of the decode_32k cache (B=128, L=32768);
+     layer of the decode_32k cache (B=128, L=32768); the three decode
+     wrappers also over a long, ragged cache (B=8, L=32768, kv_len 0 to
+     L + 1), each row with the number of key splits its launch used;
   4. the served paths at full width: ``ElisServer`` -> ISRTF with the
      oracle predictor -> ``EngineExecutor`` ->
      ``InferenceEngine(attn_impl="kernel")`` serving a dozen requests to
@@ -48,7 +50,9 @@ checks the checks instead: it builds the kernels from a copy of ``csrc``
 with one deliberate fault (``PLANTED_FAULTS``) in a temporary directory,
 runs phase 3's comparisons and phase 5's comparisons (the int8 ones too)
 against it, and prints how many of them caught the fault
-(``drop_v_scale``: the int8 decode ignores V's scales);
+(``drop_v_scale``: the int8 decode ignores V's scales;
+``combine_no_rescale``: the decode's combine pass sums the splits'
+partial states without rescaling them to a common maximum);
 ``drop_rank_partial`` instead
 drops one rank's attention output from the TP model's sums, in memory,
 and runs phase 5's TP comparisons.
@@ -134,20 +138,31 @@ PLANTED_FAULTS = {
     # the int8 decode ignores V's scales (V read as its raw codes)
     "drop_v_scale": [
         ("decode_attention.cu",
-         r"(vs\[j \* D \+ c \+ e\] = static_cast<float>\(ve\[e\]\)) "
-         r"\* sv\[u\];", r"\1;")],
+         r"(vv\[u\]\[i\] = vv\[u\]\[i\]) \* sv;", r"\1;")],
     # skip the oldest 32-key tile of every row that sees more than 32 keys
+    # (in the decode kernel: its scores masked in the split that holds it)
     "drop_first_tile": [
-        (src, r"for \(int t0 = lo; t0 < hi; t0 \+= kTile\)",
+        ("decode_attention.cu",
+         r"const bool valid = t0 \+ lane < t_end;",
+         "const bool valid = t0 + lane < t_end && "
+         "!(t0 == lo && hi - lo > kTile);"),
+        ("flash_attention.cu",
+         r"for \(int t0 = lo; t0 < hi; t0 \+= kTile\)",
          "for (int t0 = hi - lo > kTile ? lo + kTile : lo; t0 < hi; "
-         "t0 += kTile)") for src in ("decode_attention.cu",
-                                     "flash_attention.cu")],
+         "t0 += kTile)")],
     # round the output accumulator to the input dtype after every key
     "bf16_accumulate": [
         (src,
-         r"(acc(?:\[r\])?\[i\]) \+= (pj \* vs\[j \* D \+ lane \+ 32 \* i\]);",
+         r"(acc\[[hr]\]\[i\]) \+= "
+         r"(pj \* (?:vv\[u\]\[i\]|vs\[j \* D \+ lane \+ 32 \* i\]));",
          r"\1 = to_f(from_f<T>(\1 + \2));")
         for src in ("decode_attention.cu", "flash_attention.cu")],
+    # the decode's combine pass sums the splits' partial states without
+    # rescaling each by exp(m_s - M)
+    "combine_no_rescale": [
+        ("decode_attention.cu",
+         r"const float e_s = expf\(ml\[2 \* s\] - M\);",
+         "const float e_s = 1.f;")],
     # drop the carried-state term exp(a_cum) C h_in of every query row; it
     # changes nothing when S <= chunk (the state carried in is zero)
     "drop_carried_state": [
@@ -268,6 +283,27 @@ def decode_case(B: int, dtype, gen):
     return q, k, v, kv_len, kv_len - 1
 
 
+#: the long, ragged decode cases of phase 3: B slots over L rows (16 splits
+#: of 2048 on an H100), kv_len 0, 1, within one tile, just past it, inside
+#: a split, just past a split edge, L - 1 and L + 1; with and without a
+#: window whose lower edge falls inside a split
+LONG_B, LONG_L = 8, 32768
+LONG_KV_LEN = [0, 1, 31, 33, 1000, 16385, 32767, 32769]
+LONG_WINDOW = 3000
+
+
+def long_decode_case(dtype, gen):
+    """flash_decode inputs at the served widths over the long, ragged
+    cache (``LONG_B`` x ``LONG_L``, ``LONG_KV_LEN``)."""
+    import torch
+    q = torch.randn((LONG_B, 1, HEADS, HEAD_DIM), generator=gen,
+                    device="cuda", dtype=dtype)
+    k, v = (torch.randn((LONG_B, LONG_L, KV_HEADS, HEAD_DIM), generator=gen,
+                        device="cuda", dtype=dtype) for _ in range(2))
+    kv_len = torch.tensor(LONG_KV_LEN, dtype=torch.int32, device="cuda")
+    return q, k, v, kv_len, (kv_len - 1).clamp(0, LONG_L)
+
+
 def visible_keys(q_pos: int, kv_len: int, window) -> int:
     lo = 0 if window is None else max(q_pos - window + 1, 0)
     return max(min(kv_len, q_pos + 1) - lo, 0)
@@ -354,36 +390,49 @@ def check_kernels(timed: bool = True):
         if not row["tol_share"] <= 1.0:
             failures.append((name, row))
 
+    def dense_decode(q, k, v, kv_len, q_off, window, iters, sharded):
+        """``flash_decode`` against its plain version (and, with
+        ``sharded``, ``flash_decode_sharded`` at TP=2 and TP=4)."""
+        B, L = k.shape[:2]
+        lens = kv_len.tolist()
+        pos = torch.arange(L, device="cuda")
+        keep = (pos[None] < kv_len[:, None]) & (pos[None] <= q_off[:, None])
+        if window is not None:
+            keep &= pos[None] > q_off[:, None] - window
+        mask = keep[:, None, None, :]
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        n_keys = [visible_keys(o, min(n, L), window)
+                  for o, n in zip(q_off.tolist(), lens)]
+        bytes_moved = (2 * q.numel() * es + 8 * B
+                       + 2 * sum(n_keys) * KV_HEADS * HEAD_DIM * es)
+        flops = 4 * HEADS * HEAD_DIM * sum(n_keys)
+        b_ms, b_by = bound(bytes_moved, flops, dn)
+        record("flash_decode", dict(
+            dtype=dn, B=B, L=L, kv_len=lens, window=window,
+            n_split=ops.decode_plan(B, L, q.device)[0], bound_ms=b_ms,
+            bound_by=b_by),
+            lambda: ops.flash_decode(q, k, v, kv_len=kv_len,
+                                     q_offset=q_off, window=window),
+            lambda: ref.flash_decode(q, k, v, kv_len=kv_len,
+                                     q_offset=q_off, window=window),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
+        if sharded:
+            check_sharded(record, q, k, v, kv_len, q_off, n_keys, dn, es,
+                          iters)
+
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         es = dtype.itemsize
         for B in (1, 4):
             for window in (None, 64):
-                q, k, v, kv_len, q_off = decode_case(B, dtype, gen)
-                lens = kv_len.tolist()
-                pos = torch.arange(MAX_LEN, device="cuda")
-                keep = (pos[None] < kv_len[:, None]) & (pos[None] <= q_off[:, None])
-                if window is not None:
-                    keep &= pos[None] > q_off[:, None] - window
-                mask = keep[:, None, None, :]
-                qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-                n_keys = [visible_keys(l - 1, l, window) for l in lens]
-                bytes_moved = (2 * q.numel() * es + 8 * B
-                               + 2 * sum(n_keys) * KV_HEADS * HEAD_DIM * es)
-                flops = 4 * HEADS * HEAD_DIM * sum(n_keys)
-                b_ms, b_by = bound(bytes_moved, flops, dn)
-                record("flash_decode", dict(
-                    dtype=dn, B=B, L=MAX_LEN, kv_len=lens, window=window,
-                    bound_ms=b_ms, bound_by=b_by),
-                    lambda: ops.flash_decode(q, k, v, kv_len=kv_len,
-                                             q_offset=q_off, window=window),
-                    lambda: ref.flash_decode(q, k, v, kv_len=kv_len,
-                                             q_offset=q_off, window=window),
-                    lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=mask, enable_gqa=True), 200)
-                if B == 4 and window is None:
-                    check_sharded(record, q, k, v, kv_len, q_off, n_keys,
-                                  dn, es)
+                dense_decode(*decode_case(B, dtype, gen), window, 200,
+                             B == 4 and window is None)
+        # a long, ragged cache: many splits per slot, empty ones among them
+        for window in (None, LONG_WINDOW):
+            dense_decode(*long_decode_case(dtype, gen), window, 20,
+                         window is None)
+        torch.cuda.empty_cache()
         check_int8(record, gen, dtype)
         for B in (1, 4):
             for S in (16, 128, 512):
@@ -428,16 +477,18 @@ def check_kernels(timed: bool = True):
             atol, rtol = TOL[r["dtype"]]
             if name == "flash_decode_sharded":
                 shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
+                         f"n_split={r['n_split']} "
                          f"{r['heads']} heads per rank x {r['tp']} ranks on "
                          f"one card, bitwise == single-device kernel: "
                          f"{r['bitwise']}; per call, all shards")
             elif name == "flash_decode":
                 shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
-                         f"window={r['window']}")
+                         f"window={r['window']} n_split={r['n_split']}")
             elif name == "flash_decode_int8":
                 shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
                          f"{r['heads']} heads D={r['D']} "
-                         f"window={r['window']}{r['note']}")
+                         f"window={r['window']} n_split={r['n_split']}"
+                         f"{r['note']}")
             elif name == "flash_attention":
                 shape = f"B={r['B']} S={r['S']} window={r['window']}"
             else:
@@ -450,8 +501,7 @@ def check_kernels(timed: bool = True):
                     f"{' x max|plain|' if name == 'ssd_scan' else ''} + rtol "
                     f"{rtol:g})")
             if timed:
-                lib = (r.get("no_library", "no single PyTorch call")
-                       if r["library_ms"] is None
+                lib = ("no single PyTorch call" if r["library_ms"] is None
                        else f"{r.get('library', 'sdpa')} "
                             f"{r['library_ms']:.4f} ms")
                 plain = ("" if r["plain_ms"] is None
@@ -463,7 +513,7 @@ def check_kernels(timed: bool = True):
     return rows, failures
 
 
-def check_sharded(record, q, k, v, kv_len, q_off, n_keys, dn, es):
+def check_sharded(record, q, k, v, kv_len, q_off, n_keys, dn, es, iters):
     """``flash_decode_sharded`` at the shard shapes of a TP=2 and a TP=4 pod
     with all ranks on one card: the served decode inputs split into ``tp``
     contiguous query-head ranges, each with the KV heads it reads.  The
@@ -479,7 +529,8 @@ def check_sharded(record, q, k, v, kv_len, q_off, n_keys, dn, es):
     from repro_torch.launch.partition import kv_head_range
 
     heads = SimpleNamespace(n_heads=HEADS, n_kv_heads=KV_HEADS)
-    keep = ((torch.arange(MAX_LEN, device=q.device)[None] < kv_len[:, None])
+    L = k.shape[1]
+    keep = ((torch.arange(L, device=q.device)[None] < kv_len[:, None])
             [:, None, None, :])
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     for tp in (2, 4):
@@ -497,15 +548,16 @@ def check_sharded(record, q, k, v, kv_len, q_off, n_keys, dn, es):
         b_ms, b_by = bound(bytes_moved, 4 * HEADS * HEAD_DIM * sum(n_keys),
                            dn)
         record("flash_decode_sharded", dict(
-            dtype=dn, B=q.shape[0], L=MAX_LEN, kv_len=kv_len.tolist(), tp=tp,
+            dtype=dn, B=q.shape[0], L=L, kv_len=kv_len.tolist(), tp=tp,
             heads=f"{HEADS // tp}/{ranges[0][1] - ranges[0][0]}",
+            n_split=ops.decode_plan(q.shape[0], L, q.device)[0],
             bitwise=bitwise, bound_ms=b_ms, bound_by=b_by),
             lambda: torch.cat(ops.flash_decode_sharded(
                 qs, ks, vs, kv_len=kv_len, q_offset=q_off), dim=2),
             lambda: torch.cat(ref.flash_decode_sharded(
                 qs, ks, vs, kv_len=kv_len, q_offset=q_off), dim=2),
             lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=keep, enable_gqa=True), 200,
+                qt, kt, vt, attn_mask=keep, enable_gqa=True), iters,
             timed_fns=(lambda: ops.flash_decode_sharded(
                 qs, ks, vs, kv_len=kv_len, q_offset=q_off),
                 lambda: ref.flash_decode_sharded(
@@ -521,6 +573,8 @@ INT8_CASES = [
     (4, MAX_LEN, HEADS, KV_HEADS, HEAD_DIM, [1, 200, 377, MAX_LEN], 64),
     (4, MAX_LEN, 4, 4, 32, [0, 17, 300, MAX_LEN + 1], None),
     (4, MAX_LEN, 16, 1, 64, [5, 129, MAX_LEN + 1, MAX_LEN], 100),
+    (LONG_B, LONG_L, HEADS, KV_HEADS, HEAD_DIM, LONG_KV_LEN, None),
+    (LONG_B, LONG_L, HEADS, KV_HEADS, HEAD_DIM, LONG_KV_LEN, LONG_WINDOW),
 ]
 #: slots of the decode_32k layer compared with (and timed against) the
 #: plain version: a full layer's K and V dequantized would take 8.6 GB
@@ -551,11 +605,11 @@ def check_int8(record, gen, dtype) -> None:
     """``flash_decode_int8`` against its plain version (dequantize in fp32,
     then the plain decode) in ``INT8_CASES``, and at one layer of the
     ``decode_32k`` cache (B=128, L=32768, every slot at depth 32767): the
-    full batch for the kernel's time, checked on its first ``SUB_BATCH``
-    slots, and the sub-batch alone for kernel, plain and library times
-    on the same inputs.  The library call is ``sdpa`` (GQA) over K/V
-    already dequantized to bf16, the dequantize left out of its time:
-    PyTorch has no single call over int8 K/V."""
+    full batch for the kernel's and the library call's times, checked on
+    its first ``SUB_BATCH`` slots, and the sub-batch alone for kernel,
+    plain and library times on the same inputs.  The library call is
+    ``sdpa`` (GQA) over K/V already dequantized to bf16, the dequantize
+    left out of its time: PyTorch has no single call over int8 K/V."""
     import torch
     import torch.nn.functional as F
 
@@ -580,7 +634,8 @@ def check_int8(record, gen, dtype) -> None:
                   .contiguous() for c, s in ((k, ks), (v, vs)))
         kw = dict(kv_len=kv_len, q_offset=q_off, window=window)
         row = dict(dtype=dn, B=B, L=L, kv_len=lens, heads=f"{q.shape[2]}/"
-                   f"{kh}", D=d, window=window, note=note, bound_ms=b_ms,
+                   f"{kh}", D=d, window=window, note=note,
+                   n_split=ops.decode_plan(B, L, q.device)[0], bound_ms=b_ms,
                    bound_by=b_by, library="sdpa over bf16-dequantized K/V "
                    "(dequantize not timed)")
         record("flash_decode_int8", row,
@@ -597,7 +652,8 @@ def check_int8(record, gen, dtype) -> None:
         k, v, ks, vs = int8_kv(B, L, kh, d, gen)
         kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
         case(q, k, v, ks, vs, kv_len, (kv_len - 1).clamp(0, L), window, "",
-             200)
+             200 if L == MAX_LEN else 20)
+        del q, k, v, ks, vs
     # one layer of the decode_32k cache
     shape = SHAPES["decode_32k"]
     B, L = shape.global_batch, shape.seq_len
@@ -612,16 +668,32 @@ def check_int8(record, gen, dtype) -> None:
     n = SUB_BATCH
     kw = dict(kv_len=kv_len, q_offset=q_off)
     sub = dict(kv_len=kv_len[:n], q_offset=q_off[:n])
+    # the library call over the whole layer: K/V dequantized to bf16 in
+    # (B, KH, L, D), 4.3 GB, slot group by slot group (not timed), freed
+    # just after; every key is visible, so sdpa needs no mask
+    qt = q.transpose(1, 2).to(torch.bfloat16).contiguous()
+    kt, vt = (torch.empty((B, KV_HEADS, L, HEAD_DIM), dtype=torch.bfloat16,
+                          device="cuda") for _ in range(2))
+    for i in range(0, B, n):
+        for dst, c, sc in ((kt, k, ks), (vt, v, vs)):
+            dst[i:i + n] = ref.dequantize(c[i:i + n], sc[i:i + n]).to(
+                torch.bfloat16).transpose(1, 2)
     record("flash_decode_int8", dict(
         dtype=dn, B=B, L=L, kv_len=f"{L} x {B}", heads=f"{HEADS}/{KV_HEADS}",
-        D=HEAD_DIM, window=None, bound_ms=b_ms, bound_by=b_by,
-        note=f" (decode_32k layer; checked on its first {n} slots)",
-        no_library=f"plain and library timed on the {n}-slot row"),
+        D=HEAD_DIM, window=None, n_split=ops.decode_plan(B, L, q.device)[0],
+        bound_ms=b_ms, bound_by=b_by,
+        note=f" (decode_32k layer; checked on its first {n} slots; plain "
+             f"timed on the {n}-slot row)",
+        library="sdpa over the whole layer's bf16-dequantized K/V "
+                "(dequantize not timed)"),
         lambda: ops.flash_decode_int8(q, k, v, ks, vs, **kw)[:n],
         lambda: ref.flash_decode_int8(q[:n], k[:n], v[:n], ks[:n], vs[:n],
                                       **sub),
-        None, 20, timed_fns=(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True),
+        20, timed_fns=(
             lambda: ops.flash_decode_int8(q, k, v, ks, vs, **kw), None))
+    del qt, kt, vt
+    torch.cuda.empty_cache()
     case(q[:n], k[:n], v[:n], ks[:n], vs[:n], kv_len[:n], q_off[:n], None,
          f" (decode_32k, first {n} slots)", 20)
     del q, k, v, ks, vs
@@ -818,7 +890,12 @@ def profiled(what: str, fn) -> None:
     log(f"[profile] {what} under torch.profiler: wall {wall * 1e3:.2f} ms, "
         f"device busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%), "
         f"{len(by_name)} kernel names")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    # the eight longest, and every other kernel of the port's sources (the
+    # decode's combine pass among them)
+    shown = ranked[:8] + [(n, us) for n, us in ranked[8:]
+                          if "(anonymous namespace)::" in n]
+    for name, us in shown:
         log(f"[profile]   {us / 1e3:8.3f} ms {100 * us / 1e3 / busy:5.1f}% "
             f"of busy  {name[:90]}")
 
@@ -1262,8 +1339,10 @@ def planted_fault(kind: str, models) -> dict:
             path.write_text(text)
         build.CSRC, build.BUILD_DIR = work / "csrc", work / "build"
         build._loaded.clear()
+        t0 = time.perf_counter()
         build.build_all()
-        log(f"[fault] {kind}: kernels built from a faulty copy of csrc")
+        log(f"[fault] {kind}: kernels built from a faulty copy of csrc in "
+            f"{time.perf_counter() - t0:.1f} s")
         rows, failures = check_kernels(timed=False)
         caught = {}
         for name, rr in rows.items():
@@ -1338,6 +1417,32 @@ def tp_planted_fault(cfg, params, requests) -> dict:
             "greedy_fp32_caught": not greedy_same,
             "logit_gap_bf16": gap, "logit_tol_bf16": TP_LOGIT_TOL_BF16,
             "logit_caught": not (finite and gap <= TP_LOGIT_TOL_BF16)}
+
+
+def build_report() -> None:
+    """Log ptxas's registers and spills of every kernel instance, by
+    kernel (demangled with ``c++filt`` where the machine has it)."""
+    from repro_torch.kernels import build
+
+    for name in build.SOURCES:
+        entry, lines = "?", []
+        for line in build.build_log(name).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+            elif "registers" in line or "spill" in line:
+                lines.append((entry, line.strip()))
+        names = sorted({e for e, _ in lines})
+        if shutil.which("c++filt") and names:
+            out = subprocess.run(["c++filt"], input="\n".join(names),
+                                 capture_output=True, text=True).stdout
+            demangled = dict(zip(names, out.splitlines()))
+        else:
+            demangled = {}
+        for entry, line in lines:
+            short = re.sub(r"\(anonymous namespace\)::", "",
+                           demangled.get(entry, entry)).split("(")[0]
+            log(f"[build] {name}: {short}: {line}")
 
 
 def window_bench(cfg, params, n: int) -> None:
@@ -1430,10 +1535,7 @@ def main(argv=None) -> None:
     build.build_all()
     log(f"[build] {', '.join(f'csrc/{n}.cu' for n in build.SOURCES)} -> "
         f"{build.BUILD_DIR.name}/ in {time.perf_counter() - t0:.1f} s")
-    for name in build.SOURCES:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+    build_report()
 
     rows, failures = check_kernels()
     if failures:

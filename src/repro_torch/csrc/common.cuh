@@ -1,6 +1,7 @@
-// Pieces shared by the kernels: dtype conversion (all three sources), and
-// warp reductions and the staging of one K/V tile into shared memory (the
-// attention kernels, decode_attention.cu and flash_attention.cu).
+// Pieces shared by the kernels: dtype conversion (all three sources), warp
+// reductions (the attention kernels, decode_attention.cu and
+// flash_attention.cu), and the staging of one K/V tile into shared memory
+// as fp32 (flash_attention.cu).
 // kernels/build.py hashes this header with each source, so an edit here
 // rebuilds every library.
 #pragma once

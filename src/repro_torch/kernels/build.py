@@ -32,9 +32,11 @@ _I = ctypes.c_int
 #: signature
 ENTRIES = {
     "flash_decode_launch": ("decode_attention",
-                            [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P]),
+                            [_P] * 7 + [_I] * 7 + [ctypes.c_float]
+                            + [_I] * 2 + [_P]),
     "flash_decode_int8_launch": ("decode_attention",
-                                 [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P]),
+                                 [_P] * 9 + [_I] * 7 + [ctypes.c_float]
+                                 + [_I] * 2 + [_P]),
     "flash_attention_launch": ("flash_attention",
                                [_P] * 4 + [_I] * 9 + [ctypes.c_float, _P]),
     "ssd_scan_launch": ("ssd_scan", [_P] * 6 + [_I] * 7 + [_P]),

@@ -9,6 +9,7 @@ fallback from the kernel to the plain version.  The kernels are built from
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Sequence
 
@@ -18,8 +19,64 @@ from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: most query heads per kv head the decode kernel takes (one warp each)
+#: most query heads per kv head the decode kernel is built for
 MAX_GROUP = 16
+#: keys per tile of the decode kernel (one per lane)
+DECODE_TILE = 32
+#: most key splits per slot: the fp32 partials, B*H*n_split*(D+2)*4 bytes,
+#: stay small beside the cache (16 splits at decode_32k: 12.8 MB)
+MAX_SPLITS = 16
+#: fewest tiles per split: a shorter split does not pay for the combine pass
+MIN_SPLIT_TILES = 4
+#: blocks per SM the split aims for at one KV head
+SPLIT_BLOCKS_PER_SM = 8
+
+
+def decode_splits(b: int, L: int, n_sm: int):
+    """How the decode kernel cuts the key axis: ``(n_split, s_len)``, split
+    s covering rows ``[s * s_len, (s + 1) * s_len)``.  ``s_len`` is a
+    multiple of :data:`DECODE_TILE`, the splits cover ``[0, L)`` once and
+    none lies wholly past L.  Enough splits that ``b * n_split`` reaches
+    ``SPLIT_BLOCKS_PER_SM`` blocks per SM even at one KV head, at most
+    :data:`MAX_SPLITS`, each of at least :data:`MIN_SPLIT_TILES` tiles.
+
+    A function of the slots, the buffer length and the SM count only:
+    never of the heads, so each rank of a TP pod cuts its keys as the
+    single-device kernel does (their outputs agree bit for bit), and never
+    of the per-slot lengths, which live on the device."""
+    tiles = -(-L // DECODE_TILE)
+    want = -(-SPLIT_BLOCKS_PER_SM * n_sm // b)
+    n = max(1, min(want, MAX_SPLITS, tiles // MIN_SPLIT_TILES))
+    per = -(-tiles // n)
+    return -(-tiles // per), per * DECODE_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_plan(b: int, L: int, device: torch.device):
+    """:func:`decode_splits` on ``device``'s SM count."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return decode_splits(b, L, _sm_count(index))
+
+
+def _split_scratch(q: torch.Tensor, L: int):
+    """(n_split, s_len) of q's decode launch over L rows, and its fp32
+    partials (None when one split writes the output).  The caller holds
+    the partials until the launch is queued."""
+    b, _, h, d = q.shape
+    n_split, s_len = decode_plan(b, L, q.device)
+    part = (None if n_split == 1 else
+            torch.empty((b * h * n_split * (d + 2),), dtype=torch.float32,
+                        device=q.device))
+    return n_split, s_len, part
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -55,7 +112,7 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _check_decode(name: str, q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor, kv_dtype: Optional[torch.dtype] = None):
     """:func:`_check`, and one query token per slot with at most
-    ``MAX_GROUP`` query heads per KV head (one warp each)."""
+    ``MAX_GROUP`` query heads per KV head."""
     _check(name, q, k, v, kv_dtype)
     h, kh = q.shape[2], k.shape[2]
     if q.shape[1] != 1:
@@ -121,11 +178,12 @@ def _decode_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len, q_offset = (_slot_vector(x, b, q.device)
                         for x in (kv_len, q_offset))
     out = torch.empty_like(q)
+    n_split, s_len, part = _split_scratch(q, L)
     _launch("flash_decode", q.device, build.load("flash_decode_launch"),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-            q_offset.data_ptr(), out.data_ptr(), b, L, h, kh, d,
+            q_offset.data_ptr(), out.data_ptr(), _ptr(part), b, L, h, kh, d,
             DTYPE_CODES[q.dtype], int(window or 0), 1.0 / math.sqrt(d),
-            _stream(q.device))
+            n_split, s_len, _stream(q.device))
     return out
 
 
@@ -159,9 +217,11 @@ def flash_decode_sharded(qs: Sequence[torch.Tensor],
     The decode kernel runs once per shard on that shard's device, over its
     local heads only, and each launch adds one to this wrapper's count
     (not to :func:`flash_decode`'s).  The kernel's blocks, one per (slot,
-    KV head), are independent, and each warp computes one query head
-    whatever the group size, so no collective runs and the shards'
-    outputs, side by side, are bit for bit the single-device kernel's.
+    KV head, key split), are independent, each query head's arithmetic is
+    the same whatever the group size, and every shard cuts its keys as
+    the single-device launch does (:func:`decode_splits` reads neither
+    heads nor lengths), so no collective runs and the shards' outputs,
+    side by side, are bit for bit the single-device kernel's.
     Returns the per-rank outputs (B,1,H/tp,D).  Raises ``ValueError`` when
     the shards are not equal numbers of whole heads."""
     tp = len(qs)
@@ -223,12 +283,14 @@ def flash_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len, q_offset = (_slot_vector(x, b, q.device)
                         for x in (kv_len, q_offset))
     out = torch.empty_like(q)
+    n_split, s_len, part = _split_scratch(q, L)
     _launch("flash_decode_int8", q.device,
             build.load("flash_decode_int8_launch"),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), kv_len.data_ptr(), q_offset.data_ptr(),
-            out.data_ptr(), b, L, h, kh, d, DTYPE_CODES[q.dtype],
-            int(window or 0), 1.0 / math.sqrt(d), _stream(q.device))
+            out.data_ptr(), _ptr(part), b, L, h, kh, d, DTYPE_CODES[q.dtype],
+            int(window or 0), 1.0 / math.sqrt(d), n_split, s_len,
+            _stream(q.device))
     flash_decode_int8.launches += 1
     return out
 

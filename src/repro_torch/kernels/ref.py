@@ -101,6 +101,51 @@ def flash_decode_int8(q, k, v, k_scale, v_scale, *, kv_len, q_offset,
                         kv_len=kv_len, q_offset=q_offset, window=window)
 
 
+def flash_decode_split(q, k, v, *, kv_len, q_offset,
+                       window: Optional[int] = None, n_split: int,
+                       s_len: int, k_scale=None,
+                       v_scale=None) -> torch.Tensor:
+    """A plain model of the decode kernel's arithmetic (not a wrapper's
+    plain version): the key axis cut into ``n_split`` splits of ``s_len``
+    rows, each split's partial state (m_s, the max of its visible scores,
+    -1e30 when it sees none; l_s = sum exp(s - m_s); acc_s = sum exp(s -
+    m_s) v) in fp32, merged in the order of s as the combine pass does:
+    ``out = sum acc_s e_s / max(sum l_s e_s, 1e-30)``, ``e_s = exp(m_s -
+    max m)``.  With ``k_scale``/``v_scale`` the cache is int8 and is
+    dequantized in fp32 first.  Same arguments and result as
+    :func:`flash_decode`."""
+    if k_scale is not None:
+        k, v = dequantize(k, k_scale), dequantize(v, v_scale)
+    b, _, h, d = q.shape
+    L, kh = k.shape[1], k.shape[2]
+    k = k.float().repeat_interleave(h // kh, dim=2)
+    v = v.float().repeat_interleave(h // kh, dim=2)
+    s = torch.einsum("bhd,blhd->bhl", q[:, 0].float(), k) / math.sqrt(d)
+    row = torch.arange(L, device=q.device)[None, None, :]
+    q_pos = torch.as_tensor(q_offset, device=q.device).reshape(-1, 1, 1)
+    mask = (row < torch.as_tensor(kv_len, device=q.device).reshape(-1, 1, 1)
+            ) & (row <= q_pos)
+    if window is not None:
+        mask &= row > q_pos - window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    parts = []
+    for i in range(n_split):
+        a, e = i * s_len, min((i + 1) * s_len, L)
+        m_s = s[..., a:e].max(dim=-1).values
+        p = torch.where(mask[..., a:e], torch.exp(s[..., a:e] - m_s[..., None]),
+                        torch.zeros_like(s[..., a:e]))
+        parts.append((m_s, p.sum(-1),
+                      torch.einsum("bhl,blhd->bhd", p, v[:, a:e])))
+    top = torch.stack([m_s for m_s, _, _ in parts]).max(dim=0).values
+    l = torch.zeros_like(top)
+    o = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
+    for m_s, l_s, acc_s in parts:
+        e_s = torch.exp(m_s - top)
+        l = l + l_s * e_s
+        o = o + acc_s * e_s[..., None]
+    return (o / l.clamp(min=1e-30)[..., None])[:, None].to(q.dtype)
+
+
 def flash_decode_sharded(qs, ks, vs, *, kv_len, q_offset,
                          window: Optional[int] = None):
     """Plain version of the sharded decode: :func:`flash_decode` on each
