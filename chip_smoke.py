@@ -16,6 +16,11 @@ Phases (any failure raises and exits non-zero):
      layer of the decode_32k cache (B=128, L=32768); the three decode
      wrappers also over a long, ragged cache (B=8, L=32768, kv_len 0 to
      L + 1), each row with the number of key splits its launch used;
+     bf16 ``flash_attention`` also over one prompt of 32768 tokens and one
+     layer of the prefill_32k shape (B=32 x 32768), checked on three
+     slices of 256 query rows; each ``flash_attention`` row names the body
+     of the kernel that ran, as the library's launcher recorded it (bf16:
+     tensor-core, fp32: CUDA-core);
   4. the served paths at full width: ``ElisServer`` -> ISRTF with the
      oracle predictor -> ``EngineExecutor`` ->
      ``InferenceEngine(attn_impl="kernel")`` serving a dozen requests to
@@ -52,8 +57,9 @@ runs phase 3's comparisons and phase 5's comparisons (the int8 ones too)
 against it, and prints how many of them caught the fault
 (``drop_v_scale``: the int8 decode ignores V's scales;
 ``combine_no_rescale``: the decode's combine pass sums the splits'
-partial states without rescaling them to a common maximum);
-``drop_rank_partial`` instead
+partial states without rescaling them to a common maximum;
+``p_in_bf16``: the bf16 prefill multiplies P rounded to bf16 by V, as
+library kernels do, and not its hi/lo split); ``drop_rank_partial`` instead
 drops one rank's attention output from the TP model's sums, in memory,
 and runs phase 5's TP comparisons.
 
@@ -103,10 +109,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 #: product sums differs.
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-5, 2.0 ** -7)}
 #: bf16 full-depth prefill logits, kernel engine vs plain engine.  On an
-#: H100 the correct kernels gave a gap of 0.043 (|logit| <= 3.6), one-ulp
-#: differences carried through 28 layers; the planted faults gave 0.137
-#: (``bf16_accumulate``) and 5.06 (``drop_first_tile``).  The limit lies
-#: between the correct reading and the nearest faulty one.
+#: H100 the correct kernels gave a gap of 0.043 (|logit| <= 3.6) with the
+#: CUDA-core prefill and 0.047 with the tensor-core one, one-ulp
+#: differences carried through 28 layers; ``drop_first_tile`` gave 5.06
+#: and 4.86.  ``bf16_accumulate`` gave 0.137 while the prefill rounded its
+#: accumulator after every key, and 0.049 since it rounds after every
+#: 64-key tile: the kernel rows of phase 3 catch it now, this gap does
+#: not.  The limit lies between the correct reading and ``drop_first_tile``.
 LOGIT_TOL_BF16 = 0.1
 #: bf16 full-depth prefill logits of mamba2-130m: the kernel engine against
 #: the same model with the kernel swapped for its plain version on the
@@ -139,8 +148,10 @@ PLANTED_FAULTS = {
     "drop_v_scale": [
         ("decode_attention.cu",
          r"(vv\[u\]\[i\] = vv\[u\]\[i\]) \* sv;", r"\1;")],
-    # skip the oldest 32-key tile of every row that sees more than 32 keys
-    # (in the decode kernel: its scores masked in the split that holds it)
+    # skip the oldest key tile of every row that sees more than one tile
+    # (in the decode kernel: its scores masked in the split that holds it;
+    # in the prefill kernel: the block's first tile, 32 keys in the fp32
+    # body and 64 in the bf16 tensor-core body)
     "drop_first_tile": [
         ("decode_attention.cu",
          r"const bool valid = t0 \+ lane < t_end;",
@@ -149,14 +160,29 @@ PLANTED_FAULTS = {
         ("flash_attention.cu",
          r"for \(int t0 = lo; t0 < hi; t0 \+= kTile\)",
          "for (int t0 = hi - lo > kTile ? lo + kTile : lo; t0 < hi; "
-         "t0 += kTile)")],
-    # round the output accumulator to the input dtype after every key
+         "t0 += kTile)"),
+        ("flash_attention.cu",
+         r"const int first = lo;",
+         "const int first = hi - lo > kKeys ? lo + kKeys : lo;")],
+    # round the output accumulator to the input dtype after every key (a
+    # no-op in the fp32 prefill body); in the bf16 tensor-core prefill
+    # body, round the O accumulator fragments to bf16 after each tile's P V
     "bf16_accumulate": [
         (src,
          r"(acc\[[hr]\]\[i\]) \+= "
          r"(pj \* (?:vv\[u\]\[i\]|vs\[j \* D \+ lane \+ 32 \* i\]));",
          r"\1 = to_f(from_f<T>(\1 + \2));")
-        for src in ("decode_attention.cu", "flash_attention.cu")],
+        for src in ("decode_attention.cu", "flash_attention.cu")] + [
+        ("flash_attention.cu",
+         r"(pv_tile<D, MT>\(o, s, kt \+ kKeys \* RS, lane\);)",
+         r"\1 for (auto& om : o) for (auto& oc : om) for (float& x : oc) "
+         r"x = __bfloat162float(__float2bfloat16(x));")],
+    # the bf16 prefill's P V with P rounded to bf16, as library kernels
+    # multiply it: only the hi part of the hi/lo split, the lo mmas dropped
+    "p_in_bf16": [
+        ("flash_attention.cu",
+         r"\n *mma_bf16\(o\[mt\]\[c(?: \+ 1)?\], pl\[mt\], vf\[[02]\], "
+         r"vf\[[13]\]\);", "")],
     # the decode's combine pass sums the splits' partial states without
     # rescaling each by exp(m_s - M)
     "combine_no_rescale": [
@@ -374,6 +400,11 @@ def check_kernels(timed: bool = True):
         ``timed_fns`` in their place) and ``lib``."""
         out, want = run(), plain()
         synchronize_all()
+        if name == "flash_attention":
+            row["body"] = prefill_body()
+            if not row["body"].startswith(PREFILL_BODY[row["dtype"]]):
+                failures.append((name, f"{row['dtype']} ran the "
+                                 f"{row['body']} body", row))
         row["max_abs_err"], row["tol_share"] = max_err(
             out, want, row["dtype"], scaled=name == "ssd_scan")
         if exact and not row["bitwise"]:
@@ -453,8 +484,8 @@ def check_kernels(timed: bool = True):
                     flops = 4 * B * HEADS * HEAD_DIM * n_pairs
                     b_ms, b_by = bound(bytes_moved, flops, dn)
                     record("flash_attention", dict(
-                        dtype=dn, B=B, S=S, window=window, bound_ms=b_ms,
-                        bound_by=b_by),
+                        dtype=dn, B=B, S=S, window=window,
+                        bound_ms=b_ms, bound_by=b_by, note=""),
                         lambda: ops.flash_attention(q, k, v, window=window),
                         lambda: ref.flash_attention(q, k, v, window=window),
                         (lambda: F.scaled_dot_product_attention(
@@ -462,6 +493,10 @@ def check_kernels(timed: bool = True):
                         if window is None else
                         (lambda: F.scaled_dot_product_attention(
                             qt, kt, vt, attn_mask=m, enable_gqa=True)), 50)
+        if dtype == torch.bfloat16:
+            check_long_prefill(record, gen)
+            if timed:
+                check_row_tiles(gen, failures)
         # a one-chunk prompt (chunk = S = 137), two chunks (the carry), and
         # a 300-token prompt zero-padded to two 256-long chunks
         for S, chunk, pad in ((137, 137, 0), (512, 256, 0), (512, 256, 212)):
@@ -490,7 +525,8 @@ def check_kernels(timed: bool = True):
                          f"window={r['window']} n_split={r['n_split']}"
                          f"{r['note']}")
             elif name == "flash_attention":
-                shape = f"B={r['B']} S={r['S']} window={r['window']}"
+                shape = (f"B={r['B']} S={r['S']} window={r['window']} "
+                         f"[{r['body']}]{r['note']}")
             else:
                 shape = (f"B={r['B']} S={r['S']} chunk={r['chunk']} "
                          f"pad={r['pad']} H={SSM_HEADS} P={SSM_HEAD_DIM} "
@@ -511,6 +547,162 @@ def check_kernels(timed: bool = True):
                          f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
             log(line)
     return rows, failures
+
+
+#: the body of ``flash_attention.cu`` each dtype must run
+PREFILL_BODY = {"bfloat16": "tensor-core", "float32": "CUDA-core"}
+#: the long prefill rows of phase 3, (B, S), bf16, causal, at the served
+#: heads: one prompt of 32768 tokens, and one layer of the reference's
+#: prefill_32k shape (B=32 x 32768)
+LONG_PREFILL = [(1, 32768), (32, 32768)]
+#: query rows of each slice on which a long row is checked: the first, a
+#: middle and the last LONG_SLICE rows.  The plain version over a whole
+#: long prompt cannot run (its fp32 scores would take 51 GB at B=1), so it
+#: runs over each slice's queries and the keys they may see (rows [a, b)
+#: of the output over keys [0, b) at query offset a: the same rows), in
+#: groups of LONG_CHECK_BATCH batch rows
+LONG_SLICE, LONG_CHECK_BATCH = 256, 4
+#: shapes (B, S), bf16, causal, at the served heads, at which phase 3 times
+#: each instance of the prefill's tensor-core body, 1 and 2 row tiles a
+#: warp: the launcher picks 2 when its grid of 128-row blocks makes
+#: kMinWaves = 2 waves of 2 blocks on every SM (flash_attention.cu), i.e.
+#: at least 528 blocks on 132 SMs: 192 at the served shape, 768 and 3072
+#: at one prompt of 8192 and of 32768 tokens
+ROW_TILE_SHAPES = [(4, 512), (1, 8192), (1, 32768)]
+
+
+def prefill_body() -> str:
+    """The body of ``flash_attention.cu`` that its last launch ran, as the
+    library's launcher recorded it: "tensor-core" (with 1 or 2 row tiles
+    a warp) or "CUDA-core"."""
+    from repro_torch.kernels import build
+
+    body = build.load("flash_attention_last_body")()
+    if body not in (0, 1, 2):
+        raise AssertionError(f"flash_attention: no body recorded ({body})")
+    return ("CUDA-core" if body == 0 else
+            f"tensor-core, {body} row tile{'s' * (body > 1)} a warp")
+
+
+def long_slices(S: int):
+    """The first, a middle and the last ``LONG_SLICE`` query rows of a
+    prompt of S tokens, as [a, b) ranges."""
+    mid = S // 2 - LONG_SLICE // 2
+    return [(0, LONG_SLICE), (mid, mid + LONG_SLICE), (S - LONG_SLICE, S)]
+
+
+def plain_slices(q, k, v, slices):
+    """The plain causal prefill's output on the query rows of ``slices``,
+    concatenated: rows [a, b) over keys [0, b) at query offset a, in
+    groups of ``LONG_CHECK_BATCH`` batch rows."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    B = q.shape[0]
+    return torch.cat([torch.cat([
+        ref.flash_attention(q[i:i + LONG_CHECK_BATCH, a:b],
+                            k[i:i + LONG_CHECK_BATCH, :b],
+                            v[i:i + LONG_CHECK_BATCH, :b], q_offset=a)
+        for i in range(0, B, LONG_CHECK_BATCH)], dim=0)
+        for a, b in slices], dim=1)
+
+
+def check_row_tiles(gen, failures) -> None:
+    """bf16 causal ``flash_attention`` at each ``ROW_TILE_SHAPES`` shape
+    with each instance of its tensor-core body, 1 and 2 row tiles a warp
+    (forced through ``flash_attention_row_tiles``), beside the instance the
+    launcher picks by grid size: each instance's output checked on
+    ``long_slices`` against the plain version, and its device time, both
+    logged; a disagreement or the wrong instance is added to
+    ``failures``."""
+    import torch
+
+    from repro_torch.kernels import build, ops
+
+    force = build.load("flash_attention_row_tiles")
+    last_body = build.load("flash_attention_last_body")
+    for B, S in ROW_TILE_SHAPES:
+        q = torch.randn((B, S, HEADS, HEAD_DIM), generator=gen,
+                        device="cuda", dtype=torch.bfloat16)
+        k, v = (torch.randn((B, S, KV_HEADS, HEAD_DIM), generator=gen,
+                            device="cuda", dtype=torch.bfloat16)
+                for _ in range(2))
+        slices = long_slices(S)
+        want = plain_slices(q, k, v, slices)
+        ops.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        row = dict(B=B, S=S, picked=last_body(), ms={}, tol_share={})
+        try:
+            for mt in (1, 2):
+                if force(mt) != 0:
+                    raise RuntimeError("flash_attention_row_tiles refused "
+                                       f"{mt}")
+                out = ops.flash_attention(q, k, v)
+                torch.cuda.synchronize()
+                if last_body() != mt:
+                    failures.append(("flash_attention", f"forced {mt} row "
+                                     f"tiles a warp, ran {last_body()}",
+                                     row))
+                got = torch.cat([out[:, a:b] for a, b in slices], dim=1)
+                row["tol_share"][mt] = max_err(got, want, "bfloat16")[1]
+                if not row["tol_share"][mt] <= 1.0:
+                    failures.append(("flash_attention", f"{mt} row tiles "
+                                     "a warp", row))
+                row["ms"][mt] = cuda_ms(lambda: ops.flash_attention(q, k, v),
+                                        50 if S <= 512 else 5)
+        finally:
+            force(0)
+        log(f"[kernels] flash_attention bf16 B={B} S={S} causal, by row "
+            f"tiles a warp (the launcher picks {row['picked']}): "
+            + ", ".join(f"{mt}: {row['ms'][mt]:.4f} ms, "
+                        f"{row['tol_share'][mt]:.3f} of tol"
+                        for mt in (1, 2)))
+        del q, k, v, want
+        torch.cuda.empty_cache()
+
+
+def check_long_prefill(record, gen) -> None:
+    """bf16 ``flash_attention`` at the ``LONG_PREFILL`` shapes: the kernel
+    over the whole prompt, checked on three slices of ``LONG_SLICE`` query
+    rows against the plain version; the kernel and ``sdpa`` (causal, GQA)
+    timed over the whole prompt with few iterations; the plain version is
+    not timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    for B, S in LONG_PREFILL:
+        q = torch.randn((B, S, HEADS, HEAD_DIM), generator=gen,
+                        device="cuda", dtype=torch.bfloat16)
+        k, v = (torch.randn((B, S, KV_HEADS, HEAD_DIM), generator=gen,
+                            device="cuda", dtype=torch.bfloat16)
+                for _ in range(2))
+        slices = long_slices(S)
+
+        def run():
+            out = ops.flash_attention(q, k, v)
+            return torch.cat([out[:, a:b] for a, b in slices], dim=1)
+
+        def plain():
+            return plain_slices(q, k, v, slices)
+
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        bytes_moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        flops = 4 * B * HEADS * HEAD_DIM * (S * (S + 1) // 2)
+        b_ms, b_by = bound(bytes_moved, flops, "bfloat16")
+        record("flash_attention", dict(
+            dtype="bfloat16", B=B, S=S, window=None,
+            bound_ms=b_ms, bound_by=b_by,
+            note=f"; checked on query rows {slices}; plain not timed"),
+            run, plain,
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            2 if B > 1 else 5,
+            timed_fns=(lambda: ops.flash_attention(q, k, v), None))
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
 
 
 def check_sharded(record, q, k, v, kv_len, q_off, n_keys, dn, es, iters):

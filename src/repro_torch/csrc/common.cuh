@@ -1,7 +1,12 @@
-// Pieces shared by the kernels: dtype conversion (all three sources), warp
-// reductions (the attention kernels, decode_attention.cu and
-// flash_attention.cu), and the staging of one K/V tile into shared memory
-// as fp32 (flash_attention.cu).
+// Pieces shared by the kernels, and which source uses each:
+//  * dtype conversion (to_f, from_f): all three sources;
+//  * warp reductions (warp_max, warp_sum): decode_attention.cu, and the
+//    fp32 CUDA-core body of flash_attention.cu;
+//  * cp.async copies (cp_async16, cp_async4, cp_async_commit,
+//    cp_async_wait): decode_attention.cu (its per-warp rings), and the bf16
+//    tensor-core body of flash_attention.cu (its K/V ring);
+//  * stage_tile, one K/V tile staged in shared memory as fp32: only the
+//    fp32 CUDA-core body of flash_attention.cu.
 // kernels/build.py hashes this header with each source, so an edit here
 // rebuilds every library.
 #pragma once
@@ -31,6 +36,30 @@ __device__ __forceinline__ float warp_max(float x) {
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// 16 bytes (4 bytes) from global to shared memory, asynchronously; with
+// `in` false nothing is read and the destination is zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Stage keys [t0, t0 + kTile) of K and V (rows of `row` elements apart,

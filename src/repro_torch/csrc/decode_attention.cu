@@ -89,27 +89,6 @@ constexpr int kStages = 2;                // tiles in each warp's ring
 constexpr int kMaxWarps = 4;              // warps of a block
 constexpr size_t kRingBytes = 72 * 1024;  // the block's rings at most
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(in ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Code e (0..3) of four int8 codes packed in w, as an exact fp32: the biased
 // byte code + 128 placed in the mantissa of 2^23, less 2^23 + 128.
 __device__ __forceinline__ float int8_to_f(uint32_t w, int e) {

@@ -39,6 +39,8 @@ ENTRIES = {
                                  + [_I] * 2 + [_P]),
     "flash_attention_launch": ("flash_attention",
                                [_P] * 4 + [_I] * 9 + [ctypes.c_float, _P]),
+    "flash_attention_last_body": ("flash_attention", []),
+    "flash_attention_row_tiles": ("flash_attention", [_I]),
     "ssd_scan_launch": ("ssd_scan", [_P] * 6 + [_I] * 7 + [_P]),
 }
 

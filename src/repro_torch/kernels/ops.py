@@ -151,10 +151,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """Causal GQA attention: q (B,Sq,H,D) over k/v (B,Skv,KH,D); query row
     i sits at position ``q_offset + i``; ``window`` masks keys older than
-    ``pos - window + 1``.  Returns (B,Sq,H,D) in q's dtype."""
+    ``pos - window + 1``.  Returns (B,Sq,H,D) in q's dtype.  On the card a
+    bf16 call runs the tensor-core body of the kernel and an fp32 call its
+    CUDA-core body (``csrc/flash_attention.cu``)."""
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, window=window, q_offset=q_offset)
     _check("flash_attention", q, k, v)
+    if q.data_ptr() % 16:
+        raise ValueError("flash_attention: q must start on a 16-byte "
+                         "boundary (the kernel copies it in 16-byte vectors)")
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
