@@ -20,7 +20,11 @@ Phases (any failure raises and exits non-zero):
      layer of the prefill_32k shape (B=32 x 32768), checked on three
      slices of 256 query rows; each ``flash_attention`` row names the body
      of the kernel that ran, as the library's launcher recorded it (bf16:
-     tensor-core, fp32: CUDA-core);
+     tensor-core, fp32: CUDA-core); ``ssd_scan`` at one and two chunks and
+     a padded prompt, and in bf16 also one prompt of 8192 and one of 32768
+     tokens (32 and 128 chunks), each row with the body that ran and the
+     kernels the call launched (bf16: 2 or 3 tensor-core passes, fp32: 1),
+     and one bf16 call of 32768 tokens profiled, its device time by pass;
   4. the served paths at full width: ``ElisServer`` -> ISRTF with the
      oracle predictor -> ``EngineExecutor`` ->
      ``InferenceEngine(attn_impl="kernel")`` serving a dozen requests to
@@ -59,7 +63,11 @@ against it, and prints how many of them caught the fault
 ``combine_no_rescale``: the decode's combine pass sums the splits'
 partial states without rescaling them to a common maximum;
 ``p_in_bf16``: the bf16 prefill multiplies P rounded to bf16 by V, as
-library kernels do, and not its hi/lo split); ``drop_rank_partial`` instead
+library kernels do, and not its hi/lo split; ``ssd_operands_in_bf16``:
+the bf16 SSD passes do the same with their three fp32 operands;
+``carry_no_decay``: the SSD carry pass does not decay the carried state;
+``drop_carried_state``: the SSD scan drops the carried-state term of its
+outputs, in both bodies); ``drop_rank_partial`` instead
 drops one rank's attention output from the TP model's sums, in memory,
 and runs phase 5's TP comparisons.
 
@@ -123,8 +131,15 @@ LOGIT_TOL_BF16 = 0.1
 #: ``a`` to bf16 before its scan (as the reference's plain path does), so
 #: it computes another function, and on an H100 it differed from the
 #: correct kernel by 0.094 and from the ``drop_carried_state`` fault by
-#: 0.090 (|logit| <= 2.6).  Against the plain scan the correct kernel gave
-#: 0 and the fault 0.047; the limit lies between them.
+#: 0.090 (|logit| <= 2.6).  Against the plain scan, on an H100: the
+#: correct kernel 0, ``drop_carried_state`` 0.047 and
+#: ``ssd_operands_in_bf16`` 0.076; the limit lies between them.  A
+#: tensor-core body whose fp32 operands were split in two bf16 parts and
+#: whose diagonal term was summed on the tensor cores gave 0.047 too: with
+#: these random weights y is nearly its diagonal term, and summed in
+#: another order than the plain version's it flips y's rounding often
+#: enough for 24 layers to carry it to the logits (ssd_scan.cu,
+#: "Precision").
 SSM_LOGIT_TOL_BF16 = 0.02
 #: bf16 full-depth prefill logits of qwen2-1.5b, the TP=2 kernel model
 #: against the single-device kernel model.  They differ where the TP model
@@ -189,12 +204,27 @@ PLANTED_FAULTS = {
         ("decode_attention.cu",
          r"const float e_s = expf\(ml\[2 \* s\] - M\);",
          "const float e_s = 1.f;")],
-    # drop the carried-state term exp(a_cum) C h_in of every query row; it
-    # changes nothing when S <= chunk (the state carried in is zero)
+    # drop the carried-state term exp(a_cum) C h_in of every query row, in
+    # the fp32 body and in the bf16 output pass; it changes nothing when S
+    # <= chunk (the state carried in is zero)
     "drop_carried_state": [
         ("ssd_scan.cu",
          r"const float e = row < nq \? expf\(acum\[q0 \+ row\]\) : 0\.f;",
-         "const float e = 0.f;")],
+         "const float e = 0.f;"),
+        ("ssd_scan.cu",
+         r"const float e_a = in_a \? expf\(ac_a\) : 0\.f, "
+         r"e_b = in_b \? expf\(ac_b\) : 0\.f;",
+         "const float e_a = 0.f, e_b = 0.f;")],
+    # the bf16 SSD passes multiply their fp32 operands (x o decay, h_in and
+    # the masked scores) rounded to bf16: the hi parts alone, the mid and
+    # lo mmas dropped
+    "ssd_operands_in_bf16": [
+        ("ssd_scan.cu", r"\n *mma_bf16\([^;\n]*_(?:mid|lo)\b[^;\n]*\);", "")],
+    # the bf16 carry pass adds each chunk's state to the carried one without
+    # decaying the carried one by exp(a_cum[-1])
+    "carry_no_decay": [
+        ("ssd_scan.cu", r"hc\[j\] = hc\[j\] \* ez \+ sv\[j\];",
+         "hc[j] = hc[j] + sv[j];")],
 }
 
 
@@ -379,6 +409,62 @@ def ssd_work(S: int, chunk: int, es: int):
     return bytes_moved, flops
 
 
+#: the SSD rows of phase 3, (S, chunk, pad), B=1 at mamba2-130m's widths: a
+#: one-chunk prompt (chunk = S = 137), two chunks (the carry), a 300-token
+#: prompt zero-padded to two 256-long chunks (the served bf16 row is the
+#: second); in bf16 also two long prompts of 32 and 128 chunks
+SSD_ROWS = [(137, 137, 0), (512, 256, 0), (512, 256, 212)]
+SSD_LONG_ROWS = [(8192, 256, 0), (32768, 256, 0)]
+#: the body of ``ssd_scan.cu`` each dtype must run
+SSD_BODY = {"bfloat16": "tensor-core", "float32": "CUDA-core"}
+
+
+def ssd_kernels(dtype_name: str, n_chunks: int) -> int:
+    """Kernels one ``ssd_scan`` call launches: the fp32 body one; the bf16
+    passes three (chunk states, carry, outputs), two for one chunk."""
+    if dtype_name == "float32":
+        return 1
+    return 2 if n_chunks == 1 else 3
+
+
+def ssd_launch():
+    """(body, kernels) of the last ``ssd_scan`` launch, as the library
+    recorded them."""
+    from repro_torch.kernels import build
+
+    body = build.load("ssd_scan_last_body")()
+    if body not in (0, 1):
+        raise AssertionError(f"ssd_scan: no body recorded ({body})")
+    return (SSD_BODY["float32"] if body == 0 else SSD_BODY["bfloat16"],
+            build.load("ssd_scan_last_kernels")())
+
+
+def check_ssd(record, gen, dtype, timed) -> None:
+    """``ssd_scan`` at the ``SSD_ROWS`` (and, in bf16, ``SSD_LONG_ROWS``)
+    against its plain version, with ``ssd_case``'s long-memory inputs and
+    ``ssd_work``'s bound; with ``timed``, one bf16 call of the longest row
+    is also profiled, so its time splits by pass."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    dn = str(dtype).split(".")[1]
+    long_rows = SSD_LONG_ROWS if dtype == torch.bfloat16 else []
+    for S, chunk, pad in SSD_ROWS + long_rows:
+        x, a, bm, cm = ssd_case(S, pad, dtype, gen)
+        b_ms, b_by = bound(*ssd_work(S, chunk, dtype.itemsize), dn)
+        record("ssd_scan", dict(dtype=dn, B=1, S=S, chunk=chunk, pad=pad,
+                                bound_ms=b_ms, bound_by=b_by),
+               lambda: ops.ssd_scan(x, a, bm, cm, chunk=chunk),
+               lambda: ref.ssd_scan(x, a, bm, cm, chunk=chunk), None,
+               20 if S <= 512 else 5)
+        if timed and long_rows and (S, chunk, pad) == long_rows[-1]:
+            profiled(f"ssd_scan bf16 B=1 S={S} chunk={chunk}, one call",
+                     lambda: ops.ssd_scan(x, a, bm, cm, chunk=chunk))
+        del x, a, bm, cm
+    torch.cuda.empty_cache()
+
+
 def check_kernels(timed: bool = True):
     """Phase 3: every kernel against its plain version at the served
     shapes; with ``timed`` also the times of both and of the library call
@@ -398,13 +484,21 @@ def check_kernels(timed: bool = True):
         """Check ``run()`` against ``plain()`` (and, with ``exact``, that
         ``row["bitwise"]`` holds); with ``timed``, time them (or the pair
         ``timed_fns`` in their place) and ``lib``."""
-        out, want = run(), plain()
+        out = run()
+        if name == "ssd_scan":
+            row["body"], row["kernels"] = ssd_launch()
+        want = plain()
         synchronize_all()
         if name == "flash_attention":
             row["body"] = prefill_body()
             if not row["body"].startswith(PREFILL_BODY[row["dtype"]]):
                 failures.append((name, f"{row['dtype']} ran the "
                                  f"{row['body']} body", row))
+        if name == "ssd_scan" and (
+                row["body"] != SSD_BODY[row["dtype"]] or row["kernels"]
+                != ssd_kernels(row["dtype"], row["S"] // row["chunk"])):
+            failures.append((name, f"{row['dtype']} ran the {row['body']} "
+                             f"body in {row['kernels']} kernels", row))
         row["max_abs_err"], row["tol_share"] = max_err(
             out, want, row["dtype"], scaled=name == "ssd_scan")
         if exact and not row["bitwise"]:
@@ -497,15 +591,7 @@ def check_kernels(timed: bool = True):
             check_long_prefill(record, gen)
             if timed:
                 check_row_tiles(gen, failures)
-        # a one-chunk prompt (chunk = S = 137), two chunks (the carry), and
-        # a 300-token prompt zero-padded to two 256-long chunks
-        for S, chunk, pad in ((137, 137, 0), (512, 256, 0), (512, 256, 212)):
-            x, a, bm, cm = ssd_case(S, pad, dtype, gen)
-            b_ms, b_by = bound(*ssd_work(S, chunk, es), dn)
-            record("ssd_scan", dict(dtype=dn, B=1, S=S, chunk=chunk, pad=pad,
-                                    bound_ms=b_ms, bound_by=b_by),
-                   lambda: ops.ssd_scan(x, a, bm, cm, chunk=chunk),
-                   lambda: ref.ssd_scan(x, a, bm, cm, chunk=chunk), None, 20)
+        check_ssd(record, gen, dtype, timed)
     for name, rs in rows.items():
         log(f"[kernels] {name}: kernel vs plain version on the card")
         for r in rs:
@@ -530,7 +616,8 @@ def check_kernels(timed: bool = True):
             else:
                 shape = (f"B={r['B']} S={r['S']} chunk={r['chunk']} "
                          f"pad={r['pad']} H={SSM_HEADS} P={SSM_HEAD_DIM} "
-                         f"N={SSM_STATE}")
+                         f"N={SSM_STATE} [{r['body']}, {r['kernels']} "
+                         f"kernels]")
             line = (f"  {r['dtype']:<8} {shape}: "
                     f"max_abs_err={r['max_abs_err']:.3e}, "
                     f"{r['tol_share']:.3f} of tol (atol {atol:g}"

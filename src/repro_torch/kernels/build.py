@@ -41,7 +41,9 @@ ENTRIES = {
                                [_P] * 4 + [_I] * 9 + [ctypes.c_float, _P]),
     "flash_attention_last_body": ("flash_attention", []),
     "flash_attention_row_tiles": ("flash_attention", [_I]),
-    "ssd_scan_launch": ("ssd_scan", [_P] * 6 + [_I] * 7 + [_P]),
+    "ssd_scan_launch": ("ssd_scan", [_P] * 7 + [_I] * 7 + [_P]),
+    "ssd_scan_last_body": ("ssd_scan", []),
+    "ssd_scan_last_kernels": ("ssd_scan", []),
 }
 
 #: launch functions already loaded, by name

@@ -309,11 +309,24 @@ SSD_SHAPES = ((32, 16), (32, 128), (64, 16), (64, 128))
 SSD_MAX_CHUNK = 256
 
 
+def ssd_workspace_floats(b: int, s: int, h: int, p: int, n: int,
+                         chunk: int) -> int:
+    """fp32 elements of the bf16 SSD kernel's workspace: each chunk's end
+    state, (B, nc, H, P, N), then each chunk's end decay exp(a_cum[-1]),
+    (B, nc, H), with ``nc = s // chunk``.  0 for one chunk: its end state
+    is the final state, and no pass reads another's."""
+    nc = s // chunk
+    return 0 if nc == 1 else b * nc * h * (p * n + 1)
+
+
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, *, chunk: int = 256):
     """Chunked SSD scan (Mamba2): x (B,S,H,P) already multiplied by dt, a
     (B,S,H) fp32 log decay, Bm/Cm (B,S,H,N) in x's dtype, ``S % chunk ==
-    0``.  Returns (y (B,S,H,P), final state (B,H,P,N)) in x's dtype."""
+    0``.  Returns (y (B,S,H,P), final state (B,H,P,N)) in x's dtype.  On
+    the card a bf16 call runs the kernel's tensor-core passes (two or three
+    kernels, over an fp32 workspace of :func:`ssd_workspace_floats`) and
+    an fp32 call its CUDA-core body; either counts one launch."""
     if x.device.type == "cpu":
         return ref.ssd_scan(x, a, Bm, Cm, chunk=chunk)
     if x.device.type != "cuda":
@@ -349,10 +362,14 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
                          "boundary (the kernel reads them in 16-byte vectors)")
     y = torch.empty_like(x)
     final = torch.empty((b, h, p, n), dtype=x.dtype, device=x.device)
+    floats = (ssd_workspace_floats(b, s, h, p, n, chunk)
+              if x.dtype == torch.bfloat16 else 0)
+    ws = (torch.empty((floats,), dtype=torch.float32, device=x.device)
+          if floats else None)
     _launch("ssd_scan", x.device, build.load("ssd_scan_launch"),
             x.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            y.data_ptr(), final.data_ptr(), b, s, h, p, n, int(chunk),
-            DTYPE_CODES[x.dtype], _stream(x.device))
+            y.data_ptr(), final.data_ptr(), _ptr(ws), b, s, h, p, n,
+            int(chunk), DTYPE_CODES[x.dtype], _stream(x.device))
     ssd_scan.launches += 1
     return y, final
 

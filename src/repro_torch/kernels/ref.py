@@ -196,3 +196,44 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, s, h, p)
     return y.to(x.dtype), state.to(x.dtype)
+
+
+def ssd_scan_passes(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+                    Cm: torch.Tensor, *, chunk: int):
+    """A plain model of the bf16 SSD kernel's three passes (not a wrapper's
+    plain version), in fp32: (1) every chunk's end state from zero, ``s_z =
+    (x o decay)^T B``, and its end decay ``e_z = exp(a_cum[-1])``, all
+    chunks at once; (2) the carry, in order over the chunks only, ``h_0 =
+    0``, ``h_z = e_{z-1} h_{z-1} + s_{z-1}``, the last one the final state;
+    (3) every chunk's outputs at once, ``y = (C B^T o L) x + exp(a_cum) C
+    h_z^T``.  ``a_cum`` is summed in fp64 and rounded to fp32, as in
+    :func:`ssd_scan`.  Same arguments and result as :func:`ssd_scan`."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    if s % chunk:
+        raise ValueError(f"ssd_scan: S={s} is not a multiple of chunk={chunk}")
+    nc = s // chunk
+    xc = x.float().reshape(b, nc, chunk, h, p)
+    bc = Bm.float().reshape(b, nc, chunk, h, n)
+    cc = Cm.float().reshape(b, nc, chunk, h, n)
+    a_cum = torch.cumsum(a.double().reshape(b, nc, chunk, h), dim=2).float()
+    # (1) chunk states from zero
+    decay = torch.exp(a_cum[:, :, -1:] - a_cum)  # (B, nc, c, H)
+    states = torch.einsum("bzshp,bzshn->bzhpn", xc * decay[..., None], bc)
+    ends = torch.exp(a_cum[:, :, -1])  # (B, nc, H)
+    # (2) the carry
+    h_z = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    starts = []
+    for z in range(nc):
+        starts.append(h_z)
+        h_z = h_z * ends[:, z, :, None, None] + states[:, z]
+    h_in = torch.stack(starts, dim=1)  # (B, nc, H, P, N)
+    # (3) outputs
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))[None, None, :, :, None]
+    seg = a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :]  # (B, nc, t, s, H)
+    L = torch.where(tri, torch.exp(torch.where(tri, seg, 0.0)), 0.0)
+    scores = torch.einsum("bzthn,bzshn->bztsh", cc, bc) * L
+    y = torch.einsum("bztsh,bzshp->bzthp", scores, xc) + torch.exp(
+        a_cum)[..., None] * torch.einsum("bzthn,bzhpn->bzthp", cc, h_in)
+    return y.reshape(b, s, h, p).to(x.dtype), h_z.to(x.dtype)

@@ -88,7 +88,8 @@ def test_plain_flash_attention_slice_identity(dtype, window, a, b):
 
 
 FAULTS = ["drop_v_scale", "drop_first_tile", "bf16_accumulate",
-          "combine_no_rescale", "drop_carried_state", "p_in_bf16"]
+          "combine_no_rescale", "drop_carried_state", "p_in_bf16",
+          "ssd_operands_in_bf16", "carry_no_decay"]
 
 
 def test_planted_faults_are_all_listed():

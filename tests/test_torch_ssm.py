@@ -472,6 +472,10 @@ def _card_scan_inputs(gen, b, s, h, p, n, dtype, pad=0):
     (2, 96, 8, 32, 16, 32, 0),        # reduced widths
     (3, 64, 4, 64, 16, 1, 0),         # chunk 1
     (1, 250, 3, 32, 128, 250, 0),
+    (1, 4096, 24, 64, 128, 256, 0),   # many chunks: the carry pass
+    (2, 2048, 24, 64, 128, 64, 0),
+    (1, 256, 24, 64, 128, 1, 0),      # 256 one-row chunks
+    (1, 8192, 24, 64, 128, 256, 3000),  # a long prompt, padded
 ])
 def test_ssd_scan_kernel_matches_plain_on_card(dtype, b, s, h, p, n, chunk,
                                                pad):
@@ -489,6 +493,28 @@ def test_ssd_scan_kernel_matches_plain_on_card(dtype, b, s, h, p, n, chunk,
         atol = 2e-5 * float(want.float().abs().max())
         torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                    rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,s,chunk,kernels", [
+    (torch.bfloat16, 137, 137, 2),  # one chunk: states, outputs
+    (torch.bfloat16, 512, 256, 3),  # two: states, carry, outputs
+    (torch.float32, 512, 256, 1),   # the CUDA-core body
+])
+def test_ssd_scan_call_counts_one_launch_on_card(dtype, s, chunk, kernels):
+    """One wrapper call adds exactly 1 to ``launches``, however many
+    kernels the library launched for it (as it records them)."""
+    requires_card()
+    from repro_torch.kernels import build
+    gen = torch.Generator(device="cuda").manual_seed(s)
+    x, a, bm, cm = _card_scan_inputs(gen, 1, s, 24, 64, 128, dtype)
+    launches = ops.ssd_scan.launches
+    ops.ssd_scan(x, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == launches + 1
+    assert build.load("ssd_scan_last_kernels")() == kernels
+    assert build.load("ssd_scan_last_body")() == (
+        1 if dtype == torch.bfloat16 else 0)
 
 
 @pytest.mark.gpu
