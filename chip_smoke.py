@@ -48,7 +48,25 @@ Phases (any failure raises and exits non-zero):
      single-device kernel engine (fp32 tokens), and the TP=2 kernel model
      against the single-device kernel model (bf16 logits); for the int8
      step path, identical fp32 greedy tokens and agreeing bf16 decode
-     logits.
+     logits;
+  6. the serve CLI (``python -m repro_torch.launch.serve``, run in this
+     process through ``main``) at full width, qwen2-1.5b in bf16 with 28
+     layers: serve.py's defaults with ``--n 12``; then traffic that queues
+     and preempts (``CLI_QUEUE``: 4 slots, 24 requests at 4 req/s, outputs
+     up to 128 tokens) under ISRTF and FCFS on the same arrivals, in the
+     order isrtf, fcfs, fcfs, isrtf (mean JCT of each, the ISRTF/FCFS
+     ratio, preemptions, tokens/s); then the ISRTF run with
+     ``--prefill-chunk 8 --preempt-policy swap``, and with
+     ``--preempt-policy auto --probe-nodes 2``.  Every request must finish
+     with ``min(true_output_len, max_output)`` tokens, ISRTF must preempt,
+     the swap run must swap out, swap in and run prefill chunks, and each
+     run's ``flash_attention`` and ``flash_decode`` launch counts (set to 0
+     before it, read after) must be the engine's one-shot prefills and
+     decode steps times 28 layers.  Beside it, one slot's cache is
+     offloaded to the host and restored bit for bit at full width, its
+     greedy stream equal to a resident engine's, and chunked prefill gives
+     the fp32 greedy tokens of one-shot prefill at full width and 2
+     layers.
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -1698,6 +1716,259 @@ def tp_planted_fault(cfg, params, requests) -> dict:
             "logit_caught": not (finite and gap <= TP_LOGIT_TOL_BF16)}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 6: the serve CLI (launch/serve.py) at full width
+# --------------------------------------------------------------------------- #
+
+#: traffic that queues and preempts on one card: 24 requests at 4 req/s
+#: (Gamma arrivals) with outputs up to 128 tokens, against 4 slots that
+#: serve far fewer requests a second at full width
+CLI_QUEUE = ["--slots", "4", "--window", "8", "--n", "24", "--rate", "4",
+             "--max-output", "128", "--seed", "0"]
+#: the runs of phase 6, in order: serve.py's defaults, then ISRTF and FCFS
+#: on the same arrivals (isrtf, fcfs, fcfs, isrtf), then ISRTF with chunked
+#: prefill and swap preemption, and with the ``auto`` break-even after a
+#: live probe of the node's token cost
+CLI_RUNS = [
+    ("defaults", ["--n", "12"]),
+    ("isrtf", CLI_QUEUE + ["--policy", "isrtf"]),
+    ("fcfs", CLI_QUEUE + ["--policy", "fcfs"]),
+    ("fcfs", CLI_QUEUE + ["--policy", "fcfs"]),
+    ("isrtf", CLI_QUEUE + ["--policy", "isrtf"]),
+    ("isrtf chunk+swap", CLI_QUEUE + ["--policy", "isrtf",
+                                      "--prefill-chunk", "8",
+                                      "--preempt-policy", "swap"]),
+    ("isrtf auto+probe", CLI_QUEUE + ["--policy", "isrtf",
+                                      "--preempt-policy", "auto",
+                                      "--probe-nodes", "2"]),
+]
+
+
+def cli_run(name: str, argv):
+    """Run ``repro_torch.launch.serve.main(argv)`` in this process with
+    every launch count set to 0 just before and read just after; check
+    that every request finished with ``min(true_output_len, max_output)``
+    tokens and that the kernels ran as often as the engine's dispatches
+    say (a chunk of a chunked prefill launches nothing: it attends with
+    the plain ``sdpa``, as the reference does).  Returns the run's
+    numbers."""
+    import contextlib
+    import io
+
+    from repro_torch.core import summarize
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as cli
+
+    argv = list(argv) + ["--device", DEVICE]
+    args = cli._parser().parse_args(argv)
+    want_tokens = {r.request_id: min(r.true_output_len, args.max_output)
+                   for r in cli.load_requests(args)[0]}
+    out, err = io.StringIO(), io.StringIO()
+    ops.reset_launches()
+    synchronize_all()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        responses, executor = cli.main(argv)
+    synchronize_all()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
+    bad = [(r.request_id, r.status.value, r.n_tokens,
+            want_tokens.get(r.request_id)) for r in responses
+           if not r.ok or r.n_tokens != want_tokens.get(r.request_id)]
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    if bad or len(responses) != len(want_tokens) or len(lines) != len(
+            want_tokens):
+        raise AssertionError(f"serve CLI run {name!r}: requests not served "
+                             f"as expected: {bad}")
+    # a window decodes iff it emits tokens (every decoding job emits at
+    # least one); the others only ran a prefill chunk
+    decoding = [rec for rec in executor.window_log if rec["tokens"] > 0]
+    steps = sum(rec["window"] for rec in decoding)
+    probe_windows = probe_steps = 0
+    if args.probe_nodes:
+        per = (args.probe_nodes + 1) * len({1, min(2, args.slots)})
+        probe_windows = per * len(cli.PROBE_WINDOWS)
+        probe_steps = per * sum(cli.PROBE_WINDOWS)
+    counters = executor.counters()
+    if counters["decode_dispatches"] != len(decoding) + probe_windows:
+        raise AssertionError(
+            f"serve CLI run {name!r}: {counters['decode_dispatches']} decode "
+            f"dispatches, but {len(decoding)} windows emitted tokens and "
+            f"{probe_windows} probe windows ran")
+    n_layers = executor.engines[0].model_cfg.n_layers
+    prefills = counters["prefill_dispatches"]
+    want = {"flash_decode": (n_layers * (steps + probe_steps),
+                             f"{n_layers} layers x {steps + probe_steps} "
+                             "decode steps"
+                             + (f" ({probe_steps} of them probes)"
+                                if probe_steps else ""))}
+    if prefills:  # a chunked run admits every job, resumes too, by chunks
+        want["flash_attention"] = (n_layers * prefills,
+                                   f"{n_layers} layers x {prefills} "
+                                   "one-shot prefill dispatches")
+    check_launches(launches, want)
+    m = summarize(responses)
+    n_tok = sum(r.n_tokens for r in responses)
+    busy = sum(rec["duration_s"] for rec in executor.window_log)
+    run = {"name": name, "jct_mean": m["jct_mean"], "jct_p99": m["jct_p99"],
+           "queue_mean": m["queuing_delay_mean"],
+           "preemptions": m["preemptions"], "tokens": n_tok,
+           "tokens_s": n_tok / m["makespan"], "wall_s": wall,
+           "launches": launches, "counters": counters}
+    log(f"[cli] {name}: {len(responses)}/{len(want_tokens)} requests "
+        f"FINISHED with the expected token counts; JCT mean "
+        f"{m['jct_mean']:.3f} s, p99 {m['jct_p99']:.3f} s; queueing delay "
+        f"mean {m['queuing_delay_mean']:.3f} s; preemptions "
+        f"{m['preemptions']}; {n_tok} tokens over a {m['makespan']:.3f} s "
+        f"serving makespan = {run['tokens_s']:.1f} tokens/s "
+        f"({n_tok / busy:.1f} over the {busy:.3f} s of windows); swapouts "
+        f"{counters['swapouts']}, swapins {counters['swapins']}, chunk "
+        f"dispatches {counters['chunk_dispatches']}, resume prefill tokens "
+        f"{counters['resume_context_tokens']}; flash_decode "
+        f"{launches['flash_decode']}, flash_attention "
+        f"{launches['flash_attention']}; {wall:.1f} s wall "
+        f"(python -m repro_torch.launch.serve {' '.join(argv)})")
+    for ln in err.getvalue().splitlines():
+        log(f"[cli]   {ln}")
+    del responses, executor
+    gc.collect()
+    if DEVICE != "cpu":
+        import torch
+        torch.cuda.empty_cache()
+    return run
+
+
+def serve_cli_phase() -> dict:
+    """Phase 6: drive ``repro_torch.launch.serve.main`` through
+    :data:`CLI_RUNS` and check what they must show: ISRTF preempts, the
+    swap run swaps out and in and runs prefill chunks; print ISRTF's and
+    FCFS's mean JCT and their ratio.  Returns the phase's launch counts,
+    summed over its runs."""
+    runs = [cli_run(name, argv) for name, argv in CLI_RUNS]
+    by = {}
+    for r in runs:
+        by.setdefault(r["name"], []).append(r)
+    isrtf = [r["jct_mean"] for r in by["isrtf"]]
+    fcfs = [r["jct_mean"] for r in by["fcfs"]]
+    ratio = (sum(isrtf) / len(isrtf)) / (sum(fcfs) / len(fcfs))
+    log(f"[cli] same arrivals ({' '.join(CLI_QUEUE)}), in the order isrtf, "
+        f"fcfs, fcfs, isrtf: ISRTF mean JCT {isrtf} s, FCFS {fcfs} s; "
+        f"ISRTF/FCFS = {ratio:.4f}; ISRTF preemptions "
+        f"{[r['preemptions'] for r in by['isrtf']]}, tokens/s "
+        f"{[round(r['tokens_s'], 1) for r in by['isrtf']]} (FCFS "
+        f"{[round(r['tokens_s'], 1) for r in by['fcfs']]})")
+    if not all(r["preemptions"] > 0 for r in by["isrtf"]):
+        raise AssertionError("serve CLI: ISRTF never preempted: the "
+                             "traffic does not queue")
+    swap = by["isrtf chunk+swap"][0]["counters"]
+    if not (swap["swapouts"] > 0 and swap["swapins"] > 0
+            and swap["chunk_dispatches"] > 0):
+        raise AssertionError(f"serve CLI: the chunk+swap run did not swap "
+                             f"out, swap in and chunk: {swap}")
+    total = {}
+    for r in runs:
+        for n, c in r["launches"].items():
+            total[n] = total.get(n, 0) + c
+    if not (total["flash_decode"] > 0 and total["flash_attention"] > 0):
+        raise AssertionError(f"serve CLI: a kernel never launched: {total}")
+    log(f"[cli] launches over the phase: {json.dumps(total)}")
+    return total
+
+
+def swap_roundtrip(cfg, params, requests) -> None:
+    """One slot's cache offloaded to the host and restored, at full width:
+    bit for bit, and the greedy streams of both jobs equal to those of an
+    engine that keeps the job resident over the same schedule (the job
+    sits out one window either way)."""
+    import torch
+
+    from repro_torch.core import Job
+    from repro_torch.engine import EngineConfig, InferenceEngine
+    from repro_torch.engine.engine import _gather_slots
+
+    prompts = [list(r.prompt_tokens) for r in requests[:2]]
+    streams = []
+    for swap in (True, False):
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            max_slots=2, max_len=MAX_LEN, max_output=64, eos_id=-1),
+            device=DEVICE)
+        jobs = [Job(job_id=i, prompt="", prompt_tokens=p, arrival_time=0.0)
+                for i, p in enumerate(prompts)]
+
+        def window(batch):
+            toks, _ = eng.run_window(batch, 8)
+            for j, t in zip(batch, toks):
+                j.generated.extend(t)
+
+        def slot_leaves():
+            idx = torch.tensor([eng.slot_of[0]], device=eng.device)
+            sub = _gather_slots(eng.cache, idx)
+            return [sub["len"], sub["kv"].k, sub["kv"].v]
+
+        window(jobs)
+        if swap:
+            before = [t.clone() for t in slot_leaves()]
+            if not eng.offload_job(0):
+                raise AssertionError("swap round trip: offload refused")
+        window(jobs[1:])
+        if swap:
+            eng.restore_job(jobs[0])
+            same = all(torch.equal(a, b)
+                       for a, b in zip(slot_leaves(), before))
+            n_bytes = sum(t.numel() * t.element_size() for t in before)
+            if not same:
+                raise AssertionError("swap round trip: the restored slot "
+                                     "differs from the offloaded one")
+        window(jobs)
+        window(jobs)
+        streams.append([list(j.generated) for j in jobs])
+        del eng
+    if streams[0] != streams[1]:
+        raise AssertionError(f"swap round trip: streams differ from the "
+                             f"resident engine's: {streams}")
+    log(f"[swap] {cfg.arch_id} {cfg.dtype}, full width: one slot's cache "
+        f"({n_bytes / 1e6:.1f} MB, {MAX_LEN} rows) offloaded to the host and "
+        f"restored bit for bit; greedy streams of both jobs identical to a "
+        f"resident engine's over the same schedule "
+        f"({sum(map(len, streams[0]))} tokens)")
+
+
+def chunk_parity(cfg, requests) -> None:
+    """fp32 greedy tokens at full width and 2 layers: chunked prefill (8
+    tokens a window, plain ``sdpa``) against one-shot prefill
+    (``flash_attention``), identical on every token."""
+    import torch
+
+    from repro_torch.core import Job
+    from repro_torch.engine import EngineConfig, InferenceEngine
+    from repro_torch.models import transformer as T
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params2 = T.init_params(
+        cfg2, torch.Generator(device=DEVICE).manual_seed(SEED + 1))
+    prompts = [list(r.prompt_tokens)[:40] for r in requests[:4]]
+    streams = []
+    for chunk in (None, 8):
+        eng = InferenceEngine(cfg2, params2, EngineConfig(
+            max_slots=4, max_len=MAX_LEN, max_output=64, eos_id=-1),
+            device=DEVICE)
+        jobs = [Job(job_id=i, prompt="", prompt_tokens=p, arrival_time=0.0)
+                for i, p in enumerate(prompts)]
+        while any(len(j.generated) < 16 for j in jobs):
+            toks, _ = eng.run_window(jobs, 8, prefill_chunk=chunk)
+            for j, t in zip(jobs, toks):
+                j.generated.extend(t)
+        streams.append([j.generated[:16] for j in jobs])
+        chunks = eng.num_chunk_dispatches
+    same = sum(a == b for g, w in zip(*streams) for a, b in zip(g, w))
+    log(f"[parity] {cfg.arch_id} fp32, full width, 2 layers: chunked "
+        f"prefill (chunk 8, {chunks} chunk dispatches) vs one-shot prefill "
+        f"greedy tokens identical on {same}/{16 * len(prompts)} tokens")
+    if streams[0] != streams[1]:
+        raise AssertionError("chunked prefill: fp32 greedy tokens differ "
+                             "from one-shot prefill's")
+
+
 def build_report() -> None:
     """Log ptxas's registers and spills of every kernel instance, by
     kernel (demangled with ``c++filt`` where the machine has it)."""
@@ -1851,8 +2122,19 @@ def main(argv=None) -> None:
         del params
         torch.cuda.empty_cache()
 
+    # phase 6: the serve CLI at full width (it makes its own weights)
+    t0 = time.perf_counter()
+    cfg, requests = models[0]
+    params = random_params(cfg)
+    swap_roundtrip(cfg, params, requests)
+    del params
+    chunk_parity(cfg, requests)
+    serve_cli_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[cli] phase 6 in {time.perf_counter() - t0:.1f} s")
+
     # the step entry points over int8 caches (launch/steps.py), qwen2-1.5b
-    cfg = models[0][0]
     params = random_params(cfg)
     launches["flash_decode_int8"] = int8_step_path(cfg, params)
     ring_step(cfg, params)

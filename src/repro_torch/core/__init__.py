@@ -1,7 +1,7 @@
 """ELIS scheduling layer (host-side copies of ``repro.core``).
 
 Public serving surface: ``ElisServer`` + the typed request lifecycle.
-Only the oracle predictors are carried in this slice.
+Only the oracle predictors are carried so far.
 """
 from repro_torch.core.job import Job, JobState, TERMINAL_STATES
 from repro_torch.core.load_balancer import (
@@ -11,7 +11,12 @@ from repro_torch.core.load_balancer import (
     PlacementPolicy,
     make_placement,
 )
-from repro_torch.core.metrics import prediction_stats, summarize
+from repro_torch.core.metrics import (
+    fairness_ratio,
+    prediction_stats,
+    summarize,
+    summarize_by_tenant,
+)
 from repro_torch.core.predictor import (
     LengthPrediction,
     LengthPredictor,
@@ -20,9 +25,12 @@ from repro_torch.core.predictor import (
     predict_lengths,
 )
 from repro_torch.core.scheduler import (
+    PREEMPT_POLICIES,
     PreemptionConfig,
     SchedulerConfig,
+    decide_preempt,
     make_policy,
+    prefill_debt,
     select_preemptions,
 )
 from repro_torch.core.frontend import (
@@ -58,6 +66,7 @@ __all__ = [
     "NoisyOraclePredictor",
     "OraclePredictor",
     "PLACEMENTS",
+    "PREEMPT_POLICIES",
     "PlacementPolicy",
     "PreemptionConfig",
     "Request",
@@ -68,10 +77,14 @@ __all__ = [
     "SchedulerConfig",
     "TERMINAL_STATES",
     "TokenChunk",
+    "decide_preempt",
+    "fairness_ratio",
     "make_placement",
     "make_policy",
     "predict_lengths",
     "prediction_stats",
+    "prefill_debt",
     "select_preemptions",
     "summarize",
+    "summarize_by_tenant",
 ]

@@ -97,6 +97,31 @@ class Request:
     #: engine with ``respect_job_max`` stops the request there
     true_output_len: int = 0
 
+    @classmethod
+    def from_workload(cls, r, options: Optional[RequestOptions] = None
+                      ) -> "Request":
+        """Adapt a ``repro_torch.data.workload.Request`` (generator ground
+        truth).
+
+        Without explicit ``options``, the workload record's own serving
+        attributes (tenant / priority class / deadline — set by the
+        scenario library, absent on plain generator output) are forwarded
+        so multi-tenant scenarios flow through unchanged."""
+        if options is None:
+            options = RequestOptions(
+                deadline=getattr(r, "deadline", None),
+                tenant=getattr(r, "tenant", None) or "default",
+                priority_class=int(getattr(r, "priority_class", 0) or 0),
+            )
+        return cls(
+            prompt=r.prompt,
+            prompt_tokens=r.prompt_tokens,
+            arrival_time=r.arrival_time,
+            request_id=r.request_id,
+            options=options,
+            true_output_len=r.true_output_len,
+        )
+
 
 @dataclass(frozen=True)
 class TokenChunk:

@@ -27,7 +27,9 @@ Semantics (faithful to the paper):
     unless the preemption policy displaces it (FCFS ⇒ non-preemptive ORCA
     behaviour; ISRTF ⇒ priority preemption at window boundaries with
     margin/frequency knobs);
-  * displaced jobs are evicted and pay a KV recompute when they next run;
+  * displaced jobs are evicted and pay a KV recompute when they next run,
+    or keep their KV in host memory (``PreemptionConfig.policy`` swap /
+    auto) and swap it back in;
   * prompts are sent to the backend once (re-dispatch is metadata-only).
 
 Online extensions (paper §4.1, "continuously admits requests"):
@@ -59,7 +61,9 @@ from repro_torch.core.scheduler import (
     cached_expected_remaining,
     cached_raw_priority,
     effective_priority,
+    decide_preempt,
     make_policy,
+    prefill_debt,
     score_pool,
     select_fills,
     select_preemptions,
@@ -93,6 +97,27 @@ class Backend(abc.ABC):
 
     @abc.abstractmethod
     def evict(self, node: int, job: Job) -> None: ...
+
+    def offload(self, node: int, job: Job) -> bool:
+        """Preempt ``job`` but *keep* its KV by swapping it to host memory
+        (ALISE tier).  Returns False when the backend cannot swap (no
+        cache, unsupported family) — the caller then falls back to
+        :meth:`evict` + recompute-on-resume.  Backends that support it
+        must restore the cache transparently when the job is next
+        executed."""
+        return False
+
+    def restore(self, node: int, job: Job) -> bool:
+        """Explicitly swap a previously offloaded job's KV back in.
+        Optional — ``execute`` must restore lazily regardless."""
+        return False
+
+    def preempt_costs(self, node: int, job: Job
+                      ) -> Optional[Tuple[float, float]]:
+        """(swap_round_trip_s, recompute_s) estimates for preempting
+        ``job`` — the ``auto`` preempt policy's break-even input.  None =
+        the backend cannot price the trade (caller recomputes)."""
+        return None
 
     def capacity(self, node: int) -> Optional[int]:
         """Max concurrent jobs node can hold; None = unbounded."""
@@ -439,8 +464,16 @@ class ELISFrontend:
         if not batch:
             self.node_busy[node] = False
             return
-        res = self.executor.execute(node, batch, self.cfg.scheduler.window,
-                                    now)
+        pc = self.cfg.scheduler.prefill_chunk
+        if pc is not None:
+            # kwarg only when configured: Backend.execute's positional
+            # signature is unchanged for chunk-unaware backends
+            res = self.executor.execute(node, batch,
+                                        self.cfg.scheduler.window, now,
+                                        prefill_chunk=pc)
+        else:
+            res = self.executor.execute(node, batch,
+                                        self.cfg.scheduler.window, now)
         end = now + res.duration
         # the horizon this window runs to — least_eta placement reads it
         self.state.note_busy(node, end)
@@ -548,20 +581,36 @@ class ELISFrontend:
             list(zip(run_eff, running)), list(zip(wait_eff, waiting)),
             self.cfg.preemption,
         )
+        pcfg = self.cfg.preemption
         for victim, repl in swaps:
             running.remove(victim)
             victim.state = JobState.PREEMPTED
             victim.n_preemptions += 1
             victim.record_enqueue(now)
             waiting.append(victim)
-            self.executor.evict(node, victim)
+            # swap-vs-recompute (PreemptionConfig.policy): costs are priced
+            # BEFORE the offload/evict mutates the victim's cache state
+            mode = "recompute"
+            if pcfg.policy != "recompute":
+                mode = decide_preempt(
+                    pcfg, self.executor.preempt_costs(node, victim),
+                    cached_expected_remaining(victim))
+            if mode == "swap" and not self.executor.offload(node, victim):
+                mode = "recompute"  # backend can't swap this job
+            if mode == "recompute":
+                self.executor.evict(node, victim)
             out.append(Event(now, "preempted", victim.job_id))
             # freshly re-enqueued at ``now`` ⇒ zero aging: re-band the same
             # (possibly stale-decayed) raw priority this window's scoring
             # pass used — NOT the undecayed cached prediction, which would
-            # rank the victim inconsistently against stale-scored waiters
+            # rank the victim inconsistently against stale-scored waiters.
+            # The prefill debt is re-read AFTER the evict/offload above: a
+            # recompute-evicted victim's debt is its whole context, a
+            # swapped one's is unchanged
             eff[victim.job_id] = effective_priority(
-                self.cfg.scheduler, victim, cached_raw_priority(victim), now)
+                self.cfg.scheduler, victim,
+                cached_raw_priority(victim)
+                + prefill_debt(self.cfg.scheduler, victim), now)
             eff.pop(repl.job_id, None)
             waiting.remove(repl)
             repl.state = JobState.RUNNING

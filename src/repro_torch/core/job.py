@@ -60,6 +60,12 @@ class Job:
     #: stats (``Response.pred_mae`` / ``pred_bias``); only populated by
     #: length-predicting policies (SJF/ISRTF)
     pred_trace: List[tuple] = field(default_factory=list)
+    #: tokens of context currently materialised in the backend's KV cache
+    #: for this job (prompt + generated).  Mid-chunked-prefill it lags
+    #: ``len(prompt_tokens)``; a recompute-eviction resets it to 0 while a
+    #: KV swap-out preserves it.  ``prefill_debt`` (scheduler) and the
+    #: swap-vs-recompute break-even both read this cursor.
+    prefilled_tokens: int = 0
 
     generated: List[int] = field(default_factory=list)
     finished: bool = False

@@ -2,11 +2,12 @@
 
 :func:`summarize` aggregates a list of finished Job/Response records (all
 percentile families in one ``np.percentile`` call); :func:`prediction_stats`
-gives one request's prediction error.
+gives one request's prediction error; :func:`summarize_by_tenant` and
+:func:`fairness_ratio` break a multi-tenant run down by tenant.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -92,4 +93,41 @@ def summarize(jobs: Sequence[Job]) -> Dict[str, float]:
     if biases:
         # geometric mean composes multiplicative per-request biases
         out["pred_bias_gmean"] = float(np.exp(np.mean(np.log(biases))))
+    return out
+
+
+def fairness_ratio(values: Dict[str, float]) -> float:
+    """Max/min ratio across per-tenant metric values (1.0 = perfectly
+    fair); 0.0 when fewer than two tenants have data.  A tenant sitting
+    at exactly 0 (a degenerate zero mean JCT — e.g. every request
+    finished within clock resolution) alongside a non-zero tenant is
+    maximal unfairness by this ratio: reported as ``inf`` rather than
+    tripping a ZeroDivisionError."""
+    vals = [v for v in values.values() if v >= 0]
+    if len(vals) < 2:
+        return 0.0
+    lo, hi = min(vals), max(vals)
+    if lo == 0.0:
+        return float("inf") if hi > 0.0 else 0.0
+    return hi / lo
+
+
+def summarize_by_tenant(jobs: Sequence, slo_targets: Optional[Dict[str, float]]
+                        = None) -> Dict[str, Dict[str, float]]:
+    """Exact per-tenant :func:`summarize` over finished records carrying a
+    ``tenant`` attribute, plus ``slo_attainment`` for tenants with a target
+    (fraction of finished requests with JCT ≤ target)."""
+    slo_targets = slo_targets or {}
+    groups: Dict[str, List] = {}
+    for j in jobs:
+        groups.setdefault(getattr(j, "tenant", "default"), []).append(j)
+    out: Dict[str, Dict[str, float]] = {}
+    for tenant, members in sorted(groups.items()):
+        s = summarize(members)
+        target = slo_targets.get(tenant)
+        if target is not None:
+            s["slo_target"] = float(target)
+            s["slo_attainment"] = (
+                sum(1 for j in members if j.jct() <= target) / len(members))
+        out[tenant] = s
     return out

@@ -25,9 +25,13 @@ This module owns the whole scoring pipeline:
   tokens it generated since it was last scored, so the encoder runs on a
   configurable cadence instead of every window.
 
-Preemption here is recompute only: a victim's KV cache is discarded and
-rebuilt by a prefill when it resumes.  Chunked prefill and KV swap, with
-the ranking head's ``rank_by`` ordering, are later slices of the port.
+Preemption either discards a victim's KV cache, rebuilt by a prefill
+when it resumes, or swaps it to host memory and back
+(``PreemptionConfig.policy``; :func:`decide_preempt` prices the two per
+victim under ``auto``).  With ``SchedulerConfig.prefill_chunk`` set,
+:func:`score_pool` ranks each job by its remaining output plus its
+:func:`prefill_debt`.  The ranking head's ``rank_by`` ordering comes with
+the BGE predictor, a later slice of the port.
 """
 from __future__ import annotations
 
@@ -67,6 +71,14 @@ class SchedulerConfig:
     #: re-predict (ISRTF) are affected; newly arrived jobs are always
     #: scored on first sight regardless of the stride.
     repredict_every: int = 1
+    #: chunked prefill: split prompt ingestion into chunks of this many
+    #: tokens, at most one chunk per scheduling window, interleaved with
+    #: the running decodes (Sarathi-style stall removal — a long prompt no
+    #: longer freezes every decode for a full window).  None = one-shot
+    #: prefill.  When set, ISRTF ranks partially-prefilled jobs by *total*
+    #: remaining work: predicted remaining output plus the unprefilled
+    #: prompt tail (:func:`prefill_debt`).
+    prefill_chunk: Optional[int] = None
 
 
 class Policy:
@@ -174,6 +186,21 @@ def effective_priority(cfg: SchedulerConfig, job: Job, raw: float,
     return eff
 
 
+def prefill_debt(cfg: SchedulerConfig, job: Job) -> float:
+    """Context tokens the backend still has to materialise before ``job``
+    can decode: ``prompt + generated - prefilled``.  Zero whenever chunked
+    prefill is off (``cfg.prefill_chunk is None``); with chunking on, this
+    is the unprefilled prompt tail for a mid-prefill job and the full
+    context for a recompute-evicted one.  Added to the *raw* priority at
+    ranking time (never stored in ``job.priority`` — predictions stay pure
+    remaining-output estimates)."""
+    if cfg.prefill_chunk is None:
+        return 0.0
+    return float(max(
+        len(job.prompt_tokens) + job.tokens_generated - job.prefilled_tokens,
+        0))
+
+
 def score_jobs(policy: Policy, jobs: Sequence[Job], now: float) -> List[float]:
     """Fresh raw priorities for ``jobs`` — at most ONE predictor dispatch
     (batched through :func:`~repro_torch.core.predictor.predict_lengths`, the
@@ -263,7 +290,8 @@ def score_pool(policy: Policy, running: Sequence[Job], waiting: Sequence[Job],
                      for j, p in zip(fresh, score_jobs(policy, fresh, now))}
         raw = [fresh_raw[id(j)] if id(j) in fresh_raw
                else cached_raw_priority(j) for j in pool]
-    eff = [effective_priority(policy.cfg, j, p, now)
+    eff = [effective_priority(policy.cfg, j, p + prefill_debt(policy.cfg, j),
+                              now)
            for j, p in zip(pool, raw)]
     return eff[: len(running)], eff[len(running):]
 
@@ -275,8 +303,7 @@ def score_pool(policy: Policy, running: Sequence[Job], waiting: Sequence[Job],
 
 @dataclass
 class PreemptionConfig:
-    """Knobs for 'adjusting the frequency of preemption' (paper §1, §3.4).
-    A victim is evicted and pays a full re-prefill when it resumes."""
+    """Knobs for 'adjusting the frequency of preemption' (paper §1, §3.4)."""
 
     enabled: bool = True
     #: a waiting job must beat a running job's priority by this many tokens
@@ -284,6 +311,51 @@ class PreemptionConfig:
     margin: float = 50.0
     #: at most this fraction of a batch may be preempted per iteration
     max_fraction: float = 0.25
+    #: what happens to a victim's KV cache (ALISE, arXiv 2410.23537):
+    #: ``recompute`` discards it (resume pays a full re-prefill),
+    #: ``swap`` copies it to host memory and back, ``auto`` picks per
+    #: victim via the :func:`decide_preempt` break-even on the backend's
+    #: (swap_s, recompute_s) estimates and the victim's predicted
+    #: remaining length
+    policy: str = "recompute"
+    #: ``auto`` penalty per predicted-remaining token for *holding* a
+    #: swapped cache in host memory — a job expected to run long after
+    #: resume ties up host KV (and risks a second swap) longer, so the
+    #: break-even tilts toward recompute for it
+    swap_hold_s_per_token: float = 1e-3
+    #: watermark (in stashed context tokens) bounding the live engine's
+    #: host swap pool.  When a new swap-out would push the pool past the
+    #: watermark, the COLDEST stashed victims (oldest swap-outs) are
+    #: evicted to the recompute-fallback path with a loud once-per-engine
+    #: warning; if the fresh stash alone exceeds the pool it is refused
+    #: and the victim recomputes.  None = unbounded.  Threaded onto each
+    #: engine by ``EngineExecutor``.
+    swap_pool_tokens: Optional[int] = None
+
+
+PREEMPT_POLICIES = ("recompute", "swap", "auto")
+
+
+def decide_preempt(cfg: PreemptionConfig,
+                   costs: Optional[Tuple[float, float]],
+                   predicted_remaining: Optional[float]) -> str:
+    """Resolve a victim's preemption treatment to ``"swap"`` or
+    ``"recompute"``.  ``costs`` is the backend's ``(swap_round_trip_s,
+    recompute_s)`` estimate (None = backend can't price it → recompute);
+    ``predicted_remaining`` feeds the hold-cost term under ``auto``."""
+    if cfg.policy not in PREEMPT_POLICIES:
+        raise ValueError(
+            f"unknown preempt policy {cfg.policy!r}; "
+            f"choose one of {PREEMPT_POLICIES}")
+    if cfg.policy != "auto":
+        return cfg.policy
+    if costs is None:
+        return "recompute"
+    swap_s, rec_s = costs
+    r_hat = max(float(predicted_remaining or 0.0), 0.0)
+    return ("swap"
+            if swap_s + cfg.swap_hold_s_per_token * r_hat < rec_s
+            else "recompute")
 
 
 def select_fills(waiting_eff: Sequence[float], free: int) -> List[int]:

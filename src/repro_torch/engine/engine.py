@@ -3,7 +3,9 @@
 A fixed-capacity **slot** cache: every decode slot owns a contiguous KV
 region (dense family) or a recurrent state (SSM family) of a
 statically-shaped batched cache, and slots advance independently (per-slot
-``len`` vector).  Preemption is slot eviction plus recompute on resume.
+``len`` vector).  Preemption is slot eviction plus recompute on resume, or
+a swap of the slot's cache to host memory and back (``offload_job`` /
+``restore_job``).
 
 The paper's two additions to the serving engine are kept:
   * **iteration-wise execution** — ``run_window`` executes exactly K tokens
@@ -20,11 +22,16 @@ Fast path, as in the reference:
     ``active`` mask; below capacity the engine gathers the scheduled slots
     into a ``batch_bucket``-sized sub-cache, decodes it and scatters it
     back; a slot that emits EOS is frozen for the rest of the window;
-  * **kernels** — ``attn_impl="kernel"`` runs prefill through the
+  * **chunked prefill** — ``run_window(..., prefill_chunk=C)`` admits new
+    jobs into a slot without prefilling them and ingests at most one
+    C-token chunk per window (:func:`repro_torch.models.transformer.
+    prefill_chunk`), interleaved with the running decodes; ring, int8 and
+    recurrent caches fall back to one-shot prefill with one warning;
+  * **kernels** — ``attn_impl="kernel"`` runs one-shot prefill through the
     hand-written flash-attention (dense) or SSD-scan (SSM) kernel and every
     dense decode step through the flash-decode kernel; the SSM decode step
-    is plain PyTorch, as in the reference (``"torch"`` is the plain
-    reference path throughout).
+    and the chunk of a chunked prefill are plain PyTorch, as in the
+    reference (``"torch"`` is the plain reference path throughout).
 
 PyTorch runs eagerly, so a decode window is a Python loop of steps and the
 ``num_*_traces`` counters count distinct dispatch shapes first seen (the
@@ -36,12 +43,16 @@ slot cache per rank, each on its rank's device, and drives every rank from
 this one process (:mod:`repro_torch.models.transformer`); the slot
 bookkeeping, the sampler and ``last_token`` stay on rank 0, so the executor
 and the frontend see one engine.  :func:`make_tp_pods` builds data-parallel
-pods of such engines.  Chunked prefill, KV swap and the live-to-simulator
-calibration are later slices of the port.
+pods of such engines.  Chunked prefill and KV swap under a mesh raise
+``NotImplementedError``.
+
+``EngineExecutor.calibrated_profile`` fits the measured window durations
+back onto the simulator's latency model (live-to-simulator calibration).
 """
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
@@ -57,6 +68,7 @@ from repro_torch.engine.sampler import SamplerConfig, sample
 from repro_torch.launch import partition as P
 from repro_torch.launch.mesh import make_mesh, pod_meshes
 from repro_torch.models import transformer as T
+from repro_torch.simulate.profiles import CALIBRATION_MEAN_TOKENS, ModelProfile
 
 #: recurrent-state families prefill at exact length (pad positions would be
 #: absorbed into the state), so they keep serial batch-1 admission
@@ -162,9 +174,56 @@ class InferenceEngine:
         self._decode_shapes: Set[Tuple[int, int]] = set()
         #: first generated token (sampled from prefill logits), pending emission
         self._pending_first: Dict[int, int] = {}
-        #: tokens of context re-established by resume prefills, including
-        #: the +1 seed token whose KV the first decode step writes
+        #: tokens of context re-established by resume prefills (full or
+        #: chunked), including the +1 seed token whose KV the first decode
+        #: step writes
         self.resume_context_tokens = 0
+        self._warned: Set[str] = set()
+
+        # ---- chunked prefill state (run_window(prefill_chunk=...)) ----
+        #: job_id -> tokens already span-written into its slot's cache
+        self._prefill_cursor: Dict[int, int] = {}
+        #: job_id -> total tokens to prefill (prompt, or resume context)
+        self._chunk_target: Dict[int, int] = {}
+        #: job_id -> the full token stream being chunk-prefilled
+        self._chunk_tokens: Dict[int, List[int]] = {}
+        #: job_id -> True when the chunked prefill re-establishes a resumed
+        #: job's context (counts toward ``resume_context_tokens``)
+        self._chunk_resumed: Dict[int, bool] = {}
+        self.num_chunk_dispatches = 0
+        self._chunk_shapes: Set[int] = set()
+
+        # ---- KV offload tier (offload_job/restore_job) ----
+        #: job_id -> host (cpu) copy of the slot cache + decode bookkeeping
+        self._host_stash: Dict[int, Dict] = {}
+        #: watermark (stashed context tokens) bounding the host swap pool;
+        #: None = unbounded.  ``EngineExecutor`` threads
+        #: ``PreemptionConfig.swap_pool_tokens`` here; over-watermark
+        #: swap-outs evict the COLDEST stashed victims to the
+        #: recompute-fallback path (loud, once per engine)
+        self.swap_pool_tokens: Optional[int] = None
+        #: context tokens currently held in the host stash
+        self.stash_tokens = 0
+        #: stashes evicted by the watermark (victims fell back to recompute)
+        self.n_stash_evictions = 0
+        self.stash_evicted_tokens = 0
+
+    # ------------------------------------------------------------------ #
+    def _warn_once(self, key: str, msg: str) -> None:
+        """Emit a ``UserWarning`` at most once per engine per ``key``: the
+        guard behind every loud fallback (unsupported chunked prefill, the
+        swap pool's watermark).  The message always carries the reason."""
+        if key in self._warned:
+            return
+        self._warned.add(key)
+        warnings.warn(msg, UserWarning, stacklevel=3)
+
+    def _single_device(self, what: str) -> None:
+        """Raise for ``what`` under a mesh, which is not ported yet."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} under a tensor-parallel mesh is not ported yet "
+                "(ROADMAP queue 1, item 8)")
 
     # ------------------------------------------------------------------ #
     def _set_lens(self, cache, lens: Sequence[int]) -> None:
@@ -195,6 +254,194 @@ class InferenceEngine:
         return len({min(batch_bucket(n), self.cfg.max_slots)
                     for n in range(1, self.cfg.max_slots + 1)})
 
+    # ------------------------------------------------------------------ #
+    # Chunked prefill
+    # ------------------------------------------------------------------ #
+
+    @property
+    def num_chunk_traces(self) -> int:
+        """Distinct padded chunk lengths dispatched so far."""
+        return len(self._chunk_shapes)
+
+    def chunk_supported(self) -> bool:
+        """Chunked prefill needs a position-addressable dense KV cache:
+        attention families only (recurrent state absorbs pads), no ring/SWA
+        buffer (span writes are position-destructive there), no int8 KV
+        (the chunk would attend a dequantized prefix while one-shot prefill
+        attends the fresh unquantized K/V)."""
+        if self.model_cfg.family not in T.CHUNKABLE_FAMILIES:
+            return False
+        kvc = _ranks(self.cache)[0].get("kv")
+        return kvc is not None and not kvc.ring and not kvc.quantized
+
+    def _alloc_slot(self, job: Job) -> int:
+        """Claim a slot WITHOUT prefilling (chunked admission): the slot's
+        ``len`` is zeroed and the prompt is span-written chunk by chunk
+        across subsequent windows (stale K/V from a previous occupant is
+        dead weight behind the kv_len mask, exactly as after a one-shot
+        scatter)."""
+        self._single_device("chunked prefill")
+        free = [s for s, owner in enumerate(self.slot_job) if owner is None]
+        if not free:
+            raise RuntimeError("no free slot to allocate")
+        slot = free[0]
+        toks = self._resume_tokens(job)
+        if len(toks) > self.cfg.max_len:
+            raise ValueError(
+                f"prompt of {len(toks)} tokens exceeds max_len="
+                f"{self.cfg.max_len}")
+        self.slot_job[slot] = job.job_id
+        self.slot_of[job.job_id] = slot
+        self.last_token[slot, 0] = PAD_ID
+        self._prefill_cursor[job.job_id] = 0
+        self._chunk_target[job.job_id] = len(toks)
+        self._chunk_tokens[job.job_id] = toks
+        self._chunk_resumed[job.job_id] = bool(job.generated)
+        self.cache["len"][slot] = 0
+        return slot
+
+    def prefill_incomplete(self, job_id: int) -> bool:
+        """True while a chunk-admitted job still has prompt tokens to
+        ingest — such a job is excluded from decode dispatches."""
+        cur = self._prefill_cursor.get(job_id)
+        return cur is not None and cur < self._chunk_target[job_id]
+
+    def _run_chunk(self, job: Job, chunk: int) -> None:
+        """Ingest the next (at most) ``chunk`` prompt tokens of ``job`` in
+        one batch-1 dispatch against its slot's partially filled cache,
+        which it updates in place (the slot's rows and ``len`` only)."""
+        self._single_device("chunked prefill")
+        jid = job.job_id
+        toks_all = self._chunk_tokens[jid]
+        cur = self._prefill_cursor[jid]
+        target = self._chunk_target[jid]
+        n = min(chunk, target - cur)
+        padded = seq_bucket(n, self.cfg.max_len,
+                            min_bucket=self.cfg.prefill_bucket)
+        toks = np.full((1, padded), PAD_ID, np.int32)
+        toks[0, :n] = toks_all[cur:cur + n]
+        slot = self.slot_of[jid]
+        kvc = self.cache["kv"]
+        # views of the slot's rows: the chunk writes through them in place
+        sub = {"len": self.cache["len"][slot:slot + 1],
+               "kv": T.KVCache(kvc.k[:, slot:slot + 1],
+                               kvc.v[:, slot:slot + 1], kvc.ring)}
+        self._chunk_shapes.add(padded)
+        self.num_chunk_dispatches += 1
+        logits, _ = T.prefill_chunk(
+            self.params, self.model_cfg,
+            {"tokens": torch.as_tensor(toks, device=self.device)}, sub,
+            attn_impl=self.cfg.attn_impl, start=cur, valid_len=n)
+        self.cache["len"][slot] = cur + n
+        self._prefill_cursor[jid] = cur + n
+        if self._chunk_resumed[jid]:
+            self.resume_context_tokens += n
+        if cur + n >= target:
+            # prefill complete: seed decode exactly like one-shot admission
+            if job.generated:
+                self.last_token[slot, 0] = job.generated[-1]
+                self.resume_context_tokens += 1  # the seed token's KV write
+            else:
+                first = int(torch.argmax(logits[0, -1]))
+                self._pending_first[jid] = first
+                self.last_token[slot, 0] = first
+
+    # ------------------------------------------------------------------ #
+    # KV offload tier
+    # ------------------------------------------------------------------ #
+
+    def offload_job(self, job_id: int) -> bool:
+        """Evict a job's slot but keep its cache in HOST memory — resume
+        swaps it back in instead of paying recompute.  The stash is a cpu
+        copy of every leaf of the slot's sub-cache plus the decode
+        bookkeeping (last token, pending first emission, chunk cursor), so
+        a restored job continues bit for bit.
+
+        With ``swap_pool_tokens`` set, the host stash is bounded: an
+        over-watermark swap-out evicts the COLDEST stashed victims (oldest
+        swap-outs, insertion order) to the recompute-fallback path; if the
+        fresh stash alone exceeds the pool it is refused (returns False, the
+        caller falls back to plain eviction + recompute)."""
+        self._single_device("KV swap")
+        slot = self.slot_of.get(job_id)
+        if slot is None:
+            return False
+        sub = _gather_slots(self.cache, torch.tensor([slot],
+                                                     device=self.device))
+        ctx = int(sub["len"][0])
+        self._host_stash[job_id] = {
+            "cache": _map_leaves(sub, lambda t: t.to("cpu")),
+            "last": int(self.last_token[slot, 0]),
+            "pending": self._pending_first.get(job_id),
+            "cursor": self._prefill_cursor.get(job_id),
+            "target": self._chunk_target.get(job_id),
+            "tokens": self._chunk_tokens.get(job_id),
+            "resumed": self._chunk_resumed.get(job_id),
+            "ctx": ctx,
+        }
+        self.stash_tokens += ctx
+        if self.swap_pool_tokens is not None:
+            # evict coldest-first until under the watermark; the fresh
+            # stash (newest) is only dropped when it alone exceeds the pool
+            while (self.stash_tokens > self.swap_pool_tokens
+                   and len(self._host_stash) > 1):
+                self._evict_coldest_stash()
+            if self.stash_tokens > self.swap_pool_tokens:
+                self._evict_coldest_stash()  # the fresh stash itself
+        self.evict_job(job_id)
+        return job_id in self._host_stash
+
+    def _evict_coldest_stash(self) -> None:
+        """Watermark eviction: drop the oldest stash (coldest victim) —
+        that job resumes through the recompute-fallback path."""
+        victim, st = next(iter(self._host_stash.items()))
+        del self._host_stash[victim]
+        self.stash_tokens -= st["ctx"]
+        self.n_stash_evictions += 1
+        self.stash_evicted_tokens += st["ctx"]
+        self._warn_once(
+            "swap_pool_evict",
+            f"host KV swap pool exceeded its {self.swap_pool_tokens}-token "
+            f"watermark (PreemptionConfig.swap_pool_tokens); evicting the "
+            f"coldest stashed victims to recompute-fallback — raise the "
+            f"watermark or reduce preemption pressure if swap-ins were "
+            f"expected to stay warm")
+
+    def restore_job(self, job: Job) -> int:
+        """Swap a host-stashed job back into a free slot, bit for bit (the
+        stash's values are copied into the slot's rows; nothing aliases
+        the stash)."""
+        st = self._host_stash.pop(job.job_id)
+        self.stash_tokens -= st["ctx"]
+        free = [s for s, owner in enumerate(self.slot_job) if owner is None]
+        if not free:
+            raise RuntimeError("no free slot to restore into")
+        slot = free[0]
+        sub = _map_leaves(st["cache"], lambda t: t.to(self.device))
+        _scatter_slots(self.cache, sub, [slot], 1)
+        self.slot_job[slot] = job.job_id
+        self.slot_of[job.job_id] = slot
+        self.last_token[slot, 0] = st["last"]
+        if st["pending"] is not None:
+            self._pending_first[job.job_id] = st["pending"]
+        if st["cursor"] is not None:
+            self._prefill_cursor[job.job_id] = st["cursor"]
+            self._chunk_target[job.job_id] = st["target"]
+            self._chunk_tokens[job.job_id] = st["tokens"]
+            self._chunk_resumed[job.job_id] = st["resumed"]
+        return slot
+
+    def has_stash(self, job_id: int) -> bool:
+        return job_id in self._host_stash
+
+    def drop_stash(self, job_id: int) -> None:
+        """Release a job's host-memory KV copy (terminal states, or a
+        migration that abandons the cache)."""
+        st = self._host_stash.pop(job_id, None)
+        if st is not None:
+            self.stash_tokens -= st["ctx"]
+
+    # ------------------------------------------------------------------ #
     def synchronize(self) -> None:
         """Wait for this engine's queued device work, on every rank."""
         for dev in dict.fromkeys(c["len"].device for c in _ranks(self.cache)):
@@ -291,6 +538,9 @@ class InferenceEngine:
     def evict_job(self, job_id: int) -> None:
         slot = self.slot_of.pop(job_id, None)
         self._pending_first.pop(job_id, None)
+        for state in (self._prefill_cursor, self._chunk_target,
+                      self._chunk_tokens, self._chunk_resumed):
+            state.pop(job_id, None)
         if slot is not None:
             self.slot_job[slot] = None
             self.last_token[slot, 0] = PAD_ID
@@ -317,18 +567,67 @@ class InferenceEngine:
             toks = nxt[:, None]
         return cache, torch.stack(out, dim=1)
 
-    def run_window(self, jobs: Sequence[Job], window: int
+    def run_window(self, jobs: Sequence[Job], window: int,
+                   prefill_chunk: Optional[int] = None
                    ) -> Tuple[List[List[int]], List[bool]]:
         """Execute K decode steps for ``jobs`` (admitting any that lack a
         slot via one batched prefill).  Returns
-        (new_tokens_per_job, finished_per_job)."""
+        (new_tokens_per_job, finished_per_job).
+
+        A job with a host-stashed cache is swapped back in first.  With
+        ``prefill_chunk`` set (and :meth:`chunk_supported`), admission is
+        *chunked*: new jobs claim a slot without prefilling, at most ONE job
+        per window (the first incomplete one in batch order) ingests one
+        ``prefill_chunk``-sized piece of its prompt, and only fully
+        prefilled jobs join the decode dispatch — a job completing its
+        final chunk in window W begins decoding in window W+1.  Mid-prefill
+        jobs emit no tokens.  Unsupported caches fall back loudly to
+        one-shot prefill.  Publishes each job's ``prefilled_tokens``."""
         if not jobs:
             return [], []
-        self.add_jobs(jobs)
-        results: Dict[int, Tuple[List[int], bool]] = {}
-        self._decode_jobs(jobs, window, results)
+        # swap-in: batch members with a host-stashed cache restore it
+        # instead of paying recompute (KV offload tier)
+        for job in jobs:
+            if not self.has_job(job.job_id) and self.has_stash(job.job_id):
+                self.restore_job(job)
+        chunked = prefill_chunk is not None
+        if chunked and not self.chunk_supported():
+            self._warn_once(
+                "chunk_fallback",
+                f"prefill_chunk is not supported for "
+                f"family={self.model_cfg.family!r} with this cache "
+                "(ring/quantized KV or recurrent state); falling back "
+                "to one-shot prefill")
+            chunked = False
+        if chunked:
+            for job in jobs:
+                if not self.has_job(job.job_id):
+                    self._alloc_slot(job)
+            # decode eligibility is decided BEFORE the chunk runs: the job
+            # completing its final chunk this window decodes next window
+            incomplete = [j for j in jobs
+                          if self.prefill_incomplete(j.job_id)]
+            decode_jobs = [j for j in jobs
+                           if not self.prefill_incomplete(j.job_id)]
+            if incomplete:
+                self._run_chunk(incomplete[0], prefill_chunk)
+        else:
+            self.add_jobs(jobs)
+            decode_jobs = list(jobs)
+        results = {j.job_id: ([], False) for j in jobs}
+        if decode_jobs:
+            self._decode_jobs(decode_jobs, window, results)
         out_tokens = [list(results[j.job_id][0]) for j in jobs]
         finished = [results[j.job_id][1] for j in jobs]
+        # publish each job's materialized context (prompt + generated KV,
+        # incl. the seed token): the scheduler's prefill-debt ranking and
+        # the swap-vs-recompute break-even read it
+        for job, seq in zip(jobs, out_tokens):
+            if self.prefill_incomplete(job.job_id):
+                job.prefilled_tokens = self._prefill_cursor[job.job_id]
+            else:
+                job.prefilled_tokens = (len(job.prompt_tokens)
+                                        + job.tokens_generated + len(seq))
         return out_tokens, finished
 
     def _decode_jobs(self, jobs: Sequence[Job], window: int,
@@ -436,6 +735,18 @@ def _to_device(tree, device):
     return tree.to(resolve_device(device))
 
 
+def _map_leaves(cache, fn):
+    """A cache (or sub-cache) with ``fn`` applied to every tensor leaf."""
+    if isinstance(cache, T.KVCache):
+        return T.KVCache(*(None if t is None else fn(t)
+                           for t in (cache.k, cache.v)), cache.ring,
+                         *(None if t is None else fn(t)
+                           for t in (cache.k_scale, cache.v_scale)))
+    if isinstance(cache, dict):
+        return {k: _map_leaves(v, fn) for k, v in cache.items()}
+    return fn(cache)
+
+
 # --------------------------------------------------------------------------- #
 # Backend adapter for the ELIS frontend
 # --------------------------------------------------------------------------- #
@@ -445,11 +756,37 @@ class EngineExecutor(Backend):
     """Wraps per-node InferenceEngines behind the frontend Backend ABC.
     Durations are measured wall-clock, with the device synchronised before
     the window's clock is read.  Every executed window is appended to
-    ``window_log`` (node, batch, window, duration, tokens)."""
+    ``window_log`` (node, batch, window, duration, tokens);
+    ``calibrated_profile()`` fits those samples back onto the simulator's
+    latency model (live-to-simulator calibration)."""
 
-    def __init__(self, engines: Dict[int, InferenceEngine]):
+    def __init__(self, engines: Dict[int, InferenceEngine], *,
+                 swap_bandwidth_bytes_s: float = 16e9,
+                 swap_latency_s: float = 0.0005,
+                 swap_pool_tokens: Optional[int] = None):
         self.engines = engines
+        if swap_pool_tokens is not None:
+            # PreemptionConfig.swap_pool_tokens: per-engine host-stash
+            # watermark (None leaves any engine-level setting untouched)
+            for eng in engines.values():
+                eng.swap_pool_tokens = swap_pool_tokens
         self.window_log: List[Dict] = []
+        #: host<->device copy model for the swap-vs-recompute break-even
+        #: (``preempt_costs``) — the live copies themselves are measured
+        #: wall-clock, these parameterise only the *decision*
+        self.swap_bandwidth_bytes_s = swap_bandwidth_bytes_s
+        self.swap_latency_s = swap_latency_s
+        #: wall-clock seconds spent offloading per node since its last
+        #: window — folded into the next window's reported duration so swap
+        #: cost is attributed, not lost between windows
+        self._pending_swap_s: Dict[int, float] = {}
+        self.swapout_tokens = 0
+        self.swapin_tokens = 0
+        self.n_swapouts = 0
+        self.n_swapins = 0
+        #: per-node cached calibration fit for ``preempt_costs`` (refit
+        #: after every 32 new windows; None until enough data)
+        self._fit_cache: Dict[int, Tuple[int, object]] = {}
 
     def capacity(self, node: int) -> int:
         return self.engines[node].cfg.max_slots
@@ -458,7 +795,8 @@ class EngineExecutor(Backend):
         return self.engines[node].free_slots()
 
     def execute(self, node: int, jobs: Sequence[Job], window: int,
-                now: float) -> ExecResult:
+                now: float, prefill_chunk: Optional[int] = None
+                ) -> ExecResult:
         eng = self.engines[node]
         t0 = time.perf_counter()
         needed = sum(1 for job in jobs if not eng.has_job(job.job_id))
@@ -466,9 +804,15 @@ class EngineExecutor(Backend):
             raise RuntimeError(
                 f"node {node}: batch needs {needed} free slots, "
                 f"engine has {eng.free_slots()}")
-        tokens, finished = eng.run_window(jobs, window)
+        for j in jobs:
+            if eng.has_stash(j.job_id):
+                self.n_swapins += 1
+                self.swapin_tokens += j.prefilled_tokens
+        tokens, finished = eng.run_window(jobs, window,
+                                          prefill_chunk=prefill_chunk)
         eng.synchronize()
         dur = time.perf_counter() - t0
+        dur += self._pending_swap_s.pop(node, 0.0)
         self.window_log.append({
             "node": node, "batch": len(jobs), "window": window,
             "duration_s": dur, "tokens": sum(len(t) for t in tokens),
@@ -476,7 +820,72 @@ class EngineExecutor(Backend):
         return ExecResult(dur, tokens, finished)
 
     def evict(self, node: int, job: Job) -> None:
-        self.engines[node].evict_job(job.job_id)
+        eng = self.engines[node]
+        eng.drop_stash(job.job_id)
+        eng.evict_job(job.job_id)
+        job.prefilled_tokens = 0
+
+    # ------------------------------------------------------------------ #
+    # KV offload tier (Backend.offload / Backend.restore)
+    # ------------------------------------------------------------------ #
+
+    def offload(self, node: int, job: Job) -> bool:
+        """Swap the job's slot cache to host memory (preemption that keeps
+        the KV).  Its wall-clock cost, devices synchronised, is added to
+        the node's next window duration."""
+        eng = self.engines[node]
+        t0 = time.perf_counter()
+        ok = eng.offload_job(job.job_id)
+        if ok:
+            eng.synchronize()
+            self._pending_swap_s[node] = (
+                self._pending_swap_s.get(node, 0.0)
+                + (time.perf_counter() - t0))
+            self.swapout_tokens += job.prefilled_tokens
+            self.n_swapouts += 1
+        return ok
+
+    def restore(self, node: int, job: Job) -> bool:
+        """Explicit swap-in (execute() also restores lazily)."""
+        eng = self.engines[node]
+        if not eng.has_stash(job.job_id):
+            return False
+        eng.restore_job(job)
+        return True
+
+    def preempt_costs(self, node: int, job: Job
+                      ) -> Optional[Tuple[float, float]]:
+        """(swap_round_trip_s, recompute_s) estimates for preempting
+        ``job`` — the ``auto`` preempt policy's break-even input.  Swap
+        cost: two host<->device copies of the job's KV footprint at the
+        configured bandwidth.  Recompute cost: the job's context through
+        the *calibrated* prefill rate (None until enough measured windows
+        exist — the caller then falls back to recompute)."""
+        n = job.prefilled_tokens
+        if n <= 0:
+            return None
+        mc = self.engines[node].model_cfg
+        kv_bytes = (2 * mc.n_layers * (mc.n_kv_heads or mc.n_heads)
+                    * mc.head_dim * T.DTYPES[mc.dtype].itemsize)
+        swap_s = 2.0 * (self.swap_latency_s
+                        + n * kv_bytes / self.swap_bandwidth_bytes_s)
+        prof = self._cached_fit(node)
+        if prof is None:
+            return None
+        rec_s = prof.prefill_ms(1, n) / 1000.0
+        return swap_s, rec_s
+
+    def _cached_fit(self, node: int):
+        n_log = len(self.window_log)
+        cached = self._fit_cache.get(node)
+        if cached is not None and n_log - cached[0] < 32:
+            return cached[1]
+        try:
+            prof = self.calibrated_profile(nodes=[node])
+        except ValueError:
+            prof = None
+        self._fit_cache[node] = (n_log, prof)
+        return prof
 
     # ------------------------------------------------------------------ #
     def node_counters(self) -> Dict[int, Dict[str, int]]:
@@ -489,19 +898,126 @@ class EngineExecutor(Backend):
                 "prefill_dispatches": eng.num_prefill_dispatches,
                 "decode_traces": eng.num_decode_traces,
                 "decode_dispatches": eng.num_decode_dispatches,
+                "chunk_traces": eng.num_chunk_traces,
+                "chunk_dispatches": eng.num_chunk_dispatches,
                 "resume_context_tokens": eng.resume_context_tokens,
                 "windows_executed": windows.get(n, 0)}
             for n, eng in self.engines.items()
         }
 
     def counters(self) -> Dict[str, int]:
-        """Dispatch counters aggregated across this executor's engines."""
+        """Dispatch, chunk and swap counters aggregated across this
+        executor's engines (:meth:`node_counters` keeps the per-node
+        breakdown)."""
         agg = {"prefill_traces": 0, "prefill_dispatches": 0,
                "decode_traces": 0, "decode_dispatches": 0,
+               "chunk_traces": 0, "chunk_dispatches": 0,
                "resume_context_tokens": 0,
-               "windows_executed": len(self.window_log)}
+               "windows_executed": len(self.window_log),
+               "swapouts": self.n_swapouts, "swapins": self.n_swapins,
+               "swapout_tokens": self.swapout_tokens,
+               "swapin_tokens": self.swapin_tokens,
+               "stash_evictions": sum(e.n_stash_evictions
+                                      for e in self.engines.values()),
+               "stash_evicted_tokens": sum(e.stash_evicted_tokens
+                                           for e in self.engines.values())}
         for per in self.node_counters().values():
-            for k in agg:
-                if k != "windows_executed":
-                    agg[k] += per[k]
+            for k in ("prefill_traces", "prefill_dispatches",
+                      "decode_traces", "decode_dispatches",
+                      "chunk_traces", "chunk_dispatches",
+                      "resume_context_tokens"):
+                agg[k] += per[k]
         return agg
+
+    # ------------------------------------------------------------------ #
+    # Live-to-simulator calibration
+    # ------------------------------------------------------------------ #
+
+    def calibrated_profile(self, name: str = "live-calibrated",
+                           params_b: Optional[float] = None,
+                           preempt_batch: int = 64,
+                           mem_limit_frac: float = 0.4,
+                           nodes: Optional[Sequence[int]] = None
+                           ) -> ModelProfile:
+        """Fit the simulator's latency model to the measured windows.
+
+        The model (:mod:`repro_torch.simulate.profiles`):
+            duration ≈ overhead + window · d1 · (1 + slowdown · (batch-1))
+        is linear in (overhead, d1, d1·slowdown); a least-squares fit over
+        ``window_log`` (dropping each (node, batch, window) shape's first
+        occurrence, which pays the first launch's one-off costs, such as
+        loading the kernels' modules) recovers ``decode_ms_1`` and
+        ``batch_slowdown``.  ``nodes`` restricts the fit to a node subset;
+        :meth:`calibrated_node_profiles` fits each node on its own."""
+        keep = set(self.engines if nodes is None else nodes)
+        unknown = keep - set(self.engines)
+        if unknown:
+            raise ValueError(
+                f"calibrated_profile: unknown node(s) {sorted(unknown)}; "
+                f"this executor drives nodes {sorted(self.engines)}")
+        log = [rec for rec in self.window_log if rec["node"] in keep]
+        seen = set()
+        samples = []
+        for rec in log:
+            key = (rec["node"], rec["batch"], rec["window"])
+            if key in seen:
+                samples.append(rec)
+            else:
+                seen.add(key)  # first occurrence pays one-off costs
+        if not samples:
+            samples = list(log)
+        if not samples:
+            raise ValueError(
+                "calibrated_profile: window_log holds no executed windows "
+                f"for node(s) {sorted(keep)} — run at least one window via "
+                "execute() before calibrating")
+        w = np.array([r["window"] for r in samples], float)
+        b = np.array([r["batch"] for r in samples], float)
+        d = np.array([r["duration_s"] for r in samples], float)
+        X = np.stack([np.ones_like(w), w, w * (b - 1)], axis=1)
+        if np.linalg.matrix_rank(X) >= 3:
+            (o, a, c), *_ = np.linalg.lstsq(X, d, rcond=None)
+            a = float(max(a, 1e-9))
+            slowdown = float(min(max(c / a, 0.0), 10.0))
+            overhead = float(max(o, 0.0))
+        else:
+            # degenerate design (single batch size or window length):
+            # attribute everything to the per-token rate
+            a = float(max(np.mean(d / np.maximum(w, 1.0)), 1e-9))
+            slowdown = 0.0
+            overhead = 0.0
+        #: per-window fixed cost (dispatch + host loop) the latency model's
+        #: intercept absorbed
+        self.fit_overhead_s = overhead
+        mc = self.engines[min(keep)].model_cfg
+        if params_b is None:
+            # rough dense-transformer parameter count from the config
+            params_b = 12 * mc.n_layers * mc.d_model ** 2 / 1e9
+        return ModelProfile(
+            name=name, params_b=params_b,
+            avg_latency_ms=a * 1000.0 * CALIBRATION_MEAN_TOKENS,
+            n_layers=mc.n_layers,
+            n_kv_heads=mc.n_kv_heads or mc.n_heads,
+            head_dim=mc.head_dim,
+            preempt_batch=preempt_batch, mem_limit_frac=mem_limit_frac,
+            batch_slowdown=slowdown,
+        )
+
+    def calibrated_node_profiles(self, prefix: str = "live-node", **kw
+                                 ) -> Dict[int, ModelProfile]:
+        """Per-node live fits: {node: ModelProfile}.  Also records each
+        node's fitted per-window overhead in ``node_fit_overhead_s``."""
+        profs, over = {}, {}
+        for n in sorted(self.engines):
+            profs[n] = self.calibrated_profile(name=f"{prefix}{n}",
+                                               nodes=[n], **kw)
+            over[n] = self.fit_overhead_s
+        self.node_fit_overhead_s = over
+        return profs
+
+    def node_token_cost(self) -> Dict[int, float]:
+        """Fitted seconds-per-token per node — the ``least_eta`` placement
+        input, measured from this executor's own window log instead of
+        assumed uniform."""
+        return {n: p.decode_ms_1 / 1000.0
+                for n, p in self.calibrated_node_profiles().items()}

@@ -9,9 +9,9 @@ hand-written kernels (``attn_impl="kernel"``, through
 
 Unlike the reference, KV caches are updated in place: a decode step writes
 its row into the cache buffers it was given, which saves a copy of the
-whole cache per layer and step.  The decode step takes the ranks of a
-tensor-parallel layer together (:func:`attention_decode`), one rank on a
-single device.  A cache may be a ring (sliding window) and may hold int8
+whole cache per layer and step.  The decode step and the chunk of a
+chunked prefill take the ranks of a tensor-parallel layer together
+(:func:`attention_decode`), one rank on a single device.  A cache may be a ring (sliding window) and may hold int8
 codes with per-token fp32 scales, as in the reference.
 """
 from __future__ import annotations
@@ -87,6 +87,24 @@ def masked_row_write(buf: torch.Tensor, slot: torch.Tensor, val: torch.Tensor,
     slot = slot.long().clamp(max=buf.shape[1] - 1)
     keep = keep.reshape((-1,) + (1,) * (val.ndim - 1))
     buf[rows, slot] = torch.where(keep, val, buf[rows, slot])
+    return buf
+
+
+def masked_span_write(buf: torch.Tensor, start: torch.Tensor,
+                      val: torch.Tensor, valid_len: torch.Tensor
+                      ) -> torch.Tensor:
+    """Write ``val`` (B, C, ...) into ``buf`` (B, L, ...) at rows
+    ``[start, start + valid_len)`` of each batch row, in place.  Positions
+    at or past ``valid_len`` (chunk padding) or past the buffer are not
+    written, so every other row keeps its content bit for bit: the
+    reference drops them by an out-of-bounds scatter.  Returns ``buf``."""
+    c = val.shape[1]
+    span = torch.arange(c, device=buf.device)[None, :]
+    idx = start.to(buf.device).long()[:, None] + span            # (B, C)
+    ok = (span < valid_len.to(buf.device)[:, None]) & (idx < buf.shape[1])
+    rows = torch.arange(val.shape[0], device=buf.device)[:, None]
+    rows = rows.expand_as(idx)
+    buf[rows[ok], idx[ok]] = val[ok]
     return buf
 
 
@@ -220,8 +238,8 @@ def attention_block(p: Params, cfg, x: torch.Tensor, cos_sin, *,
                     attn_impl: str = "kernel"):
     """Prefill attention: proj -> rope -> full-sequence causal attention ->
     out proj.  Returns (out, (k, v)) for cache seeding.  The one-token
-    decode step is :func:`attention_decode`; chunked prefill, ring and
-    int8 caches are later slices of the port."""
+    decode step and the chunk of a chunked prefill, which attend over a
+    cache, are :func:`attention_decode`."""
     _check_impl(attn_impl)
     b, s, _ = x.shape
     q, k, v = project_qkv(p, cfg, x, cos_sin)
@@ -237,7 +255,9 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
                      cos_sins, caches: Sequence[KVCache],
                      curs: Sequence[torch.Tensor], *,
                      attn_impl: str = "kernel",
-                     actives: Optional[Sequence] = None) -> List[torch.Tensor]:
+                     actives: Optional[Sequence] = None,
+                     valid_lens: Optional[Sequence] = None
+                     ) -> List[torch.Tensor]:
     """One-token decode attention of every tensor-parallel rank of a layer
     (a single device is one rank): for rank r, proj -> rope -> write the
     new K/V row into ``caches[r]`` (buffers (B, L, KHr, D)) in place at the
@@ -247,19 +267,29 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
     nothing, so their cache stays bit for bit.  An int8 cache stores the
     row's codes and scales (:func:`quantize_kv`).
 
+    Chunked prefill: x is (B, C>1, d_model), C fresh tokens starting at
+    absolute position ``curs[r]`` (B,), of which the first
+    ``valid_lens[r]`` (B,) are real (the rest is bucket padding).  The
+    valid span's K/V are written into the cache by
+    :func:`masked_span_write` and the chunk's queries attend over the
+    whole buffer under a ``kv_len`` mask, with the plain ``sdpa`` whatever
+    ``attn_impl`` is, as in the reference.  Ring and int8 caches raise
+    ``ValueError``: a ring write is position-destructive, and an int8 read
+    would dequantize the prefix while one-shot prefill attends the fresh
+    K/V.
+
     Reads: the kernel path reads all ranks with one
     ``ops.flash_decode_sharded`` call (one rank: ``ops.flash_decode``, or
     ``ops.flash_decode_int8`` over an int8 cache, which dequantizes in
     fp32); the plain path dequantizes an int8 cache to q's dtype and calls
     ``sdpa``, as the reference does.  A ring is read plain whatever
     ``attn_impl`` is, as in the reference, which has no kernel for it.
-    Returns each rank's (B, 1, d_model) output (a partial sum when there
+    Returns each rank's (B, S, d_model) output (a partial sum when there
     are several ranks)."""
     _check_impl(attn_impl)
-    if xs[0].shape[1] != 1:
-        raise NotImplementedError("only one-token decode over the KV cache "
-                                  "is ported; chunked prefill is a later "
-                                  "slice")
+    if xs[0].shape[1] > 1:
+        return _attention_chunk(ps, cfg, xs, cos_sins, caches, curs,
+                                valid_lens)
     if caches[0].quantized and len(caches) > 1:
         raise NotImplementedError(
             "an int8 KV cache under tensor parallelism is not ported: the "
@@ -296,6 +326,26 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
     b = xs[0].shape[0]
     return [o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
             for o, p in zip(outs, ps)]
+
+
+def _attention_chunk(ps, cfg, xs, cos_sins, caches, curs, valid_lens):
+    """The chunked-prefill branch of :func:`attention_decode`."""
+    if caches[0].ring or caches[0].quantized:
+        raise ValueError(
+            "chunked prefill requires a dense unquantized KV cache "
+            "(ring/SWA and int8 caches fall back to one-shot prefill)")
+    b, s, _ = xs[0].shape
+    window = cfg.swa_window if cfg.attention_type == "swa" else None
+    outs = []
+    for p, x, cs, c, cur, valid in zip(ps, xs, cos_sins, caches, curs,
+                                       valid_lens):
+        q, k, v = project_qkv(p, cfg, x, cs)
+        masked_span_write(c.k, cur, k, valid)
+        masked_span_write(c.v, cur, v, valid)
+        out = sdpa(q, c.k, c.v, causal=True, q_offset=cur,
+                   kv_len=cur + valid, window=window)
+        outs.append(out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"])
+    return outs
 
 
 def _plain_read(q: torch.Tensor, c: KVCache, cur: torch.Tensor, window):

@@ -13,10 +13,12 @@ Public API:
   init_cache(cfg, batch, max_len, device)     -> cache dict (kv_dtype="int8",
                                                  sliding_window= for a ring)
   prefill(params, cfg, batch, cache)          -> (last_logits, cache)
+  prefill_chunk(params, cfg, batch, cache,
+                start=, valid_len=)           -> (last_logits, cache)
   decode_step(params, cfg, tokens, cache)     -> (logits, cache)
 
-``prefill`` and ``decode_step`` update the cache they are given in place and
-return it (the reference returns a new pytree).
+``prefill``, ``prefill_chunk`` and ``decode_step`` update the cache they are
+given in place and return it (the reference returns a new pytree).
 
 Tensor parallelism (``mesh=``, a ``("model",)`` mesh of
 :mod:`repro_torch.launch.mesh`; dense family): ``params`` is then the list
@@ -296,6 +298,57 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
     else:
         hs = [h[:, -1:, :] for h in hs]
     return _unembed(shards, cfg, hs), cache
+
+
+#: families :func:`prefill_chunk` supports — attention-only stacks whose KV
+#: writes are position-addressable (the reference's tuple; of these the
+#: port has the dense family).  Recurrent state (ssm/hybrid) absorbs every
+#: position it sees, so those families keep exact one-shot prefill.
+CHUNKABLE_FAMILIES = ("dense", "moe", "vlm")
+
+
+def prefill_chunk(params: Params, cfg, batch: Dict, cache: Cache, *,
+                  attn_impl: str = "kernel", start, valid_len):
+    """Process ONE prompt chunk against a partially filled cache.
+
+    ``batch["tokens"]`` is (B, C): C chunk tokens (right-padded to a shape
+    bucket), of which the first ``valid_len`` (B,) are real, starting at
+    absolute position ``start`` (B,) = tokens already prefilled.  The
+    chunk's K/V are written into rows ``[start, start + valid_len)`` of the
+    cache, in place, and its queries attend over the whole buffer under a
+    ``kv_len`` mask with the plain ``sdpa`` (``layers.attention_decode``),
+    whatever ``attn_impl`` is, as in the reference.  Sets ``len`` to
+    ``start + valid_len`` and returns the logits at the chunk's last valid
+    position (B, 1, V): the caller samples the first output token from the
+    final chunk's, as it does from one-shot prefill's.
+
+    Only :data:`CHUNKABLE_FAMILIES` with dense unquantized KV caches are
+    supported; callers fall back to one-shot prefill otherwise."""
+    if cfg.family not in CHUNKABLE_FAMILIES:
+        raise ValueError(
+            f"prefill_chunk supports families {CHUNKABLE_FAMILIES}, "
+            f"got {cfg.family!r} — use one-shot prefill")
+    shards, caches, ranks, lcfg = _ranks(params, cfg, cache, None)
+    tokens = batch["tokens"]
+    b, c = tokens.shape
+    dev = ranks[0]
+    start = torch.as_tensor(start, dtype=torch.int32, device=dev).expand(b)
+    valid = torch.as_tensor(valid_len, dtype=torch.int32,
+                            device=dev).expand(b)
+    pos = start.long()[:, None] + torch.arange(c, device=dev)[None, :]
+    hs = _embed(shards, cfg, tokens, ranks)
+    cos_sins = [L.positional_cos_sin(cfg, pos)]
+    layers = _unstack(shards[0]["layers"], cfg.n_layers)
+    kvc = caches[0]["kv"]
+    for i, lp in enumerate(layers):
+        parts = L.attention_decode(
+            [lp["attn"]], lcfg, [L.apply_norm(cfg, lp["attn_norm"], hs[0])],
+            cos_sins, [kvc.layer(i)], [start], attn_impl=attn_impl,
+            valid_lens=[valid])
+        hs = _mlp(cfg, lcfg, [lp], _add_sum(hs, parts))
+    caches[0]["len"] = start + valid
+    h = hs[0][torch.arange(b, device=dev), (valid - 1).long()][:, None, :]
+    return _unembed(shards, cfg, [h]), cache
 
 
 # =========================================================================== #
