@@ -66,7 +66,26 @@ Phases (any failure raises and exits non-zero):
      offloaded to the host and restored bit for bit at full width, its
      greedy stream equal to a resident engine's, and chunked prefill gives
      the fp32 greedy tokens of one-shot prefill at full width and 2
-     layers.
+     layers;
+  7. the BGE length predictor (``repro_torch.core.predictor``, fp32, no
+     kernel of its own): a two-head predictor of full width (``BGE_BASE``,
+     bge-base-en-v1.5, under two 8 x 1024 heads) against a CPU copy of
+     its parameters on a pool of 5 (and each job alone: padding is inert;
+     ids past the vocabulary), dispatch times for pools of 1, 8, 32 and
+     128 at sequence bucket 512 against their flop bounds and for the
+     CLI's small predictor at 32, 20 ``fit`` steps at 32 x 512 and one
+     step against the CPU copy, then the CLI's predictor trained by
+     ``examples/train_predictor.py``'s recipe (Table 2's metrics before and
+     after) and checkpointed; then ISRTF served over ``CLI_QUEUE`` ranked
+     by each: (a) the CLI with ``--predictor bge --predictor-ckpt
+     --calibrate ema+conformal``, (b) an ``ElisServer`` ordered by the
+     full-width predictor's ranking head (``RankedPredictor`` under
+     ``ema+conformal``, online head updates).  Each run must finish every
+     request with its expected token count, with predictor dispatches, at
+     most ``n_shape_buckets`` distinct dispatch shapes, kernel launches as
+     the engine's dispatches say, and (b) at least one online update; it
+     prints the predictor's device time per dispatch and its share of the
+     serving wall time.
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -101,6 +120,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -1744,18 +1764,15 @@ CLI_RUNS = [
 ]
 
 
-def cli_run(name: str, argv):
+def cli_run(name: str, argv, predictor_probe=None):
     """Run ``repro_torch.launch.serve.main(argv)`` in this process with
     every launch count set to 0 just before and read just after; check
-    that every request finished with ``min(true_output_len, max_output)``
-    tokens and that the kernels ran as often as the engine's dispatches
-    say (a chunk of a chunked prefill launches nothing: it attends with
-    the plain ``sdpa``, as the reference does).  Returns the run's
-    numbers."""
+    it as :func:`check_served` does.  ``predictor_probe``, when given, is
+    called on the predictor the CLI builds, before it serves.  Returns the
+    run's numbers."""
     import contextlib
     import io
 
-    from repro_torch.core import summarize
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as cli
 
@@ -1764,35 +1781,69 @@ def cli_run(name: str, argv):
     want_tokens = {r.request_id: min(r.true_output_len, args.max_output)
                    for r in cli.load_requests(args)[0]}
     out, err = io.StringIO(), io.StringIO()
+    build_predictor = cli.build_predictor
+    if predictor_probe is not None:
+        def probed(*a):
+            pred = build_predictor(*a)
+            predictor_probe(pred)
+            return pred
+        cli.build_predictor = probed
     ops.reset_launches()
     synchronize_all()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        responses, executor = cli.main(argv)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            responses, executor = cli.main(argv)
+    finally:
+        cli.build_predictor = build_predictor
     synchronize_all()
     wall = time.perf_counter() - t0
     launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
-    bad = [(r.request_id, r.status.value, r.n_tokens,
-            want_tokens.get(r.request_id)) for r in responses
-           if not r.ok or r.n_tokens != want_tokens.get(r.request_id)]
     lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("{")]
-    if bad or len(responses) != len(want_tokens) or len(lines) != len(
-            want_tokens):
-        raise AssertionError(f"serve CLI run {name!r}: requests not served "
-                             f"as expected: {bad}")
-    # a window decodes iff it emits tokens (every decoding job emits at
-    # least one); the others only ran a prefill chunk
-    decoding = [rec for rec in executor.window_log if rec["tokens"] > 0]
-    steps = sum(rec["window"] for rec in decoding)
+    if len(lines) != len(want_tokens):
+        raise AssertionError(f"serve CLI run {name!r}: {len(lines)} request "
+                             f"lines, want {len(want_tokens)}")
     probe_windows = probe_steps = 0
     if args.probe_nodes:
         per = (args.probe_nodes + 1) * len({1, min(2, args.slots)})
         probe_windows = per * len(cli.PROBE_WINDOWS)
         probe_steps = per * sum(cli.PROBE_WINDOWS)
+    run = check_served(name, responses, executor, want_tokens, launches,
+                       wall, probe_windows, probe_steps)
+    log(f"[cli]   (python -m repro_torch.launch.serve {' '.join(argv)})")
+    for ln in err.getvalue().splitlines():
+        log(f"[cli]   {ln}")
+    del responses, executor
+    gc.collect()
+    if DEVICE != "cpu":
+        import torch
+        torch.cuda.empty_cache()
+    return run
+
+
+def check_served(name, responses, executor, want_tokens, launches, wall,
+                 probe_windows=0, probe_steps=0) -> dict:
+    """Check one served run: every request finished with
+    ``min(true_output_len, max_output)`` tokens (``want_tokens``) and the
+    kernels ran as often as the engine's dispatches say (a chunk of a
+    chunked prefill launches nothing: it attends with the plain ``sdpa``,
+    as the reference does).  Logs and returns the run's numbers."""
+    from repro_torch.core import summarize
+
+    bad = [(r.request_id, r.status.value, r.n_tokens,
+            want_tokens.get(r.request_id)) for r in responses
+           if not r.ok or r.n_tokens != want_tokens.get(r.request_id)]
+    if bad or len(responses) != len(want_tokens):
+        raise AssertionError(f"serve run {name!r}: requests not served "
+                             f"as expected: {bad}")
+    # a window decodes iff it emits tokens (every decoding job emits at
+    # least one); the others only ran a prefill chunk
+    decoding = [rec for rec in executor.window_log if rec["tokens"] > 0]
+    steps = sum(rec["window"] for rec in decoding)
     counters = executor.counters()
     if counters["decode_dispatches"] != len(decoding) + probe_windows:
         raise AssertionError(
-            f"serve CLI run {name!r}: {counters['decode_dispatches']} decode "
+            f"serve run {name!r}: {counters['decode_dispatches']} decode "
             f"dispatches, but {len(decoding)} windows emitted tokens and "
             f"{probe_windows} probe windows ran")
     n_layers = executor.engines[0].model_cfg.n_layers
@@ -1826,15 +1877,7 @@ def cli_run(name: str, argv):
         f"dispatches {counters['chunk_dispatches']}, resume prefill tokens "
         f"{counters['resume_context_tokens']}; flash_decode "
         f"{launches['flash_decode']}, flash_attention "
-        f"{launches['flash_attention']}; {wall:.1f} s wall "
-        f"(python -m repro_torch.launch.serve {' '.join(argv)})")
-    for ln in err.getvalue().splitlines():
-        log(f"[cli]   {ln}")
-    del responses, executor
-    gc.collect()
-    if DEVICE != "cpu":
-        import torch
-        torch.cuda.empty_cache()
+        f"{launches['flash_attention']}; {wall:.1f} s wall")
     return run
 
 
@@ -1843,7 +1886,7 @@ def serve_cli_phase() -> dict:
     :data:`CLI_RUNS` and check what they must show: ISRTF preempts, the
     swap run swaps out and in and runs prefill chunks; print ISRTF's and
     FCFS's mean JCT and their ratio.  Returns the phase's launch counts,
-    summed over its runs."""
+    summed over its runs, and the ISRTF runs' mean JCTs."""
     runs = [cli_run(name, argv) for name, argv in CLI_RUNS]
     by = {}
     for r in runs:
@@ -1872,7 +1915,420 @@ def serve_cli_phase() -> dict:
     if not (total["flash_decode"] > 0 and total["flash_attention"] > 0):
         raise AssertionError(f"serve CLI: a kernel never launched: {total}")
     log(f"[cli] launches over the phase: {json.dumps(total)}")
-    return total
+    return {"launches": total, "isrtf_jct": isrtf}
+
+
+# --------------------------------------------------------------------------- #
+# Phase 7: the BGE length predictor, its training, ISRTF ranked by it
+# --------------------------------------------------------------------------- #
+
+#: the full-width predictor's encoder (None: ``BGE_BASE``, bge-base-en-v1.5;
+#: a CPU rehearsal may give a smaller ``EncoderArchConfig``)
+PREDICTOR_ENCODER = None
+#: pools timed at sequence bucket 512 (the full width's max_len)
+PREDICTOR_POOLS = (1, 8, 32, 128)
+#: fit steps of the full-width predictor at 32 x 512
+FULL_FIT_STEPS = 20
+#: the CLI predictor's training: examples/train_predictor.py's recipe
+CLI_FIT = dict(requests=1200, max_len=192, max_steps=6, batch=32,
+               steps=600)
+#: card against CPU, the full-width predictor's means and rank scores:
+#: both are fp32 (TF32 off), so they differ by order of summation through
+#: 12 post-LN layers and 8 FC layers, amplified by the heads' exp; 1e-3 of
+#: a prediction is a tenth of a token at ~100 tokens, far below the 50-token
+#: window that ISRTF's ranking resolves
+PREDICTOR_RTOL = 1e-3
+
+
+class DispatchTimer:
+    """Times every dispatch of a BGE predictor: CUDA events around its
+    kernels (the device time) and the host clock around the whole call,
+    which returns host numbers (what a scheduling window waits for); and
+    the distinct dispatch shapes.  Its share of a run's wall time counts
+    the online head updates too, where a ranked adapter makes them."""
+
+    def __init__(self, pred):
+        import torch
+
+        self.device_ms, self.wall_ms, self.shapes = [], [], set()
+        #: host time of the ranked adapter's online head updates
+        self.update_ms = []
+        apply, predict = pred._apply, pred.predict
+
+        def timed_apply(params, tokens, mask):
+            self.shapes.add(tokens.shape)
+            if DEVICE == "cpu":
+                return apply(params, tokens, mask)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = apply(params, tokens, mask)
+            end.record()
+            self._events = (start, end)
+            return out
+
+        def timed_predict(jobs):
+            t0 = time.perf_counter()
+            out = predict(jobs)
+            self.wall_ms.append((time.perf_counter() - t0) * 1e3)
+            if DEVICE != "cpu":
+                start, end = self._events
+                end.synchronize()
+                self.device_ms.append(start.elapsed_time(end))
+            return out
+
+        pred._apply, pred.predict = timed_apply, timed_predict
+
+    def summary(self, wall_s: float) -> dict:
+        import statistics
+
+        dev = self.device_ms or [float("nan")]
+        return {"dispatches": len(self.wall_ms),
+                "device_ms_median": statistics.median(dev),
+                "device_ms_mean": sum(dev) / len(dev),
+                "wall_ms_mean": sum(self.wall_ms) / max(len(self.wall_ms), 1),
+                "updates": len(self.update_ms),
+                "update_ms_mean": (sum(self.update_ms)
+                                   / max(len(self.update_ms), 1)),
+                "share_of_wall": (sum(self.wall_ms) + sum(self.update_ms))
+                / 1e3 / wall_s,
+                "shapes": sorted(self.shapes)}
+
+
+def predictor_flops(cfg, batch: int, seq: int) -> float:
+    """Flops of one dispatch over a (batch, seq) bucket: the encoder's
+    projections, attention products and MLP per token, and the heads per
+    row (multiply-adds count two)."""
+    e = cfg.encoder
+    per_token = e.n_layers * (2 * (4 * e.d_model ** 2 + 2 * e.d_model * e.d_ff)
+                              + 2 * 2 * seq * e.d_model)
+    heads = 2 if cfg.ranking is not None else 1
+    head = 2 * (2 * e.d_model * cfg.fc_hidden
+                + (cfg.n_fc_layers - 2) * cfg.fc_hidden ** 2
+                + cfg.fc_hidden)
+    return batch * seq * per_token + heads * batch * head
+
+
+def event_ms(fn, reps: int = 5, warmup: int = 2) -> float:
+    """Median time of ``fn()`` (which returns host data) over ``reps``
+    calls: CUDA events on the card, the host clock in a CPU rehearsal."""
+    import statistics
+
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        if DEVICE == "cpu":
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+            continue
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def predictor_jobs(n: int, lengths, vocab: int, seed: int):
+    """``n`` jobs whose inputs are ``lengths`` ids long in all (prompt and
+    generated split in two), with generated ids past ``vocab`` (the
+    engine's qwen2-1.5b ids reach 151935)."""
+    import numpy as np
+
+    from repro_torch.core import Job
+
+    rng = np.random.RandomState(seed)
+    jobs = []
+    for i in range(n):
+        total = int(lengths[i % len(lengths)])
+        p = max(total // 2, 1)
+        j = Job(job_id=i, prompt="", arrival_time=0.0,
+                prompt_tokens=rng.randint(8, vocab, size=p).tolist())
+        j.generated = rng.randint(8, 151936, size=max(total - p - 2, 0)
+                                  ).tolist()
+        jobs.append(j)
+    return jobs
+
+
+def predictor_parity(pred, cpu) -> dict:
+    """The full-width predictor on the card against its CPU copy: a pool
+    of 5 (batch bucket 8) and each job alone; ids past the vocabulary."""
+    import numpy as np
+
+    jobs = predictor_jobs(5, (24, 90, 150, 300, 510), 30522, SEED)
+    got = pred.predict(jobs)
+    want = cpu.predict(jobs)
+    alone = [pred.predict([j])[0] for j in jobs]
+    vals = lambda ps: np.array([[p.mean, p.rank_score] for p in ps])
+    g, w, a = vals(got), vals(want), vals(alone)
+    if not np.isfinite(g).all():
+        raise AssertionError(f"predictor: non-finite predictions {g}")
+    err = float(np.max(np.abs(g - w) / np.abs(w)))
+    err_alone = float(np.max(np.abs(a - g) / np.abs(g)))
+    log(f"[predictor] full width, card vs CPU: pool of 5 (batch bucket 8, "
+        f"seq bucket 512), means {g[:, 0].round(3).tolist()}, rank scores "
+        f"{g[:, 1].round(3).tolist()}; max relative error {err:.3e} "
+        f"(limit {PREDICTOR_RTOL}); each job alone vs in the pool "
+        f"{err_alone:.3e}")
+    if not (err <= PREDICTOR_RTOL and err_alone <= PREDICTOR_RTOL):
+        raise AssertionError("predictor: the card disagrees with the CPU "
+                             "or padding is not inert")
+    return {"max_rel_err": err, "alone_rel_err": err_alone}
+
+
+def predictor_dispatch_times(pred, small) -> list:
+    """Full-width dispatches over pools at sequence bucket 512, each
+    against its flop bound (fp32 on the CUDA cores), and the CLI's small
+    predictor at a pool of 32."""
+    rows = []
+    for p, n in [(pred, n) for n in PREDICTOR_POOLS] + [(small, 32)]:
+        ml = p.cfg.max_len
+        lists = [[8 + (i * 7 + t) % 30000 for t in range(ml)]
+                 for i in range(n)]
+        ms = event_ms(lambda: p.predict_tokens_ranked(lists)
+                      if p.cfg.ranking is not None
+                      else p.predict_tokens(lists))
+        flops = predictor_flops(p.cfg, n, ml)
+        bound = flops / PEAK_FLOPS["float32"] * 1e3
+        rows.append({"pool": n, "seq": ml, "d_model": p.cfg.encoder.d_model,
+                     "ms": ms, "bound_ms": bound, "tflop": flops / 1e12})
+        log(f"[predictor] dispatch, d_model {p.cfg.encoder.d_model} x "
+            f"{p.cfg.encoder.n_layers} layers, pool {n} x seq {ml}: "
+            f"{ms:.3f} ms (median of 5, CUDA events around the call) "
+            f"against a bound of {bound:.3f} ms ({flops / 1e12:.3f} TFLOP "
+            f"at {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s)")
+    return rows
+
+
+def fit_step_parity(pred, cpu, samples) -> None:
+    """One training step at a reduced batch on the card and on the CPU
+    from the same parameters: loss and parameters allclose."""
+    import numpy as np
+
+    from repro_torch.data import pad_batch
+    from repro_torch.training import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.training.tree import leaves
+
+    opt = AdamWConfig(lr=pred.cfg.lr, warmup_steps=1, total_steps=10)
+    batch = pad_batch(samples[:2], pred.cfg.max_len)
+    out = []
+    for p in (pred, cpu):
+        step = make_train_step(p.loss_fn, opt)
+        params, _, m = step(p.params, adamw_init(p.params), batch)
+        out.append(([t.detach().cpu().numpy() for t in leaves(params)],
+                    {k: float(v) for k, v in m.items()}))
+    (gp, gm), (wp, wm) = out
+    # from a zero state one AdamW step moves every trainable element by lr
+    # times the sign of its gradient (plus decay), so an element whose
+    # gradient is at rounding level may step either way: 2 lr apart
+    atol = 2.0 * opt.lr
+    perr = max(float(np.max(np.abs(a - b))) for a, b in zip(gp, wp))
+    lerr = abs(gm["loss"] - wm["loss"]) / abs(wm["loss"])
+    log(f"[predictor] one fit step at 2 x {pred.cfg.max_len}, card vs CPU: "
+        f"loss {gm['loss']:.6f} vs {wm['loss']:.6f} (relative {lerr:.2e}), "
+        f"grad norm {gm['grad_norm']:.6f} vs {wm['grad_norm']:.6f}, "
+        f"params max |diff| {perr:.3e} (limit {atol:.1e})")
+    if not (lerr <= 1e-4 and perr <= atol):
+        raise AssertionError("predictor: a training step on the card "
+                             "disagrees with the CPU")
+
+
+def train_cli_predictor(small, ckpt_dir: str) -> dict:
+    """The CLI's predictor trained on the card by
+    examples/train_predictor.py's recipe and checkpointed; Table 2's
+    metrics (and Kendall-tau) on the test split before and after."""
+    from repro_torch.data import make_predictor_dataset
+    from repro_torch.training import save_checkpoint
+
+    c = CLI_FIT
+    train, val, test = make_predictor_dataset(
+        c["requests"], seed=0, max_len=c["max_len"], max_steps=c["max_steps"])
+    before = small.evaluate(test)
+    t0 = time.perf_counter()
+    hist = small.fit(train, num_steps=c["steps"], batch_size=c["batch"])
+    fit_s = time.perf_counter() - t0
+    after = small.evaluate(test)
+    last = hist[c["steps"] - 1]
+    step_ms = ((last["wall_s"] - hist[0]["wall_s"]) / (c["steps"] - 1)
+               * 1e3)
+    path = save_checkpoint(ckpt_dir, c["steps"], small.params,
+                           metadata={"metrics": after})
+    fmt = lambda m: ", ".join(f"{k} {v:.4f}" for k, v in m.items())
+    log(f"[predictor] CLI predictor ({len(train)} train / {len(val)} val / "
+        f"{len(test)} test samples): {c['steps']} steps at {c['batch']} x "
+        f"{c['max_len']} in {fit_s:.1f} s ({step_ms:.2f} ms a step); test "
+        f"before: {fmt(before)}; after: {fmt(after)}; loss "
+        f"{hist[0]['loss']:.4f} -> {last['loss']:.4f}; checkpoint {path}")
+    if not (after["mae"] < before["mae"]):
+        raise AssertionError("predictor: training did not lower the MAE")
+    return {"before": before, "after": after, "step_ms": step_ms}
+
+
+def ranked_server_run(pred) -> dict:
+    """(b): an ``ElisServer`` of full-width qwen2-1.5b (bf16, the kernels)
+    over ``CLI_QUEUE``'s traffic, ISRTF ordered by the ranking head of the
+    full-width two-head predictor (ranked adapter, ``ema+conformal``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ElisServer, FrontendConfig,
+                                  PreemptionConfig, SchedulerConfig,
+                                  make_predictor)
+    from repro_torch.engine import EngineConfig, EngineExecutor, InferenceEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as cli
+    from repro_torch.models import transformer as T
+
+    args = cli._parser().parse_args(CLI_QUEUE + ["--device", DEVICE])
+    requests = cli.load_requests(args)[0]
+    want_tokens = {r.request_id: min(r.true_output_len, args.max_output)
+                   for r in requests}
+    cfg = get_config("qwen2-1.5b")
+    if DEVICE == "cpu":
+        cfg = cfg.reduced()
+    params = T.init_params(cfg, torch.Generator(DEVICE).manual_seed(0))
+    engine = InferenceEngine(cfg, params, EngineConfig(
+        max_slots=args.slots, max_len=512, max_output=args.max_output,
+        eos_id=-1, respect_job_max=True, attn_impl="kernel"), device=DEVICE)
+    executor = EngineExecutor({0: engine})
+    timer = DispatchTimer(pred)
+    ranked = make_predictor("ranked", bge=pred, calibration="ema+conformal")
+    adapter = ranked.base.base
+    update = adapter._update_heads
+
+    def timed_update():
+        t0 = time.perf_counter()
+        update()
+        synchronize_all()
+        timer.update_ms.append((time.perf_counter() - t0) * 1e3)
+    adapter._update_heads = timed_update
+    server = ElisServer(FrontendConfig(
+        n_nodes=1,
+        scheduler=SchedulerConfig(policy="isrtf", window=args.window,
+                                  batch_size=args.slots,
+                                  rank_by="rank_score"),
+        preemption=PreemptionConfig(enabled=True),
+        observe_in_flight=False), ranked, executor)
+    for r in requests:
+        server.submit(r)
+    ops.reset_launches()
+    synchronize_all()
+    t0 = time.perf_counter()
+    responses = server.drain()
+    synchronize_all()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
+    run = check_served("isrtf, full-width two-head predictor, rank_score",
+                       responses, executor, want_tokens, launches, wall)
+    run["predictor"] = timer.summary(wall)
+    run["n_updates"] = adapter.n_updates
+    run["max_pool"] = len(requests)
+    del responses, executor, engine, params, server
+    return run
+
+
+def predictor_phase(oracle_isrtf_jct) -> dict:
+    """Phase 7: the BGE predictor at full width (card against CPU,
+    dispatch times, training), the CLI's predictor trained and restored
+    by ``--predictor-ckpt``, and ISRTF served ranked by each."""
+    import torch
+
+    from repro_torch.core import BGEPredictor, PredictorConfig, RankingConfig
+    from repro_torch.data import make_predictor_dataset, n_shape_buckets
+    from repro_torch.launch import serve as cli
+    from repro_torch.models import encoder as E
+    from repro_torch.training.tree import leaves, tree_map
+
+    t_phase = time.perf_counter()
+    enc = PREDICTOR_ENCODER or E.BGE_BASE
+    cfg = PredictorConfig(encoder=enc, max_len=enc.max_len,
+                          ranking=RankingConfig())
+    pred = BGEPredictor(cfg, seed=SEED, device=DEVICE)
+    cpu = BGEPredictor(cfg, seed=SEED, device="cpu")
+    cpu.params = tree_map(lambda t: t.cpu(), pred.params)
+    n_params = sum(t.numel() for t in leaves(pred.params))
+    log(f"[predictor] two-head BGE predictor: encoder d_model {enc.d_model}, "
+        f"{enc.n_heads} heads, {enc.n_layers} layers, d_ff {enc.d_ff}, vocab "
+        f"{enc.vocab_size}, max_len {cfg.max_len}; heads {cfg.n_fc_layers} x "
+        f"{cfg.fc_hidden}; {n_params / 1e6:.1f} M parameters, fp32, seed "
+        f"{SEED}")
+    out = {"parity": predictor_parity(pred, cpu)}
+    small = cli.build_predictor(SimpleNamespace(
+        predictor="bge", predictor_ckpt=None, calibrate="none"), DEVICE)
+    out["dispatch"] = predictor_dispatch_times(pred, small)
+
+    train, _, _ = make_predictor_dataset(600, seed=0, max_len=cfg.max_len)
+    fit_step_parity(pred, cpu, train)
+    del cpu
+    gc.collect()
+    hist = pred.fit(train, num_steps=FULL_FIT_STEPS, batch_size=32)
+    last = hist[FULL_FIT_STEPS - 1]
+    step_ms = (last["wall_s"] - hist[0]["wall_s"]) / (FULL_FIT_STEPS - 1) * 1e3
+    bound = 3 * predictor_flops(cfg, 32, cfg.max_len) / PEAK_FLOPS[
+        "float32"] * 1e3
+    log(f"[predictor] full-width fit: {FULL_FIT_STEPS} steps at 32 x "
+        f"{cfg.max_len}, {step_ms:.2f} ms a step (host clock between the "
+        f"logged steps, which read the loss) against a bound of "
+        f"{bound:.2f} ms (3x the forward's flops); loss {hist[0]['loss']:.4f}"
+        f" -> {last['loss']:.4f}")
+    if not all(math.isfinite(h["loss"]) for h in hist.values()):
+        raise AssertionError("predictor: a fit loss is not finite")
+    out["fit_step_ms"], out["fit_bound_ms"] = step_ms, bound
+
+    ckpt = ROOT / "build" / "predictor_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    out["cli_training"] = train_cli_predictor(small, str(ckpt))
+    del small
+
+    # (a) the CLI: ISRTF ranked by the trained CLI predictor, restored
+    timers = []
+    run_a = cli_run("isrtf bge+ckpt ema+conformal",
+                    CLI_QUEUE + ["--policy", "isrtf", "--predictor", "bge",
+                                 "--predictor-ckpt", str(ckpt),
+                                 "--calibrate", "ema+conformal"],
+                    predictor_probe=lambda p: timers.append(
+                        DispatchTimer(p.base.base)))
+    run_a["predictor"] = timers[0].summary(run_a["wall_s"])
+    run_a["max_pool"] = int(CLI_QUEUE[CLI_QUEUE.index("--n") + 1])
+    # (b) an ElisServer ranked by the full-width two-head predictor
+    run_b = ranked_server_run(pred)
+    if run_b["n_updates"] <= 0:
+        raise AssertionError("predictor: the ranked adapter never updated "
+                             "its heads online")
+    oracle = sum(oracle_isrtf_jct) / len(oracle_isrtf_jct)
+    for run, p in ((run_a, 192), (run_b, cfg.max_len)):
+        s = run["predictor"]
+        bound = n_shape_buckets(run["max_pool"], p)
+        if not (s["dispatches"] > 0 and len(s["shapes"]) <= bound):
+            raise AssertionError(f"predictor: {run['name']}: "
+                                 f"{s['dispatches']} dispatches, shapes "
+                                 f"{s['shapes']} (bound {bound})")
+        log(f"[predictor] {run['name']}: JCT mean {run['jct_mean']:.3f} s, "
+            f"p99 {run['jct_p99']:.3f} s, {run['tokens_s']:.1f} tokens/s, "
+            f"preemptions {run['preemptions']}; predictor: "
+            f"{s['dispatches']} dispatches over {len(s['shapes'])} shapes "
+            f"(bound {bound}): {s['shapes']}, device time "
+            f"{s['device_ms_median']:.3f} ms median ({s['device_ms_mean']:.3f}"
+            f" mean) a dispatch, {s['wall_ms_mean']:.3f} ms on the host "
+            f"clock; {s['updates']} online head updates of "
+            f"{s['update_ms_mean']:.1f} ms; {100 * s['share_of_wall']:.2f}% "
+            f"of the {run['wall_s']:.1f} s serving wall; mean JCT / phase "
+            f"6's oracle ISRTF runs' "
+            f"{run['jct_mean'] / oracle:.4f}")
+    log(f"[predictor] (b) online head updates: {run_b['n_updates']}")
+    out["runs"] = [run_a, run_b]
+    del pred
+    gc.collect()
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    log(f"[predictor] phase 7 in {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def swap_roundtrip(cfg, params, requests) -> None:
@@ -2129,10 +2585,15 @@ def main(argv=None) -> None:
     swap_roundtrip(cfg, params, requests)
     del params
     chunk_parity(cfg, requests)
-    serve_cli_phase()
+    cli_phase = serve_cli_phase()
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[cli] phase 6 in {time.perf_counter() - t0:.1f} s")
+
+    # phase 7: the BGE predictor, its training, ISRTF ranked by it
+    predictor_phase(cli_phase["isrtf_jct"])
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # the step entry points over int8 caches (launch/steps.py), qwen2-1.5b
     params = random_params(cfg)

@@ -3,10 +3,12 @@
 :func:`summarize` aggregates a list of finished Job/Response records (all
 percentile families in one ``np.percentile`` call); :func:`prediction_stats`
 gives one request's prediction error; :func:`summarize_by_tenant` and
-:func:`fairness_ratio` break a multi-tenant run down by tenant.
+:func:`fairness_ratio` break a multi-tenant run down by tenant;
+:func:`improvement` and :func:`kendall_tau` compare runs and rankings.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -131,3 +133,44 @@ def summarize_by_tenant(jobs: Sequence, slo_targets: Optional[Dict[str, float]]
                 sum(1 for j in members if j.jct() <= target) / len(members))
         out[tenant] = s
     return out
+
+
+def improvement(base: Dict[str, float], new: Dict[str, float],
+                key: str = "jct_mean") -> float:
+    """Percent reduction of ``key`` relative to ``base`` (paper Fig. 6)."""
+    return 100.0 * (base[key] - new[key]) / base[key]
+
+
+def kendall_tau(x: Sequence[float], y: Sequence[float]) -> float:
+    """Kendall's τ-b rank correlation between ``x`` and ``y``.
+
+    The metric the ranking head is actually judged on: ISRTF consumes only
+    the *order* of predicted remaining lengths, and τ measures exactly how
+    well that order matches the realised one (+1 = identical ordering,
+    −1 = reversed, 0 = uncorrelated).  τ-b applies the tie correction
+    ``(P − Q) / sqrt((P + Q + Tx)(P + Q + Ty))`` so heavily quantised
+    predictions aren't rewarded for abstaining.
+
+    O(n²) pairwise comparison, vectorised per row — fine at benchmark
+    sample counts (≲ 10k); returns 0.0 when fewer than two samples or
+    either argument is constant."""
+    xa = np.asarray(x, np.float64)
+    ya = np.asarray(y, np.float64)
+    n = len(xa)
+    if n != len(ya):
+        raise ValueError(f"length mismatch: {n} vs {len(ya)}")
+    if n < 2:
+        return 0.0
+    conc = disc = tx = ty = 0
+    for i in range(n - 1):
+        dx = xa[i + 1:] - xa[i]
+        dy = ya[i + 1:] - ya[i]
+        s = np.sign(dx) * np.sign(dy)
+        conc += int(np.sum(s > 0))
+        disc += int(np.sum(s < 0))
+        tx += int(np.sum((dx == 0) & (dy != 0)))
+        ty += int(np.sum((dy == 0) & (dx != 0)))
+    denom = math.sqrt((conc + disc + tx) * (conc + disc + ty))
+    if denom == 0.0:
+        return 0.0
+    return (conc - disc) / denom

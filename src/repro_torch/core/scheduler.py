@@ -30,8 +30,9 @@ when it resumes, or swaps it to host memory and back
 (``PreemptionConfig.policy``; :func:`decide_preempt` prices the two per
 victim under ``auto``).  With ``SchedulerConfig.prefill_chunk`` set,
 :func:`score_pool` ranks each job by its remaining output plus its
-:func:`prefill_debt`.  The ranking head's ``rank_by`` ordering comes with
-the BGE predictor, a later slice of the port.
+:func:`prefill_debt`.  With ``SchedulerConfig.rank_by = "rank_score"`` a
+re-predicting policy orders the pool by the ranking head's
+:attr:`~repro_torch.core.predictor.LengthPrediction.rank_score` instead.
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.core.job import Job
-from repro_torch.core.predictor import Predictor, predict_lengths
+from repro_torch.core.predictor import (LengthPrediction, Predictor,
+                                        predict_lengths)
 
 
 @dataclass
@@ -79,6 +81,16 @@ class SchedulerConfig:
     #: remaining work: predicted remaining output plus the unprefilled
     #: prompt tail (:func:`prefill_debt`).
     prefill_chunk: Optional[int] = None
+    #: what a re-predicting policy ORDERS the pool by: ``"magnitude"`` (the
+    #: calibrated mean, or its ``risk_quantile``) or ``"rank_score"`` (the
+    #: learning-to-rank head's score — ISRTF only needs the order of
+    #: remaining lengths, and a head trained to rank beats the point
+    #: regressor at exactly that).  Requires predictions carrying
+    #: :attr:`~repro_torch.core.predictor.LengthPrediction.rank_score` (a
+    #: ranked predictor).  Either way ``Job.expected_remaining`` and all
+    #: cluster predicted-work accounting stay on the calibrated mean — rank
+    #: scores never leak into load totals (see ``cached_expected_remaining``).
+    rank_by: str = "magnitude"
 
 
 class Policy:
@@ -155,6 +167,10 @@ POLICIES = {
     "mlfq": MLFQPolicy,
 }
 
+#: valid pool-ordering sources for re-predicting policies
+RANK_BY = ("magnitude", "rank_score")
+
+
 def make_policy(cfg: SchedulerConfig, predictor: Optional[Predictor]) -> Policy:
     try:
         cls = POLICIES[cfg.policy]
@@ -162,6 +178,14 @@ def make_policy(cfg: SchedulerConfig, predictor: Optional[Predictor]) -> Policy:
         raise ValueError(f"unknown policy {cfg.policy!r}") from None
     if cls in (SJFPolicy, ISRTFPolicy) and predictor is None:
         raise ValueError(f"{cfg.policy} requires a predictor")
+    if cfg.rank_by not in RANK_BY:
+        raise ValueError(
+            f"unknown rank_by {cfg.rank_by!r} (choose one of {RANK_BY})")
+    if cfg.rank_by == "rank_score" and cfg.risk_quantile is not None:
+        raise ValueError(
+            "rank_by='rank_score' and risk_quantile are mutually exclusive: "
+            "the ranking head orders the pool directly, quantiles order "
+            "magnitudes — pick one")
     return cls(cfg, predictor)
 
 
@@ -201,6 +225,20 @@ def prefill_debt(cfg: SchedulerConfig, job: Job) -> float:
         0))
 
 
+def _rank_scores(preds: Sequence[LengthPrediction]) -> List[float]:
+    """Pool ordering from the ranking head — loud when it isn't there."""
+    out = []
+    for p in preds:
+        if p.rank_score is None:
+            raise ValueError(
+                "rank_by='rank_score' needs predictions carrying a "
+                "rank_score — use a two-head ranked predictor "
+                "(make_predictor('ranked', bge=...)); this predictor "
+                "returned none")
+        out.append(float(p.rank_score))
+    return out
+
+
 def score_jobs(policy: Policy, jobs: Sequence[Job], now: float) -> List[float]:
     """Fresh raw priorities for ``jobs`` — at most ONE predictor dispatch
     (batched through :func:`~repro_torch.core.predictor.predict_lengths`, the
@@ -220,7 +258,9 @@ def score_jobs(policy: Policy, jobs: Sequence[Job], now: float) -> List[float]:
     if policy.repredicts and pred is not None:
         preds = predict_lengths(pred, jobs)
         q = policy.cfg.risk_quantile
-        if q is None:
+        if policy.cfg.rank_by == "rank_score":
+            raw = _rank_scores(preds)
+        elif q is None:
             raw = [p.mean for p in preds]
         else:
             raw = [p.quantile(q) for p in preds]

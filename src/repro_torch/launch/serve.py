@@ -12,10 +12,14 @@ Weights are random, from seed 0.
     python -m repro_torch.launch.serve --device cpu --policy isrtf \\
         --prefill-chunk 8 --preempt-policy swap --n 12
 
-Prints one JSON line per request and a summary on stderr.  Flags of
-slices not ported yet (the BGE predictor and its calibration; chunked
-prefill and swap under ``--mesh``) exit at launch with the ROADMAP item
-that ports them.
+    python -m repro_torch.launch.serve --device cpu --predictor bge \\
+        --calibrate ema+conformal --n 6
+
+Prints one JSON line per request and a summary on stderr.  ``--predictor
+bge`` ranks with the BGE length predictor (a small encoder, random from
+seed 0 unless ``--predictor-ckpt`` restores a trained one, on
+``--device``).  Chunked prefill and swap under ``--mesh`` are not ported
+yet and exit at launch with the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -30,9 +34,11 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.core import (
     PLACEMENTS,
     PREEMPT_POLICIES,
+    BGEPredictor,
     ElisServer,
     FrontendConfig,
     OraclePredictor,
+    PredictorConfig,
     PreemptionConfig,
     Request,
     RequestOptions,
@@ -40,6 +46,7 @@ from repro_torch.core import (
     fairness_ratio,
     summarize,
     summarize_by_tenant,
+    wrap_calibration,
 )
 from repro_torch.core.job import Job
 from repro_torch.data import GammaArrivals, WorkloadGenerator
@@ -57,12 +64,12 @@ from repro_torch.engine import (
 )
 from repro_torch.launch.mesh import visible_devices
 from repro_torch.models import transformer as T
+from repro_torch.models.encoder import EncoderArchConfig
+from repro_torch.training import latest_step, restore_checkpoint
 
 #: the probe windows' lengths: each probe pass runs one of each
 PROBE_WINDOWS = (4, 16)
 #: why a flag of a slice not ported yet stops the launch
-BGE_NOT_PORTED = ("the BGE length predictor and its serving-time "
-                  "calibration are not ported yet (ROADMAP queue 1, item 4)")
 MESH_CHUNK_NOT_PORTED = ("chunked prefill and KV swap under a mesh are not "
                          "ported yet (ROADMAP queue 1, item 8)")
 
@@ -156,21 +163,34 @@ def probe_node_costs(executor, reps: int):
     return executor.node_token_cost()
 
 
-def build_predictor(args):
-    """The length predictor: the oracle, the only one ported (``main``
-    refuses ``--predictor bge`` and its flags at launch)."""
-    return OraclePredictor()
+def build_predictor(args, device="cuda"):
+    """The length predictor ``--predictor`` names, on ``device``, wrapped
+    in the ``--calibrate`` wrappers."""
+    if args.predictor == "oracle":
+        base = OraclePredictor()
+    else:
+        cfg = PredictorConfig(
+            encoder=EncoderArchConfig(d_model=128, n_heads=4, n_layers=3,
+                                      d_ff=256, max_len=192),
+            n_fc_layers=8, fc_hidden=256, max_len=192,
+        )
+        base = BGEPredictor(cfg, seed=0, device=device)
+        if args.predictor_ckpt:
+            step = latest_step(args.predictor_ckpt)
+            if step is None:
+                sys.exit(f"no checkpoint in {args.predictor_ckpt}")
+            base.params, _ = restore_checkpoint(args.predictor_ckpt, step,
+                                                base.params)
+    # serving-time calibration wrappers compose over any base predictor;
+    # the live loop feeds them finish-time observations (ELIS frontend
+    # calls predictor.observe as requests complete)
+    cal = None if args.calibrate == "none" else args.calibrate
+    return wrap_calibration(base, cal)
 
 
 def _refuse_unported(args) -> None:
     """Exit at launch on a flag whose slice is not ported yet; never serve
     something else in its place."""
-    if args.predictor != "oracle" or args.predictor_ckpt:
-        sys.exit(f"--predictor {args.predictor}"
-                 f"{' --predictor-ckpt' if args.predictor_ckpt else ''}: "
-                 f"{BGE_NOT_PORTED}")
-    if args.calibrate != "none":
-        sys.exit(f"--calibrate {args.calibrate}: {BGE_NOT_PORTED}")
     if args.mesh and (args.prefill_chunk is not None
                       or args.preempt_policy != "recompute"):
         sys.exit(f"--mesh with --prefill-chunk or --preempt-policy "
@@ -189,7 +209,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--predictor", default="oracle",
                     choices=["oracle", "bge"])
     ap.add_argument("--predictor-ckpt", default=None,
-                    help="restore a trained BGE predictor (not ported yet)")
+                    help="restore a trained BGE predictor (a checkpoint of "
+                         "examples/train_predictor.py, JAX or port)")
     ap.add_argument("--workers", type=int, default=1)
     ap.add_argument("--mesh", default=None, metavar="DxM",
                     help="shard the serving fleet over a DxM data×model "
@@ -221,8 +242,9 @@ def _parser() -> argparse.ArgumentParser:
                          "them cached predictions decay by progress)")
     ap.add_argument("--calibrate", default="none",
                     choices=["none", "ema", "conformal", "ema+conformal"],
-                    help="serving-time calibration over the predictor (not "
-                         "ported yet)")
+                    help="serving-time calibration over the predictor: EMA "
+                         "multiplicative debiasing and/or conformal "
+                         "quantiles from finish-time residuals")
     ap.add_argument("--risk-quantile", type=float, default=None,
                     help="rank ISRTF on this calibrated upper quantile of "
                          "the predicted remaining length instead of the "
@@ -321,7 +343,7 @@ def main(argv=None):
     needs_predictor = (args.policy in ("sjf", "isrtf")
                        or args.placement != "least_jobs"
                        or (args.rebalance and args.workers > 1))
-    predictor = build_predictor(args) if needs_predictor else None
+    predictor = build_predictor(args, device) if needs_predictor else None
     executor = EngineExecutor(engines,
                               swap_bandwidth_bytes_s=args.swap_bandwidth,
                               swap_latency_s=args.swap_latency,

@@ -144,6 +144,25 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x * p["scale"].float()).to(orig)
 
 
+def init_layernorm(dim: int, dtype=torch.float32, *, lead: Tuple[int, ...] = (),
+                   device=None) -> Params:
+    """Unit scale and zero bias of shape lead + (dim,)."""
+    return {"scale": torch.ones(lead + (dim,), dtype=dtype, device=device),
+            "bias": torch.zeros(lead + (dim,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in fp32 with the biased variance, as
+    the reference's ``jnp.var``; cast back to ``x``'s dtype."""
+    orig = x.dtype
+    x = x.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    x = (x - mean) * torch.rsqrt(var + eps)
+    out = x * p["scale"].float() + p["bias"].float()
+    return out.to(orig)
+
+
 def apply_norm(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm != "rmsnorm":
         raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
@@ -382,13 +401,17 @@ def _check_impl(attn_impl: str) -> None:
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, n_layers: int,
-             dtype=torch.float32) -> Params:
+             dtype=torch.float32, *, gated: bool = True) -> Params:
+    """``n_layers`` stacked MLPs: ``w_up``, ``w_down`` and, when ``gated``,
+    ``w_gate`` (the encoder's MLP is not gated)."""
     lead = (n_layers,)
-    return {
+    p = {
         "w_up": dense_init(gen, d_model, d_ff, dtype, lead=lead),
         "w_down": dense_init(gen, d_ff, d_model, dtype, lead=lead),
-        "w_gate": dense_init(gen, d_model, d_ff, dtype, lead=lead),
     }
+    if gated:
+        p["w_gate"] = dense_init(gen, d_model, d_ff, dtype, lead=lead)
+    return p
 
 
 def mlp_block(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:

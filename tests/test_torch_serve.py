@@ -4,7 +4,9 @@ each kind of traffic, ``decide_preempt``, ``prefill_debt``,
 ``fairness_ratio`` and ``summarize_by_tenant``; an ``ElisServer`` that
 preempts by swap under chunked prefill; and ``main`` itself on the CPU,
 request by request against the JAX CLI (its weights differ, so the
-per-request status and token counts are compared, not the tokens).
+per-request status and token counts are compared, not the tokens), with
+the oracle and with the BGE predictor, calibrated or not, and restored
+from a checkpoint the JAX package wrote.
 Everything is exact: no tolerance.
 """
 import argparse
@@ -283,8 +285,14 @@ def _run(main, argv, capsys, monkeypatch=None):
      "auto", "--probe-nodes", "1", "--placement", "least_eta"],
     ["--n", "10", "--max-output", "40", "--rate", "20", "--preempt-policy",
      "swap", "--swap-pool", "30"],
+    ["--n", "6", "--max-output", "24", "--rate", "20", "--predictor", "bge"],
+    ["--n", "6", "--max-output", "24", "--rate", "20", "--calibrate",
+     "ema+conformal"],
+    ["--n", "6", "--max-output", "24", "--rate", "20", "--predictor", "bge",
+     "--calibrate", "ema+conformal", "--policy", "isrtf"],
 ], ids=["default", "chunk-swap", "scenario-2-workers", "mlfq", "fcfs",
-        "auto-probe", "swap-pool"])
+        "auto-probe", "swap-pool", "bge", "calibrated-oracle",
+        "calibrated-bge"])
 def test_main_matches_jax_cli(argv, capsys, monkeypatch):
     got, err = _run(serve.main, argv + ["--device", "cpu"], capsys)
     want, _ = _run(jax_serve.main, argv, capsys, monkeypatch)
@@ -320,18 +328,45 @@ def test_main_serves_a_tp_pod_on_cpu_ranks(capsys):
     assert "1 TP=2 pod(s)" in err
 
 
+def test_main_restores_a_jax_checkpoint_as_the_jax_cli(tmp_path, capsys,
+                                                      monkeypatch):
+    """``--predictor bge --predictor-ckpt DIR`` on a checkpoint the JAX
+    package wrote: the port restores the same weights into its predictor
+    and serves every request as the JAX CLI does."""
+    from repro import training as jax_training
+    from repro.core import BGEPredictor as JaxBGE
+    from repro_torch.training.tree import leaves
+
+    ns = argparse.Namespace(predictor="bge", predictor_ckpt=None,
+                            calibrate="none")
+    cfg = jax_serve.build_predictor(ns).cfg
+    trained = JaxBGE(cfg, seed=1)  # not the CLI's seed-0 weights
+    jax_training.save_checkpoint(str(tmp_path), 12, trained.params)
+    ns.predictor_ckpt = str(tmp_path)
+    restored = serve.build_predictor(ns, "cpu")
+    for a, b in zip(leaves(restored.params),
+                    jax.tree_util.tree_leaves(trained.params)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    argv = ["--n", "6", "--max-output", "24", "--rate", "20", "--predictor",
+            "bge", "--predictor-ckpt", str(tmp_path)]
+    got, err = _run(serve.main, argv + ["--device", "cpu"], capsys)
+    want, _ = _run(jax_serve.main, argv, capsys, monkeypatch)
+    assert got == want
+    assert "(6/6 finished)" in err
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--predictor", "bge"], "queue 1, item 4"),
-    (["--predictor-ckpt", "ckpt"], "queue 1, item 4"),
-    (["--calibrate", "ema"], "queue 1, item 4"),
+    (["--predictor", "bge", "--predictor-ckpt", "{empty}"], "no checkpoint in"),
     (["--mesh", "1x2", "--prefill-chunk", "8"], "queue 1, item 8"),
     (["--mesh", "1x2", "--preempt-policy", "swap"], "queue 1, item 8"),
     (["--prefill-chunk", "0"], "must be >= 1"),
     (["--mesh", "2x"], "DxM"),
 ])
-def test_main_refuses_at_launch(argv, match):
+def test_main_refuses_at_launch(argv, match, tmp_path):
     """Flags of slices not ported yet exit non-zero with the item that
-    ports them (never a fallback to the oracle or to recompute)."""
+    ports them (never a fallback to the oracle or to recompute); so do a
+    checkpoint directory that holds no checkpoint and a malformed flag."""
+    argv = [a.replace("{empty}", str(tmp_path)) for a in argv]
     with pytest.raises(SystemExit) as e:
         serve.main(argv + ["--device", "cpu"])
     assert match in str(e.value.code)
