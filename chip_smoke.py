@@ -85,7 +85,21 @@ Phases (any failure raises and exits non-zero):
      most ``n_shape_buckets`` distinct dispatch shapes, kernel launches as
      the engine's dispatches say, and (b) at least one online update; it
      prints the predictor's device time per dispatch and its share of the
-     serving wall time.
+     serving wall time;
+  8. the other archs (``OTHER_ARCHS``), bf16 at full width through phase
+     4's served path with launch counts reset before each and read after:
+     qwen2-moe-a2.7b at its 24 layers (prefill through the dense MoE
+     block, decode through the grouped one), with one decode window under
+     ``torch.cuda.set_sync_debug_mode("error")``, one profiled with the
+     MoE block's device time per step against its bound, and its step
+     entry points over a 4 x 512 int8 cache; llama3.2-3b (28 layers);
+     yi-6b (32); mixtral-8x7b cut to 8 of its 32 layers (93.4 GB at full
+     depth need a mesh; it reads its linear cache with ``window`` 4096);
+     and qwen1.5-32b last, at 64 layers unless the free memory forces a
+     cut, which it prints.  For each: the bytes allocated beside
+     ``param_count``, fp32 greedy tokens of the kernel and plain engines at
+     full width and 2 layers through evictions, and bf16 first prefill
+     logits at the served depth within ``LOGIT_TOL_BF16``.
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -162,6 +176,13 @@ TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-5, 2.0 ** -7)}
 #: accumulator after every key, and 0.049 since it rounds after every
 #: 64-key tile: the kernel rows of phase 3 catch it now, this gap does
 #: not.  The limit lies between the correct reading and ``drop_first_tile``.
+#: Phase 8 holds the other archs to it at their served depths; on an H100
+#: they read 0.033-0.062 (dense) and, with the plain path routed to the
+#: kernel path's experts (``moe_prefill_logit_gaps``), 0.020-0.023 (MoE).
+#: Left to route for itself, mixtral's plain path sent 40 of 8192 (layer,
+#: token) rows to other experts and its logits moved by 0.19: a discrete
+#: jump in the routing, not the kernels' rounding, so that raw gap is
+#: reported and held to the limit only when no row flips.
 LOGIT_TOL_BF16 = 0.1
 #: bf16 full-depth prefill logits of mamba2-130m: the kernel engine against
 #: the same model with the kernel swapped for its plain version on the
@@ -1184,11 +1205,14 @@ def profile_window(cfg, params, requests, mesh=None) -> None:
              lambda: eng.run_window(jobs, 8))
 
 
-def profiled(what: str, fn) -> None:
+def profiled(what: str, fn, annotations=()) -> dict:
     """Run ``fn()`` once under ``torch.profiler`` and log its host wall
     time, the device's busy time (the sum of the kernels' durations: one
     stream per card, so they do not overlap on one card; with ranks on two
-    cards it is summed over both) and the kernels that took most of it."""
+    cards it is summed over both) and the kernels that took most of it.
+    Returns ``wall_ms`` and ``busy_ms``, and for each name in
+    ``annotations`` (``record_function`` ranges that ``fn`` opens) the
+    device time of the kernels launched inside those ranges, in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1199,9 +1223,15 @@ def profiled(what: str, fn) -> None:
         fn()
         synchronize_all()
         wall = time.perf_counter() - t0
-    by_name = {}
+    by_name, spans = {}, {name: 0.0 for name in annotations}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.name in spans:
+            # the range's own device-side marker spans its gaps too: read
+            # the kernels of its host-side event and of its children
+            if e.device_type == DeviceType.CPU:
+                spans[e.name] += getattr(e, "device_time_total",
+                                         None) or e.cuda_time_total
+        elif e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values()) / 1e3
     log(f"[profile] {what} under torch.profiler: wall {wall * 1e3:.2f} ms, "
@@ -1215,6 +1245,8 @@ def profiled(what: str, fn) -> None:
     for name, us in shown:
         log(f"[profile]   {us / 1e3:8.3f} ms {100 * us / 1e3 / busy:5.1f}% "
             f"of busy  {name[:90]}")
+    return {"wall_ms": wall * 1e3, "busy_ms": busy,
+            **{name: us / 1e3 for name, us in spans.items()}}
 
 
 # --------------------------------------------------------------------------- #
@@ -1544,21 +1576,29 @@ def greedy_parity(cfg, requests, meshes=()) -> bool:
     return ok
 
 
-def prefill_logit_gap(cfg, params_bf16, requests, mesh=None):
-    """max |kernel - plain| of the first prefill logits at full width and
-    depth in bf16; with ``mesh``, max |TP kernel - single-device kernel|.
-    Returns (gap, whether the kernel's logits are finite)."""
+def prefill_batch(requests):
+    """The first four prompts right-padded to 256 ids, and each one's last
+    index: the batch whose first prefill logits phase 5 compares."""
     import numpy as np
-    import torch
-
-    from repro_torch.launch import shard_params
-    from repro_torch.models import transformer as T
 
     toks = np.zeros((4, 256), np.int32)
     last = np.zeros((4,), np.int32)
     for i, r in enumerate(requests[:4]):
         toks[i, : len(r.prompt_tokens)] = r.prompt_tokens
         last[i] = len(r.prompt_tokens) - 1
+    return toks, last
+
+
+def prefill_logit_gap(cfg, params_bf16, requests, mesh=None):
+    """max |kernel - plain| of the first prefill logits at full width and
+    depth in bf16; with ``mesh``, max |TP kernel - single-device kernel|.
+    Returns (gap, whether the kernel's logits are finite)."""
+    import torch
+
+    from repro_torch.launch import shard_params
+    from repro_torch.models import transformer as T
+
+    toks, last = prefill_batch(requests)
     runs = {"kernel": ("kernel", None), "plain": ("torch", None)}
     if mesh is not None:
         runs = {f"TP={len(mesh.ranks)} kernel": ("kernel", mesh),
@@ -1584,6 +1624,74 @@ def prefill_logit_gap(cfg, params_bf16, requests, mesh=None):
         f"logits {tuple(got.shape)}, max |{got_name} - {want_name}| = "
         f"{gap:.4e} (tol {tol}), max |logit| = {scale:.3f}, finite={finite}")
     return gap, finite
+
+
+def moe_prefill_logit_gaps(cfg, params_bf16, requests):
+    """The MoE family's first prefill logits at full width and served depth
+    in bf16: the kernel path against the plain path as they are (``raw``),
+    and against the plain path made to route every token to the experts
+    the kernel path's router chose (``pinned``; each expert weighted by the
+    plain path's own probabilities).  The kernels move the router's input
+    by an ulp or so; where two experts' probabilities lie closer than
+    that, the choice flips, and a token whose experts change changes by
+    the size of an expert's output: a discrete jump that no tolerance on
+    the kernels' rounding bounds.  Pinned, only the rounding remains.
+    Returns (raw gap, pinned gap, routing flips: (layer, token) rows whose
+    expert set differs, finite)."""
+    import torch
+
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    toks, last = prefill_batch(requests)
+    router = M.router_probs
+    chosen, flips = [], [0]
+
+    def record(p, c, x):
+        out = router(p, c, x)
+        chosen.append(out[2])
+        return out
+
+    def replay(p, c, x):
+        probs, _, own = router(p, c, x)
+        idx = chosen[replay.i]
+        replay.i += 1
+        flips[0] += int((own.sort(-1).values != idx.sort(-1).values)
+                        .any(-1).sum())
+        w = probs.gather(-1, idx)
+        if c.moe.norm_topk_prob:
+            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return probs, w, idx
+
+    replay.i = 0
+
+    def first_logits(impl, route):
+        M.router_probs = route
+        try:
+            out, _ = T.prefill(params_bf16, cfg,
+                               {"tokens": torch.as_tensor(toks,
+                                                          device=DEVICE)},
+                               T.init_cache(cfg, 4, MAX_LEN, DEVICE),
+                               attn_impl=impl,
+                               last_index=torch.as_tensor(last,
+                                                          device=DEVICE))
+        finally:
+            M.router_probs = router
+        return out.float()
+
+    got = first_logits("kernel", record)
+    raw = float((got - first_logits("torch", router)).abs().max())
+    pinned = float((got - first_logits("torch", replay)).abs().max())
+    finite = bool(torch.isfinite(got).all())
+    log(f"[parity] {cfg.arch_id} bf16, full width, {cfg.n_layers} layers: "
+        f"first prefill logits {tuple(got.shape)}, max |kernel - plain| = "
+        f"{raw:.4e} with the plain path's own routing ({flips[0]} of "
+        f"{cfg.n_layers * toks.size} (layer, token) rows route to other "
+        f"experts than on the kernel path), {pinned:.4e} with the kernel "
+        f"path's routing (tol {LOGIT_TOL_BF16}; the raw gap too when no "
+        f"row flips); max |logit| = {float(got.abs().max()):.3f}, "
+        f"finite={finite}")
+    return raw, pinned, flips[0], finite
 
 
 def ssm_prefill_logit_gaps(cfg, params_bf16, requests):
@@ -2481,6 +2589,223 @@ def window_bench(cfg, params, n: int) -> None:
 
 
 # --------------------------------------------------------------------------- #
+# Phase 8: the other archs
+# --------------------------------------------------------------------------- #
+
+#: phase 8's archs in order, each with the depth it is served at (None:
+#: full depth).  mixtral-8x7b is 93.4 GB of bf16 weights at its 32
+#: layers, one card's worth only under a mesh (ROADMAP queue 1, item 8),
+#: so it is cut to 8 layers.  qwen1.5-32b (70.4 GB) runs last, after every
+#: earlier tensor is freed, and is cut only where it does not fit.
+OTHER_ARCHS = [("qwen2-moe-a2.7b", None), ("llama3.2-3b", None),
+               ("yi-6b", None), ("mixtral-8x7b", 8), ("qwen1.5-32b", None)]
+#: the arch whose step entry points phase 8 runs over an int8 cache
+STEP_ARCH = "qwen2-moe-a2.7b"
+#: device memory a served arch keeps free beside its weights and its two
+#: slot caches (the engine's and a prefill's) for activations and the
+#: allocator's rounding, in bytes
+HEADROOM_BYTES = 6e9
+
+
+def layer_bytes(cfg):
+    """(bytes of one layer's weights, bytes of the rest: embeddings, head
+    and final norm) in the config's dtype, from ``param_count`` (exact for
+    the dense family; the MoE family's counts the reference's quirk)."""
+    es = 2 if cfg.dtype == "bfloat16" else 4
+    rest = dataclasses.replace(cfg, n_layers=0).param_count()
+    return (cfg.param_count() - rest) // cfg.n_layers * es, rest * es
+
+
+def served_depth(cfg, depth):
+    """The depth ``cfg`` is served at: ``depth`` (a stated cut) or the full
+    depth, cut further to what the free device memory holds beside two
+    4 x ``MAX_LEN`` slot caches and ``HEADROOM_BYTES``.  Returns (depth,
+    why it was cut or None)."""
+    import torch
+
+    n, why = cfg.n_layers, None
+    if depth is not None and depth < n:
+        n, why = depth, (f"{depth} of {cfg.n_layers} layers: the "
+                         f"{layer_bytes(cfg)[0] * cfg.n_layers / 1e9:.1f} GB "
+                         "of all layers fit one card only under a mesh "
+                         "(ROADMAP queue 1, item 8)")
+    if DEVICE == "cpu":
+        return n, why
+    free = torch.cuda.mem_get_info()[0]
+    per, rest = layer_bytes(cfg)
+    cache = 2 * 2 * 4 * MAX_LEN * cfg.n_kv_heads * cfg.head_dim * 2
+    fits = int((free - rest - HEADROOM_BYTES) // (per + cache))
+    if fits < n:
+        n, why = fits, (f"{fits} of {cfg.n_layers} layers: "
+                        f"{free / 1e9:.2f} GB free, {rest / 1e9:.2f} GB "
+                        f"for the embeddings and head, {per / 1e9:.3f} GB "
+                        f"a layer, {HEADROOM_BYTES / 1e9:.0f} GB kept free")
+    return n, why
+
+
+def moe_decode_window(cfg, params, requests) -> None:
+    """The MoE arch's decode window, 8 steps at 4 live slots: one window
+    profiled with ``moe_block`` as a ``record_function`` range (its device
+    time per step against its bound: the routed experts' weights that this
+    window's router chose, distinct per layer and step, and the shared
+    path's and router's, read once at 3.35 TB/s), then one window of
+    ``_decode_window`` under ``torch.cuda.set_sync_debug_mode("error")``:
+    a host sync anywhere in the decode steps (the MoE block's included)
+    raises."""
+    import torch
+
+    from repro_torch.core import Job
+    from repro_torch.engine import EngineConfig, InferenceEngine
+    from repro_torch.models import moe as M
+
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        max_slots=4, max_len=MAX_LEN, max_output=64, eos_id=-1),
+        device=DEVICE)
+    jobs = [Job(job_id=r.request_id, prompt="",
+                prompt_tokens=list(r.prompt_tokens), arrival_time=0.0)
+            for r in requests[:4]]
+    eng.run_window(jobs, 8)  # prefill, and a first window as warm-up
+    routed = []
+    block, router = M.moe_block, M.router_probs
+
+    def annotated(*a, **kw):
+        with torch.profiler.record_function("moe_block"):
+            return block(*a, **kw)
+
+    def logged(*a, **kw):
+        out = router(*a, **kw)
+        routed.append(out[2])
+        return out
+
+    M.moe_block, M.router_probs = annotated, logged
+    try:
+        prof = profiled(f"{cfg.arch_id}: one decode window (8 steps, 4 "
+                        f"slots, {cfg.n_layers} layers), moe_block "
+                        "annotated", lambda: eng.run_window(jobs, 8),
+                        annotations=("moe_block",))
+    finally:
+        M.moe_block, M.router_probs = block, router
+    m, d, es = cfg.moe, cfg.d_model, 2
+    if len(routed) != 8 * cfg.n_layers:
+        raise AssertionError(f"{len(routed)} router calls in the window, "
+                             f"want 8 steps x {cfg.n_layers} layers")
+    distinct = [int(torch.unique(i).numel()) for i in routed]
+    fixed = (3 * d * m.shared_d_ff if m.num_shared_experts else 0) + d * (
+        m.num_experts + 1)
+    bound_ms = sum(n * 3 * d * m.expert_d_ff + fixed
+                   for n in distinct) * es / HBM_BYTES_S * 1e3 / 8
+    moe_ms = prof["moe_block"] / 8
+    log(f"[moe] {cfg.arch_id}: moe_block device time {moe_ms:.3f} ms a "
+        f"step ({cfg.n_layers} layers, 4 tokens) against a bound of "
+        f"{bound_ms:.3f} ms ({moe_ms / bound_ms:.2f}x): {min(distinct)}-"
+        f"{max(distinct)} distinct routed experts a layer (mean "
+        f"{sum(distinct) / len(distinct):.2f}; at most "
+        f"{min(4 * m.top_k, m.num_experts)}), weights read once at 3.35 "
+        f"TB/s; {100 * prof['moe_block'] / prof['busy_ms']:.1f}% of the "
+        f"window's device busy time")
+    last = torch.as_tensor(eng.last_token, device=eng.device)
+    alive = torch.ones((4,), dtype=torch.bool, device=eng.device)
+    synchronize_all()
+    if DEVICE != "cpu":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, toks = eng._decode_window(eng.cache, last, alive, 8)
+    finally:
+        if DEVICE != "cpu":
+            torch.cuda.set_sync_debug_mode("default")
+    synchronize_all()
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("sync-free window: a token lies outside the "
+                             "vocabulary")
+    log(f"[moe] {cfg.arch_id}: one decode window (8 steps, 4 slots, "
+        "grouped MoE) ran under torch.cuda.set_sync_debug_mode('error'): "
+        "no host sync")
+
+
+def other_archs_phase(archs=None) -> None:
+    """Phase 8: each arch of ``archs`` (default :data:`OTHER_ARCHS`) in
+    bf16 at full width, from random weights, through ``ElisServer`` with
+    the oracle and ISRTF (phase 4's served path: 4 slots, ``MAX_LEN``, a
+    dozen requests, launch counts reset before and read after), its decode
+    window profiled, its first prefill logits against the plain path at
+    the served depth, and beforehand its fp32 greedy tokens, kernel engine
+    against plain engine, at full width and 2 layers.  The MoE archs also
+    run a decode window under sync-debug (:func:`moe_decode_window`), and
+    :data:`STEP_ARCH` the step entry points over an int8 cache.  Every
+    check is made for every arch before the phase fails."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    archs = OTHER_ARCHS if archs is None else archs
+    requests = make_requests(12, SEED)
+    failures = []
+    for arch, depth in archs:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if DEVICE == "cpu":  # a rehearsal: reduced widths, the served window
+            cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16",
+                                      swa_window=cfg.swa_window)
+        if not greedy_parity(cfg, requests):
+            failures.append(f"{arch}: fp32 greedy tokens differ between "
+                            "the kernel and plain engines, or no eviction")
+        gc.collect()
+        torch.cuda.empty_cache()
+        n, why = served_depth(cfg, depth)
+        full = cfg
+        cfg = dataclasses.replace(cfg, n_layers=n)
+        if why:
+            log(f"[archs] {arch}: depth cut to {why}")
+        base = torch.cuda.memory_allocated() if DEVICE != "cpu" else 0
+        params = random_params(cfg)
+        held = sum(t.numel() * t.element_size() for t in _tensors(params))
+        count = sum(t.numel() for t in _tensors(params))
+        alloc = (torch.cuda.memory_allocated() - base if DEVICE != "cpu"
+                 else held)
+        log(f"[archs] {describe(cfg)}; weights: {held / 1e9:.3f} GB in "
+            f"{count:,} parameters, {alloc / 1e9:.3f} GB allocated; "
+            f"param_count {cfg.param_count():,} at this depth, "
+            f"{full.param_count():,} at {full.n_layers} layers "
+            f"(active {full.active_param_count():,})")
+        served_path(cfg, params, requests)
+        if cfg.moe.enabled:
+            moe_decode_window(cfg, params, requests)
+            raw, gap, flips, finite = moe_prefill_logit_gaps(cfg, params,
+                                                             requests)
+            if not flips:
+                gap = max(gap, raw)
+        else:
+            profile_window(cfg, params, requests)
+            gap, finite = prefill_logit_gap(cfg, params, requests)
+        if not finite or not gap <= LOGIT_TOL_BF16:
+            failures.append(f"{arch}: bf16 prefill logits, kernel - plain "
+                            f"= {gap:.4e} (tol {LOGIT_TOL_BF16})")
+        if arch == STEP_ARCH:
+            int8_step_path(cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[archs] {arch} in {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError("phase 8: " + "; ".join(failures))
+
+
+def random_params(cfg):
+    """``transformer.init_params`` on the card from ``SEED``."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=DEVICE)
+                           .manual_seed(SEED))
+    synchronize_all()
+    log(f"[serve] {cfg.arch_id}: random {cfg.dtype} weights from seed "
+        f"{SEED} in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+# --------------------------------------------------------------------------- #
 
 
 def main(argv=None) -> None:
@@ -2501,7 +2826,6 @@ def main(argv=None) -> None:
                  "script needs an NVIDIA card")
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.models import transformer as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2513,15 +2837,6 @@ def main(argv=None) -> None:
     models = [(get_config("qwen2-1.5b"), make_requests(12, SEED)),
               (get_config("mamba2-130m"),
                make_requests(12, SEED, max_prompt=400, vocab=50280))]
-
-    def random_params(cfg):
-        t0 = time.perf_counter()
-        params = T.init_params(cfg, torch.Generator(device="cuda")
-                               .manual_seed(SEED))
-        torch.cuda.synchronize()
-        log(f"[serve] {cfg.arch_id}: random {cfg.dtype} weights from seed "
-            f"{SEED} in {time.perf_counter() - t0:.1f} s")
-        return params
 
     if args.window_bench:
         build.build_all()
@@ -2610,6 +2925,13 @@ def main(argv=None) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     decode_32k_steps(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 8: the other archs at full width, qwen1.5-32b last
+    t0 = time.perf_counter()
+    other_archs_phase()
+    log(f"[archs] phase 8 in {time.perf_counter() - t0:.1f} s ({smi})")
 
     served = {"flash_decode": dict(dtype="bfloat16", B=4, window=None),
               "flash_decode_int8": dict(dtype="bfloat16", B=4, D=HEAD_DIM,

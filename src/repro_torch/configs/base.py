@@ -1,15 +1,38 @@
-"""Model configuration for the PyTorch port (dense and SSM families).
+"""Model configuration for the PyTorch port (dense, MoE and SSM families).
 
 A trimmed copy of ``repro.configs.base``: :class:`ModelConfig` keeps the
-fields the dense decoder and the Mamba2 stack read, with the same defaults,
-the same ``head_dim`` rule and the same ``reduced()`` sizes, so a reference
-config and its port describe identical parameter shapes.  The MoE, hybrid
-and encoder sub-configs arrive with the slices that port those families.
+fields the dense decoder, the MoE decoder and the Mamba2 stack read, with
+the same defaults, the same ``head_dim`` rule, the same ``reduced()``
+sizes and the same analytic ``param_count``, so a reference config and its
+port describe identical parameter shapes.  The hybrid and encoder
+sub-configs arrive with the slices that port those families.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 from typing import Dict, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration."""
+
+    num_experts: int = 0
+    top_k: int = 0
+    #: experts always active regardless of routing (qwen2-moe "shared" experts)
+    num_shared_experts: int = 0
+    #: FFN hidden dim of each routed expert (may differ from dense d_ff)
+    expert_d_ff: int = 0
+    #: FFN hidden dim of the shared-expert path (qwen2-moe: shared = 4x expert)
+    shared_d_ff: int = 0
+    #: weight of the load-balancing auxiliary loss (Switch-style)
+    router_aux_weight: float = 0.01
+    #: normalise top-k router weights to sum to 1 (mixtral: True)
+    norm_topk_prob: bool = True
+
+    @property
+    def enabled(self) -> bool:
+        return self.num_experts > 0
 
 
 @dataclass(frozen=True)
@@ -32,10 +55,11 @@ class SSMConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description of a dense decoder or a Mamba2 stack."""
+    """Architecture description of a dense or MoE decoder or a Mamba2
+    stack."""
 
     arch_id: str
-    family: str  # dense | ssm (the families this port serves so far)
+    family: str  # dense | moe | ssm (the families this port serves so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -60,6 +84,7 @@ class ModelConfig:
     swa_window: int = 4096
     long_context_mode: str = "sliding_window"
 
+    moe: MoEConfig = field(default_factory=MoEConfig)
     ssm: SSMConfig = field(default_factory=SSMConfig)
 
     dtype: str = "bfloat16"
@@ -74,12 +99,63 @@ class ModelConfig:
         return self.family == "ssm"
 
     @property
+    def d_head_total(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
     def ssm_d_inner(self) -> int:
         return self.ssm.expand * self.d_model if self.ssm.enabled else 0
 
     @property
     def ssm_n_heads(self) -> int:
         return self.ssm_d_inner // self.ssm.head_dim if self.ssm.enabled else 0
+
+    def param_count(self) -> int:
+        """Analytic total parameter count (embedding included once if
+        tied), as the reference counts it.  Its MoE count keeps the
+        reference's quirk: the shared path counts ``num_shared_experts``
+        MLPs of width ``shared_d_ff``, while ``init_moe`` builds one (for
+        qwen2-moe-a2.7b 16.807 B counted, 14.316 B built)."""
+        d = self.d_model
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.family in ("dense", "moe"):
+            attn = (d * self.n_heads * self.head_dim
+                    + 2 * d * self.n_kv_heads * self.head_dim
+                    + self.n_heads * self.head_dim * d)
+            if self.qkv_bias:
+                attn += (self.n_heads + 2 * self.n_kv_heads) * self.head_dim
+        else:
+            attn = 0
+        if self.moe.enabled:
+            e = self.moe
+            ffn = e.num_experts * 3 * d * e.expert_d_ff
+            ffn += e.num_shared_experts * 3 * d * e.shared_d_ff
+            ffn += d * e.num_experts  # router
+        elif self.d_ff:
+            ffn = (3 if self.gated_mlp else 2) * d * self.d_ff
+        else:
+            ffn = 0
+        norms = 2 * d
+        if self.family == "ssm":
+            di, nh = self.ssm_d_inner, self.ssm_n_heads
+            g = self.ssm.n_groups * self.ssm.d_state
+            ssm = d * (2 * di + 2 * g + nh)  # in_proj (z,x,B,C,dt)
+            ssm += (di + 2 * g) * self.ssm.d_conv  # conv1d
+            ssm += 2 * nh + di  # A_log, dt_bias, skip D
+            ssm += di * d  # out_proj
+            body = self.n_layers * (ssm + norms)
+        else:
+            body = self.n_layers * (attn + ffn + norms)
+        return emb + body + d  # final norm
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top_k + shared experts)."""
+        if not self.moe.enabled:
+            return self.param_count()
+        e = self.moe
+        full_ffn = e.num_experts * 3 * self.d_model * e.expert_d_ff
+        act_ffn = e.top_k * 3 * self.d_model * e.expert_d_ff
+        return self.param_count() - self.n_layers * (full_ffn - act_ffn)
 
     def reduced(self) -> "ModelConfig":
         """Smoke-scale variant of the same family for CPU tests (the same
@@ -101,6 +177,15 @@ class ModelConfig:
             swa_window=64,
             dtype="float32",
         )
+        if self.moe.enabled:
+            kw["moe"] = replace(
+                self.moe,
+                num_experts=min(self.moe.num_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                num_shared_experts=min(self.moe.num_shared_experts, 1),
+                expert_d_ff=min(self.moe.expert_d_ff, 128),
+                shared_d_ff=min(self.moe.shared_d_ff, 128),
+            )
         if self.ssm.enabled:
             kw["ssm"] = replace(
                 self.ssm, d_state=min(self.ssm.d_state, 16), head_dim=32,
@@ -146,4 +231,12 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     # import every per-arch module for its registration side effect
-    from repro_torch.configs import mamba2_130m, qwen2_1_5b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        llama3_2_3b,
+        mamba2_130m,
+        mixtral_8x7b,
+        qwen1_5_32b,
+        qwen2_1_5b,
+        qwen2_moe_a2_7b,
+        yi_6b,
+    )

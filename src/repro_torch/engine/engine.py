@@ -1,7 +1,7 @@
 """PyTorch inference engine — the port of ``repro.engine.engine``.
 
 A fixed-capacity **slot** cache: every decode slot owns a contiguous KV
-region (dense family) or a recurrent state (SSM family) of a
+region (dense and MoE families) or a recurrent state (SSM family) of a
 statically-shaped batched cache, and slots advance independently (per-slot
 ``len`` vector).  Preemption is slot eviction plus recompute on resume, or
 a swap of the slot's cache to host memory and back (``offload_job`` /
@@ -28,10 +28,11 @@ Fast path, as in the reference:
     prefill_chunk`), interleaved with the running decodes; ring, int8 and
     recurrent caches fall back to one-shot prefill with one warning;
   * **kernels** — ``attn_impl="kernel"`` runs one-shot prefill through the
-    hand-written flash-attention (dense) or SSD-scan (SSM) kernel and every
-    dense decode step through the flash-decode kernel; the SSM decode step
-    and the chunk of a chunked prefill are plain PyTorch, as in the
-    reference (``"torch"`` is the plain reference path throughout).
+    hand-written flash-attention (dense, MoE) or SSD-scan (SSM) kernel and
+    every dense or MoE decode step through the flash-decode kernel; the
+    SSM decode step, the MoE experts and the chunk of a chunked prefill
+    are plain PyTorch, as in the reference (``"torch"`` is the plain
+    reference path throughout).
 
 PyTorch runs eagerly, so a decode window is a Python loop of steps and the
 ``num_*_traces`` counters count distinct dispatch shapes first seen (the
@@ -461,6 +462,12 @@ class InferenceEngine:
         if job.generated:
             return list(job.prompt_tokens) + list(job.generated)[:-1]
         return list(job.prompt_tokens)
+
+    def add_job(self, job: Job) -> int:
+        """Prefill one job into a free slot (batch-1 dispatch).  A job
+        already holding a slot keeps it (no double admission); a full
+        engine raises ``RuntimeError`` before any prefill."""
+        return self.add_jobs([job])[0]
 
     def add_jobs(self, jobs: Sequence[Job]) -> List[int]:
         """Admit every job not yet holding a slot: attention families in

@@ -62,13 +62,21 @@ def tp_ranks(mesh) -> List[torch.device]:
     return mesh.ranks
 
 
+#: why each family outside :data:`TP_FAMILIES` needs its own TP design
+_TP_DESIGN = {
+    "ssm": "the SSM in_proj packs z/x/B/C/dt into one column block, so "
+           "column-sharding it needs its own design",
+    "moe": "the experts need their own split (expert or hidden-dim "
+           "parallel) and the router a replicated read",
+}
+
+
 def check_family(cfg) -> None:
     if cfg.family not in TP_FAMILIES:
+        why = _TP_DESIGN.get(cfg.family, "no TP design yet")
         raise NotImplementedError(
             f"tensor parallelism of family {cfg.family!r} is not ported "
-            "(ROADMAP.md, queue 1 item 5: the SSM in_proj packs z/x/B/C/dt "
-            "into one column block, so column-sharding it needs its own "
-            "design)")
+            f"(ROADMAP.md, queue 1, item 8: {why})")
 
 
 def _layout_reason(cfg, tp: int) -> Optional[str]:

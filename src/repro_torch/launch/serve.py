@@ -18,8 +18,9 @@ Weights are random, from seed 0.
 Prints one JSON line per request and a summary on stderr.  ``--predictor
 bge`` ranks with the BGE length predictor (a small encoder, random from
 seed 0 unless ``--predictor-ckpt`` restores a trained one, on
-``--device``).  Chunked prefill and swap under ``--mesh`` are not ported
-yet and exit at launch with the ROADMAP item that ports them.
+``--device``).  Chunked prefill and swap under ``--mesh``, and ``--mesh``
+with an arch of a family the TP path does not serve (SSM, MoE), are not
+ported yet and exit at launch with the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -63,6 +64,7 @@ from repro_torch.engine import (
     make_tp_pods,
 )
 from repro_torch.launch.mesh import visible_devices
+from repro_torch.launch.partition import check_family
 from repro_torch.models import transformer as T
 from repro_torch.models.encoder import EncoderArchConfig
 from repro_torch.training import latest_step, restore_checkpoint
@@ -195,6 +197,11 @@ def _refuse_unported(args) -> None:
                       or args.preempt_policy != "recompute"):
         sys.exit(f"--mesh with --prefill-chunk or --preempt-policy "
                  f"{args.preempt_policy}: {MESH_CHUNK_NOT_PORTED}")
+    if args.mesh:
+        try:
+            check_family(get_config(args.arch))
+        except NotImplementedError as e:
+            sys.exit(f"--mesh with --arch {args.arch}: {e}")
 
 
 def _parser() -> argparse.ArgumentParser:

@@ -115,11 +115,20 @@ def masked_span_write(buf: torch.Tensor, start: torch.Tensor,
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                dtype=torch.float32, *, lead: Tuple[int, ...] = ()):
-    """Uniform(-1/sqrt(in), 1/sqrt(in)) weights of shape lead + (in, out)."""
+    """Uniform(-1/sqrt(in), 1/sqrt(in)) weights of shape lead + (in, out).
+
+    Drawn one (in, out) matrix at a time in fp32, scaled in place and cast
+    into the ``dtype`` leaf, so the fp32 transient is one matrix, never
+    the stacked leaf: qwen1.5-32b's ``w_gate`` (64, 5120, 27392) is 35.9 GB
+    in fp32, as much again as its bf16 weights."""
     scale = 1.0 / math.sqrt(in_dim)
-    w = torch.rand(lead + (in_dim, out_dim), generator=gen,
-                   device=gen.device, dtype=torch.float32)
-    return (w * (2 * scale) - scale).to(dtype)
+    out = torch.empty(lead + (in_dim, out_dim), dtype=dtype,
+                      device=gen.device)
+    for m in out.view(-1, in_dim, out_dim):
+        w = torch.rand((in_dim, out_dim), generator=gen, device=gen.device,
+                       dtype=torch.float32)
+        m.copy_(w.mul_(2 * scale).sub_(scale))
+    return out
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
@@ -127,7 +136,7 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int,
     """Normal(0, 0.02) embeddings."""
     e = torch.randn((vocab, dim), generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (e * 0.02).to(dtype)
+    return e.mul_(0.02).to(dtype)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,0 +1,166 @@
+"""Mixture-of-Experts FFN (Mixtral / Qwen2-MoE style) in PyTorch: the port
+of ``repro.models.moe``.
+
+The reference has no Pallas kernel here: its expert sums are XLA einsums,
+so the port's are PyTorch matmuls.  Two paths, as in the reference:
+  * ``moe_block_dense`` — every expert computes every token, weighted by a
+    ``(tokens, experts)`` combine matrix that is 0 for unrouted experts.
+    Prefill runs it.
+  * ``moe_block_grouped`` — each token gathers its top-k experts' weights
+    and computes only those; cheaper on small decode batches.  Decode runs
+    it.  Its shapes are static and it reads nothing back to the host, so a
+    decode window stays free of host syncs.
+
+What the reference's numerics hang on, kept here: the router product is
+taken in x's dtype and then cast to fp32; the top k are chosen by a stable
+descending sort, so equal probabilities put the lower expert index first,
+as ``jax.lax.top_k`` does (bf16 logits over 60 experts tie often, and
+``torch.topk`` promises no order); ``norm_topk_prob`` divides by the sum
+clipped at 1e-9; ``combine`` is built in x's dtype, and the grouped path
+casts the routing weights to the experts' output dtype before it sums over
+k; the shared path (qwen2-moe) is gated by a sigmoid of x.
+
+Parameters (stacked over layers by :func:`init_moe`): ``router`` (d, E),
+``w_gate`` / ``w_up`` (E, d, f), ``w_down`` (E, f, d), and with shared
+experts ``shared.{w_gate, w_up, w_down, gate}``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense_init
+
+Params = Dict[str, torch.Tensor]
+MOE_IMPLS = ("dense", "grouped")
+
+
+def init_moe(gen: torch.Generator, cfg, n_layers: int,
+             dtype=torch.float32) -> Params:
+    """The reference's distributions, stacked over ``n_layers``: uniform
+    router and shared weights (``dense_init``), expert weights uniform in
+    +-1/sqrt(fan-in).  Every leaf is drawn one matrix at a time, so the
+    fp32 transient is one (in, out) matrix (qwen2-moe's stacked experts
+    are 8.3 GB a leaf in fp32)."""
+    m, d = cfg.moe, cfg.d_model
+    lead, e = (n_layers,), m.num_experts
+    p: Params = {
+        "router": dense_init(gen, d, e, dtype, lead=lead),
+        "w_gate": dense_init(gen, d, m.expert_d_ff, dtype, lead=lead + (e,)),
+        "w_up": dense_init(gen, d, m.expert_d_ff, dtype, lead=lead + (e,)),
+        "w_down": dense_init(gen, m.expert_d_ff, d, dtype, lead=lead + (e,)),
+    }
+    if m.num_shared_experts:
+        p["shared"] = {
+            "w_gate": dense_init(gen, d, m.shared_d_ff, dtype, lead=lead),
+            "w_up": dense_init(gen, d, m.shared_d_ff, dtype, lead=lead),
+            "w_down": dense_init(gen, m.shared_d_ff, d, dtype, lead=lead),
+            # qwen2-moe gates the shared path with a sigmoid scalar gate
+            "gate": dense_init(gen, d, 1, dtype, lead=lead),
+        }
+    return p
+
+
+def top_k(probs: torch.Tensor, k: int):
+    """The k largest entries of each row and their indices, largest first;
+    equal values keep ascending index order, as ``jax.lax.top_k``."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def router_probs(p: Params, cfg, x: torch.Tensor):
+    """x (T, d) -> (probs (T, E), topk_weights (T, K), topk_idx (T, K))."""
+    m = cfg.moe
+    logits = (x @ p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    topk_w, topk_i = top_k(probs, m.top_k)
+    if m.norm_topk_prob:
+        topk_w = topk_w / torch.clamp(topk_w.sum(-1, keepdim=True), min=1e-9)
+    return probs, topk_w, topk_i
+
+
+def load_balance_loss(probs: torch.Tensor, topk_i: torch.Tensor,
+                      num_experts: int) -> torch.Tensor:
+    """Switch-style aux loss: E * sum_e f_e * P_e (counts by
+    ``index_add_``: no host sync)."""
+    t = probs.shape[0]
+    flat = topk_i.reshape(-1)
+    counts = torch.zeros((num_experts,), dtype=torch.float32,
+                         device=probs.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=probs.device))
+    frac_tokens = counts / max(t * topk_i.shape[-1], 1)
+    frac_probs = probs.mean(dim=0)
+    return num_experts * torch.sum(frac_tokens * frac_probs)
+
+
+def _shared(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The shared-expert path, gated by sigmoid(x @ gate)."""
+    sp = p["shared"]
+    sh = (F.silu(x @ sp["w_gate"]) * (x @ sp["w_up"])) @ sp["w_down"]
+    return torch.sigmoid(x @ sp["gate"]) * sh
+
+
+def moe_block_dense(p: Params, cfg, x: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense-dispatch MoE.  x (B, S, d) -> (out, aux_loss).  The expert
+    products are batched over experts (E, T, f); the down projection
+    contracts experts and hidden dims in one product, as the reference's
+    ``einsum("tef,efd,te->td")``."""
+    m = cfg.moe
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    probs, topk_w, topk_i = router_probs(p, cfg, xt)
+    # combine[t, e] = routing weight of expert e for token t (0 if unrouted)
+    combine = torch.zeros((b * s, m.num_experts), dtype=xt.dtype,
+                          device=xt.device).scatter_(1, topk_i,
+                                                     topk_w.to(xt.dtype))
+    xe = xt.expand(m.num_experts, b * s, d)
+    h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    h = h * combine.T[:, :, None]                       # (E, T, f)
+    e, t, f = h.shape
+    out = (h.transpose(0, 1).reshape(t, e * f)
+           @ p["w_down"].reshape(e * f, d)).reshape(b, s, d)
+    aux = load_balance_loss(probs, topk_i, m.num_experts)
+    if "shared" in p:
+        out = out + _shared(p, x)
+    return out, aux
+
+
+def moe_block_grouped(p: Params, cfg, x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather-based top-k MoE for small batches (the decode path): each
+    token's K experts' weights are gathered (advanced indexing: static
+    shapes, no host sync) and only those compute, as the reference's
+    per-token ``vmap``.  The same function as the dense path."""
+    m = cfg.moe
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    t, k = xt.shape[0], m.top_k
+    probs, topk_w, topk_i = router_probs(p, cfg, xt)
+    idx = topk_i.reshape(-1)
+
+    def gather(w):
+        return w[idx].reshape((t, k) + w.shape[1:])
+
+    xv = xt[:, None, None, :]                           # (T, 1, 1, d)
+    h = (F.silu(torch.matmul(xv, gather(p["w_gate"])))
+         * torch.matmul(xv, gather(p["w_up"])))        # (T, K, 1, f)
+    y = torch.matmul(h, gather(p["w_down"]))[:, :, 0]  # (T, K, d)
+    out = torch.sum(y * topk_w[:, :, None].to(y.dtype), dim=1)
+    out = out.reshape(b, s, d)
+    aux = load_balance_loss(probs, topk_i, m.num_experts)
+    if "shared" in p:
+        out = out + _shared(p, x)
+    return out, aux
+
+
+def moe_block(p: Params, cfg, x: torch.Tensor, *, impl: str = "dense"):
+    if impl not in MOE_IMPLS:
+        raise ValueError(f"moe impl must be one of {MOE_IMPLS}, got "
+                         f"{impl!r}")
+    if impl == "grouped":
+        return moe_block_grouped(p, cfg, x)
+    return moe_block_dense(p, cfg, x)

@@ -1,7 +1,8 @@
-"""Model assembly in PyTorch: the dense and SSM families of
+"""Model assembly in PyTorch: the dense, MoE and SSM families of
 ``repro.models.transformer``.
 
     dense : [norm -> GQA attn -> norm -> gated MLP] x L
+    moe   : [norm -> GQA attn -> norm -> MoE FFN] x L
     ssm   : [norm -> Mamba2] x L
 
 Parameters keep the reference's pytree layout (layers stacked on a leading
@@ -16,6 +17,11 @@ Public API:
   prefill_chunk(params, cfg, batch, cache,
                 start=, valid_len=)           -> (last_logits, cache)
   decode_step(params, cfg, tokens, cache)     -> (logits, cache)
+
+The MoE family runs ``models.moe.moe_block`` where the dense family runs
+its MLP, with the reference's ``moe_impl`` defaults: ``"dense"`` in
+``prefill`` and ``prefill_chunk``, ``"grouped"`` in ``decode_step``.  These
+three drop the router's aux loss, as the reference's do.
 
 ``prefill``, ``prefill_chunk`` and ``decode_step`` update the cache they are
 given in place and return it (the reference returns a new pytree).
@@ -34,7 +40,8 @@ runs agree bit for bit.  The decode read of all ranks is one
 ``ops.flash_decode_sharded`` call.  Prefill launches ``flash_attention``
 on each rank's local heads: the reference downgrades prefill under a mesh
 to XLA only because its Pallas prefill kernel has no ``shard_map``
-wrapper, and computes the same function either way.
+wrapper, and computes the same function either way.  The MoE family under
+a mesh is not ported (``launch.partition.check_family``).
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import torch
 
 from repro_torch.launch import partition as P
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 Params = Dict[str, Any]
@@ -58,7 +66,7 @@ def _dtype(cfg) -> torch.dtype:
 
 
 #: families this port serves
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "ssm")
 
 
 def _check_family(cfg) -> None:
@@ -99,8 +107,12 @@ def init_params(cfg, generator: torch.Generator) -> Params:
             "attn_norm": norm((n,)),
             "attn": L.init_attention(generator, cfg, n, dtype),
             "mlp_norm": norm((n,)),
-            "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, n, dtype),
         }
+        if cfg.moe.enabled:
+            params["layers"]["moe"] = M.init_moe(generator, cfg, n, dtype)
+        else:
+            params["layers"]["mlp"] = L.init_mlp(generator, cfg.d_model,
+                                                 cfg.d_ff, n, dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(generator, cfg.d_model,
                                          cfg.vocab_size, dtype)
@@ -253,7 +265,7 @@ def _write_prompt(kvc: KVCache, i: int, k: torch.Tensor,
 
 
 def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
-            attn_impl: str = "kernel",
+            attn_impl: str = "kernel", moe_impl: str = "dense",
             last_index: Optional[torch.Tensor] = None, mesh=None):
     """Process the full (right-padded) prompt batch, set ``len`` to S, and
     return the logits (B, 1, V) at ``last_index`` (B,) — each row's true
@@ -289,7 +301,7 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
                     cs, attn_impl=attn_impl)
                 _write_prompt(c["kv"], i, k, v)
                 parts.append(out)
-            hs = _mlp(cfg, lcfg, lps, _add_sum(hs, parts))
+            hs = _mlp(cfg, lcfg, lps, _add_sum(hs, parts), moe_impl)
     for c, d in zip(caches, ranks):
         c["len"] = torch.full((b,), s, dtype=torch.int32, device=d)
     if last_index is not None:
@@ -302,13 +314,14 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
 
 #: families :func:`prefill_chunk` supports — attention-only stacks whose KV
 #: writes are position-addressable (the reference's tuple; of these the
-#: port has the dense family).  Recurrent state (ssm/hybrid) absorbs every
+#: port has the dense and MoE families).  Recurrent state (ssm/hybrid) absorbs every
 #: position it sees, so those families keep exact one-shot prefill.
 CHUNKABLE_FAMILIES = ("dense", "moe", "vlm")
 
 
 def prefill_chunk(params: Params, cfg, batch: Dict, cache: Cache, *,
-                  attn_impl: str = "kernel", start, valid_len):
+                  attn_impl: str = "kernel", moe_impl: str = "dense",
+                  start, valid_len):
     """Process ONE prompt chunk against a partially filled cache.
 
     ``batch["tokens"]`` is (B, C): C chunk tokens (right-padded to a shape
@@ -345,7 +358,7 @@ def prefill_chunk(params: Params, cfg, batch: Dict, cache: Cache, *,
             [lp["attn"]], lcfg, [L.apply_norm(cfg, lp["attn_norm"], hs[0])],
             cos_sins, [kvc.layer(i)], [start], attn_impl=attn_impl,
             valid_lens=[valid])
-        hs = _mlp(cfg, lcfg, [lp], _add_sum(hs, parts))
+        hs = _mlp(cfg, lcfg, [lp], _add_sum(hs, parts), moe_impl)
     caches[0]["len"] = start + valid
     h = hs[0][torch.arange(b, device=dev), (valid - 1).long()][:, None, :]
     return _unembed(shards, cfg, [h]), cache
@@ -357,7 +370,7 @@ def prefill_chunk(params: Params, cfg, batch: Dict, cache: Cache, *,
 
 
 def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
-                attn_impl: str = "kernel",
+                attn_impl: str = "kernel", moe_impl: str = "grouped",
                 active: Optional[torch.Tensor] = None, mesh=None):
     """One-token step: tokens (B, 1) -> (logits (B, 1, V), cache).
 
@@ -390,7 +403,7 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
                  for lp, h in zip(lps, hs)], cos_sins,
                 [c["kv"].layer(i) for c in caches], curs,
                 attn_impl=attn_impl, actives=acts)
-            hs = _mlp(cfg, lcfg, lps, _add_sum(hs, parts))
+            hs = _mlp(cfg, lcfg, lps, _add_sum(hs, parts), moe_impl)
     for c, cur, act in zip(caches, curs, acts):
         c["len"] = cur + 1 if act is None else torch.where(act, cur + 1, cur)
     return _unembed(shards, cfg, hs), cache
@@ -454,8 +467,16 @@ def _unembed(shards: List[Params], cfg, hs: List[torch.Tensor]):
     return torch.cat([o.to(outs[0].device) for o in outs], dim=-1)
 
 
-def _mlp(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor]):
-    """The residual stream after each rank's (column/row-parallel) MLP."""
+def _mlp(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
+         moe_impl: str):
+    """The residual stream after each rank's (column/row-parallel) MLP,
+    or after the MoE block (one rank; its aux loss is dropped)."""
+    if cfg.moe.enabled:
+        (lp,), (h,) = lps, hs
+        out, _ = M.moe_block(lp["moe"], cfg,
+                             L.apply_norm(cfg, lp["mlp_norm"], h),
+                             impl=moe_impl)
+        return [h + out]
     return _add_sum(hs, [
         L.mlp_block(lp["mlp"], lcfg, L.apply_norm(cfg, lp["mlp_norm"], h))
         for lp, h in zip(lps, hs)])
