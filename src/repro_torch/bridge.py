@@ -85,15 +85,42 @@ def cache_from_numpy(length, k, v, *, k_scale=None, v_scale=None,
 
 
 def cache_to_numpy(cache) -> Dict[str, Any]:
-    """The port's dense cache dict -> numpy arrays ``len``, ``k``, ``v``
-    (and ``k_scale``, ``v_scale`` when it is int8), the keyword arguments
-    of :func:`cache_from_numpy` less ``ring``; bfloat16 buffers come back
-    as float32."""
+    """The port's dense or hybrid cache dict -> numpy arrays ``length``,
+    ``k``, ``v`` (and ``k_scale``, ``v_scale`` when it is int8; and the
+    hybrid's ``groups_ssm`` and ``tail_ssm`` dicts), the keyword arguments
+    of :func:`cache_from_numpy` or :func:`hybrid_cache_from_numpy` less
+    ``ring``; bfloat16 buffers come back as float32."""
     kv = cache["kv"]
-    out = {"length": cache["len"], "k": kv.k, "v": kv.v}
+    out = {"length": cache["len"]}
+    for name in ("groups_ssm", "tail_ssm"):
+        if name in cache:
+            out[name] = cache[name]
+    out.update(k=kv.k, v=kv.v)
     if kv.quantized:
         out.update(k_scale=kv.k_scale, v_scale=kv.v_scale)
     return params_to_numpy(out)
+
+
+def hybrid_cache_from_numpy(length, groups_ssm, k, v, *, tail_ssm=None,
+                            k_scale=None, v_scale=None, ring: bool = False,
+                            device="cuda",
+                            dtype: Optional[torch.dtype] = None):
+    """A JAX hybrid-family decode cache (its ``len`` vector; the states
+    ``groups_ssm`` and ``tail_ssm``, dicts of ``conv`` and ``ssm`` stacked
+    (n_groups, inner, B, ...) and (tail, B, ...); and the ``KVCache``
+    buffers (n_groups, B, L, KH, D), with ``k_scale``/``v_scale`` for an
+    int8 cache, as numpy arrays, and its ``ring`` flag) -> the port's
+    cache dict.  A config without tail layers has no ``tail_ssm``."""
+    dev = resolve_device(device)
+    cache = {"len": _tensor(length, dev, torch.int32)}
+    for name, states in (("groups_ssm", groups_ssm), ("tail_ssm", tail_ssm)):
+        if states is not None:
+            cache[name] = {s: _tensor(a, dev, dtype)
+                           for s, a in states.items()}
+    cache["kv"] = cache_from_numpy(length, k, v, k_scale=k_scale,
+                                   v_scale=v_scale, ring=ring, device=dev,
+                                   dtype=dtype)["kv"]
+    return cache
 
 
 def ssm_cache_from_numpy(length, conv, ssm, *, device="cuda",

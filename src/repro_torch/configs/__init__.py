@@ -1,5 +1,6 @@
 """Architecture configuration registry (``--arch <id>``)."""
 from repro_torch.configs.base import (
+    HybridConfig,
     ModelConfig,
     MoEConfig,
     SSMConfig,
@@ -8,5 +9,5 @@ from repro_torch.configs.base import (
     register,
 )
 
-__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "get_config",
-           "list_archs", "register"]
+__all__ = ["HybridConfig", "ModelConfig", "MoEConfig", "SSMConfig",
+           "get_config", "list_archs", "register"]

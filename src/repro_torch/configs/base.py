@@ -1,11 +1,12 @@
-"""Model configuration for the PyTorch port (dense, MoE and SSM families).
+"""Model configuration for the PyTorch port (dense, MoE, SSM and hybrid
+families).
 
 A trimmed copy of ``repro.configs.base``: :class:`ModelConfig` keeps the
-fields the dense decoder, the MoE decoder and the Mamba2 stack read, with
-the same defaults, the same ``head_dim`` rule, the same ``reduced()``
-sizes and the same analytic ``param_count``, so a reference config and its
-port describe identical parameter shapes.  The hybrid and encoder
-sub-configs arrive with the slices that port those families.
+fields the dense decoder, the MoE decoder, the Mamba2 stack and the
+zamba2-style hybrid read, with the same defaults, the same ``head_dim``
+rule, the same ``reduced()`` sizes and the same analytic ``param_count``,
+so a reference config and its port describe identical parameter shapes.
+The encoder sub-config arrives with the slice that ports its family.
 """
 from __future__ import annotations
 
@@ -54,12 +55,29 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2-style hybrid: Mamba2 backbone + shared attention block.
+
+    Every ``attn_every`` backbone layers, one *shared* (weight-tied)
+    attention block is applied (arXiv:2411.15242).  ``n_shared_blocks``
+    counts the shared blocks in ``param_count``, as in the reference,
+    whose model builds one."""
+
+    attn_every: int = 0
+    n_shared_blocks: int = 1
+
+    @property
+    def enabled(self) -> bool:
+        return self.attn_every > 0
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description of a dense or MoE decoder or a Mamba2
-    stack."""
+    """Architecture description of a dense or MoE decoder, a Mamba2 stack
+    or a Mamba2 stack with a shared attention block (hybrid)."""
 
     arch_id: str
-    family: str  # dense | moe | ssm (the families this port serves so far)
+    family: str  # dense | moe | ssm | hybrid (the families this port serves)
     n_layers: int
     d_model: int
     n_heads: int
@@ -86,6 +104,7 @@ class ModelConfig:
 
     moe: MoEConfig = field(default_factory=MoEConfig)
     ssm: SSMConfig = field(default_factory=SSMConfig)
+    hybrid: HybridConfig = field(default_factory=HybridConfig)
 
     dtype: str = "bfloat16"
 
@@ -118,7 +137,7 @@ class ModelConfig:
         qwen2-moe-a2.7b 16.807 B counted, 14.316 B built)."""
         d = self.d_model
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        if self.family in ("dense", "moe"):
+        if self.family in ("dense", "moe", "hybrid"):
             attn = (d * self.n_heads * self.head_dim
                     + 2 * d * self.n_kv_heads * self.head_dim
                     + self.n_heads * self.head_dim * d)
@@ -136,13 +155,21 @@ class ModelConfig:
         else:
             ffn = 0
         norms = 2 * d
-        if self.family == "ssm":
+        if self.family in ("ssm", "hybrid") and self.ssm.enabled:
             di, nh = self.ssm_d_inner, self.ssm_n_heads
             g = self.ssm.n_groups * self.ssm.d_state
             ssm = d * (2 * di + 2 * g + nh)  # in_proj (z,x,B,C,dt)
             ssm += (di + 2 * g) * self.ssm.d_conv  # conv1d
             ssm += 2 * nh + di  # A_log, dt_bias, skip D
             ssm += di * d  # out_proj
+        else:
+            ssm = 0
+        if self.family == "hybrid" and self.hybrid.enabled:
+            # backbone layers are SSM; the shared blocks are counted once
+            shared = self.hybrid.n_shared_blocks * (
+                attn + (3 if self.gated_mlp else 2) * d * self.d_ff + 2 * d)
+            body = self.n_layers * (ssm + norms) + shared
+        elif self.family == "ssm":
             body = self.n_layers * (ssm + norms)
         else:
             body = self.n_layers * (attn + ffn + norms)
@@ -191,6 +218,9 @@ class ModelConfig:
                 self.ssm, d_state=min(self.ssm.d_state, 16), head_dim=32,
                 chunk_size=32,
             )
+        if self.hybrid.enabled:
+            kw["n_layers"] = 4
+            kw["hybrid"] = replace(self.hybrid, attn_every=2)
         return replace(self, **kw)
 
 
@@ -239,4 +269,5 @@ def _ensure_loaded() -> None:
         qwen2_1_5b,
         qwen2_moe_a2_7b,
         yi_6b,
+        zamba2_7b,
     )

@@ -36,9 +36,13 @@
 //    warp computes every query head of the GQA group (G = H/KH, built for
 //    G rounded up to 1, 2, 4, 6, 8 or 16) over its own keys: lane j scores
 //    key j against all G heads, and lane i accumulates output dims
-//    [i*D/32, (i+1)*D/32) of all G heads, so each K and V element crosses
-//    shared memory once per block, not once per head (a warp per head,
-//    re-reading the tile in fp32, is bound by shared memory);
+//    [i*PER, (i+1)*PER) of all G heads, PER = ceil(D/32), so each K and V
+//    element crosses shared memory once per block, not once per head (a
+//    warp per head, re-reading the tile in fp32, is bound by shared
+//    memory).  Built for D = 32, 64, 112 (zamba2-7b) and 128.  At D = 112,
+//    PER = 4 and lanes 0-27 own the 112 dims; lanes 28-31 score their keys
+//    like the others but read the last dims' V (their sums are dropped) and
+//    write nothing;
 //  * each warp has its own ring of kStages tiles of 32 keys in shared
 //    memory, filled with cp.async (16-byte copies, rows past the split's
 //    end zero-filled) one tile ahead of the one in use, and synchronised by
@@ -49,7 +53,13 @@
 //    code * scale in fp32 as the TPU kernel does (the code through an exact
 //    byte-permute trick, not the slow integer-to-float unit).  K's 16-byte
 //    chunks are swizzled within each row so that lanes reading their own
-//    rows hit distinct banks;
+//    rows hit distinct banks: chunk c of row j sits at chunk c ^ (j & 7)
+//    (rows of fewer than 8 chunks: c ^ ((j / rows) & (chunks - 1)), rows
+//    per 128 bytes), a permutation of the row's own chunks only when the
+//    row holds a power of two, or a multiple of 8, chunks.  So each K row
+//    is padded to such a count (Layout::kKChunks): D = 112 gives 14 chunks
+//    (bf16), 28 (fp32) and 7 (int8), padded to 16, 32 and 8; the other
+//    head dims need no padding.  V rows are not swizzled or padded;
 //  * each warp keeps (m, l, acc) per head; the warps merge in the order of
 //    the warps, and each split writes its merged state in fp32 (empty
 //    splits too: m = -1e30, l = 0, acc = 0).  combine_kernel, one warp per
@@ -124,25 +134,32 @@ __device__ __forceinline__ void load_n(const float* p, float* o) {
 // Shared memory of a block: each warp's ring of kStages raw tiles of 32
 // keys, kWarps warps (as many as fit kRingBytes, at most kMaxWarps); after
 // the key loop the rings hold the warps' states for the in-block merge.
-// A stage holds K then V codes (kTile rows of D each) and, for the int8
-// loader, kTile K scales and kTile V scales.  K's 16-byte chunks are
-// swizzled within each row (kpos) so that 8 lanes reading chunk c of 8
-// consecutive rows hit 8 distinct bank groups.
+// A stage holds K then V codes (kTile rows each: K rows padded to kKRow
+// bytes, V rows of kRow) and, for the int8 loader, kTile K scales and kTile
+// V scales.  K's 16-byte chunks are swizzled within each row (kpos) so that
+// 8 lanes reading chunk c of 8 consecutive rows hit 8 distinct bank groups.
 template <typename Raw, int D>
 struct Layout {
-  static constexpr int kRow = D * sizeof(Raw);  // bytes of one K or V row
+  static constexpr int kRow = D * sizeof(Raw);  // bytes of one V row, and of K's data
   static constexpr int kChunks = kRow / 16;
-  static constexpr size_t kV = kTile * kRow;     // offset of V in a stage
-  static constexpr size_t kS = 2 * kTile * kRow;  // offset of the scales
+  // K's chunks a row with padding: a multiple of 8 from 8 on, else a power
+  // of two, so that the swizzle (kpos) stays inside the row
+  static constexpr int kKChunks = kChunks >= 8 ? (kChunks + 7) / 8 * 8
+                                  : kChunks > 4 ? 8
+                                  : kChunks > 2 ? 4
+                                                : kChunks;
+  static constexpr int kKRow = kKChunks * 16;        // bytes of one padded K row
+  static constexpr size_t kV = kTile * kKRow;        // offset of V in a stage
+  static constexpr size_t kS = kV + kTile * kRow;    // offset of the scales
   static constexpr size_t kStage = kS + 2 * kTile * sizeof(float);
   static constexpr int kFit = (int)(kRingBytes / (kStages * kStage));
   static constexpr int kWarps = kFit < 1 ? 1 : (kFit > kMaxWarps ? kMaxWarps : kFit);
   static constexpr size_t kRing = kWarps * kStages * kStage;
   // byte offset of K chunk c of row j in a stage
   static __device__ __forceinline__ int kpos(int j, int c) {
-    constexpr int rows = kChunks >= 8 ? 1 : 8 / kChunks;  // rows per 128 bytes
-    constexpr int mask = (kChunks >= 8 ? 8 : kChunks) - 1;
-    return j * kRow + ((c ^ ((j / rows) & mask)) << 4);
+    constexpr int rows = kKChunks >= 8 ? 1 : 8 / kKChunks;  // rows per 128 bytes
+    constexpr int mask = (kKChunks >= 8 ? 8 : kKChunks) - 1;
+    return j * kKRow + ((c ^ ((j / rows) & mask)) << 4);
   }
 };
 
@@ -280,13 +297,20 @@ decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_l
   using Raw = typename KV::Raw;
   using Ly = Layout<Raw, D>;
   constexpr int W = Ly::kWarps;
-  constexpr int PER = D / 32;
+  constexpr int PER = (D + 31) / 32;  // output dims a lane owns
+  constexpr int kVLanes = D / PER;    // lanes that own dims: 28 at D = 112
+  static_assert(D % PER == 0 && (PER == 1 || PER == 2 || PER == 4),
+                "each owning lane reads PER whole dims of a V row");
   constexpr int VEC = 16 / sizeof(Raw);
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + state_bytes<Raw, D, KG>());
   const int G = H / KH;
   const int b = blockIdx.x, kh = blockIdx.y, split = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // lanes past kVLanes own no dims: they read the last owner's and write
+  // nothing
+  const bool owner = kVLanes == 32 || lane < kVLanes;
+  const int vlane = owner ? lane : kVLanes - 1;
   float* ps = qs + KG * D + warp * KG * kTile;  // this warp's p, KG x kTile
 
   const int qpos = q_off[b];
@@ -377,7 +401,7 @@ decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_l
     __syncwarp();
 
     // acc += p V, lane owning dims [lane*PER, lane*PER + PER), keys in order
-    const Raw* vr = reinterpret_cast<const Raw*>(st + Ly::kV) + lane * PER;
+    const Raw* vr = reinterpret_cast<const Raw*>(st + Ly::kV) + vlane * PER;
 #pragma unroll 2
     for (int j = 0; j < kTile; j += 4) {
       float vv[4][PER];
@@ -413,8 +437,10 @@ decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_l
 #pragma unroll
   for (int h = 0; h < KG; ++h) {
     float* r = mw + (warp * KG + h) * (D + 2);
+    if (owner) {
 #pragma unroll
-    for (int i = 0; i < PER; ++i) r[lane * PER + i] = acc[h][i];
+      for (int i = 0; i < PER; ++i) r[lane * PER + i] = acc[h][i];
+    }
     if (lane == 0) r[D] = m[h], r[D + 1] = l[h];
   }
   __syncthreads();
@@ -431,10 +457,11 @@ decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_l
       const float e_w = expf(r[D] - M);
       lt += r[D + 1] * e_w;
 #pragma unroll
-      for (int i = 0; i < PER; ++i) o[i] += r[lane * PER + i] * e_w;
+      for (int i = 0; i < PER; ++i) o[i] += r[vlane * PER + i] * e_w;
     }
     const size_t bh = (size_t)b * H + kh * G + h;
     if (n_split == 1) {
+      if (!owner) continue;
       const float denom = fmaxf(lt, 1e-30f);
       T* dst = out + bh * D + lane * PER;
 #pragma unroll
@@ -443,8 +470,10 @@ decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_l
     }
     const size_t ps_i = bh * n_split + split;
     float* pa = part + ps_i * D + lane * PER;
+    if (owner) {
 #pragma unroll
-    for (int i = 0; i < PER; ++i) pa[i] = o[i];
+      for (int i = 0; i < PER; ++i) pa[i] = o[i];
+    }
     if (lane == 0) {
       float* ml = part + (size_t)gridDim.x * H * n_split * D + 2 * ps_i;
       ml[0] = M;
@@ -455,14 +484,14 @@ decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_l
 
 // Merge the n_split partial states of each (slot, query head), in the order
 // of s, into the output: one warp per row of BH = B*H, lane i owning dims
-// [i*D/32, (i+1)*D/32).
+// [i*PER, (i+1)*PER), PER = ceil(D/32) (lanes past D / PER own none).
 template <typename T, int D>
 __global__ void combine_kernel(const float* __restrict__ part, T* __restrict__ out,
                                int BH, int n_split) {
-  constexpr int PER = D / 32;
+  constexpr int PER = (D + 31) / 32;
   const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (r >= BH) return;
+  if (r >= BH || lane >= D / PER) return;
   const float* pa = part + (size_t)r * n_split * D + lane * PER;
   const float* ml = part + (size_t)BH * n_split * D + (size_t)r * n_split * 2;
   float M = kNegInf;
@@ -532,6 +561,7 @@ cudaError_t launch_d(int D, const void* q, const KV& kv, const int* kv_len,
   switch (D) {
     case 32: return launch_g<T, 32>(q, kv, kv_len, q_off, out, sp, B, L, H, KH, window, scale, stream);
     case 64: return launch_g<T, 64>(q, kv, kv_len, q_off, out, sp, B, L, H, KH, window, scale, stream);
+    case 112: return launch_g<T, 112>(q, kv, kv_len, q_off, out, sp, B, L, H, KH, window, scale, stream);
     case 128: return launch_g<T, 128>(q, kv, kv_len, q_off, out, sp, B, L, H, KH, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -68,7 +68,14 @@
 //    tile in shared memory and writes rows < Sq with 16-byte stores (out
 //    is a fresh tensor, 16-byte aligned, and D is a multiple of 8).
 // The head dim is tiled in steps of 16, so any multiple of 16 needs only
-// an instance.  What sets its time: the tensor pipe behind mma.sync and
+// an instance, and the launch has D = 32, 64, 112 (zamba2-7b) and 128.  At
+// D = 112 every step over D is a whole number of its units: 7 k-steps of
+// 16 in Q K^T, 7 pairs of n8 tiles (ldmatrix x4 over two 8-column halves)
+// in P V, 14 16-byte chunks a row in the copies and the epilogue.  Rows of
+// 240 bytes (112 + 8 elements) stay conflict-free for ldmatrix: the 8 rows
+// of a phase start at 16-byte offsets 0, 112, 96, 80, 64, 48, 32, 16 mod
+// 128.  Shared memory at D = 112: 75 KB a block (MT = 1), 90 KB (MT = 2).
+// What sets its time: the tensor pipe behind mma.sync and
 // the shared-memory reads of the fragments, with 8 warps an SM to hide
 // their latency (registers: up to 255 a thread at D=128, MT = 2);
 // chip_smoke.py prints ptxas's registers and spills.
@@ -81,7 +88,10 @@
 //  * online softmax in fp32 per row (m, l, acc in registers); every score
 //    is a serial dot product over D on the CUDA cores, so this body is
 //    bound by its arithmetic and shared-memory reads, far from either
-//    bound.
+//    bound;
+//  * lane j accumulates output dims j + 32 i, i < ceil(D / 32): at D = 112
+//    the fourth of them exists for lanes 0-15 only, and lanes 16-31 skip
+//    it (the 32-lane loops of the score and the softmax are untouched).
 
 #include <cstdint>
 
@@ -104,7 +114,8 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
             T* __restrict__ out, int Sq, int Skv, int H, int KH, int q_offset,
             int window, float scale) {
   constexpr int DP = D + 1;
-  constexpr int PER = D / 32;
+  constexpr int PER = (D + 31) / 32;  // output dims a lane owns, the last maybe not
+  constexpr bool kRagged = D % 32 != 0;
   __shared__ float qs[kBlockQ * D];
   __shared__ float ks[kTile * DP];
   __shared__ float vs[kTile * D];
@@ -171,7 +182,8 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
       for (int j = 0; j < kTile; ++j) {
         const float pj = ps[warp * kTile + j];
 #pragma unroll
-        for (int i = 0; i < PER; ++i) acc[r][i] += pj * vs[j * D + lane + 32 * i];
+        for (int i = 0; i < PER; ++i)
+          if (!kRagged || lane + 32 * i < D) acc[r][i] += pj * vs[j * D + lane + 32 * i];
       }
     }
   }
@@ -183,7 +195,8 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     const float denom = fmaxf(l[r], 1e-30f);
     T* o = out + ((size_t)b * Sq + q0 + row) * qrow + (size_t)h * D;
 #pragma unroll
-    for (int i = 0; i < PER; ++i) o[lane + 32 * i] = from_f<T>(acc[r][i] / denom);
+    for (int i = 0; i < PER; ++i)
+      if (!kRagged || lane + 32 * i < D) o[lane + 32 * i] = from_f<T>(acc[r][i] / denom);
   }
 }
 
@@ -561,6 +574,8 @@ cudaError_t launch_d(int D, int dtype, const void* q, const void* k, const void*
       return launch<32>(dtype, q, k, v, out, B, Sq, Skv, H, KH, q_offset, window, scale, stream);
     case 64:
       return launch<64>(dtype, q, k, v, out, B, Sq, Skv, H, KH, q_offset, window, scale, stream);
+    case 112:
+      return launch<112>(dtype, q, k, v, out, B, Sq, Skv, H, KH, q_offset, window, scale, stream);
     case 128:
       return launch<128>(dtype, q, k, v, out, B, Sq, Skv, H, KH, q_offset, window, scale, stream);
     default:

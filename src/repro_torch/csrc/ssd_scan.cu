@@ -74,6 +74,16 @@
 // multiply-add: it keeps the logit gap of phase 5 at 0, well inside its
 // limit.
 //
+// Instances: (P, N) = (32, 16), (32, 128), (64, 16), (64, 64) (zamba2-7b,
+// 112 heads) and (64, 128).  Every loop over P or N steps in units of 16
+// and a chunk-state block takes at most 64 state columns, so (64, 64) is
+// one slice of (64, 128)'s pass 1 (4 x 4 m16n8 tile pairs over the block's
+// 4 warps), the same 4 x 8 C h_in^T split in pass 3 (static_assert in
+// output_kernel), rows of N + 8 = 72 bf16 (144 bytes: an ldmatrix phase's
+// 8 rows at 16-byte offsets 0, 16, ..., 112 mod 128, conflict-free), and
+// 46 KB of shared memory in pass 3 (92 KB at N = 128); the fp32 body's
+// 16 x 16 thread grid covers P and N in 4 columns each.
+//
 // What sets the time (H100, B = 1, S = 32768: ~0.94 ms against the 0.18
 // ms bound): the output pass, two thirds of it, at 3 blocks an SM (168
 // registers a thread), held back (as variants of it suggest; no profiler
@@ -887,6 +897,7 @@ cudaError_t grant_all() {
   err = grant_pn<32, 16>();
   if (err == cudaSuccess) err = grant_pn<32, 128>();
   if (err == cudaSuccess) err = grant_pn<64, 16>();
+  if (err == cudaSuccess) err = grant_pn<64, 64>();
   if (err == cudaSuccess) err = grant_pn<64, 128>();
   if (err == cudaSuccess) granted[dev] = true;
   return err;
@@ -960,6 +971,7 @@ cudaError_t launch_pn(int P, int N, int dtype, const void* x, const void* a, con
   if (P == 32 && N == 128)
     return launch<32, 128>(dtype, x, a, bm, cm, y, fs, ws, B, S, H, chunk, s);
   if (P == 64 && N == 16) return launch<64, 16>(dtype, x, a, bm, cm, y, fs, ws, B, S, H, chunk, s);
+  if (P == 64 && N == 64) return launch<64, 64>(dtype, x, a, bm, cm, y, fs, ws, B, S, H, chunk, s);
   if (P == 64 && N == 128)
     return launch<64, 128>(dtype, x, a, bm, cm, y, fs, ws, B, S, H, chunk, s);
   return cudaErrorInvalidValue;
@@ -969,8 +981,8 @@ cudaError_t launch_pn(int P, int N, int dtype, const void* x, const void* a, con
 
 // x/y (B,S,H,P), bm/cm (B,S,H,N) in the same dtype (0 = float32,
 // 1 = bfloat16), a (B,S,H) float32, fs (B,H,P,N); all contiguous, x, bm,
-// cm 16-byte aligned.  S % chunk == 0, 1 <= chunk <= 256, P in {32, 64},
-// N in {16, 128}.  ws: for bf16 with S / chunk > 1 chunks, an fp32
+// cm 16-byte aligned.  S % chunk == 0, 1 <= chunk <= 256, (P, N) one of
+// (32, 16), (32, 128), (64, 16), (64, 64) and (64, 128).  ws: for bf16 with S / chunk > 1 chunks, an fp32
 // workspace of B * nc * H * (P * N + 1) elements, 16-byte aligned (else
 // unused, may be null).  Returns cudaGetLastError() after the launches (0
 // = launched).

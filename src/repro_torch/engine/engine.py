@@ -1,9 +1,9 @@
 """PyTorch inference engine — the port of ``repro.engine.engine``.
 
 A fixed-capacity **slot** cache: every decode slot owns a contiguous KV
-region (dense and MoE families) or a recurrent state (SSM family) of a
-statically-shaped batched cache, and slots advance independently (per-slot
-``len`` vector).  Preemption is slot eviction plus recompute on resume, or
+region (dense and MoE families), a recurrent state (SSM family) or both
+(hybrid family) of a statically-shaped batched cache, and slots advance
+independently (per-slot ``len`` vector).  Preemption is slot eviction plus recompute on resume, or
 a swap of the slot's cache to host memory and back (``offload_job`` /
 ``restore_job``).
 
@@ -28,11 +28,11 @@ Fast path, as in the reference:
     prefill_chunk`), interleaved with the running decodes; ring, int8 and
     recurrent caches fall back to one-shot prefill with one warning;
   * **kernels** — ``attn_impl="kernel"`` runs one-shot prefill through the
-    hand-written flash-attention (dense, MoE) or SSD-scan (SSM) kernel and
-    every dense or MoE decode step through the flash-decode kernel; the
-    SSM decode step, the MoE experts and the chunk of a chunked prefill
-    are plain PyTorch, as in the reference (``"torch"`` is the plain
-    reference path throughout).
+    hand-written flash-attention (dense, MoE) or SSD-scan (SSM) kernel, or
+    both (hybrid), and the attention of every decode step through the
+    flash-decode kernel; the SSM decode step, the MoE experts and the chunk
+    of a chunked prefill are plain PyTorch, as in the reference
+    (``"torch"`` is the plain reference path throughout).
 
 PyTorch runs eagerly, so a decode window is a Python loop of steps and the
 ``num_*_traces`` counters count distinct dispatch shapes first seen (the
@@ -99,12 +99,28 @@ class EngineConfig:
 # --------------------------------------------------------------------------- #
 
 
-def _layer_leaves(cache) -> Dict[str, torch.Tensor]:
-    """The cache's per-layer buffers by name; each has its slot (batch) axis
-    at 1, after the layer axis (``len`` is the only leaf with it at 0)."""
-    if "kv" in cache:
-        return {"k": cache["kv"].k, "v": cache["kv"].v}
-    return dict(cache["ssm"])
+def _slot_axis(name: str) -> int:
+    """Slot (batch) axis of the leaves under the cache entry ``name``:
+    ``len`` has it at 0; the K/V buffers and scales and the SSM states at
+    1, after the layer (or site) axis; the hybrid's ``groups_ssm`` at 2,
+    after (n_groups, inner)."""
+    if name == "len":
+        return 0
+    return 2 if name == "groups_ssm" else 1
+
+
+def _leaves(tree):
+    """The tensors of a cache entry (or whole cache), in a fixed order."""
+    if isinstance(tree, T.KVCache):
+        tree = [tree.k, tree.v, tree.k_scale, tree.v_scale]
+    elif isinstance(tree, dict):
+        tree = list(tree.values())
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+        return
+    for t in tree:
+        if t is not None:
+            yield from _leaves(t)
 
 
 def _ranks(cache) -> List[Dict]:
@@ -114,23 +130,24 @@ def _ranks(cache) -> List[Dict]:
 
 
 def _gather_slots(cache, idx: torch.Tensor):
-    """Copy slot rows ``idx`` of the cache into a sub-cache."""
-    sub = {k: v[:, idx] for k, v in _layer_leaves(cache).items()}
-    if "kv" in cache:
-        return {"len": cache["len"][idx],
-                "kv": T.KVCache(sub["k"], sub["v"], cache["kv"].ring)}
-    return {"len": cache["len"][idx], "ssm": sub}
+    """Copy slot rows ``idx`` of every leaf of the cache (each along its
+    :func:`_slot_axis`) into a sub-cache of the same structure."""
+    idx = idx.long()
+    return {name: _map_leaves(entry, lambda t, ax=_slot_axis(name):
+                              t.index_select(ax, idx))
+            for name, entry in cache.items()}
 
 
 def _scatter_slots(big, small, slots: Sequence[int], n: int):
     """Write rows ``0..n-1`` of ``small`` into ``slots`` of ``big``, in
-    place (rows beyond ``n`` are bucket padding).  Returns ``big``."""
+    place, every leaf along its :func:`_slot_axis` (rows beyond ``n`` are
+    bucket padding).  Returns ``big``."""
     sl = torch.as_tensor(list(slots)[:n], dtype=torch.long,
                          device=big["len"].device)
-    big["len"][sl] = small["len"][:n]
-    small_leaves = _layer_leaves(small)
-    for name, buf in _layer_leaves(big).items():
-        buf[:, sl] = small_leaves[name][:, :n]
+    for name, entry in big.items():
+        ax = _slot_axis(name)
+        for dst, src in zip(_leaves(entry), _leaves(small[name])):
+            dst.index_copy_(ax, sl, src.narrow(ax, 0, n))
     return big
 
 

@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (32, 64, 128)
+#: head dims both attention kernels are built for (112: zamba2-7b)
+HEAD_DIMS = (32, 64, 112, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: most query heads per kv head the decode kernel is built for
 MAX_GROUP = 16
@@ -303,7 +304,7 @@ def flash_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_decode_int8.launches = 0
 
 #: (head dim P, state dim N) pairs the SSD-scan kernel is built for
-SSD_SHAPES = ((32, 16), (32, 128), (64, 16), (64, 128))
+SSD_SHAPES = ((32, 16), (32, 128), (64, 16), (64, 64), (64, 128))
 #: longest chunk the SSD-scan kernel takes (its running sum of ``a`` is
 #: held in shared memory)
 SSD_MAX_CHUNK = 256

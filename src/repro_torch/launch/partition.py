@@ -68,6 +68,8 @@ _TP_DESIGN = {
            "column-sharding it needs its own design",
     "moe": "the experts need their own split (expert or hidden-dim "
            "parallel) and the router a replicated read",
+    "hybrid": "its Mamba2 backbone shares the SSM family's packed in_proj, "
+              "and its shared attention block a split of its own",
 }
 
 

@@ -1,13 +1,21 @@
-"""Model assembly in PyTorch: the dense, MoE and SSM families of
+"""Model assembly in PyTorch: the dense, MoE, SSM and hybrid families of
 ``repro.models.transformer``.
 
-    dense : [norm -> GQA attn -> norm -> gated MLP] x L
-    moe   : [norm -> GQA attn -> norm -> MoE FFN] x L
-    ssm   : [norm -> Mamba2] x L
+    dense  : [norm -> GQA attn -> norm -> gated MLP] x L
+    moe    : [norm -> GQA attn -> norm -> MoE FFN] x L
+    ssm    : [norm -> Mamba2] x L
+    hybrid : n_groups groups of (attn_every x [norm -> Mamba2]), each
+             followed by ONE weight-shared attention + MLP block, then the
+             tail Mamba2 layers (zamba2-7b: 13 groups of 6, 3 tail layers)
 
 Parameters keep the reference's pytree layout (layers stacked on a leading
-axis), so a converted JAX tree (:mod:`repro_torch.bridge`) and a tree from
-:func:`init_params` are interchangeable.
+axis; the hybrid's ``groups`` on two, (n_groups, inner), with ``tail`` and
+the unstacked ``shared_attn``), so a converted JAX tree
+(:mod:`repro_torch.bridge`) and a tree from :func:`init_params` are
+interchangeable.  The hybrid cache holds ``groups_ssm`` (states stacked
+(n_groups, inner, B, ...)), ``tail_ssm`` (tail, B, ...) and one K/V site
+per group (``kv``: (n_groups, B, buf, KH, D)), a ring once ``max_len``
+exceeds ``swa_window``.
 
 Public API:
   init_params(cfg, generator)                 -> params dict
@@ -45,6 +53,7 @@ a mesh is not ported (``launch.partition.check_family``).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -66,14 +75,17 @@ def _dtype(cfg) -> torch.dtype:
 
 
 #: families this port serves
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
+def hybrid_layout(cfg):
+    """(n_groups, inner_per_group, n_tail) for the hybrid family."""
+    every = cfg.hybrid.attn_every
+    n_groups = cfg.n_layers // every
+    return n_groups, every, cfg.n_layers - n_groups * every
 
 
 def _check_family(cfg) -> None:
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "family 'hybrid' (zamba2) is not ported yet: it is the next "
-            "slice (shared attention at head dim 112, the groups_ssm axis)")
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ported: {FAMILIES})")
@@ -95,24 +107,37 @@ def init_params(cfg, generator: torch.Generator) -> Params:
         return {"scale": torch.ones(lead + (cfg.d_model,), dtype=dtype,
                                     device=dev)}
 
+    def ssm_layers(lead):
+        ssm = S.init_ssm(generator, cfg, math.prod(lead), dtype)
+        return {"norm": norm(lead),
+                "ssm": {k: v.reshape(lead + v.shape[1:])
+                        for k, v in ssm.items()}}
+
+    def dense_layers(n):
+        p = {"attn_norm": norm((n,)),
+             "attn": L.init_attention(generator, cfg, n, dtype),
+             "mlp_norm": norm((n,))}
+        if cfg.moe.enabled:
+            p["moe"] = M.init_moe(generator, cfg, n, dtype)
+        else:
+            p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, n, dtype)
+        return p
+
     params: Params = {
         "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": norm(),
     }
     if cfg.family == "ssm":
-        params["layers"] = {"norm": norm((n,)),
-                            "ssm": S.init_ssm(generator, cfg, n, dtype)}
+        params["layers"] = ssm_layers((n,))
+    elif cfg.family == "hybrid":
+        n_groups, inner, tail = hybrid_layout(cfg)
+        params["groups"] = ssm_layers((n_groups, inner))
+        if tail:
+            params["tail"] = ssm_layers((tail,))
+        # one layer, unstacked: the same weights after every group
+        params["shared_attn"] = _unstack(dense_layers(1), 1)[0]
     else:
-        params["layers"] = {
-            "attn_norm": norm((n,)),
-            "attn": L.init_attention(generator, cfg, n, dtype),
-            "mlp_norm": norm((n,)),
-        }
-        if cfg.moe.enabled:
-            params["layers"]["moe"] = M.init_moe(generator, cfg, n, dtype)
-        else:
-            params["layers"]["mlp"] = L.init_mlp(generator, cfg.d_model,
-                                                 cfg.d_ff, n, dtype)
+        params["layers"] = dense_layers(n)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(generator, cfg.d_model,
                                          cfg.vocab_size, dtype)
@@ -149,6 +174,29 @@ def unembed(params: Params, cfg, h: torch.Tensor) -> torch.Tensor:
 # =========================================================================== #
 # Layer bodies
 # =========================================================================== #
+
+
+def _hybrid_layers(params: Params, cfg):
+    """The hybrid's per-layer trees (views): a list per group, the tail
+    list, and the shared block."""
+    n_groups, inner, tail = hybrid_layout(cfg)
+    groups = [_unstack(g, inner) for g in _unstack(params["groups"], n_groups)]
+    tails = _unstack(params["tail"], tail) if tail else []
+    return groups, tails, params["shared_attn"]
+
+
+def _ssm_layers(cfg, impl, layers, h, states, decode: bool = False,
+                active=None):
+    """Run the SSM layers ``layers`` in order over ``h``.  ``states`` maps
+    each state name to its stack (layer i at index i, views allowed): a
+    prefill writes each layer's decode state there, a decode step reads it
+    and writes the new one, in place."""
+    for i, lp in enumerate(layers):
+        state = {k: v[i] for k, v in states.items()} if decode else None
+        h, st = _ssm_body(cfg, impl, lp, h, state=state, active=active)
+        for k, v in st.items():
+            states[k][i] = v
+    return h
 
 
 def _ssm_body(cfg, impl, lp: Params, x, state=None, active=None):
@@ -190,14 +238,17 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
     """Slot cache: per-slot lengths ``len`` (B,) int32, and for the dense
     family K/V buffers (n_layers, B, buf, KH, D), for the SSM family the
     recurrent states ``{"conv": (n_layers, B, CH, d_conv - 1), "ssm":
-    (n_layers, B, H, P, N)}``.  ``buf`` is :func:`kv_buffer_len`, cut to
-    ``sliding_window`` when it is given; the buffer is a ring when ``buf <
-    max_len``.  ``kv_dtype="int8"`` makes the K/V buffers int8 codes with
-    fp32 scales (n_layers, B, buf); it does nothing for the SSM family, as
-    in the reference.  With ``mesh``: one cache per rank on the rank's
-    device, with the KV heads the rank's query heads read
-    (``launch.partition.kv_head_range``), each with its own ``len``; an
-    int8 cache under a mesh raises ``NotImplementedError``."""
+    (n_layers, B, H, P, N)}``, for the hybrid family the states
+    ``groups_ssm`` (n_groups, inner, B, ...) and ``tail_ssm`` (tail, B,
+    ...) and K/V buffers over its n_groups attention sites.  ``buf`` is
+    :func:`kv_buffer_len`, cut to ``sliding_window`` when it is given; the
+    buffer is a ring when ``buf < max_len``.  ``kv_dtype="int8"`` makes
+    the K/V buffers int8 codes with fp32 scales (sites, B, buf); it does
+    nothing for the SSM family, as in the reference.  With ``mesh``: one
+    cache per rank on the rank's device, with the KV heads the rank's
+    query heads read (``launch.partition.kv_head_range``), each with its
+    own ``len``; an int8 cache under a mesh raises
+    ``NotImplementedError``."""
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
                          f"{kv_dtype!r}")
@@ -214,15 +265,24 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
     dtype = dtype or _dtype(cfg)
     cache: Cache = {"len": torch.zeros((batch,), dtype=torch.int32,
                                        device=device)}
-    if cfg.family == "ssm":
+    n_sites = cfg.n_layers
+    if cfg.family in ("ssm", "hybrid"):
         state = S.init_ssm_state(cfg, batch, dtype, device)
-        cache["ssm"] = {k: v.new_zeros((cfg.n_layers,) + v.shape)
-                        for k, v in state.items()}
-        return cache
+
+        def stacked(lead):
+            return {k: v.new_zeros(lead + v.shape) for k, v in state.items()}
+
+        if cfg.family == "ssm":
+            cache["ssm"] = stacked((cfg.n_layers,))
+            return cache
+        n_sites, inner, tail = hybrid_layout(cfg)
+        cache["groups_ssm"] = stacked((n_sites, inner))
+        if tail:
+            cache["tail_ssm"] = stacked((tail,))
     buf = kv_buffer_len(cfg, max_len)
     if sliding_window is not None:
         buf = min(buf, sliding_window)
-    shape = (cfg.n_layers, batch, buf, cfg.n_kv_heads, cfg.head_dim)
+    shape = (n_sites, batch, buf, cfg.n_kv_heads, cfg.head_dim)
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -272,36 +332,37 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
     last position — or at the last position.  The dense family writes its
     K/V into rows ``[0, S)`` of every slot of ``cache`` (a ring keeps the
     last tokens, an int8 cache their codes), the SSM family its decode
-    states, in place.  ``attn_impl`` picks the kernels ("kernel") or
-    the plain path ("torch") for attention and for the SSD scan alike.
-    With ``mesh``, see the module docstring; the logits lie on rank 0's
-    device."""
+    states, the hybrid family both (one K/V site per group), in place.
+    ``attn_impl`` picks the kernels ("kernel") or the plain path ("torch")
+    for attention and for the SSD scan alike.  With ``mesh``, see the
+    module docstring; the logits lie on rank 0's device."""
     shards, caches, ranks, lcfg = _ranks(params, cfg, cache, mesh)
     hs = _embed(shards, cfg, batch["tokens"], ranks)
     b, s = hs[0].shape[:2]
-    layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
-    if cfg.family == "ssm":
-        h, states = hs[0], caches[0]["ssm"]
-        for i, lp in enumerate(layers[0]):
-            h, st = _ssm_body(cfg, attn_impl, lp, h)
-            for k, v in st.items():
-                states[k][i] = v
-        hs = [h]
-    else:
+    if cfg.family != "ssm":
         pos = batch.get("positions")
         if pos is None:
             pos = torch.arange(s, device=ranks[0])[None, :].expand(b, s)
         cos_sins = [L.positional_cos_sin(cfg, pos.to(d)) for d in ranks]
+    if cfg.family == "ssm":
+        hs = [_ssm_layers(cfg, attn_impl, _unstack(params["layers"],
+                                                   cfg.n_layers),
+                          hs[0], caches[0]["ssm"])]
+    elif cfg.family == "hybrid":
+        (c,) = caches
+        groups, tails, shared = _hybrid_layers(params, cfg)
+        for g, layers in enumerate(groups):
+            states = {k: v[g] for k, v in c["groups_ssm"].items()}
+            hs = [_ssm_layers(cfg, attn_impl, layers, hs[0], states)]
+            hs = _attn_prefill(cfg, lcfg, [shared], hs, cos_sins, caches, g,
+                               attn_impl, moe_impl)
+        if tails:
+            hs = [_ssm_layers(cfg, attn_impl, tails, hs[0], c["tail_ssm"])]
+    else:
+        layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
         for i in range(cfg.n_layers):
-            lps = [per[i] for per in layers]
-            parts = []
-            for lp, h, cs, c in zip(lps, hs, cos_sins, caches):
-                out, (k, v) = L.attention_block(
-                    lp["attn"], lcfg, L.apply_norm(cfg, lp["attn_norm"], h),
-                    cs, attn_impl=attn_impl)
-                _write_prompt(c["kv"], i, k, v)
-                parts.append(out)
-            hs = _mlp(cfg, lcfg, lps, _add_sum(hs, parts), moe_impl)
+            hs = _attn_prefill(cfg, lcfg, [per[i] for per in layers], hs,
+                               cos_sins, caches, i, attn_impl, moe_impl)
     for c, d in zip(caches, ranks):
         c["len"] = torch.full((b,), s, dtype=torch.int32, device=d)
     if last_index is not None:
@@ -377,33 +438,38 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
     ``active`` (B,) bool: inactive rows (unoccupied or EOS-frozen slots) are
     computed but write no K/V (dense) or state (SSM) and keep their ``len``,
     so their cache stays bit-identical.  The SSM step is plain PyTorch
-    whatever ``attn_impl`` is, as in the reference.  With ``mesh``, see
-    the module docstring; the logits lie on rank 0's device."""
+    whatever ``attn_impl`` is, as in the reference; the hybrid's shared
+    block reads its site of the cache as the dense family does.  With
+    ``mesh``, see the module docstring; the logits lie on rank 0's
+    device."""
     shards, caches, ranks, lcfg = _ranks(params, cfg, cache, mesh)
     curs = [c["len"] for c in caches]
     acts = [None if active is None else active.to(d) for d in ranks]
     hs = _embed(shards, cfg, tokens, ranks)
-    layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
-    if cfg.family == "ssm":
-        h, states = hs[0], caches[0]["ssm"]
-        for i, lp in enumerate(layers[0]):
-            h, st = _ssm_body(cfg, attn_impl, lp, h,
-                              state={k: v[i] for k, v in states.items()},
-                              active=active)
-            for k, v in st.items():
-                states[k][i] = v
-        hs = [h]
-    else:
+    if cfg.family != "ssm":
         cos_sins = [L.positional_cos_sin(cfg, cur[:, None]) for cur in curs]
+    if cfg.family == "ssm":
+        hs = [_ssm_layers(cfg, attn_impl, _unstack(params["layers"],
+                                                   cfg.n_layers),
+                          hs[0], caches[0]["ssm"], True, active)]
+    elif cfg.family == "hybrid":
+        (c,) = caches
+        groups, tails, shared = _hybrid_layers(params, cfg)
+        for g, layers in enumerate(groups):
+            states = {k: v[g] for k, v in c["groups_ssm"].items()}
+            hs = [_ssm_layers(cfg, attn_impl, layers, hs[0], states, True,
+                              active)]
+            hs = _attn_decode(cfg, lcfg, [shared], hs, cos_sins, caches, g,
+                              curs, acts, attn_impl, moe_impl)
+        if tails:
+            hs = [_ssm_layers(cfg, attn_impl, tails, hs[0], c["tail_ssm"],
+                              True, active)]
+    else:
+        layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
         for i in range(cfg.n_layers):
-            lps = [per[i] for per in layers]
-            parts = L.attention_decode(
-                [lp["attn"] for lp in lps], lcfg,
-                [L.apply_norm(cfg, lp["attn_norm"], h)
-                 for lp, h in zip(lps, hs)], cos_sins,
-                [c["kv"].layer(i) for c in caches], curs,
-                attn_impl=attn_impl, actives=acts)
-            hs = _mlp(cfg, lcfg, lps, _add_sum(hs, parts), moe_impl)
+            hs = _attn_decode(cfg, lcfg, [per[i] for per in layers], hs,
+                              cos_sins, caches, i, curs, acts, attn_impl,
+                              moe_impl)
     for c, cur, act in zip(caches, curs, acts):
         c["len"] = cur + 1 if act is None else torch.where(act, cur + 1, cur)
     return _unembed(shards, cfg, hs), cache
@@ -465,6 +531,35 @@ def _unembed(shards: List[Params], cfg, hs: List[torch.Tensor]):
     if len(outs) == 1:
         return outs[0]
     return torch.cat([o.to(outs[0].device) for o in outs], dim=-1)
+
+
+def _attn_prefill(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
+                  cos_sins, caches, site: int, attn_impl: str,
+                  moe_impl: str) -> List[torch.Tensor]:
+    """One attention layer's prefill on every rank (``lps[r]``, ``hs[r]``):
+    attention, its K/V written into site ``site`` of each rank's cache,
+    then the MLP.  Returns the residual stream."""
+    parts = []
+    for lp, h, cs, c in zip(lps, hs, cos_sins, caches):
+        out, (k, v) = L.attention_block(
+            lp["attn"], lcfg, L.apply_norm(cfg, lp["attn_norm"], h), cs,
+            attn_impl=attn_impl)
+        _write_prompt(c["kv"], site, k, v)
+        parts.append(out)
+    return _mlp(cfg, lcfg, lps, _add_sum(hs, parts), moe_impl)
+
+
+def _attn_decode(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
+                 cos_sins, caches, site: int, curs, acts, attn_impl: str,
+                 moe_impl: str) -> List[torch.Tensor]:
+    """One attention layer's decode step on every rank over site ``site``
+    of the caches, then the MLP.  Returns the residual stream."""
+    parts = L.attention_decode(
+        [lp["attn"] for lp in lps], lcfg,
+        [L.apply_norm(cfg, lp["attn_norm"], h) for lp, h in zip(lps, hs)],
+        cos_sins, [c["kv"].layer(site) for c in caches], curs,
+        attn_impl=attn_impl, actives=acts)
+    return _mlp(cfg, lcfg, lps, _add_sum(hs, parts), moe_impl)
 
 
 def _mlp(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],

@@ -234,8 +234,17 @@ def test_init_cache_has_reference_shapes(setup):
     for k in ("conv", "ssm"):
         assert tuple(tc["ssm"][k].shape) == jc["ssm"][k].shape
         assert not bool(tc["ssm"][k].any())
-    with pytest.raises(NotImplementedError, match="next slice"):
-        T.init_cache(dataclasses.replace(cfg, family="hybrid"), 1, 8, "cpu")
+    # the hybrid family (ported since): the reference's leaves and shapes
+    jh = JT.init_cache(jax_get_config("zamba2-7b").reduced(), 3, 64)
+    th = T.init_cache(get_config("zamba2-7b").reduced(), 3, 64, "cpu")
+    assert th.keys() == jh.keys() == {"len", "groups_ssm", "kv"}
+
+    def shapes(c, size):
+        return {"len": size(c["len"]), "k": size(c["kv"].k),
+                "v": size(c["kv"].v), "ring": c["kv"].ring,
+                **{k: size(v) for k, v in c["groups_ssm"].items()}}
+
+    assert shapes(th, lambda t: tuple(t.shape)) == shapes(jh, np.shape)
 
 
 @pytest.mark.parametrize("jimpl,timpl", IMPLS)
