@@ -26,11 +26,13 @@ Phases (any failure raises and exits non-zero):
      kernels the call launched (bf16: 2 or 3 tensor-core passes, fp32: 1),
      and one bf16 call of 32768 tokens profiled, its device time by pass;
      and rows at zamba2-7b's shapes (tagged ``zamba2-7b``): ``flash_attention``
-     at B=1, S=512, 32/32 heads of dim 112, window 4096, bf16 and fp32;
-     ``flash_decode`` and ``flash_decode_int8`` at B=4 x 512 and over the
-     long ragged cache (B=8 x 32768), 32/32 heads of dim 112, window 4096;
-     ``ssd_scan`` at H=112, (P, N) = (64, 64), S=512 and 32768, bf16 and
-     fp32;
+     at B=1, S=15, 180, 399 (phase 9's prompts) and 512, 32/32 heads of dim
+     112, window 4096, bf16 and fp32; ``flash_decode`` and
+     ``flash_decode_int8`` at B=4 x 512 and over the long ragged cache (B=8
+     x 32768), 32/32 heads of dim 112, window 4096; ``ssd_scan`` at H=112,
+     (P, N) = (64, 64), bf16 and fp32: phase 9's one-chunk prompts of 15
+     and 180 tokens (chunk = S), its 399 tokens padded to two chunks of
+     256, and S=512 and 32768;
   4. the served paths at full width: ``ElisServer`` -> ISRTF with the
      oracle predictor -> ``EngineExecutor`` ->
      ``InferenceEngine(attn_impl="kernel")`` serving a dozen requests to
@@ -116,8 +118,11 @@ Phases (any failure raises and exits non-zero):
      ``HYBRID_LOGIT_TOL_BF16``, and its step entry points once over a 4 x
      512 cache; beforehand fp32 greedy tokens of the kernel and plain
      engines at full width and 13 layers (two groups and one tail layer)
-     through evictions and a swap round trip, and one slot's swap round
-     trip bit for bit.
+     through evictions and a swap round trip, one slot's swap round trip
+     bit for bit, and fp32 first prefill logits against the plain kernels
+     within ``HYBRID_LOGIT_TOL_FP32``, at each prompt's last position
+     and, for the prompts longer than one SSD chunk (one at least), at the
+     first position of the second chunk.
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -228,21 +233,29 @@ SSM_LOGIT_TOL_BF16 = 0.02
 #: applications of its shared attention block): the kernel engine against
 #: the same model with both kernels swapped for their plain versions on
 #: the kernels' own inputs.  Not ``SSM_LOGIT_TOL_BF16``, for the reason
-#: ``HYBRID_TOL_REASON`` gives (phase 9 prints it).
+#: ``HYBRID_TOL_REASON`` gives (phase 9 prints it; PERF.md gives the
+#: readings on an H100 it was set from).
 HYBRID_LOGIT_TOL_BF16 = 0.2
 HYBRID_TOL_REASON = (
-    "bf16 logit limit 0.2, not SSM_LOGIT_TOL_BF16 (0.02): both kernels "
-    "round some outputs one bf16 ulp off their plain versions' (phase 3), "
-    "and 81 layers carry that to the logits. On an H100 the correct "
-    "kernels read 0.0898 and 0.0977, and 0.0913 (ssd_scan) and 0.0938 "
-    "(flash_attention) with only one kernel swapped for its plain "
-    "version, where mamba2-130m's 24 layers read 0; drop_first_tile read "
-    "1.879. The SSD faults (0.096-0.133) lie within this spread: phase "
-    "3's zamba2-7b rows catch them, this limit does not")
-#: the bf16 logit limit of each recurrent family, kernels against their
-#: plain versions on the kernels' inputs (``ssm_prefill_logit_gaps``)
-RECURRENT_LOGIT_TOL = {"ssm": SSM_LOGIT_TOL_BF16,
-                       "hybrid": HYBRID_LOGIT_TOL_BF16}
+    f"bf16 logit limit {HYBRID_LOGIT_TOL_BF16}, not SSM_LOGIT_TOL_BF16 "
+    f"({SSM_LOGIT_TOL_BF16}): both kernels round some outputs one bf16 ulp "
+    "off their plain versions (phase 3), and 81 layers carry any such "
+    "difference to the logits, so this limit catches gross faults only; "
+    "the fp32 logits hold the kernels to their plain versions")
+#: fp32 first prefill logits of zamba2-7b at full width and
+#: ``HY_PARITY_DEPTH`` layers, kernels against their plain versions on the
+#: kernels' inputs, at each prompt's last position and at the first
+#: position of its second SSD chunk.  In fp32 the two differ only by
+#: summation order; the limit lies between the correct kernels' reading on
+#: an H100 and ``drop_carried_state``'s (PERF.md).  Only fp32 reads the
+#: chunk's first position: in bf16 the correct kernels already read more
+#: there than ``SSM_LOGIT_TOL_BF16`` for mamba2-130m.
+HYBRID_LOGIT_TOL_FP32 = 1e-3
+#: the logit limit of each recurrent family and dtype, kernels against
+#: their plain versions on the kernels' inputs (``ssm_prefill_logit_gaps``)
+RECURRENT_LOGIT_TOL = {("ssm", "bfloat16"): SSM_LOGIT_TOL_BF16,
+                       ("hybrid", "bfloat16"): HYBRID_LOGIT_TOL_BF16,
+                       ("hybrid", "float32"): HYBRID_LOGIT_TOL_FP32}
 #: bf16 full-depth prefill logits of qwen2-1.5b, the TP=2 kernel model
 #: against the single-device kernel model.  They differ where the TP model
 #: rounds each rank's row-parallel partial to bf16 before the sum (twice a
@@ -523,9 +536,16 @@ def ssd_work(S: int, chunk: int, es: int,
 #: second); in bf16 also two long prompts of 32 and 128 chunks
 SSD_ROWS = [(137, 137, 0), (512, 256, 0), (512, 256, 212)]
 SSD_LONG_ROWS = [(8192, 256, 0), (32768, 256, 0)]
-#: the SSD rows at zamba2-7b's widths (``HY_SSD``), bf16 and fp32: two
-#: chunks of 256 (the served shape) and one prompt of 32768 tokens
-HY_SSD_ROWS = [(512, 256, 0), (32768, 256, 0)]
+#: the SSD rows at zamba2-7b's widths (``HY_SSD``), bf16 and fp32: phase
+#: 9's shapes (prompts of 15 and 180 ids, one chunk each, chunk = S; one of
+#: 399 ids zero-padded to two chunks of 256), two whole chunks and one
+#: prompt of 32768 tokens
+HY_SSD_ROWS = [(15, 15, 0), (180, 180, 0), (512, 256, 113), (512, 256, 0),
+               (32768, 256, 0)]
+#: the ``flash_attention`` rows at zamba2-7b's shared block, B=1: phase 9's
+#: exact-length prompts of 15, 180 and 399 ids (a partial last tile) and one
+#: of 512
+HY_PREFILL_S = (15, 180, 399, MAX_LEN)
 #: the body of ``ssd_scan.cu`` each dtype must run
 SSD_BODY = {"bfloat16": "tensor-core", "float32": "CUDA-core"}
 
@@ -716,8 +736,9 @@ def check_kernels(timed: bool = True):
             for S in (16, 128, 512):
                 for window in (None, 64):
                     prefill_row(B, S, (HEADS, KV_HEADS, HEAD_DIM), window)
-        # zamba2-7b's shared block: one exact-length prompt of 512 tokens
-        prefill_row(1, MAX_LEN, hy, HY_WINDOW, HY_ARCH)
+        # zamba2-7b's shared block: exact-length prompts, one at a time
+        for S in HY_PREFILL_S:
+            prefill_row(1, S, hy, HY_WINDOW, HY_ARCH)
         if dtype == torch.bfloat16:
             check_long_prefill(record, gen)
             if timed:
@@ -1651,6 +1672,19 @@ def greedy_streams(cfg, params, prompts, attn_impl: str, n_out: int,
     return [list(j.generated) for j in jobs], evictions
 
 
+def fp32_model(cfg, depth: int):
+    """``cfg`` in fp32 at full width and ``depth`` layers, and its random
+    weights on the card from ``SEED + 1``: the model of the fp32 parity
+    checks."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    cfg2 = dataclasses.replace(cfg, n_layers=depth, dtype="float32")
+    return cfg2, T.init_params(
+        cfg2, torch.Generator(device=DEVICE).manual_seed(SEED + 1))
+
+
 def greedy_parity(cfg, requests, meshes=(), depth: int = 2,
                   swap: bool = False) -> bool:
     """fp32 greedy tokens of the kernel and plain engines at full width and
@@ -1659,13 +1693,7 @@ def greedy_parity(cfg, requests, meshes=(), depth: int = 2,
     eviction)?  With ``meshes``, the kernel engine of each TP pod against
     the single-device kernel engine, and the first pod's against the plain
     engine too."""
-    import torch
-
-    from repro_torch.models import transformer as T
-
-    cfg2 = dataclasses.replace(cfg, n_layers=depth, dtype="float32")
-    params2 = T.init_params(
-        cfg2, torch.Generator(device=DEVICE).manual_seed(SEED + 1))
+    cfg2, params2 = fp32_model(cfg, depth)
     prompts = [list(r.prompt_tokens) for r in requests[:6]]
     runs = {"kernel engine": ("kernel", None), "plain engine": ("torch", None)}
     pairs = [] if meshes else [("kernel engine", "plain engine")]
@@ -1811,15 +1839,19 @@ def moe_prefill_logit_gaps(cfg, params_bf16, requests):
     return raw, pinned, flips[0], finite
 
 
-def ssm_prefill_logit_gaps(cfg, params_bf16, requests):
+def ssm_prefill_logit_gaps(cfg, params, requests, at_chunk: bool = False):
     """The SSM and hybrid families prefill each prompt alone at its exact
-    length: for the two longest prompts (two chunks) and the two shortest
-    (one chunk), max |kernel - x| of the first prefill logits at full width
-    and the served depth in bf16, where x is the plain engine ("plain") and
-    the same model with each kernel it calls (``ssd_scan``, and for the
-    hybrid ``flash_attention``) swapped for its plain version on the
-    kernel's own inputs ("plain_kernels").  Returns (gaps, whether the
-    kernel's logits are finite)."""
+    length: for the two longest prompts (two chunks: at least one must be
+    longer than one SSD chunk) and the two shortest (one chunk), max
+    |kernel - x| of the first prefill logits at full width and the served
+    depth in ``cfg.dtype``, where x is the plain engine ("plain") and the
+    same model with each kernel it calls (``ssd_scan``, and for the hybrid
+    ``flash_attention``) swapped for its plain version on the kernel's own
+    inputs ("plain_kernels", at each prompt's last position; with
+    ``at_chunk`` also "plain_kernels_at_chunk", at the first position of
+    the second chunk, where the carried state weighs most: the random
+    init's decay leaves little of it at the last position).  Returns
+    (gaps, whether the kernel's logits are finite)."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -1828,54 +1860,67 @@ def ssm_prefill_logit_gaps(cfg, params_bf16, requests):
     # the model calls the wrappers through the module ``ops``
     swapped = ["ssd_scan"] + (["flash_attention"]
                               if cfg.family == "hybrid" else [])
+    chunk = cfg.ssm.chunk_size
 
     by_len = sorted(requests, key=lambda r: len(r.prompt_tokens))
     prompts = [r.prompt_tokens for r in by_len[:2] + by_len[-2:]]
+    lens = [len(p) for p in prompts]
+    if max(lens) <= chunk:
+        raise AssertionError(f"{cfg.arch_id}: no prompt of {lens} tokens "
+                             f"spans two SSD chunks of {chunk}")
 
-    def first_logits(prompt, impl):
-        out, _ = T.prefill(params_bf16, cfg,
+    def first_logits(prompt, impl, index):
+        out, _ = T.prefill(params, cfg,
                            {"tokens": torch.as_tensor([prompt],
                                                       device=DEVICE)},
                            T.init_cache(cfg, 1, MAX_LEN, DEVICE),
-                           attn_impl=impl)
+                           attn_impl=impl,
+                           last_index=torch.as_tensor([index], device=DEVICE))
         return out.float()
 
-    gaps = {"plain": 0.0, "plain_kernels": 0.0}
+    gaps = {"plain": 0.0, "plain_kernels": 0.0, "plain_kernels_at_chunk": 0.0}
     finite, scale = True, 0.0
     kernels = {name: getattr(ops, name) for name in swapped}
     for prompt in prompts:
-        got = first_logits(prompt, "kernel")
-        finite &= bool(torch.isfinite(got).all())
-        scale = max(scale, float(got.abs().max()))
-        gaps["plain"] = max(gaps["plain"], float(
-            (got - first_logits(prompt, "torch")).abs().max()))
-        for name in swapped:
-            setattr(ops, name, getattr(ref, name))
-        try:
-            want = first_logits(prompt, "kernel")
-        finally:
-            for name, fn in kernels.items():
-                setattr(ops, name, fn)
-        gaps["plain_kernels"] = max(gaps["plain_kernels"], float(
-            (got - want).abs().max()))
-    log(f"[parity] {cfg.arch_id} bf16, full width, {cfg.n_layers} layers: "
-        f"first prefill logits of prompts of {[len(p) for p in prompts]} "
-        f"tokens, max |kernel - plain engine| = {gaps['plain']:.4e}, max "
-        f"|kernel - the plain {' and '.join(swapped)} on the kernels' "
-        f"inputs| = {gaps['plain_kernels']:.4e} (tol "
-        f"{RECURRENT_LOGIT_TOL[cfg.family]}), max |logit| = {scale:.3f}, "
-        f"finite={finite}")
+        at = {"plain_kernels": len(prompt) - 1}
+        if at_chunk and len(prompt) > chunk:
+            at["plain_kernels_at_chunk"] = chunk
+        for key, index in at.items():
+            got = first_logits(prompt, "kernel", index)
+            finite &= bool(torch.isfinite(got).all())
+            scale = max(scale, float(got.abs().max()))
+            if key == "plain_kernels":
+                gaps["plain"] = max(gaps["plain"], float(
+                    (got - first_logits(prompt, "torch", index)).abs().max()))
+            for name in swapped:
+                setattr(ops, name, getattr(ref, name))
+            try:
+                want = first_logits(prompt, "kernel", index)
+            finally:
+                for name, fn in kernels.items():
+                    setattr(ops, name, fn)
+            gaps[key] = max(gaps[key], float((got - want).abs().max()))
+    at_pos = (f" and {gaps['plain_kernels_at_chunk']:.4e} at position "
+              f"{chunk}" if at_chunk else "")
+    log(f"[parity] {cfg.arch_id} {cfg.dtype}, full width, {cfg.n_layers} "
+        f"layers: first prefill logits of prompts of {lens} tokens, max "
+        f"|kernel - plain engine| = {gaps['plain']:.4e}, max |kernel - the "
+        f"plain {' and '.join(swapped)} on the kernels' inputs| = "
+        f"{gaps['plain_kernels']:.4e} at the last position{at_pos} (tol "
+        f"{RECURRENT_LOGIT_TOL[cfg.family, cfg.dtype]}), max |logit| = "
+        f"{scale:.3f}, finite={finite}")
     return gaps, finite
 
 
 def recurrent_logit_failures(cfg, gaps, finite):
     """What of :func:`ssm_prefill_logit_gaps`' result fails its limit
     (``RECURRENT_LOGIT_TOL``): a list of reasons, empty when it passes."""
-    tol = RECURRENT_LOGIT_TOL[cfg.family]
-    if finite and gaps["plain_kernels"] <= tol:
+    tol = RECURRENT_LOGIT_TOL[cfg.family, cfg.dtype]
+    gap = max(gaps["plain_kernels"], gaps["plain_kernels_at_chunk"])
+    if finite and gap <= tol:
         return []
-    return [f"bf16 prefill logits, kernel - plain kernels = "
-            f"{gaps['plain_kernels']:.4e} (tol {tol}), finite={finite}"]
+    return [f"{cfg.dtype} prefill logits of {cfg.n_layers} layers, kernel - "
+            f"plain kernels = {gap:.4e} (tol {tol}), finite={finite}"]
 
 
 def planted_fault(kind: str, models) -> dict:
@@ -1933,6 +1978,15 @@ def planted_fault(kind: str, models) -> dict:
             served[cfg.arch_id] = {
                 "greedy_fp32_caught": not greedy_same,
                 "logit_gaps_bf16": gaps, "logit_caught": bool(bad)}
+            if cfg.family == "hybrid":
+                cfg32, params32 = fp32_model(cfg, HY_PARITY_DEPTH)
+                gaps32, finite32 = ssm_prefill_logit_gaps(
+                    cfg32, params32, requests, at_chunk=True)
+                del params32
+                served[cfg.arch_id].update(
+                    logit_gaps_fp32=gaps32,
+                    logit_fp32_caught=bool(recurrent_logit_failures(
+                        cfg32, gaps32, finite32)))
             if cfg.family == "dense":
                 gap8, _, finite8 = int8_logit_gaps(cfg, params)
                 served[cfg.arch_id].update(
@@ -2704,9 +2758,11 @@ def build_report() -> None:
 
 
 def window_bench(cfg, params, n: int) -> None:
-    """Host wall time of ``n`` steady decode windows (8 steps, 4 live
-    slots) of the single-device kernel engine, devices synchronised around
-    each, after one warm-up window: the time of the served dense path's
+    """Host wall time of ``n`` steady decode windows (8 steps) of the
+    single-device kernel engine over 4 slots, devices synchronised around
+    each, after one warm-up window: with all 4 slots live (one full-width
+    dispatch), then with 2 live (a compacted one: the 2 slots gathered into
+    a batch of 2 and scattered back).  The time of the served dense path's
     Python body.  Runs unchanged against an older checkout of ``src`` (copy
     this script into its root), to compare two versions in one call."""
     import statistics
@@ -2715,21 +2771,23 @@ def window_bench(cfg, params, n: int) -> None:
     from repro_torch.engine import EngineConfig, InferenceEngine
 
     eng = InferenceEngine(cfg, params, EngineConfig(
-        max_slots=4, max_len=MAX_LEN, max_output=8 * (n + 1), eos_id=-1),
-        device=DEVICE)
+        max_slots=4, max_len=MAX_LEN, max_output=8 * (2 * n + 2),
+        eos_id=-1), device=DEVICE)
     jobs = [Job(job_id=i, prompt="", prompt_tokens=list(range(8, 8 + plen)),
                 arrival_time=0.0) for i, plen in enumerate((40, 90, 140, 190))]
-    eng.run_window(jobs, 8)
-    walls = []
-    for _ in range(n):
-        synchronize_all()
-        t0 = time.perf_counter()
-        eng.run_window(jobs, 8)
-        synchronize_all()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    log(json.dumps({"window_bench": str(ROOT), "windows": n, "steps": 8,
-                    "slots": 4, "median_ms": statistics.median(walls),
-                    "min_ms": min(walls), "ms": walls}))
+    for live in (4, 2):
+        eng.run_window(jobs[:live], 8)
+        walls = []
+        for _ in range(n):
+            synchronize_all()
+            t0 = time.perf_counter()
+            eng.run_window(jobs[:live], 8)
+            synchronize_all()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        log(json.dumps({"window_bench": str(ROOT), "windows": n, "steps": 8,
+                        "slots": 4, "live": live,
+                        "median_ms": statistics.median(walls),
+                        "min_ms": min(walls), "ms": walls}))
 
 
 # --------------------------------------------------------------------------- #
@@ -2997,9 +3055,10 @@ def hybrid_phase() -> dict:
     profiled, its first prefill logits against the plain kernels on the
     kernels' inputs, and its step entry points once; beforehand, fp32
     greedy tokens of the kernel and plain engines at full width and
-    ``HY_PARITY_DEPTH`` layers through evictions and a swap round trip, and
-    one slot's swap round trip bit for bit there.  Returns the served
-    path's launch counts."""
+    ``HY_PARITY_DEPTH`` layers through evictions and a swap round trip, one
+    slot's swap round trip bit for bit there, and its fp32 first prefill
+    logits against the plain kernels within ``HYBRID_LOGIT_TOL_FP32``.
+    Returns the served path's launch counts."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3016,10 +3075,11 @@ def hybrid_phase() -> dict:
     if not greedy_parity(cfg, requests, depth=depth, swap=True):
         failures.append("fp32 greedy tokens differ between the kernel and "
                         "plain engines, or no eviction")
-    cfg13 = dataclasses.replace(cfg, n_layers=depth, dtype="float32")
-    params = T.init_params(cfg13, torch.Generator(device=DEVICE)
-                           .manual_seed(SEED + 1))
-    swap_roundtrip(cfg13, params, requests)
+    cfg32, params = fp32_model(cfg, depth)
+    swap_roundtrip(cfg32, params, requests)
+    failures += recurrent_logit_failures(
+        cfg32, *ssm_prefill_logit_gaps(cfg32, params, requests,
+                                       at_chunk=True))
     del params
     gc.collect()
     torch.cuda.empty_cache()
