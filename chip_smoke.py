@@ -32,7 +32,14 @@ Phases (any failure raises and exits non-zero):
      x 32768), 32/32 heads of dim 112, window 4096; ``ssd_scan`` at H=112,
      (P, N) = (64, 64), bf16 and fp32: phase 9's one-chunk prompts of 15
      and 180 tokens (chunk = S), its 399 tokens padded to two chunks of
-     256, and S=512 and 32768;
+     256, and S=512 and 32768; rows tagged ``qwen2-vl-7b`` (28/4 heads of
+     dim 128: a GQA group of 7 on the decode's group-of-8 instance):
+     ``flash_attention`` at B=4 x 480 (phase 8's step path), 4 x 512 and
+     B=1 at the longest of phase 8's prompts, ``flash_decode`` at 4 x 512
+     and over the long ragged cache, ``flash_decode_int8`` at 4 x 512;
+     and tagged ``whisper-large-v3`` (20/20 heads of dim 64):
+     ``flash_attention`` at phase 10's 4 x 128 and prefill_32k's 32 x
+     448, ``flash_decode`` at B=4 and B=128 over 448 rows;
   4. the served paths at full width: ``ElisServer`` -> ISRTF with the
      oracle predictor -> ``EngineExecutor`` ->
      ``InferenceEngine(attn_impl="kernel")`` serving a dozen requests to
@@ -103,7 +110,13 @@ Phases (any failure raises and exits non-zero):
      entry points over a 4 x 512 int8 cache; llama3.2-3b (28 layers);
      yi-6b (32); mixtral-8x7b cut to 8 of its 32 layers (93.4 GB at full
      depth need a mesh; it reads its linear cache with ``window`` 4096);
-     and qwen1.5-32b last, at 64 layers unless the free memory forces a
+     qwen2-vl-7b (28 layers, text only, as the reference's engine serves
+     it), then its step entry points with the vision stub (256 patch
+     embeddings on a 16 x 16 grid at temporal 0 and 224 text ids, 32
+     serve steps over a 4 x 512 bf16 cache, launch counts reset before
+     and read after; bf16 logits at 28 layers and fp32 greedy tokens and
+     logits at 2 layers, kernel path against plain path); and
+     qwen1.5-32b last, at 64 layers unless the free memory forces a
      cut, which it prints.  For each: the bytes allocated beside
      ``param_count``, fp32 greedy tokens of the kernel and plain engines at
      full width and 2 layers through evictions, and bf16 first prefill
@@ -122,7 +135,19 @@ Phases (any failure raises and exits non-zero):
      bit for bit, and fp32 first prefill logits against the plain kernels
      within ``HYBRID_LOGIT_TOL_FP32``, at each prompt's last position
      and, for the prompts longer than one SSD chunk (one at least), at the
-     first position of the second chunk.
+     first position of the second chunk;
+ 10. the audio family: whisper-large-v3, bf16 at full width, 32 encoder
+     and 32 decoder layers (3.07 GB), through the step entry points (the
+     engine serves no audio prefill): 4 prompts of 128 ids over their
+     stub frames (4, 1500, 1280) and 32 serve steps with launch counts
+     reset before and read after (``flash_attention`` 32 a prefill: the
+     encoder and the cross-attention run plain, as in the reference;
+     ``flash_decode`` 32 a step), one step profiled, bf16 logits against
+     the plain path within ``AU_LOGIT_TOL_BF16``; beforehand fp32 greedy
+     tokens of the kernel and plain paths at 2 + 2 layers; then one
+     prefill_32k step (B=32 x 448 over 32 x 1500 frames) with its peak
+     memory, and 6 decode_32k steps (B=128 over a cache filled with
+     random self and cross K/V, every slot's ``len`` below 448).
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -131,9 +156,10 @@ Needs one CUDA card; imports neither JAX nor the JAX package.
 
 checks the checks instead: it builds the kernels from a copy of ``csrc``
 with one deliberate fault (``PLANTED_FAULTS``) in a temporary directory,
-runs phase 3's comparisons and phase 5's comparisons (the int8 ones too)
-against it, and prints how many of them caught the fault, the rows at
-zamba2-7b's shapes tallied apart
+runs phase 3's comparisons and phase 5's comparisons (the int8 ones too,
+and whisper's fp32 tokens and bf16 logits) against it, and prints how
+many of them caught the fault, the rows at zamba2-7b's, qwen2-vl-7b's
+and whisper's shapes tallied apart
 (``drop_v_scale``: the int8 decode ignores V's scales;
 ``combine_no_rescale``: the decode's combine pass sums the splits'
 partial states without rescaling them to a common maximum;
@@ -182,6 +208,18 @@ SSM_HEADS, SSM_HEAD_DIM, SSM_STATE = 24, 64, 128
 HY_ARCH = "zamba2-7b"
 HY_HEADS, HY_HEAD_DIM, HY_WINDOW = 32, 112, 4096
 HY_SSD = (112, 64, 64)
+#: qwen2-vl-7b's and whisper-large-v3's attention widths (phase 3's rows
+#: tagged with their names, phases 8 and 10): heads, KV heads, head dim.
+#: qwen2-vl's GQA group of 7 runs the decode kernel's instance of 8.
+VL_ARCH, VL_WIDTHS = "qwen2-vl-7b", (28, 4, 128)
+AU_ARCH, AU_WIDTHS = "whisper-large-v3", (20, 20, 64)
+#: whisper's decoder rows: its self-attention cache holds at most
+#: ``max_position_embeddings`` of them
+AU_ROWS = 448
+#: qwen2-vl-7b's step path (phase 8): ``VL_PATCHES`` stub patches on a
+#: 16 x 16 grid, ``VL_TEXT`` text ids after them, then ``STEPS`` serve
+#: steps, which fill the 4 x ``MAX_LEN`` cache to its last row
+VL_PATCHES = 256
 #: published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
 #: flop/s by operand type (bf16 on the tensor cores, fp32 outside them)
 HBM_BYTES_S = 3.35e12
@@ -270,6 +308,15 @@ TP_LOGIT_TOL_BF16 = 0.1
 #: On an H100 the correct kernel gave 0.047 (|logit| <= 4.1), and the
 #: planted ``drop_v_scale`` 1.38; the limit lies between them.
 INT8_LOGIT_TOL_BF16 = 0.1
+#: fp32 prefill logits of qwen2-vl-7b's step path (vision stub) at full
+#: width and 2 layers, kernel path against plain path: in fp32 they differ
+#: only by summation order, a few 1e-6 of logits of order 1
+VL_LOGIT_TOL_FP32 = 1e-3
+#: bf16 full-depth logits of whisper-large-v3 (32 encoder and 32 decoder
+#: layers) through the step path, kernel path against plain path: the
+#: prefill's and the first step's.  Set between the correct kernels'
+#: reading on an H100 and the planted faults' (PERF.md)
+AU_LOGIT_TOL_BF16 = 0.1
 #: ranks of the tensor-parallel cell
 TP = 2
 #: one-line faults for ``--planted-fault``: (source, regex, replacement)
@@ -439,18 +486,20 @@ def max_err(out, want, dtype_name: str, scaled: bool = False):
 # --------------------------------------------------------------------------- #
 
 
-def decode_case(B: int, dtype, gen, widths=(HEADS, KV_HEADS, HEAD_DIM)):
+def decode_case(B: int, dtype, gen, widths=(HEADS, KV_HEADS, HEAD_DIM),
+                L: int = MAX_LEN):
     """flash_decode inputs at ``widths`` (heads, KV heads, head dim; the
-    served qwen2-1.5b's by default): the slot cache of ``MAX_LEN`` rows
-    with ragged per-slot depths (1 and MAX_LEN included)."""
+    served qwen2-1.5b's by default): the slot cache of ``L`` rows with
+    ragged per-slot depths (1 and L included)."""
     import torch
     h, kh, d = widths
     q = torch.randn((B, 1, h, d), generator=gen, device="cuda", dtype=dtype)
-    k = torch.randn((B, MAX_LEN, kh, d), generator=gen, device="cuda",
+    k = torch.randn((B, L, kh, d), generator=gen, device="cuda",
                     dtype=dtype)
-    v = torch.randn((B, MAX_LEN, kh, d), generator=gen, device="cuda",
+    v = torch.randn((B, L, kh, d), generator=gen, device="cuda",
                     dtype=dtype)
-    lens = [MAX_LEN] if B == 1 else [1, 200, 377, MAX_LEN][:B]
+    lens = ([L] if B == 1 else [1, 200, 377, L][:B] if B <= 4 else
+            [1 + (97 * i) % L for i in range(B - 1)] + [L])
     kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
     return q, k, v, kv_len, kv_len - 1
 
@@ -673,7 +722,8 @@ def check_kernels(timed: bool = True):
         flops = 4 * q.shape[2] * d * sum(n_keys)
         b_ms, b_by = bound(bytes_moved, flops, dn)
         record("flash_decode", dict(
-            dtype=dn, B=B, L=L, kv_len=lens, window=window,
+            dtype=dn, B=B, L=L, window=window,
+            kv_len=lens if B <= 8 else f"{min(lens)}-{max(lens)}, ragged",
             n_split=ops.decode_plan(B, L, q.device)[0], bound_ms=b_ms,
             bound_by=b_by, arch=arch, heads=f"{q.shape[2]}/{kh}", D=d),
             lambda: ops.flash_decode(q, k, v, kv_len=kv_len,
@@ -730,6 +780,15 @@ def check_kernels(timed: bool = True):
                      HY_ARCH)
         dense_decode(*long_decode_case(dtype, gen, hy), HY_WINDOW, 20, False,
                      HY_ARCH)
+        # qwen2-vl-7b (GQA 28/4: the group-of-8 instance) and whisper's
+        # decoder (MHA at head dim 64, its 448 rows; decode_32k's B=128)
+        dense_decode(*decode_case(4, dtype, gen, VL_WIDTHS), None, 200,
+                     False, VL_ARCH)
+        dense_decode(*long_decode_case(dtype, gen, VL_WIDTHS), None, 20,
+                     False, VL_ARCH)
+        for B in (4, 128):
+            dense_decode(*decode_case(B, dtype, gen, AU_WIDTHS, AU_ROWS),
+                         None, 200 if B == 4 else 50, False, AU_ARCH)
         torch.cuda.empty_cache()
         check_int8(record, gen, dtype)
         for B in (1, 4):
@@ -739,6 +798,15 @@ def check_kernels(timed: bool = True):
         # zamba2-7b's shared block: exact-length prompts, one at a time
         for S in HY_PREFILL_S:
             prefill_row(1, S, hy, HY_WINDOW, HY_ARCH)
+        # qwen2-vl-7b: the step path's patches and text, 4 x 512, and the
+        # longest of phase 8's prompts alone; whisper's decoder: phase
+        # 10's prompts and prefill_32k's 32 x 448
+        for B, S in ((4, VL_PATCHES + VL_TEXT), (4, MAX_LEN),
+                     (1, max(len(r.prompt_tokens)
+                             for r in make_requests(12, SEED)))):
+            prefill_row(B, S, VL_WIDTHS, None, VL_ARCH)
+        for B, S in ((STEP_SLOTS, STEP_PROMPT), (32, AU_ROWS)):
+            prefill_row(B, S, AU_WIDTHS, None, AU_ARCH)
         if dtype == torch.bfloat16:
             check_long_prefill(record, gen)
             if timed:
@@ -1019,6 +1087,9 @@ HY_INT8_CASES = [
      HY_WINDOW),
     (LONG_B, LONG_L, HY_HEADS, HY_HEADS, HY_HEAD_DIM, LONG_KV_LEN, HY_WINDOW),
 ]
+#: the int8 decode at qwen2-vl-7b's widths (GQA 28/4 over the group-of-8
+#: instance); no served path runs it, the instance is held here
+VL_INT8_CASES = [(4, MAX_LEN) + VL_WIDTHS + ([1, 200, 377, MAX_LEN], None)]
 #: slots of the decode_32k layer compared with (and timed against) the
 #: plain version: a full layer's K and V dequantized would take 8.6 GB
 #: in fp32
@@ -1090,7 +1161,8 @@ def check_int8(record, gen, dtype) -> None:
                    enable_gqa=True), iters)
 
     cases = ([c + ("",) for c in INT8_CASES]
-             + [c + (HY_ARCH,) for c in HY_INT8_CASES])
+             + [c + (HY_ARCH,) for c in HY_INT8_CASES]
+             + [c + (VL_ARCH,) for c in VL_INT8_CASES])
     for B, L, h, kh, d, lens, window, arch in cases:
         q = torch.randn((B, 1, h, d), generator=gen, device="cuda",
                         dtype=dtype)
@@ -1387,6 +1459,8 @@ def profiled(what: str, fn, annotations=()) -> dict:
 #: PROMPT ids (the reference's prefill_step takes no last_index, so the
 #: prompts share one length), STEPS greedy serve steps
 STEP_SLOTS, STEP_PROMPT, STEPS = 4, 128, 32
+#: qwen2-vl-7b's step path: text ids after the ``VL_PATCHES`` patches
+VL_TEXT = MAX_LEN - VL_PATCHES - STEPS
 
 
 def step_prompts():
@@ -1407,27 +1481,14 @@ def small_cache(cfg, kv_dtype="int8"):
 
 
 def run_steps(cfg, params, attn_impl: str, n_steps: int = STEPS):
-    """``make_prefill_step`` over the prompts into a fresh int8 cache, then
-    ``n_steps`` greedy ``make_serve_step`` steps; returns (tokens (B, 1 +
-    n_steps), host wall seconds of each step, devices synchronised)."""
+    """:func:`step_run` over the prompts into a fresh int8 cache; returns
+    (tokens (B, 1 + n_steps), host wall seconds of each step)."""
     import torch
 
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
-
     prompts = torch.as_tensor(step_prompts(), device=DEVICE)
-    logits, cache = make_prefill_step(cfg, attn_impl=attn_impl)(
-        params, {"tokens": prompts, "cache": small_cache(cfg)})
-    tok = logits[:, -1].argmax(-1).to(torch.int32)
-    serve = make_serve_step(cfg, attn_impl=attn_impl)
-    toks, walls = [tok], []
-    for _ in range(n_steps):
-        synchronize_all()
-        t0 = time.perf_counter()
-        tok, cache = serve(params, tok[:, None], cache)
-        synchronize_all()
-        walls.append(time.perf_counter() - t0)
-        toks.append(tok)
-    return torch.stack(toks, dim=1), walls
+    _, toks, walls, _ = step_run(cfg, params, {"tokens": prompts},
+                                 small_cache(cfg), attn_impl, n_steps)
+    return toks, walls
 
 
 def int8_step_path(cfg, params) -> int:
@@ -1952,9 +2013,10 @@ def planted_fault(kind: str, models) -> dict:
         caught = {}
         for name, rr in rows.items():
             for dn in TOL:
-                # the rows at zamba2-7b's widths (D = 112, (P, N) = (64,
-                # 64)) are tallied apart from the others
-                for arch in ("", HY_ARCH):
+                # the rows at another arch's widths (zamba2-7b: D = 112,
+                # (P, N) = (64, 64); qwen2-vl-7b: GQA 28/4; whisper: D =
+                # 64, MHA) are tallied apart from the others
+                for arch in ("", HY_ARCH, VL_ARCH, AU_ARCH):
                     rs = [r for r in rr if r["dtype"] == dn
                           and r.get("arch", "") == arch]
                     if rs:
@@ -1965,6 +2027,15 @@ def planted_fault(kind: str, models) -> dict:
                             "tol_shares": [r["tol_share"] for r in rs]}
         served = {}
         for cfg, params, requests in models:
+            if cfg.family == "audio":
+                gap, finite = audio_logit_gap(cfg, params)
+                served[cfg.arch_id] = {
+                    "greedy_fp32_caught": not audio_greedy_parity(cfg),
+                    "logit_gaps_bf16": {"plain": gap},
+                    "logit_tol_bf16": AU_LOGIT_TOL_BF16,
+                    "logit_caught": not (finite
+                                         and gap <= AU_LOGIT_TOL_BF16)}
+                continue
             greedy_same = greedy_parity(
                 cfg, requests,
                 depth=HY_PARITY_DEPTH if cfg.family == "hybrid" else 2)
@@ -2630,8 +2701,7 @@ def predictor_phase(oracle_isrtf_jct) -> dict:
     out["runs"] = [run_a, run_b]
     del pred
     gc.collect()
-    if DEVICE != "cpu":
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     log(f"[predictor] phase 7 in {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -2795,12 +2865,15 @@ def window_bench(cfg, params, n: int) -> None:
 # --------------------------------------------------------------------------- #
 
 #: phase 8's archs in order, each with the depth it is served at (None:
-#: full depth).  mixtral-8x7b is 93.4 GB of bf16 weights at its 32
+#: full depth).  qwen2-vl-7b serves text through the engine, as the
+#: reference's does, and its step entry points with the vision stub.
+#: mixtral-8x7b is 93.4 GB of bf16 weights at its 32
 #: layers, one card's worth only under a mesh (ROADMAP queue 1, item 8),
 #: so it is cut to 8 layers.  qwen1.5-32b (70.4 GB) runs last, after every
 #: earlier tensor is freed, and is cut only where it does not fit.
 OTHER_ARCHS = [("qwen2-moe-a2.7b", None), ("llama3.2-3b", None),
-               ("yi-6b", None), ("mixtral-8x7b", 8), ("qwen1.5-32b", None)]
+               ("yi-6b", None), ("mixtral-8x7b", 8), (VL_ARCH, None),
+               ("qwen1.5-32b", None)]
 #: the arch whose step entry points phase 8 runs over an int8 cache
 STEP_ARCH = "qwen2-moe-a2.7b"
 #: device memory a served arch keeps free beside its weights and its two
@@ -2924,7 +2997,153 @@ def moe_decode_window(cfg, params, requests) -> None:
         "no host sync")
 
 
-def other_archs_phase(archs=None) -> None:
+def vision_batch(cfg, seed: int) -> dict:
+    """``STEP_SLOTS`` rows of qwen2-vl-7b's step path, from ``seed``:
+    ``frontend_tokens`` stub patch embeddings (N(0, 0.02), the token
+    embeddings' scale) with 3-D positions on a square grid at temporal 0,
+    then ``MAX_LEN - frontend_tokens - STEPS`` text ids at the next
+    position on all three axes."""
+    import torch
+
+    from repro_torch.models.transformer import DTYPES
+
+    n, b = cfg.frontend_tokens, STEP_SLOTS
+    text = MAX_LEN - n - STEPS
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    side = math.isqrt(n - 1) + 1
+    i = torch.arange(n, device=DEVICE)
+    img = torch.stack([torch.zeros_like(i), i // side, i % side])
+    txt = torch.arange(side, side + text, device=DEVICE).expand(3, text)
+    pos = torch.cat([img, txt], 1)[:, None].expand(3, b, n + text)
+    return {
+        "tokens": torch.randint(8, cfg.vocab_size, (b, text), generator=gen,
+                                device=DEVICE, dtype=torch.int32),
+        "embeds": (torch.randn((b, n, cfg.d_model), generator=gen,
+                               device=DEVICE) * 0.02).to(DTYPES[cfg.dtype]),
+        "positions": pos.to(torch.int32).contiguous()}
+
+
+def step_run(cfg, params, batch, cache, attn_impl: str, n_steps: int):
+    """``make_prefill_step`` over ``batch`` into ``cache``, then
+    ``n_steps`` greedy ``make_serve_step`` steps.  Returns (the prefill
+    logits in fp32, tokens (B, 1 + n_steps), host wall seconds of each
+    step, devices synchronised, the cache)."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    logits, cache = make_prefill_step(cfg, attn_impl=attn_impl)(
+        params, {**batch, "cache": cache})
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    serve = make_serve_step(cfg, attn_impl=attn_impl)
+    toks, walls = [tok], []
+    for _ in range(n_steps):
+        synchronize_all()
+        t0 = time.perf_counter()
+        tok, cache = serve(params, tok[:, None], cache)
+        synchronize_all()
+        walls.append(time.perf_counter() - t0)
+        toks.append(tok)
+    return logits.float(), torch.stack(toks, dim=1), walls, cache
+
+
+def step_logit_gap(cfg, params, batch, make_cache):
+    """The step path's logits, kernel path against plain path on the same
+    inputs: the prefill's (``make_prefill_step`` over ``batch`` into
+    ``make_cache()``) and the first decode step's, both paths fed the
+    kernel path's greedy token.  Returns (max |kernel - plain|, max
+    |logit|, whether the kernel's logits are finite)."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    out, tok = {}, None
+    for impl in ("kernel", "torch"):
+        logits, cache = make_prefill_step(cfg, attn_impl=impl)(
+            params, {**batch, "cache": make_cache()})
+        if tok is None:
+            tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        step, _ = T.decode_step(params, cfg, tok, cache, attn_impl=impl)
+        out[impl] = (logits.float(), step.float())
+        del cache
+    gap = max(float((a - b).abs().max())
+              for a, b in zip(out["kernel"], out["torch"]))
+    scale = max(float(a.abs().max()) for a in out["torch"])
+    finite = all(bool(torch.isfinite(a).all()) for a in out["kernel"])
+    return gap, scale, finite
+
+
+def vlm_steps(cfg, params) -> list:
+    """Phase 8, qwen2-vl-7b's step entry points with the vision stub
+    (:func:`vision_batch`) over an ``input_specs`` bf16 cache of
+    ``STEP_SLOTS`` x ``MAX_LEN`` rows: prefill and ``STEPS`` serve steps
+    through the kernels with every launch count set to 0 just before and
+    read just after; the prefill's and the first step's bf16 logits at the
+    served depth against the plain path within ``LOGIT_TOL_BF16``; and at
+    full width and 2 layers in fp32, greedy tokens of the kernel and plain
+    paths identical and their prefill logits within ``VL_LOGIT_TOL_FP32``.
+    Returns what failed."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    failures = []
+    batch = vision_batch(cfg, SEED + 4)
+    s = batch["positions"].shape[-1]
+    ops.reset_launches()
+    _, toks, walls, cache = step_run(cfg, params, batch,
+                                     small_cache(cfg, None), "kernel", STEPS)
+    launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
+    n = cfg.n_layers
+    check_launches(launches, {
+        "flash_attention": (n, f"{n} layers x 1 prefill"),
+        "flash_decode": (n * STEPS, f"{n} layers x {STEPS} steps")})
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        failures.append(f"{cfg.arch_id} step path: a token lies outside "
+                        "the vocabulary")
+    med = statistics.median(walls) * 1e3
+    log(f"[vlm] make_prefill_step over {cfg.frontend_tokens} stub patches "
+        f"(3-D positions on a grid at temporal 0) and "
+        f"{s - cfg.frontend_tokens} text ids, then {STEPS} make_serve_step steps, {STEP_SLOTS} slots "
+        f"x {MAX_LEN} rows ({int(cache['len'].max())} filled), "
+        f"{describe(cfg)}: step wall median {med:.2f} ms (min "
+        f"{min(walls) * 1e3:.2f}), {STEP_SLOTS / (med / 1e3):.1f} tokens/s; "
+        f"launches: flash_attention {launches['flash_attention']} = {n} x 1 "
+        f"prefill, flash_decode {launches['flash_decode']} = {n} x {STEPS} "
+        f"steps")
+    del cache
+    gap, scale, finite = step_logit_gap(cfg, params, batch,
+                                        lambda: small_cache(cfg, None))
+    log(f"[parity] {cfg.arch_id} bf16, full width, {n} layers, step path "
+        f"with the vision stub: prefill and first step logits, max |kernel "
+        f"- plain| = {gap:.4e} (tol {LOGIT_TOL_BF16}), max |logit| = "
+        f"{scale:.3f}, finite={finite}")
+    if not finite or not gap <= LOGIT_TOL_BF16:
+        failures.append(f"{cfg.arch_id} step path: bf16 logits, kernel - "
+                        f"plain = {gap:.4e} (tol {LOGIT_TOL_BF16})")
+    cfg32, params32 = fp32_model(cfg, 2)
+    batch32 = {**batch, "embeds": batch["embeds"].float()}
+    runs = {impl: step_run(cfg32, params32, batch32,
+                           small_cache(cfg32, None), impl, STEPS)
+            for impl in ("kernel", "torch")}
+    (kl, kt, _, _), (pl, pt, _, _) = runs["kernel"], runs["torch"]
+    gap32 = float((kl - pl).abs().max())
+    same = int((kt == pt).sum())
+    log(f"[parity] {cfg.arch_id} fp32, full width, 2 layers, step path with "
+        f"the vision stub: greedy tokens, kernel vs plain, identical on "
+        f"{same}/{pt.numel()} ({STEP_SLOTS} slots x {1 + STEPS}); prefill "
+        f"logits max |kernel - plain| = {gap32:.4e} (tol "
+        f"{VL_LOGIT_TOL_FP32})")
+    if not torch.equal(kt, pt) or not gap32 <= VL_LOGIT_TOL_FP32:
+        failures.append(f"{cfg.arch_id} fp32 step path: tokens identical on "
+                        f"{same}/{pt.numel()}, logit gap {gap32:.4e}")
+    return failures
+
+
+def other_archs_phase(archs=None) -> dict:
     """Phase 8: each arch of ``archs`` (default :data:`OTHER_ARCHS`) in
     bf16 at full width, from random weights, through ``ElisServer`` with
     the oracle and ISRTF (phase 4's served path: 4 slots, ``MAX_LEN``, a
@@ -2932,16 +3151,18 @@ def other_archs_phase(archs=None) -> None:
     window profiled, its first prefill logits against the plain path at
     the served depth, and beforehand its fp32 greedy tokens, kernel engine
     against plain engine, at full width and 2 layers.  The MoE archs also
-    run a decode window under sync-debug (:func:`moe_decode_window`), and
-    :data:`STEP_ARCH` the step entry points over an int8 cache.  Every
-    check is made for every arch before the phase fails."""
+    run a decode window under sync-debug (:func:`moe_decode_window`),
+    :data:`STEP_ARCH` the step entry points over an int8 cache and
+    qwen2-vl-7b its step entry points with the vision stub
+    (:func:`vlm_steps`).  Every check is made for every arch before the
+    phase fails.  Returns each arch's served-path launch counts."""
     import torch
 
     from repro_torch.configs import get_config
 
     archs = OTHER_ARCHS if archs is None else archs
     requests = make_requests(12, SEED)
-    failures = []
+    failures, launches = [], {}
     for arch, depth in archs:
         t0 = time.perf_counter()
         cfg = get_config(arch)
@@ -2969,7 +3190,7 @@ def other_archs_phase(archs=None) -> None:
             f"param_count {cfg.param_count():,} at this depth, "
             f"{full.param_count():,} at {full.n_layers} layers "
             f"(active {full.active_param_count():,})")
-        served_path(cfg, params, requests)
+        launches[arch] = served_path(cfg, params, requests)
         if cfg.moe.enabled:
             moe_decode_window(cfg, params, requests)
             raw, gap, flips, finite = moe_prefill_logit_gaps(cfg, params,
@@ -2984,12 +3205,15 @@ def other_archs_phase(archs=None) -> None:
                             f"= {gap:.4e} (tol {LOGIT_TOL_BF16})")
         if arch == STEP_ARCH:
             int8_step_path(cfg, params)
+        if arch == VL_ARCH:
+            failures += vlm_steps(cfg, params)
         del params
         gc.collect()
         torch.cuda.empty_cache()
         log(f"[archs] {arch} in {time.perf_counter() - t0:.1f} s")
     if failures:
         raise AssertionError("phase 8: " + "; ".join(failures))
+    return launches
 
 
 # --------------------------------------------------------------------------- #
@@ -3107,6 +3331,273 @@ def hybrid_phase() -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 10: the audio family (whisper-large-v3)
+# --------------------------------------------------------------------------- #
+
+
+def audio_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """``b`` prompts of ``s`` random ids and their stub frame embeddings
+    (b, n_frames, d_model), N(0, 1) in the config's dtype, from
+    ``seed``."""
+    import torch
+
+    from repro_torch.models.transformer import DTYPES
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return {"tokens": torch.randint(8, cfg.vocab_size, (b, s), generator=gen,
+                                    device=DEVICE, dtype=torch.int32),
+            "frames": torch.randn((b, cfg.encoder.n_frames, cfg.d_model),
+                                  generator=gen, device=DEVICE).to(
+                                      DTYPES[cfg.dtype])}
+
+
+def audio_cache(cfg, b: int):
+    """An ``input_specs`` decode cache of ``b`` slots: ``AU_ROWS``
+    self-attention rows and the cross-K/V beside them."""
+    from repro_torch.launch.shapes import InputShape, input_specs
+    return input_specs(cfg, InputShape("serve_448", AU_ROWS, b, "decode"),
+                       device=DEVICE)["cache"]
+
+
+def audio_depth(cfg, n: int):
+    """``cfg`` cut to ``n`` encoder and ``n`` decoder layers."""
+    return dataclasses.replace(cfg, n_layers=n, encoder=dataclasses.replace(
+        cfg.encoder, n_layers=n))
+
+
+def audio_greedy_parity(cfg) -> bool:
+    """fp32 greedy tokens of the step path at full width and 2 + 2 layers,
+    kernel path against plain path, over ``STEP_SLOTS`` prompts of
+    ``STEP_PROMPT`` ids and their frames, ``STEPS`` steps: identical?"""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    cfg2 = dataclasses.replace(audio_depth(cfg, 2), dtype="float32")
+    params2 = T.init_params(
+        cfg2, torch.Generator(device=DEVICE).manual_seed(SEED + 1))
+    batch = audio_batch(cfg2, STEP_SLOTS, STEP_PROMPT, SEED + 5)
+    (kl, kt, _, _), (pl, pt, _, _) = (
+        step_run(cfg2, params2, batch, audio_cache(cfg2, STEP_SLOTS), impl,
+                 STEPS) for impl in ("kernel", "torch"))
+    same = int((kt == pt).sum())
+    log(f"[parity] {cfg.arch_id} fp32, full width, 2 + 2 layers, step path "
+        f"over frames: greedy tokens, kernel vs plain, identical on "
+        f"{same}/{pt.numel()} ({STEP_SLOTS} prompts x {1 + STEPS}); prefill "
+        f"logits max |kernel - plain| = {float((kl - pl).abs().max()):.4e}")
+    return bool(torch.equal(kt, pt))
+
+
+def audio_logit_gap(cfg, params):
+    """bf16 logits at full width and depth, kernel path against plain
+    path (:func:`step_logit_gap`) over phase 10's prompts and frames.
+    Returns (gap, finite)."""
+    gap, scale, finite = step_logit_gap(
+        cfg, params, audio_batch(cfg, STEP_SLOTS, STEP_PROMPT, SEED + 5),
+        lambda: audio_cache(cfg, STEP_SLOTS))
+    log(f"[parity] {cfg.arch_id} bf16, full width, {cfg.encoder.n_layers} + "
+        f"{cfg.n_layers} layers: prefill and first step logits, max |kernel "
+        f"- plain| = {gap:.4e} (tol {AU_LOGIT_TOL_BF16}), max |logit| = "
+        f"{scale:.3f}, finite={finite}")
+    return gap, finite
+
+
+def audio_prefill_32k(cfg, params) -> None:
+    """prefill_32k: one ``make_prefill_step`` at B=32 over ``input_specs``
+    inputs filled on the card (448 decoder ids and 1500 frames a row),
+    its launches, wall time and the peak memory allocated."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.shapes import SHAPES, input_specs
+    from repro_torch.launch.steps import make_prefill_step
+
+    shape = SHAPES["prefill_32k"]
+    if DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    specs = input_specs(cfg, shape, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    specs["tokens"].random_(8, cfg.vocab_size, generator=gen)
+    specs["frames"].normal_(generator=gen)
+    b, s = specs["tokens"].shape
+    ops.reset_launches()
+    synchronize_all()
+    t0 = time.perf_counter()
+    logits, cache = make_prefill_step(cfg)(params, specs)
+    synchronize_all()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
+    n = cfg.n_layers
+    check_launches(launches, {"flash_attention": (n, f"{n} decoder layers "
+                                                     "x 1 prefill")})
+    if not (bool(torch.isfinite(logits).all())
+            and tuple(logits.shape) == (b, 1, cfg.vocab_size)):
+        raise AssertionError(f"prefill_32k: logits {tuple(logits.shape)} "
+                             "not finite or of the wrong shape")
+    peak = torch.cuda.max_memory_allocated() if DEVICE != "cpu" else 0
+    kv, cross = cache["kv"], cache["cross_kv"]
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in (kv.k, kv.v, cross.k, cross.v))
+    log(f"[audio] prefill_32k: make_prefill_step, B={b} x {s} decoder ids "
+        f"over {b} x {cfg.encoder.n_frames} frames: {wall * 1e3:.1f} ms "
+        f"wall (the {cfg.encoder.n_layers}-layer encoder's attention plain, "
+        f"as in the reference); flash_attention "
+        f"{launches['flash_attention']} = {n} x 1 prefill; cache "
+        f"{cache_bytes / 1e9:.2f} GB (self and cross K/V); peak memory "
+        f"allocated {peak / 1e9:.2f} GB")
+
+
+def audio_decode_32k(cfg, params) -> None:
+    """decode_32k: ``make_serve_step`` at B=128 over an ``input_specs``
+    cache filled on the card in place (random self and cross K/V, every
+    slot's ``len`` below 448): one warm-up step and 5 timed ones (median),
+    their launches, the cache's bytes and the peak memory."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.shapes import SHAPES, input_specs
+    from repro_torch.launch.steps import make_serve_step
+
+    shape = SHAPES["decode_32k"]
+    if DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    specs = input_specs(cfg, shape, device=DEVICE)
+    cache = specs["cache"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    kv, cross = cache["kv"], cache["cross_kv"]
+    for buf in (kv.k, kv.v, cross.k, cross.v):
+        for layer in buf:
+            layer.normal_(generator=gen)
+    b, rows = kv.k.shape[1], kv.k.shape[2]
+    cache["len"].copy_(torch.randint(rows // 2, rows - 8, (b,),
+                                     generator=gen, device=DEVICE))
+    tok = specs["tokens"][:, 0].random_(8, cfg.vocab_size, generator=gen)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in (kv.k, kv.v, cross.k, cross.v))
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      _tensors(params))
+    serve = make_serve_step(cfg)
+    ops.reset_launches()
+    walls = []
+    for i in range(6):
+        synchronize_all()
+        t0 = time.perf_counter()
+        tok, cache = serve(params, tok[:, None], cache)
+        synchronize_all()
+        if i:
+            walls.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
+    n = cfg.n_layers
+    check_launches(launches, {"flash_decode": (6 * n, f"{n} layers x 6 "
+                                                      "steps")})
+    if not bool(((tok >= 0) & (tok < cfg.vocab_size)).all()):
+        raise AssertionError("decode_32k: a token lies outside the "
+                             "vocabulary")
+    peak = torch.cuda.max_memory_allocated() if DEVICE != "cpu" else 0
+    bound = (cache_bytes + param_bytes) / HBM_BYTES_S * 1e3
+    log(f"[audio] decode_32k: make_serve_step, B={b}, self-attention cache "
+        f"of {rows} rows (len {int(cache['len'].min())}-"
+        f"{int(cache['len'].max())} after the steps) and cross-K/V over "
+        f"{cfg.encoder.n_frames} frames, {cache_bytes / 1e9:.2f} GB: step "
+        f"wall median {statistics.median(walls) * 1e3:.2f} ms over 5 (min "
+        f"{min(walls) * 1e3:.2f}; after 1 warm-up); bound {bound:.2f} ms "
+        f"(cache and weights read once at 3.35 TB/s); flash_decode "
+        f"{launches['flash_decode']} = {n} x 6 steps; peak memory allocated "
+        f"{peak / 1e9:.2f} GB")
+
+
+def audio_phase() -> dict:
+    """Phase 10: whisper-large-v3 in bf16 at full width, 32 encoder and 32
+    decoder layers, from random weights, through the step entry points
+    (``launch/steps.py``; the engine serves no audio prefill): fp32 greedy
+    tokens of the kernel and plain paths at 2 + 2 layers first; then
+    ``STEP_SLOTS`` prompts of ``STEP_PROMPT`` ids over their frames and
+    ``STEPS`` serve steps with launch counts reset before and read after
+    (``flash_attention`` 32 a prefill: the encoder and the cross-attention
+    launch none; ``flash_decode`` 32 a step), one step profiled, bf16
+    logits against the plain path within ``AU_LOGIT_TOL_BF16``; then
+    prefill_32k and decode_32k.  Returns the launch counts of the first
+    step run."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_serve_step
+
+    t0 = time.perf_counter()
+    cfg = get_config(AU_ARCH)
+    if DEVICE == "cpu":  # a rehearsal: reduced widths, the published rows
+        cfg = dataclasses.replace(
+            cfg.reduced(), dtype="bfloat16",
+            max_position_embeddings=cfg.max_position_embeddings)
+    failures = []
+    if not audio_greedy_parity(cfg):
+        failures.append("fp32 greedy tokens differ between the kernel and "
+                        "plain step paths")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() if DEVICE != "cpu" else 0
+    params = random_params(cfg)
+    held = sum(t.numel() * t.element_size() for t in _tensors(params))
+    count = sum(t.numel() for t in _tensors(params))
+    alloc = torch.cuda.memory_allocated() - base if DEVICE != "cpu" else held
+    log(f"[audio] {cfg.arch_id}: {cfg.encoder.n_layers} encoder layers over "
+        f"{cfg.encoder.n_frames} frames, {cfg.n_layers} decoder layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}; weights: {held / 1e9:.3f} GB in {count:,} "
+        f"parameters, {alloc / 1e9:.3f} GB allocated; param_count "
+        f"{cfg.param_count():,}")
+    batch = audio_batch(cfg, STEP_SLOTS, STEP_PROMPT, SEED + 5)
+    ops.reset_launches()
+    _, toks, walls, cache = step_run(cfg, params, batch,
+                                     audio_cache(cfg, STEP_SLOTS), "kernel",
+                                     STEPS)
+    launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
+    n = cfg.n_layers
+    check_launches(launches, {
+        "flash_attention": (n, f"{n} decoder layers x 1 prefill"),
+        "flash_decode": (n * STEPS, f"{n} decoder layers x {STEPS} steps")})
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        failures.append("a generated token lies outside the vocabulary")
+    med = statistics.median(walls) * 1e3
+    log(f"[audio] make_prefill_step ({STEP_SLOTS} prompts of {STEP_PROMPT} "
+        f"ids over their frames) and {STEPS} make_serve_step steps over an "
+        f"input_specs cache of {STEP_SLOTS} x {AU_ROWS} rows: step wall "
+        f"median {med:.2f} ms (min {min(walls) * 1e3:.2f}), "
+        f"{STEP_SLOTS / (med / 1e3):.1f} tokens/s; launches: "
+        f"flash_attention {launches['flash_attention']} = {n} x 1 prefill, "
+        f"flash_decode {launches['flash_decode']} = {n} x {STEPS} steps "
+        f"(all counts: {json.dumps(launches)})")
+    last = toks[:, -1]
+    profiled(f"{cfg.arch_id}: one make_serve_step ({STEP_SLOTS} slots, "
+             f"{n} decoder layers)",
+             lambda: make_serve_step(cfg)(params, last[:, None], cache))
+    del cache
+    gap, finite = audio_logit_gap(cfg, params)
+    if not finite or not gap <= AU_LOGIT_TOL_BF16:
+        failures.append(f"bf16 logits, kernel - plain = {gap:.4e} (tol "
+                        f"{AU_LOGIT_TOL_BF16})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    audio_prefill_32k(cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    audio_decode_32k(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[audio] phase 10 in {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError("phase 10: " + "; ".join(failures))
+    return launches
+
+
 def random_params(cfg):
     """``transformer.init_params`` on the card from ``SEED``."""
     import torch
@@ -3163,7 +3654,8 @@ def main(argv=None) -> None:
     if args.planted_fault:
         hy = get_config(HY_ARCH)
         with_params = [(cfg, random_params(cfg), reqs) for cfg, reqs in
-                       models + [(hy, hybrid_requests(hy))]]
+                       models + [(hy, hybrid_requests(hy)),
+                                 (get_config(AU_ARCH), None)]]
         for kind in args.planted_fault:
             result = (tp_planted_fault(*with_params[0])
                       if kind == "drop_rank_partial"
@@ -3250,11 +3742,14 @@ def main(argv=None) -> None:
 
     # phase 8: the other archs at full width, qwen1.5-32b last
     t0 = time.perf_counter()
-    other_archs_phase()
+    archs = other_archs_phase()
     log(f"[archs] phase 8 in {time.perf_counter() - t0:.1f} s ({smi})")
 
     # phase 9: the hybrid family, zamba2-7b at full width and depth
     hybrid = hybrid_phase()
+
+    # phase 10: the audio family, whisper-large-v3 at full width and depth
+    audio = audio_phase()
 
     served = {"flash_decode": dict(dtype="bfloat16", B=4, window=None),
               "flash_decode_int8": dict(dtype="bfloat16", B=4, D=HEAD_DIM,
@@ -3279,10 +3774,19 @@ def main(argv=None) -> None:
     hy_rows = {"flash_decode": dict(dtype="bfloat16", B=4, L=MAX_LEN),
                "flash_attention": dict(dtype="bfloat16", B=1, S=MAX_LEN),
                "ssd_scan": dict(dtype="bfloat16", S=512, chunk=256, pad=0)}
+    # qwen2-vl-7b's shapes with phase 8's launches, whisper's with phase
+    # 10's
+    vl_rows = {"flash_decode": dict(dtype="bfloat16", B=4, L=MAX_LEN),
+               "flash_attention": dict(dtype="bfloat16", B=4, S=MAX_LEN)}
+    au_rows = {"flash_decode": dict(dtype="bfloat16", B=4, L=AU_ROWS),
+               "flash_attention": dict(dtype="bfloat16", B=STEP_SLOTS,
+                                       S=STEP_PROMPT)}
     kernels = []
     for name, key, counts, arch in (
             [(n, k, launches, "") for n, k in served.items()]
-            + [(n, k, hybrid, HY_ARCH) for n, k in hy_rows.items()]):
+            + [(n, k, hybrid, HY_ARCH) for n, k in hy_rows.items()]
+            + [(n, k, archs[VL_ARCH], VL_ARCH) for n, k in vl_rows.items()]
+            + [(n, k, audio, AU_ARCH) for n, k in au_rows.items()]):
         r = next(r for r in rows[name]
                  if r.get("arch", "") == arch
                  and all(r[k] == v for k, v in key.items()))

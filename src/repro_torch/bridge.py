@@ -85,11 +85,13 @@ def cache_from_numpy(length, k, v, *, k_scale=None, v_scale=None,
 
 
 def cache_to_numpy(cache) -> Dict[str, Any]:
-    """The port's dense or hybrid cache dict -> numpy arrays ``length``,
-    ``k``, ``v`` (and ``k_scale``, ``v_scale`` when it is int8; and the
-    hybrid's ``groups_ssm`` and ``tail_ssm`` dicts), the keyword arguments
-    of :func:`cache_from_numpy` or :func:`hybrid_cache_from_numpy` less
-    ``ring``; bfloat16 buffers come back as float32."""
+    """The port's dense, vlm, hybrid or audio cache dict -> numpy arrays
+    ``length``, ``k``, ``v`` (and ``k_scale``, ``v_scale`` when it is
+    int8; the hybrid's ``groups_ssm`` and ``tail_ssm`` dicts; the audio
+    family's ``cross_k`` and ``cross_v``), the keyword arguments of
+    :func:`cache_from_numpy`, :func:`hybrid_cache_from_numpy` or
+    :func:`audio_cache_from_numpy` less ``ring``; bfloat16 buffers come
+    back as float32."""
     kv = cache["kv"]
     out = {"length": cache["len"]}
     for name in ("groups_ssm", "tail_ssm"):
@@ -98,7 +100,25 @@ def cache_to_numpy(cache) -> Dict[str, Any]:
     out.update(k=kv.k, v=kv.v)
     if kv.quantized:
         out.update(k_scale=kv.k_scale, v_scale=kv.v_scale)
+    if "cross_kv" in cache:
+        out.update(cross_k=cache["cross_kv"].k, cross_v=cache["cross_kv"].v)
     return params_to_numpy(out)
+
+
+def audio_cache_from_numpy(length, k, v, cross_k, cross_v, *, k_scale=None,
+                           v_scale=None, device="cuda",
+                           dtype: Optional[torch.dtype] = None):
+    """A JAX audio-family decode cache (its ``len`` vector, the
+    self-attention ``KVCache`` buffers (n_layers, B, L, KH, D), with
+    ``k_scale``/``v_scale`` for an int8 cache, and the ``cross_kv``
+    buffers ``cross_k``/``cross_v`` (n_layers, B, n_frames, H, d_model //
+    H), as numpy arrays) -> the port's cache dict."""
+    dev = resolve_device(device)
+    cache = cache_from_numpy(length, k, v, k_scale=k_scale, v_scale=v_scale,
+                             device=dev, dtype=dtype)
+    cache["cross_kv"] = KVCache(_tensor(cross_k, dev, dtype),
+                                _tensor(cross_v, dev, dtype))
+    return cache
 
 
 def hybrid_cache_from_numpy(length, groups_ssm, k, v, *, tail_ssm=None,

@@ -1,5 +1,6 @@
 """Architecture configuration registry (``--arch <id>``)."""
 from repro_torch.configs.base import (
+    EncoderConfig,
     HybridConfig,
     ModelConfig,
     MoEConfig,
@@ -9,5 +10,5 @@ from repro_torch.configs.base import (
     register,
 )
 
-__all__ = ["HybridConfig", "ModelConfig", "MoEConfig", "SSMConfig",
-           "get_config", "list_archs", "register"]
+__all__ = ["EncoderConfig", "HybridConfig", "ModelConfig", "MoEConfig",
+           "SSMConfig", "get_config", "list_archs", "register"]

@@ -1,12 +1,12 @@
-"""Model configuration for the PyTorch port (dense, MoE, SSM and hybrid
-families).
+"""Model configuration for the PyTorch port (every family of the
+reference: dense, MoE, SSM, hybrid, vlm and audio).
 
-A trimmed copy of ``repro.configs.base``: :class:`ModelConfig` keeps the
-fields the dense decoder, the MoE decoder, the Mamba2 stack and the
-zamba2-style hybrid read, with the same defaults, the same ``head_dim``
-rule, the same ``reduced()`` sizes and the same analytic ``param_count``,
-so a reference config and its port describe identical parameter shapes.
-The encoder sub-config arrives with the slice that ports its family.
+A copy of ``repro.configs.base``: :class:`ModelConfig` keeps the fields
+the families read, with the same defaults, the same ``head_dim`` rule, the
+same ``reduced()`` sizes and the same analytic ``param_count``, so a
+reference config and its port describe identical parameter shapes.  The
+vlm and audio families' modality frontends are stubs, as in the
+reference: the model takes precomputed patch or frame embeddings.
 """
 from __future__ import annotations
 
@@ -72,12 +72,27 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder tower for encoder-decoder (whisper) architectures."""
+
+    n_layers: int = 0
+    #: number of positions the (stubbed) conv frontend produces per sample
+    n_frames: int = 0
+
+    @property
+    def enabled(self) -> bool:
+        return self.n_layers > 0
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description of a dense or MoE decoder, a Mamba2 stack
-    or a Mamba2 stack with a shared attention block (hybrid)."""
+    """Architecture description of a dense or MoE decoder, a Mamba2 stack,
+    a Mamba2 stack with a shared attention block (hybrid), a dense decoder
+    over stub patch embeddings (vlm) or an encoder-decoder over stub frame
+    embeddings (audio)."""
 
     arch_id: str
-    family: str  # dense | moe | ssm | hybrid (the families this port serves)
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -89,13 +104,15 @@ class ModelConfig:
     head_dim: int = 0  # 0 -> d_model // n_heads
     qkv_bias: bool = False
     tie_embeddings: bool = False
-    norm: str = "rmsnorm"
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
     norm_eps: float = 1e-5
-    activation: str = "silu"
+    activation: str = "silu"  # silu (gated) | gelu (whisper's plain MLP)
     gated_mlp: bool = True
 
-    rope_type: str = "rope"
+    rope_type: str = "rope"  # rope | mrope | learned
     rope_theta: float = 10000.0
+    #: M-RoPE section split (temporal, height, width) for qwen2-vl
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
     max_position_embeddings: int = 131072
 
     attention_type: str = "full"  # full | swa
@@ -105,6 +122,12 @@ class ModelConfig:
     moe: MoEConfig = field(default_factory=MoEConfig)
     ssm: SSMConfig = field(default_factory=SSMConfig)
     hybrid: HybridConfig = field(default_factory=HybridConfig)
+    encoder: EncoderConfig = field(default_factory=EncoderConfig)
+
+    #: modality frontend stub: none | vision_stub | audio_stub
+    frontend: str = "none"
+    #: number of stub embeddings injected per request (patches / frames)
+    frontend_tokens: int = 0
 
     dtype: str = "bfloat16"
 
@@ -137,7 +160,7 @@ class ModelConfig:
         qwen2-moe-a2.7b 16.807 B counted, 14.316 B built)."""
         d = self.d_model
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        if self.family in ("dense", "moe", "hybrid"):
+        if self.family in ("dense", "moe", "vlm", "audio", "hybrid"):
             attn = (d * self.n_heads * self.head_dim
                     + 2 * d * self.n_kv_heads * self.head_dim
                     + self.n_heads * self.head_dim * d)
@@ -173,7 +196,13 @@ class ModelConfig:
             body = self.n_layers * (ssm + norms)
         else:
             body = self.n_layers * (attn + ffn + norms)
-        return emb + body + d  # final norm
+        enc = 0
+        if self.encoder.enabled:
+            enc = self.encoder.n_layers * (4 * d * d + 2 * d * self.d_ff
+                                           + 2 * d)
+            # the decoder's cross-attention
+            body += self.n_layers * (4 * d * d + d)
+        return emb + body + enc + d  # final norm
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: only top_k + shared experts)."""
@@ -202,6 +231,7 @@ class ModelConfig:
             vocab_size=min(self.vocab_size, 512),
             max_position_embeddings=2048,
             swa_window=64,
+            frontend_tokens=min(self.frontend_tokens, 8),
             dtype="float32",
         )
         if self.moe.enabled:
@@ -221,7 +251,20 @@ class ModelConfig:
         if self.hybrid.enabled:
             kw["n_layers"] = 4
             kw["hybrid"] = replace(self.hybrid, attn_every=2)
+        if self.encoder.enabled:
+            kw["encoder"] = replace(self.encoder, n_layers=2, n_frames=16)
+        if self.rope_type == "mrope":
+            kw["mrope_sections"] = _mrope_sections_for(head_dim)
         return replace(self, **kw)
+
+
+def _mrope_sections_for(head_dim: int) -> Tuple[int, int, int]:
+    """(temporal, height, width) bands over the ``head_dim // 2`` rotary
+    frequencies of a reduced M-RoPE config."""
+    half = head_dim // 2
+    t = half // 2
+    h = (half - t) // 2
+    return (t, h, half - t - h)
 
 
 # --------------------------------------------------------------------------- #
@@ -268,6 +311,8 @@ def _ensure_loaded() -> None:
         qwen1_5_32b,
         qwen2_1_5b,
         qwen2_moe_a2_7b,
+        qwen2_vl_7b,
+        whisper_large_v3,
         yi_6b,
         zamba2_7b,
     )

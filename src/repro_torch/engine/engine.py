@@ -1,8 +1,9 @@
 """PyTorch inference engine — the port of ``repro.engine.engine``.
 
 A fixed-capacity **slot** cache: every decode slot owns a contiguous KV
-region (dense and MoE families), a recurrent state (SSM family) or both
-(hybrid family) of a statically-shaped batched cache, and slots advance
+region (dense, MoE and vlm families; the audio family's cache adds its
+cross-attention K/V), a recurrent state (SSM family) or both (hybrid
+family) of a statically-shaped batched cache, and slots advance
 independently (per-slot ``len`` vector).  Preemption is slot eviction plus recompute on resume, or
 a swap of the slot's cache to host memory and back (``offload_job`` /
 ``restore_job``).
@@ -47,6 +48,12 @@ and the frontend see one engine.  :func:`make_tp_pods` builds data-parallel
 pods of such engines.  Chunked prefill and KV swap under a mesh raise
 ``NotImplementedError``.
 
+The vlm family serves text only, as the reference's engine does: a job's
+tokens, with their positions on all three M-RoPE axes.  An audio engine
+builds its cache (``cross_kv`` included) but raises
+``NotImplementedError`` at its first prefill
+(:data:`AUDIO_PREFILL_NOT_SERVED`).
+
 ``EngineExecutor.calibrated_profile`` fits the measured window durations
 back onto the simulator's latency model (live-to-simulator calibration).
 """
@@ -70,6 +77,13 @@ from repro_torch.launch import partition as P
 from repro_torch.launch.mesh import make_mesh, pod_meshes
 from repro_torch.models import transformer as T
 from repro_torch.simulate.profiles import CALIBRATION_MEAN_TOKENS, ModelProfile
+
+#: why an audio engine admits no job (ROADMAP.md §3, "differs on purpose")
+AUDIO_PREFILL_NOT_SERVED = (
+    "the engine serves no audio prefill: a job carries prompt tokens and "
+    "no frames for the encoder (the reference's engine passes tokens only, "
+    "so its encode_audio raises KeyError); run the audio family through "
+    "launch.steps.make_prefill_step with batch['frames']")
 
 #: recurrent-state families prefill at exact length (pad positions would be
 #: absorbed into the state), so they keep serial batch-1 admission
@@ -507,7 +521,10 @@ class InferenceEngine:
 
     def _admit(self, jobs: Sequence[Job]) -> List[int]:
         """One prefill dispatch admitting ``jobs`` (``add_jobs`` has checked
-        that they fit)."""
+        that they fit).  The audio family raises ``NotImplementedError``:
+        a job carries no frames for its encoder."""
+        if self.model_cfg.family == "audio":
+            raise NotImplementedError(AUDIO_PREFILL_NOT_SERVED)
         token_lists = [self._resume_tokens(j) for j in jobs]
         true_lens = [len(t) for t in token_lists]
         longest = max(true_lens)

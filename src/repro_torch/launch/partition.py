@@ -70,6 +70,12 @@ _TP_DESIGN = {
            "parallel) and the router a replicated read",
     "hybrid": "its Mamba2 backbone shares the SSM family's packed in_proj, "
               "and its shared attention block a split of its own",
+    "vlm": "its patch embeddings and 3-D M-RoPE positions enter the "
+           "prefill beside the vocab-parallel embedding, which the dense TP "
+           "path does not take",
+    "audio": "its encoder, its 20/20-head self-attention and the "
+             "cross-attention K/V over the 1500 frames each need a split of "
+             "their own",
 }
 
 

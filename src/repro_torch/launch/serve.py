@@ -19,8 +19,11 @@ Prints one JSON line per request and a summary on stderr.  ``--predictor
 bge`` ranks with the BGE length predictor (a small encoder, random from
 seed 0 unless ``--predictor-ckpt`` restores a trained one, on
 ``--device``).  Chunked prefill and swap under ``--mesh``, and ``--mesh``
-with an arch of a family the TP path does not serve (SSM, MoE), are not
-ported yet and exit at launch with the ROADMAP item that ports them.
+with an arch of a family the TP path does not serve (SSM, MoE, hybrid,
+vlm, audio), are not ported yet and exit at launch with the ROADMAP item
+that ports them.  ``--arch qwen2-vl-7b`` serves text, as the reference's
+CLI does; ``--arch whisper-large-v3`` exits at launch: a request carries
+no audio frames for its encoder.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ from repro_torch.data.workload import (
     scale_workload_requests,
 )
 from repro_torch.device import resolve_device
+from repro_torch.engine.engine import AUDIO_PREFILL_NOT_SERVED
 from repro_torch.engine import (
     EngineConfig,
     EngineExecutor,
@@ -197,6 +201,9 @@ def _refuse_unported(args) -> None:
                       or args.preempt_policy != "recompute"):
         sys.exit(f"--mesh with --prefill-chunk or --preempt-policy "
                  f"{args.preempt_policy}: {MESH_CHUNK_NOT_PORTED}")
+    if get_config(args.arch).family == "audio":
+        sys.exit(f"--arch {args.arch}: {AUDIO_PREFILL_NOT_SERVED} "
+                 "(ROADMAP.md, section 3)")
     if args.mesh:
         try:
             check_family(get_config(args.arch))

@@ -48,8 +48,8 @@ def supported(cfg, shape: InputShape) -> bool:
 
 
 def _decoder_seq(cfg, seq_len: int) -> int:
-    """The decoder's sequence length (capped for the audio family, which
-    the port does not serve yet)."""
+    """The decoder's sequence length: whisper's is architecturally capped
+    at ``max_position_embeddings``."""
     if cfg.family == "audio":
         return min(seq_len, cfg.max_position_embeddings)
     return seq_len
@@ -68,12 +68,12 @@ def input_specs(cfg, shape: InputShape, *, kv_dtype: Optional[str] = None,
     "cuda"): ``tokens`` (and ``labels`` for train), and for prefill and
     decode the ``cache`` of ``transformer.init_cache`` (a ring of
     :data:`LONG_CONTEXT_WINDOW` rows for long_500k on sliding-window archs;
-    ``kv_dtype="int8"`` for the quantized cache).  Raises
-    ``NotImplementedError`` for the families the port does not serve."""
-    if cfg.family not in T.FAMILIES:
-        raise NotImplementedError(
-            f"input_specs: family {cfg.family!r} is not ported yet "
-            f"(ported: {T.FAMILIES})")
+    ``kv_dtype="int8"`` for the quantized cache).  Train and prefill
+    shapes of the vlm family also hold the stub patch embeddings
+    ``embeds`` (B, frontend_tokens, d_model) and their 3-D ``positions``
+    (3, B, S), with S - frontend_tokens text ``tokens``; those of the
+    audio family the stub frame embeddings ``frames`` (B, n_frames,
+    d_model), its decoder capped at ``max_position_embeddings``."""
     dev = torch.device(device)
     if dev.type != "meta":
         dev = resolve_device(device)
@@ -83,12 +83,28 @@ def input_specs(cfg, shape: InputShape, *, kv_dtype: Optional[str] = None,
     def tokens(n):
         return torch.zeros((b, n), dtype=torch.int32, device=dev)
 
+    def stub(n):
+        return torch.zeros((b, n, cfg.d_model), dtype=T.DTYPES[cfg.dtype],
+                           device=dev)
+
+    out: Dict = {}
+    if shape.kind in ("train", "prefill"):
+        text_s = s
+        if cfg.family == "vlm":
+            text_s = s - cfg.frontend_tokens
+            out["embeds"] = stub(cfg.frontend_tokens)
+            out["positions"] = torch.zeros((3, b, s), dtype=torch.int32,
+                                           device=dev)
+        if cfg.family == "audio":
+            out["frames"] = stub(cfg.encoder.n_frames)
+        out["tokens"] = tokens(text_s)
     if shape.kind == "train":
-        return {"tokens": tokens(s), "labels": tokens(s)}
+        out["labels"] = tokens(s)
+        return out
     if shape.kind == "prefill":
-        return {"tokens": tokens(s),
-                "cache": T.init_cache(cfg, b, s, dev, kv_dtype=kv_dtype,
-                                      sliding_window=_window(cfg, shape))}
+        out["cache"] = T.init_cache(cfg, b, s, dev, kv_dtype=kv_dtype,
+                                    sliding_window=_window(cfg, shape))
+        return out
     return {"tokens": tokens(1),
             "cache": T.init_cache(cfg, b, shape.seq_len, dev,
                                   kv_dtype=kv_dtype,

@@ -11,8 +11,10 @@ returns new ones).  ``attn_impl="kernel"`` runs the hand-written kernels
 through ``flash_decode_int8``, over a dense one through
 ``flash_decode``); ``"torch"`` the plain path.  ``moe_impl`` picks the MoE
 block of both steps, ``"dense"`` by default as in the reference (the
-engine's decode runs ``"grouped"``).  The training step waits for the port
-of the training stack.
+engine's decode runs ``"grouped"``).  The prefill step hands every input
+of its batch but the cache to ``transformer.prefill``: the vlm family's
+``embeds`` and ``positions`` and the audio family's ``frames`` too.  The
+training step waits for the port of the training stack.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Transformer building blocks in PyTorch: the dense subset of
+"""Transformer building blocks in PyTorch: the port of
 ``repro.models.layers``.
 
 Parameters keep the reference's layout: plain nested dicts of tensors,
@@ -173,9 +173,18 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def apply_norm(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
+    if cfg.norm == "layernorm":
+        return layernorm(p, x, cfg.norm_eps)
     return rmsnorm(p, x, cfg.norm_eps)
+
+
+def init_norm(cfg, dim: int, dtype=torch.float32, *,
+              lead: Tuple[int, ...] = (), device=None) -> Params:
+    """The norm ``cfg.norm`` names, of shape lead + (dim,): a unit scale,
+    and a zero bias for LayerNorm."""
+    if cfg.norm == "layernorm":
+        return init_layernorm(dim, dtype, lead=lead, device=device)
+    return {"scale": torch.ones(lead + (dim,), dtype=dtype, device=device)}
 
 
 # --------------------------------------------------------------------------- #
@@ -197,6 +206,24 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     return torch.cos(angles), torch.sin(angles)
 
 
+def mrope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                  sections: Tuple[int, int, int]):
+    """M-RoPE (Qwen2-VL): positions (3, B, S) on the (temporal, height,
+    width) axes; the rotary frequencies are cut into three bands of
+    ``sections`` frequencies, each band taking the angles of its axis.
+    Returns cos/sin of shape (B, S, head_dim // 2)."""
+    half = head_dim // 2
+    t, h, w = sections
+    if t + h + w != half:
+        raise ValueError(f"mrope sections {sections} do not cover the "
+                         f"{half} rotary frequencies")
+    inv = rope_freqs(head_dim, theta, positions.device)
+    angles = positions[..., None].float() * inv         # (3, B, S, half)
+    picked = torch.cat([angles[0, ..., :t], angles[1, ..., t:t + h],
+                        angles[2, ..., t + h:]], dim=-1)
+    return torch.cos(picked), torch.sin(picked)
+
+
 def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor) -> torch.Tensor:
     """x (B, S, H, D); cos/sin (B, S, D//2), fp32.  Rotate-half convention,
@@ -211,10 +238,17 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
 
 
 def positional_cos_sin(cfg, positions: torch.Tensor):
-    if cfg.rope_type != "rope":
-        raise NotImplementedError(f"rope_type {cfg.rope_type!r} is not "
-                                  "ported yet")
-    return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    """positions (B, S), or (3, B, S) for M-RoPE -> (cos, sin), or None
+    where the config has no rotary embedding (learned positions).  M-RoPE
+    given (B, S) positions puts them on all three axes (text only)."""
+    if cfg.rope_type == "rope":
+        return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    if cfg.rope_type == "mrope":
+        if positions.ndim == 2:
+            positions = positions[None].expand((3,) + positions.shape)
+        return mrope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                             cfg.mrope_sections)
+    return None
 
 
 # --------------------------------------------------------------------------- #
@@ -242,7 +276,7 @@ def init_attention(gen: torch.Generator, cfg, n_layers: int,
 
 def project_qkv(p: Params, cfg, x: torch.Tensor, cos_sin):
     """proj -> rope: x (B, S, d_model) -> q (B, S, H, D), k and v
-    (B, S, KH, D)."""
+    (B, S, KH, D); ``cos_sin`` None applies no rotary embedding."""
     b, s, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["wq"]
@@ -398,6 +432,36 @@ def _plain_read(q: torch.Tensor, c: KVCache, cur: torch.Tensor, window):
                 ring_offset=k_pos)
 
 
+def init_cross_attention(gen: torch.Generator, cfg, n_layers: int,
+                         dtype=torch.float32) -> Params:
+    """``n_layers`` stacked cross-attention projections, d_model x
+    d_model each, without biases."""
+    d = cfg.d_model
+    return {name: dense_init(gen, d, d, dtype, lead=(n_layers,))
+            for name in ("wq", "wk", "wv", "wo")}
+
+
+def cross_attention_block(p: Params, cfg, x: torch.Tensor,
+                          enc_kv: Tuple[torch.Tensor, torch.Tensor]
+                          ) -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V (B, Se, H,
+    d_model // H): plain attention with no mask, as in the reference."""
+    b, s, d = x.shape
+    h = cfg.n_heads
+    q = (x @ p["wq"]).reshape(b, s, h, d // h)
+    k, v = enc_kv
+    return sdpa(q, k, v, causal=False).reshape(b, s, d) @ p["wo"]
+
+
+def encode_cross_kv(p: Params, cfg, enc_out: torch.Tensor):
+    """The encoder output (B, Se, d_model) -> cross-attention K and V (B,
+    Se, H, d_model // H)."""
+    b, se, d = enc_out.shape
+    h = cfg.n_heads
+    return ((enc_out @ p["wk"]).reshape(b, se, h, d // h),
+            (enc_out @ p["wv"]).reshape(b, se, h, d // h))
+
+
 def _check_impl(attn_impl: str) -> None:
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
@@ -412,7 +476,7 @@ def _check_impl(attn_impl: str) -> None:
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, n_layers: int,
              dtype=torch.float32, *, gated: bool = True) -> Params:
     """``n_layers`` stacked MLPs: ``w_up``, ``w_down`` and, when ``gated``,
-    ``w_gate`` (the encoder's MLP is not gated)."""
+    ``w_gate`` (the BGE encoder's and whisper's MLPs are not gated)."""
     lead = (n_layers,)
     p = {
         "w_up": dense_init(gen, d_model, d_ff, dtype, lead=lead),
@@ -423,8 +487,17 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, n_layers: int,
     return p
 
 
+def _activation(cfg, x: torch.Tensor) -> torch.Tensor:
+    """SiLU, or GELU in its tanh form: ``jax.nn.gelu``'s default."""
+    if cfg.activation == "gelu":
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
 def mlp_block(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Gated SiLU MLP: (silu(x W_gate) * x W_up) W_down."""
-    if cfg.activation != "silu" or "w_gate" not in p:
-        raise NotImplementedError("only the gated SiLU MLP is ported yet")
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    """Gated MLP (act(x W_gate) * x W_up) W_down when ``p`` has
+    ``w_gate``, else act(x W_up) W_down; ``act`` is ``cfg.activation``."""
+    if "w_gate" in p:
+        return (_activation(cfg, x @ p["w_gate"]) * (x @ p["w_up"])) @ p[
+            "w_down"]
+    return _activation(cfg, x @ p["w_up"]) @ p["w_down"]

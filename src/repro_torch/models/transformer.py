@@ -1,12 +1,27 @@
-"""Model assembly in PyTorch: the dense, MoE, SSM and hybrid families of
+"""Model assembly in PyTorch: every family of
 ``repro.models.transformer``.
 
-    dense  : [norm -> GQA attn -> norm -> gated MLP] x L
-    moe    : [norm -> GQA attn -> norm -> MoE FFN] x L
-    ssm    : [norm -> Mamba2] x L
-    hybrid : n_groups groups of (attn_every x [norm -> Mamba2]), each
-             followed by ONE weight-shared attention + MLP block, then the
-             tail Mamba2 layers (zamba2-7b: 13 groups of 6, 3 tail layers)
+    dense / vlm : [norm -> GQA attn -> norm -> gated MLP] x L
+    moe         : [norm -> GQA attn -> norm -> MoE FFN] x L
+    ssm         : [norm -> Mamba2] x L
+    hybrid      : n_groups groups of (attn_every x [norm -> Mamba2]), each
+                  followed by ONE weight-shared attention + MLP block, then
+                  the tail Mamba2 layers (zamba2-7b: 13 groups of 6, 3 tail
+                  layers)
+    audio       : an encoder stack over stub frame embeddings, then a
+                  decoder of [norm -> self attn -> norm -> cross attn ->
+                  norm -> MLP] x L, learned positions, LayerNorm, GELU
+
+The vlm family is the dense stack with M-RoPE; its prefill may prepend
+stub patch embeddings (``batch["embeds"]``, (B, P, d_model)) to the token
+embeddings and take (3, B, S) positions (``batch["positions"]``); without
+them, and in every decode step, its (B, S) positions go on all three
+M-RoPE axes, as in the reference.  The audio family's prefill runs the
+encoder over ``batch["frames"]`` (B, n_frames, d_model) with plain
+attention, as the reference does, writes each decoder layer's cross K/V
+into the cache (``cross_kv``), and its decoder self-attention runs the
+kernels; its self-attention cache holds at most ``max_position_embeddings``
+(448) rows, and a decode step clamps its learned position there.
 
 Parameters keep the reference's pytree layout (layers stacked on a leading
 axis; the hybrid's ``groups`` on two, (n_groups, inner), with ``tail`` and
@@ -75,7 +90,7 @@ def _dtype(cfg) -> torch.dtype:
 
 
 #: families this port serves
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def hybrid_layout(cfg):
@@ -104,8 +119,7 @@ def init_params(cfg, generator: torch.Generator) -> Params:
     dtype, dev, n = _dtype(cfg), generator.device, cfg.n_layers
 
     def norm(lead=()):
-        return {"scale": torch.ones(lead + (cfg.d_model,), dtype=dtype,
-                                    device=dev)}
+        return L.init_norm(cfg, cfg.d_model, dtype, lead=lead, device=dev)
 
     def ssm_layers(lead):
         ssm = S.init_ssm(generator, cfg, math.prod(lead), dtype)
@@ -113,14 +127,18 @@ def init_params(cfg, generator: torch.Generator) -> Params:
                 "ssm": {k: v.reshape(lead + v.shape[1:])
                         for k, v in ssm.items()}}
 
-    def dense_layers(n):
+    def dense_layers(n, cross: bool = False):
         p = {"attn_norm": norm((n,)),
              "attn": L.init_attention(generator, cfg, n, dtype),
              "mlp_norm": norm((n,))}
+        if cross:
+            p["cross_norm"] = norm((n,))
+            p["cross"] = L.init_cross_attention(generator, cfg, n, dtype)
         if cfg.moe.enabled:
             p["moe"] = M.init_moe(generator, cfg, n, dtype)
         else:
-            p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, n, dtype)
+            p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, n, dtype,
+                                  gated=cfg.gated_mlp)
         return p
 
     params: Params = {
@@ -136,6 +154,14 @@ def init_params(cfg, generator: torch.Generator) -> Params:
             params["tail"] = ssm_layers((tail,))
         # one layer, unstacked: the same weights after every group
         params["shared_attn"] = _unstack(dense_layers(1), 1)[0]
+    elif cfg.family == "audio":
+        params["enc_pos"] = L.embed_init(generator, cfg.encoder.n_frames,
+                                         cfg.d_model, dtype)
+        params["pos_embed"] = L.embed_init(
+            generator, cfg.max_position_embeddings, cfg.d_model, dtype)
+        params["enc_layers"] = dense_layers(cfg.encoder.n_layers)
+        params["enc_final_norm"] = norm()
+        params["layers"] = dense_layers(n, cross=True)
     else:
         params["layers"] = dense_layers(n)
     if not cfg.tie_embeddings:
@@ -162,6 +188,34 @@ def embed_tokens(params: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     clamps an out-of-range index (torch would raise, or assert on the
     card)."""
     return params["embed"][tokens.long().clamp(0, cfg.vocab_size - 1)]
+
+
+def learned_positions(params: Params, cfg, pos: torch.Tensor):
+    """The learned position embeddings of ``pos``, clamped to [0,
+    max_position_embeddings - 1] as JAX's gather clamps."""
+    return params["pos_embed"][
+        pos.long().clamp(0, cfg.max_position_embeddings - 1)]
+
+
+def encode_audio(params: Params, cfg, frames: torch.Tensor) -> torch.Tensor:
+    """The whisper encoder over stub frame embeddings (B, n_frames, d):
+    the frames in the model's dtype plus ``enc_pos``, then [norm -> plain
+    bidirectional attention -> norm -> MLP] per encoder layer (no rotary,
+    no kernel, as in the reference), then the final norm."""
+    h = (frames.to(params["enc_pos"].device, _dtype(cfg))
+         + params["enc_pos"][None, :frames.shape[1]])
+    b, s, _ = h.shape
+    nh, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for lp in _unstack(params["enc_layers"], cfg.encoder.n_layers):
+        a = lp["attn"]
+        x = L.apply_norm(cfg, lp["attn_norm"], h)
+        out = L.sdpa((x @ a["wq"]).reshape(b, s, nh, hd),
+                     (x @ a["wk"]).reshape(b, s, kh, hd),
+                     (x @ a["wv"]).reshape(b, s, kh, hd), causal=False)
+        h = h + out.reshape(b, s, nh * hd) @ a["wo"]
+        h = h + L.mlp_block(lp["mlp"], cfg,
+                            L.apply_norm(cfg, lp["mlp_norm"], h))
+    return L.apply_norm(cfg, params["enc_final_norm"], h)
 
 
 def unembed(params: Params, cfg, h: torch.Tensor) -> torch.Tensor:
@@ -242,7 +296,11 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
     ``groups_ssm`` (n_groups, inner, B, ...) and ``tail_ssm`` (tail, B,
     ...) and K/V buffers over its n_groups attention sites.  ``buf`` is
     :func:`kv_buffer_len`, cut to ``sliding_window`` when it is given; the
-    buffer is a ring when ``buf < max_len``.  ``kv_dtype="int8"`` makes
+    buffer is a ring when ``buf < max_len``.  The audio family's K/V
+    buffers have ``min(max_len, max_position_embeddings)`` rows, never a
+    ring, and beside them ``cross_kv``: the cross-attention K/V (n_layers,
+    B, n_frames, H, d_model // H) that its prefill writes.
+    ``kv_dtype="int8"`` makes
     the K/V buffers int8 codes with fp32 scales (sites, B, buf); it does
     nothing for the SSM family, as in the reference.  With ``mesh``: one
     cache per rank on the rank's device, with the KV heads the rank's
@@ -282,6 +340,9 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
     buf = kv_buffer_len(cfg, max_len)
     if sliding_window is not None:
         buf = min(buf, sliding_window)
+    ring = buf < max_len
+    if cfg.family == "audio":
+        buf, ring = min(max_len, cfg.max_position_embeddings), False
     shape = (n_sites, batch, buf, cfg.n_kv_heads, cfg.head_dim)
 
     def zeros(shape, dtype):
@@ -289,11 +350,14 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
 
     if kv_dtype == "int8":
         cache["kv"] = KVCache(zeros(shape, torch.int8), zeros(shape, torch.int8),
-                              buf < max_len, zeros(shape[:3], torch.float32),
+                              ring, zeros(shape[:3], torch.float32),
                               zeros(shape[:3], torch.float32))
     else:
-        cache["kv"] = KVCache(zeros(shape, dtype), zeros(shape, dtype),
-                              buf < max_len)
+        cache["kv"] = KVCache(zeros(shape, dtype), zeros(shape, dtype), ring)
+    if cfg.family == "audio":
+        cross = (cfg.n_layers, batch, cfg.encoder.n_frames, cfg.n_heads,
+                 cfg.d_model // cfg.n_heads)
+        cache["cross_kv"] = KVCache(zeros(cross, dtype), zeros(cross, dtype))
     return cache
 
 
@@ -334,15 +398,23 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
     last tokens, an int8 cache their codes), the SSM family its decode
     states, the hybrid family both (one K/V site per group), in place.
     ``attn_impl`` picks the kernels ("kernel") or the plain path ("torch")
-    for attention and for the SSD scan alike.  With ``mesh``, see the
-    module docstring; the logits lie on rank 0's device."""
+    for attention and for the SSD scan alike.  The vlm family reads
+    ``batch["embeds"]`` and ``batch["positions"]`` when they are given,
+    the audio family ``batch["frames"]`` (module docstring).  With
+    ``mesh``, see the module docstring; the logits lie on rank 0's
+    device."""
     shards, caches, ranks, lcfg = _ranks(params, cfg, cache, mesh)
     hs = _embed(shards, cfg, batch["tokens"], ranks)
+    embeds = batch.get("embeds")
+    if cfg.frontend == "vision_stub" and embeds is not None:
+        hs = [torch.cat([embeds.to(hs[0].device, hs[0].dtype), hs[0]], 1)]
     b, s = hs[0].shape[:2]
+    pos = batch.get("positions")
+    if pos is None:
+        pos = torch.arange(s, device=ranks[0])[None, :].expand(b, s)
+    if cfg.rope_type == "learned":
+        hs = [hs[0] + learned_positions(params, cfg, pos.to(ranks[0]))]
     if cfg.family != "ssm":
-        pos = batch.get("positions")
-        if pos is None:
-            pos = torch.arange(s, device=ranks[0])[None, :].expand(b, s)
         cos_sins = [L.positional_cos_sin(cfg, pos.to(d)) for d in ranks]
     if cfg.family == "ssm":
         hs = [_ssm_layers(cfg, attn_impl, _unstack(params["layers"],
@@ -358,6 +430,17 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
                                attn_impl, moe_impl)
         if tails:
             hs = [_ssm_layers(cfg, attn_impl, tails, hs[0], c["tail_ssm"])]
+    elif cfg.family == "audio":
+        (c,) = caches
+        enc_out = encode_audio(params, cfg, batch["frames"])
+        cross = c["cross_kv"]
+        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            h = _attn_prefill(cfg, lcfg, [lp], hs, cos_sins, caches, i,
+                              attn_impl, moe_impl, mlp=False)[0]
+            ck, cv = L.encode_cross_kv(lp["cross"], cfg, enc_out)
+            cross.k[i].copy_(ck)
+            cross.v[i].copy_(cv)
+            hs = [_cross_mlp(cfg, lp, h, ck, cv)]
     else:
         layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
         for i in range(cfg.n_layers):
@@ -374,9 +457,10 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
 
 
 #: families :func:`prefill_chunk` supports — attention-only stacks whose KV
-#: writes are position-addressable (the reference's tuple; of these the
-#: port has the dense and MoE families).  Recurrent state (ssm/hybrid) absorbs every
-#: position it sees, so those families keep exact one-shot prefill.
+#: writes are position-addressable (the reference's tuple).  Recurrent
+#: state (ssm/hybrid) absorbs every position it sees, and the audio family
+#: carries encoder cross-K/V seeded by the one-shot path; both keep exact
+#: one-shot prefill.
 CHUNKABLE_FAMILIES = ("dense", "moe", "vlm")
 
 
@@ -439,13 +523,18 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
     computed but write no K/V (dense) or state (SSM) and keep their ``len``,
     so their cache stays bit-identical.  The SSM step is plain PyTorch
     whatever ``attn_impl`` is, as in the reference; the hybrid's shared
-    block reads its site of the cache as the dense family does.  With
-    ``mesh``, see the module docstring; the logits lie on rank 0's
-    device."""
+    block reads its site of the cache as the dense family does.  Every
+    row's position is its ``len`` (on all three M-RoPE axes for the vlm
+    family; clamped to the last learned position for the audio family,
+    whose cross-attention reads the ``cross_kv`` its prefill wrote, with
+    plain attention).  With ``mesh``, see the module docstring; the logits
+    lie on rank 0's device."""
     shards, caches, ranks, lcfg = _ranks(params, cfg, cache, mesh)
     curs = [c["len"] for c in caches]
     acts = [None if active is None else active.to(d) for d in ranks]
     hs = _embed(shards, cfg, tokens, ranks)
+    if cfg.rope_type == "learned":
+        hs = [hs[0] + learned_positions(params, cfg, curs[0])[:, None, :]]
     if cfg.family != "ssm":
         cos_sins = [L.positional_cos_sin(cfg, cur[:, None]) for cur in curs]
     if cfg.family == "ssm":
@@ -464,6 +553,13 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
         if tails:
             hs = [_ssm_layers(cfg, attn_impl, tails, hs[0], c["tail_ssm"],
                               True, active)]
+    elif cfg.family == "audio":
+        (c,) = caches
+        cross = c["cross_kv"]
+        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            h = _attn_decode(cfg, lcfg, [lp], hs, cos_sins, caches, i, curs,
+                             acts, attn_impl, moe_impl, mlp=False)[0]
+            hs = [_cross_mlp(cfg, lp, h, cross.k[i], cross.v[i])]
     else:
         layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
         for i in range(cfg.n_layers):
@@ -535,10 +631,10 @@ def _unembed(shards: List[Params], cfg, hs: List[torch.Tensor]):
 
 def _attn_prefill(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
                   cos_sins, caches, site: int, attn_impl: str,
-                  moe_impl: str) -> List[torch.Tensor]:
+                  moe_impl: str, mlp: bool = True) -> List[torch.Tensor]:
     """One attention layer's prefill on every rank (``lps[r]``, ``hs[r]``):
     attention, its K/V written into site ``site`` of each rank's cache,
-    then the MLP.  Returns the residual stream."""
+    then the MLP unless ``mlp`` is False.  Returns the residual stream."""
     parts = []
     for lp, h, cs, c in zip(lps, hs, cos_sins, caches):
         out, (k, v) = L.attention_block(
@@ -546,20 +642,35 @@ def _attn_prefill(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
             attn_impl=attn_impl)
         _write_prompt(c["kv"], site, k, v)
         parts.append(out)
-    return _mlp(cfg, lcfg, lps, _add_sum(hs, parts), moe_impl)
+    hs = _add_sum(hs, parts)
+    return _mlp(cfg, lcfg, lps, hs, moe_impl) if mlp else hs
 
 
 def _attn_decode(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
                  cos_sins, caches, site: int, curs, acts, attn_impl: str,
-                 moe_impl: str) -> List[torch.Tensor]:
+                 moe_impl: str, mlp: bool = True) -> List[torch.Tensor]:
     """One attention layer's decode step on every rank over site ``site``
-    of the caches, then the MLP.  Returns the residual stream."""
+    of the caches, then the MLP unless ``mlp`` is False.  Returns the
+    residual stream."""
     parts = L.attention_decode(
         [lp["attn"] for lp in lps], lcfg,
         [L.apply_norm(cfg, lp["attn_norm"], h) for lp, h in zip(lps, hs)],
         cos_sins, [c["kv"].layer(site) for c in caches], curs,
         attn_impl=attn_impl, actives=acts)
-    return _mlp(cfg, lcfg, lps, _add_sum(hs, parts), moe_impl)
+    hs = _add_sum(hs, parts)
+    return _mlp(cfg, lcfg, lps, hs, moe_impl) if mlp else hs
+
+
+def _cross_mlp(cfg, lp: Params, h: torch.Tensor, ck: torch.Tensor,
+               cv: torch.Tensor) -> torch.Tensor:
+    """An audio decoder layer after its self-attention: cross-attention
+    over the encoder's K/V ``ck``/``cv``, then the MLP.  Returns the
+    residual stream."""
+    h = h + L.cross_attention_block(lp["cross"], cfg,
+                                    L.apply_norm(cfg, lp["cross_norm"], h),
+                                    (ck, cv))
+    return h + L.mlp_block(lp["mlp"], cfg, L.apply_norm(cfg, lp["mlp_norm"],
+                                                        h))
 
 
 def _mlp(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],

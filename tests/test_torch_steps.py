@@ -21,9 +21,10 @@ from repro.launch import steps as JSTEPS  # noqa: E402
 from repro.models import init_params as jax_init_params  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.launch import shapes as S  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 
 TOL = 2e-5
 
@@ -92,9 +93,24 @@ def test_input_specs_ring_for_long_context_only():
 
 
 def test_input_specs_refuse_families_not_ported():
-    cfg = dataclasses.replace(get_config("qwen2-1.5b"), family="vlm")
-    with pytest.raises(NotImplementedError, match="vlm"):
-        S.input_specs(cfg, S.SHAPES["decode_32k"])
+    """No family is left unported: every family of the registry, the vlm
+    and audio ones last, has ``input_specs`` with the reference's keys and
+    shapes (qwen2-vl-7b's ``embeds`` and 3-D ``positions``, whisper's
+    ``frames`` and its cross-K/V beside a decoder cache of 448 rows)."""
+    assert {get_config(a).family for a in list_archs()} <= set(T.FAMILIES)
+    for arch in ("qwen2-vl-7b", "whisper-large-v3"):
+        cfg, jcfg = get_config(arch), jax_get_config(arch)
+        for name, shape in S.SHAPES.items():
+            got = S.input_specs(cfg, shape)
+            want = JS.input_specs(jcfg, JS.SHAPES[name])
+            assert set(got) == set(want), (arch, name)
+            for key in set(got) - {"cache"}:
+                assert tuple(got[key].shape) == want[key].shape
+            if "cache" in got:
+                assert set(got["cache"]) == set(want["cache"])
+                for leaf in set(got["cache"]) - {"len"}:
+                    assert tuple(got["cache"][leaf].k.shape) == want[
+                        "cache"][leaf].k.shape, (arch, name, leaf)
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])
