@@ -39,7 +39,11 @@ Phases (any failure raises and exits non-zero):
      and over the long ragged cache, ``flash_decode_int8`` at 4 x 512;
      and tagged ``whisper-large-v3`` (20/20 heads of dim 64):
      ``flash_attention`` at phase 10's 4 x 128 and prefill_32k's 32 x
-     448, ``flash_decode`` at B=4 and B=128 over 448 rows;
+     448, ``flash_decode`` at B=4 and B=128 over 448 rows; and tagged
+     ``qwen2-moe-a2.7b`` and ``mixtral-8x7b``: ``flash_decode_sharded``
+     at each rank's share of a TP=2 pod (16/16 and 32/8 heads of dim 128,
+     mixtral with its window of 4096) at B=4 x 512, bit for bit the
+     single-device kernel;
   4. the served paths at full width: ``ElisServer`` -> ISRTF with the
      oracle predictor -> ``EngineExecutor`` ->
      ``InferenceEngine(attn_impl="kernel")`` serving a dozen requests to
@@ -147,7 +151,24 @@ Phases (any failure raises and exits non-zero):
      tokens of the kernel and plain paths at 2 + 2 layers; then one
      prefill_32k step (B=32 x 448 over 32 x 1500 frames) with its peak
      memory, and 6 decode_32k steps (B=128 over a cache filled with
-     random self and cross K/V, every slot's ``len`` below 448).
+     random self and cross K/V, every slot's ``len`` below 448);
+ 11. the MoE family on tensor-parallel pods of 2 ranks (on one card when
+     there is one), and chunked prefill and KV swap under a mesh: for
+     qwen2-moe-a2.7b at all 24 layers and mixtral-8x7b at 8 of 32, bf16
+     at full width, fp32 greedy tokens of the TP kernel engine against
+     the single-device kernel engine at 2 layers through evictions and
+     compacted windows and through a chunked prefill (chunk 64 of a
+     230-token prompt) with one swap round trip mid-prefill and one
+     mid-decode, every rank's slot rows bit for bit; the bytes allocated
+     beside ``param_count``; phase 4's served path on the pod (launch
+     counts reset before and read after: ``flash_decode_sharded`` layers
+     x 2 a decode step, ``flash_attention`` layers x 2 a prefill); one
+     decode window profiled; the pod's bf16 first prefill logits against
+     the single-device kernel model within ``LOGIT_TOL_BF16``; then the
+     serve CLI with ``--mesh 1x2 --arch qwen2-moe-a2.7b --prefill-chunk
+     64 --preempt-policy auto`` on ``CLI_QUEUE`` (every request finished,
+     its swaps and chunk dispatches printed) and one offload and restore
+     through its executor.
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -213,6 +234,11 @@ HY_SSD = (112, 64, 64)
 #: qwen2-vl's GQA group of 7 runs the decode kernel's instance of 8.
 VL_ARCH, VL_WIDTHS = "qwen2-vl-7b", (28, 4, 128)
 AU_ARCH, AU_WIDTHS = "whisper-large-v3", (20, 20, 64)
+#: phase 11's tensor-parallel MoE pods (``TP`` ranks): each arch's heads,
+#: KV heads and head dim, and its window; phase 3's ``flash_decode_sharded``
+#: rows tagged with these names hold each rank's share of them
+MOE_TP_SHAPES = [("qwen2-moe-a2.7b", (16, 16, 128), None),
+                 ("mixtral-8x7b", (32, 8, 128), 4096)]
 #: whisper's decoder rows: its self-attention cache holds at most
 #: ``max_position_embeddings`` of them
 AU_ROWS = 448
@@ -733,8 +759,7 @@ def check_kernels(timed: bool = True):
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
         if sharded:
-            check_sharded(record, q, k, v, kv_len, q_off, n_keys, dn, es,
-                          iters)
+            check_sharded(record, q, k, v, kv_len, q_off, dn, es, iters)
 
     def prefill_row(B, S, widths, window, arch=""):
         """``flash_attention`` (causal) at B x S and ``widths`` (heads, KV
@@ -789,6 +814,10 @@ def check_kernels(timed: bool = True):
         for B in (4, 128):
             dense_decode(*decode_case(B, dtype, gen, AU_WIDTHS, AU_ROWS),
                          None, 200 if B == 4 else 50, False, AU_ARCH)
+        # the MoE pods of phase 11: each rank's heads of a TP=2 pod
+        for arch, widths, window in MOE_TP_SHAPES:
+            check_sharded(record, *decode_case(4, dtype, gen, widths), dn,
+                          es, 200, window=window, tps=(TP,), arch=arch)
         torch.cuda.empty_cache()
         check_int8(record, gen, dtype)
         for B in (1, 4):
@@ -818,7 +847,7 @@ def check_kernels(timed: bool = True):
             atol, rtol = TOL[r["dtype"]]
             if name == "flash_decode_sharded":
                 shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
-                         f"n_split={r['n_split']} "
+                         f"window={r['window']} n_split={r['n_split']} "
                          f"{r['heads']} heads per rank x {r['tp']} ranks on "
                          f"one card, bitwise == single-device kernel: "
                          f"{r['bitwise']}; per call, all shards")
@@ -1016,55 +1045,61 @@ def check_long_prefill(record, gen) -> None:
         torch.cuda.empty_cache()
 
 
-def check_sharded(record, q, k, v, kv_len, q_off, n_keys, dn, es, iters):
-    """``flash_decode_sharded`` at the shard shapes of a TP=2 and a TP=4 pod
-    with all ranks on one card: the served decode inputs split into ``tp``
+def check_sharded(record, q, k, v, kv_len, q_off, dn, es, iters,
+                  window=None, tps=(2, 4), arch=""):
+    """``flash_decode_sharded`` at the shard shapes of ``tps``-way pods
+    with all ranks on one card: the decode inputs split into ``tp``
     contiguous query-head ranges, each with the KV heads it reads.  The
     stitched output must equal the single-device kernel bit for bit and lie
     within the tolerance of the plain version.  Times are per call, all
     shards: the wrapper, its plain version, and ``sdpa`` over the unsplit
     heads (one call computing the stitched function); the bound is that of
-    the whole call (each shard reads its own KV heads' rows)."""
+    the whole call (each shard reads its own KV heads' rows).  ``arch``
+    tags rows at another arch's widths than the served ones."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.partition import kv_head_range
 
-    heads = SimpleNamespace(n_heads=HEADS, n_kv_heads=KV_HEADS)
+    h, kh, d = q.shape[2], k.shape[2], q.shape[3]
+    heads = SimpleNamespace(n_heads=h, n_kv_heads=kh)
     L = k.shape[1]
-    keep = ((torch.arange(L, device=q.device)[None] < kv_len[:, None])
-            [:, None, None, :])
+    pos = torch.arange(L, device=q.device)
+    keep = pos[None] < kv_len[:, None]
+    if window is not None:
+        keep &= pos[None] > q_off[:, None] - window
+    keep = keep[:, None, None, :]
+    n_keys = [visible_keys(o, min(n, L), window)
+              for o, n in zip(q_off.tolist(), kv_len.tolist())]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    for tp in (2, 4):
+    kw = dict(kv_len=kv_len, q_offset=q_off, window=window)
+    for tp in tps:
         ranges = [kv_head_range(heads, tp, r) for r in range(tp)]
         qs = [c.contiguous() for c in q.chunk(tp, dim=2)]
         ks, vs = ([x[:, :, lo:hi].contiguous() for lo, hi in ranges]
                   for x in (k, v))
         bitwise = bool(torch.equal(
-            torch.cat(ops.flash_decode_sharded(qs, ks, vs, kv_len=kv_len,
-                                               q_offset=q_off), dim=2),
-            ops.flash_decode(q, k, v, kv_len=kv_len, q_offset=q_off)))
+            torch.cat(ops.flash_decode_sharded(qs, ks, vs, **kw), dim=2),
+            ops.flash_decode(q, k, v, **kw)))
         kv_read = sum(hi - lo for lo, hi in ranges)
         bytes_moved = (2 * q.numel() * es + 8 * q.shape[0] * tp
-                       + 2 * sum(n_keys) * kv_read * HEAD_DIM * es)
-        b_ms, b_by = bound(bytes_moved, 4 * HEADS * HEAD_DIM * sum(n_keys),
-                           dn)
+                       + 2 * sum(n_keys) * kv_read * d * es)
+        b_ms, b_by = bound(bytes_moved, 4 * h * d * sum(n_keys), dn)
         record("flash_decode_sharded", dict(
             dtype=dn, B=q.shape[0], L=L, kv_len=kv_len.tolist(), tp=tp,
-            heads=f"{HEADS // tp}/{ranges[0][1] - ranges[0][0]}",
+            heads=f"{h // tp}/{ranges[0][1] - ranges[0][0]}", D=d,
+            window=window, arch=arch,
             n_split=ops.decode_plan(q.shape[0], L, q.device)[0],
             bitwise=bitwise, bound_ms=b_ms, bound_by=b_by),
-            lambda: torch.cat(ops.flash_decode_sharded(
-                qs, ks, vs, kv_len=kv_len, q_offset=q_off), dim=2),
-            lambda: torch.cat(ref.flash_decode_sharded(
-                qs, ks, vs, kv_len=kv_len, q_offset=q_off), dim=2),
+            lambda: torch.cat(ops.flash_decode_sharded(qs, ks, vs, **kw),
+                              dim=2),
+            lambda: torch.cat(ref.flash_decode_sharded(qs, ks, vs, **kw),
+                              dim=2),
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=keep, enable_gqa=True), iters,
-            timed_fns=(lambda: ops.flash_decode_sharded(
-                qs, ks, vs, kv_len=kv_len, q_offset=q_off),
-                lambda: ref.flash_decode_sharded(
-                    qs, ks, vs, kv_len=kv_len, q_offset=q_off)),
+            timed_fns=(lambda: ops.flash_decode_sharded(qs, ks, vs, **kw),
+                       lambda: ref.flash_decode_sharded(qs, ks, vs, **kw)),
             exact=True)
 
 
@@ -1832,20 +1867,24 @@ def prefill_logit_gap(cfg, params_bf16, requests, mesh=None):
     return gap, finite
 
 
-def moe_prefill_logit_gaps(cfg, params_bf16, requests):
+def moe_prefill_logit_gaps(cfg, params_bf16, requests, mesh=None):
     """The MoE family's first prefill logits at full width and served depth
-    in bf16: the kernel path against the plain path as they are (``raw``),
-    and against the plain path made to route every token to the experts
-    the kernel path's router chose (``pinned``; each expert weighted by the
-    plain path's own probabilities).  The kernels move the router's input
+    in bf16: the kernel path against the plain path (with ``mesh``: the
+    single-device kernel model against the TP kernel model) as they are
+    (``raw``), and against the other path made to route every token to
+    the experts the kernel path's router chose (``pinned``; each expert
+    weighted by the other path's own probabilities; the TP model routes
+    once a layer, on rank 0).  The kernels move the router's input
     by an ulp or so; where two experts' probabilities lie closer than
     that, the choice flips, and a token whose experts change changes by
     the size of an expert's output: a discrete jump that no tolerance on
-    the kernels' rounding bounds.  Pinned, only the rounding remains.
-    Returns (raw gap, pinned gap, routing flips: (layer, token) rows whose
-    expert set differs, finite)."""
+    the kernels' rounding bounds.  Pinned, only the rounding remains.  The
+    TP model's partial sums round in another order, so its router input
+    moves in the same way.  Returns (raw gap, pinned gap, routing flips:
+    (layer, token) rows whose expert set differs, finite)."""
     import torch
 
+    from repro_torch.launch import shard_params
     from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
 
@@ -1871,27 +1910,37 @@ def moe_prefill_logit_gaps(cfg, params_bf16, requests):
 
     replay.i = 0
 
-    def first_logits(impl, route):
+    # the other path: the plain model, or the TP kernel model
+    other, impl, params = "plain", "torch", params_bf16
+    if mesh is not None:
+        other, impl = f"TP={len(mesh.ranks)} kernel", "kernel"
+        params = shard_params(params_bf16, cfg, mesh)
+
+    def first_logits(route, p=params_bf16, impl="kernel", m=None):
         M.router_probs = route
         try:
-            out, _ = T.prefill(params_bf16, cfg,
+            out, _ = T.prefill(p, cfg,
                                {"tokens": torch.as_tensor(toks,
                                                           device=DEVICE)},
-                               T.init_cache(cfg, 4, MAX_LEN, DEVICE),
+                               T.init_cache(cfg, 4, MAX_LEN, DEVICE, mesh=m),
                                attn_impl=impl,
                                last_index=torch.as_tensor(last,
-                                                          device=DEVICE))
+                                                          device=DEVICE),
+                               mesh=m)
         finally:
             M.router_probs = router
         return out.float()
 
-    got = first_logits("kernel", record)
-    raw = float((got - first_logits("torch", router)).abs().max())
-    pinned = float((got - first_logits("torch", replay)).abs().max())
+    got = first_logits(record)
+    raw = float((got - first_logits(router, params, impl, mesh))
+                .abs().max())
+    pinned = float((got - first_logits(replay, params, impl, mesh))
+                   .abs().max())
     finite = bool(torch.isfinite(got).all())
+    del params
     log(f"[parity] {cfg.arch_id} bf16, full width, {cfg.n_layers} layers: "
-        f"first prefill logits {tuple(got.shape)}, max |kernel - plain| = "
-        f"{raw:.4e} with the plain path's own routing ({flips[0]} of "
+        f"first prefill logits {tuple(got.shape)}, max |kernel - {other}| "
+        f"= {raw:.4e} with the {other} path's own routing ({flips[0]} of "
         f"{cfg.n_layers * toks.size} (layer, token) rows route to other "
         f"experts than on the kernel path), {pinned:.4e} with the kernel "
         f"path's routing (tol {LOGIT_TOL_BF16}; the raw gap too when no "
@@ -2015,8 +2064,9 @@ def planted_fault(kind: str, models) -> dict:
             for dn in TOL:
                 # the rows at another arch's widths (zamba2-7b: D = 112,
                 # (P, N) = (64, 64); qwen2-vl-7b: GQA 28/4; whisper: D =
-                # 64, MHA) are tallied apart from the others
-                for arch in ("", HY_ARCH, VL_ARCH, AU_ARCH):
+                # 64, MHA; the MoE pods' ranks) are tallied apart
+                for arch in ("", HY_ARCH, VL_ARCH, AU_ARCH,
+                             *(a for a, _, _ in MOE_TP_SHAPES)):
                     rs = [r for r in rr if r["dtype"] == dn
                           and r.get("arch", "") == arch]
                     if rs:
@@ -2140,12 +2190,13 @@ CLI_RUNS = [
 ]
 
 
-def cli_run(name: str, argv, predictor_probe=None):
+def cli_run(name: str, argv, predictor_probe=None, after=None):
     """Run ``repro_torch.launch.serve.main(argv)`` in this process with
     every launch count set to 0 just before and read just after; check
     it as :func:`check_served` does.  ``predictor_probe``, when given, is
-    called on the predictor the CLI builds, before it serves.  Returns the
-    run's numbers."""
+    called on the predictor the CLI builds, before it serves; ``after``
+    on the executor it served with, after the check.  Returns the run's
+    numbers."""
     import contextlib
     import io
 
@@ -2189,6 +2240,8 @@ def cli_run(name: str, argv, predictor_probe=None):
     log(f"[cli]   (python -m repro_torch.launch.serve {' '.join(argv)})")
     for ln in err.getvalue().splitlines():
         log(f"[cli]   {ln}")
+    if after is not None:
+        after(executor)
     del responses, executor
     gc.collect()
     if DEVICE != "cpu":
@@ -2222,17 +2275,20 @@ def check_served(name, responses, executor, want_tokens, launches, wall,
             f"serve run {name!r}: {counters['decode_dispatches']} decode "
             f"dispatches, but {len(decoding)} windows emitted tokens and "
             f"{probe_windows} probe windows ran")
-    n_layers = executor.engines[0].model_cfg.n_layers
+    eng = executor.engines[0]
+    n_layers = eng.model_cfg.n_layers
+    tp = 1 if eng.mesh is None else len(eng.mesh.ranks)
+    decode = "flash_decode" if tp == 1 else "flash_decode_sharded"
+    per = f"{n_layers} layers x " + (f"{tp} ranks x " if tp > 1 else "")
     prefills = counters["prefill_dispatches"]
-    want = {"flash_decode": (n_layers * (steps + probe_steps),
-                             f"{n_layers} layers x {steps + probe_steps} "
-                             "decode steps"
-                             + (f" ({probe_steps} of them probes)"
-                                if probe_steps else ""))}
+    want = {decode: (n_layers * tp * (steps + probe_steps),
+                     f"{per}{steps + probe_steps} decode steps"
+                     + (f" ({probe_steps} of them probes)"
+                        if probe_steps else ""))}
     if prefills:  # a chunked run admits every job, resumes too, by chunks
-        want["flash_attention"] = (n_layers * prefills,
-                                   f"{n_layers} layers x {prefills} "
-                                   "one-shot prefill dispatches")
+        want["flash_attention"] = (n_layers * tp * prefills,
+                                   f"{per}{prefills} one-shot prefill "
+                                   "dispatches")
     check_launches(launches, want)
     m = summarize(responses)
     n_tok = sum(r.n_tokens for r in responses)
@@ -2251,8 +2307,8 @@ def check_served(name, responses, executor, want_tokens, launches, wall,
         f"({n_tok / busy:.1f} over the {busy:.3f} s of windows); swapouts "
         f"{counters['swapouts']}, swapins {counters['swapins']}, chunk "
         f"dispatches {counters['chunk_dispatches']}, resume prefill tokens "
-        f"{counters['resume_context_tokens']}; flash_decode "
-        f"{launches['flash_decode']}, flash_attention "
+        f"{counters['resume_context_tokens']}; {decode} "
+        f"{launches[decode]}, flash_attention "
         f"{launches['flash_attention']}; {wall:.1f} s wall")
     return run
 
@@ -2706,16 +2762,45 @@ def predictor_phase(oracle_isrtf_jct) -> dict:
     return out
 
 
-def swap_roundtrip(cfg, params, requests) -> None:
-    """One slot's cache offloaded to the host and restored, at full width:
-    bit for bit, and the greedy streams of both jobs equal to those of an
-    engine that keeps the job resident over the same schedule (the job
-    sits out one window either way)."""
+def slot_rows(eng, job_id):
+    """Copies of the job's slot rows of every rank's cache: [rank][leaf]."""
     import torch
 
+    from repro_torch.engine.engine import _gather_slots, _leaves, _ranks
+
+    rows = []
+    for c in _ranks(eng.cache):
+        idx = torch.tensor([eng.slot_of[job_id]], device=c["len"].device)
+        rows.append([t.clone() for t in _leaves(_gather_slots(c, idx))])
+    return rows
+
+
+def swap_round_trip(eng, job, between) -> None:
+    """Offload ``job`` to the host, run ``between()`` (which may overwrite
+    its freed slot), restore it: every rank's slot rows must come back bit
+    for bit."""
+    import torch
+
+    before = slot_rows(eng, job.job_id)
+    if not eng.offload_job(job.job_id):
+        raise AssertionError("swap round trip: offload refused")
+    between()
+    eng.restore_job(job)
+    after = slot_rows(eng, job.job_id)
+    if not (len(after) == len(before) and all(
+            torch.equal(a, b) for ra, rb in zip(after, before)
+            for a, b in zip(ra, rb))):
+        raise AssertionError("swap round trip: a rank's restored slot rows "
+                             "differ from the offloaded ones")
+
+
+def swap_roundtrip(cfg, params, requests) -> None:
+    """One slot's cache offloaded to the host and restored, at full width:
+    bit for bit (:func:`swap_round_trip`), and the greedy streams of both
+    jobs equal to those of an engine that keeps the job resident over the
+    same schedule (the job sits out one window either way)."""
     from repro_torch.core import Job
     from repro_torch.engine import EngineConfig, InferenceEngine
-    from repro_torch.engine.engine import _gather_slots, _leaves
 
     prompts = [list(r.prompt_tokens) for r in requests[:2]]
     streams = []
@@ -2731,24 +2816,13 @@ def swap_roundtrip(cfg, params, requests) -> None:
             for j, t in zip(batch, toks):
                 j.generated.extend(t)
 
-        def slot_leaves():
-            idx = torch.tensor([eng.slot_of[0]], device=eng.device)
-            return list(_leaves(_gather_slots(eng.cache, idx)))
-
         window(jobs)
         if swap:
-            before = [t.clone() for t in slot_leaves()]
-            if not eng.offload_job(0):
-                raise AssertionError("swap round trip: offload refused")
-        window(jobs[1:])
-        if swap:
-            eng.restore_job(jobs[0])
-            same = all(torch.equal(a, b)
-                       for a, b in zip(slot_leaves(), before))
-            n_bytes = sum(t.numel() * t.element_size() for t in before)
-            if not same:
-                raise AssertionError("swap round trip: the restored slot "
-                                     "differs from the offloaded one")
+            n_bytes = sum(t.numel() * t.element_size()
+                          for rank in slot_rows(eng, 0) for t in rank)
+            swap_round_trip(eng, jobs[0], lambda: window(jobs[1:]))
+        else:
+            window(jobs[1:])
         window(jobs)
         window(jobs)
         streams.append([list(j.generated) for j in jobs])
@@ -2891,11 +2965,12 @@ def layer_bytes(cfg):
     return (cfg.param_count() - rest) // cfg.n_layers * es, rest * es
 
 
-def served_depth(cfg, depth):
+def served_depth(cfg, depth, copies: int = 1):
     """The depth ``cfg`` is served at: ``depth`` (a stated cut) or the full
     depth, cut further to what the free device memory holds beside two
-    4 x ``MAX_LEN`` slot caches and ``HEADROOM_BYTES``.  Returns (depth,
-    why it was cut or None)."""
+    4 x ``MAX_LEN`` slot caches and ``HEADROOM_BYTES``, with ``copies``
+    of each layer's weights (2 for a TP pod: the full tree and the ranks'
+    shards).  Returns (depth, why it was cut or None)."""
     import torch
 
     n, why = cfg.n_layers, None
@@ -2909,18 +2984,21 @@ def served_depth(cfg, depth):
     free = torch.cuda.mem_get_info()[0]
     per, rest = layer_bytes(cfg)
     cache = 2 * 2 * 4 * MAX_LEN * cfg.n_kv_heads * cfg.head_dim * 2
-    fits = int((free - rest - HEADROOM_BYTES) // (per + cache))
+    fits = int((free - copies * rest - HEADROOM_BYTES)
+               // (copies * per + cache))
     if fits < n:
         n, why = fits, (f"{fits} of {cfg.n_layers} layers: "
                         f"{free / 1e9:.2f} GB free, {rest / 1e9:.2f} GB "
                         f"for the embeddings and head, {per / 1e9:.3f} GB "
-                        f"a layer, {HEADROOM_BYTES / 1e9:.0f} GB kept free")
+                        f"a layer, x {copies}, "
+                        f"{HEADROOM_BYTES / 1e9:.0f} GB kept free")
     return n, why
 
 
 def moe_decode_window(cfg, params, requests) -> None:
     """The MoE arch's decode window, 8 steps at 4 live slots: one window
-    profiled with ``moe_block`` as a ``record_function`` range (its device
+    profiled with the MoE block (``moe_partials``) as a ``record_function``
+    range named ``moe_block`` (its device
     time per step against its bound: the routed experts' weights that this
     window's router chose, distinct per layer and step, and the shared
     path's and router's, read once at 3.35 TB/s), then one window of
@@ -2941,7 +3019,7 @@ def moe_decode_window(cfg, params, requests) -> None:
             for r in requests[:4]]
     eng.run_window(jobs, 8)  # prefill, and a first window as warm-up
     routed = []
-    block, router = M.moe_block, M.router_probs
+    block, router = M.moe_partials, M.router_probs
 
     def annotated(*a, **kw):
         with torch.profiler.record_function("moe_block"):
@@ -2952,14 +3030,14 @@ def moe_decode_window(cfg, params, requests) -> None:
         routed.append(out[2])
         return out
 
-    M.moe_block, M.router_probs = annotated, logged
+    M.moe_partials, M.router_probs = annotated, logged
     try:
         prof = profiled(f"{cfg.arch_id}: one decode window (8 steps, 4 "
                         f"slots, {cfg.n_layers} layers), moe_block "
                         "annotated", lambda: eng.run_window(jobs, 8),
                         annotations=("moe_block",))
     finally:
-        M.moe_block, M.router_probs = block, router
+        M.moe_partials, M.router_probs = block, router
     m, d, es = cfg.moe, cfg.d_model, 2
     if len(routed) != 8 * cfg.n_layers:
         raise AssertionError(f"{len(routed)} router calls in the window, "
@@ -3598,6 +3676,252 @@ def audio_phase() -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 11: tensor-parallel MoE pods; chunked prefill and KV swap under a mesh
+# --------------------------------------------------------------------------- #
+
+#: phase 11's pods, each arch with the depth it is served at (None: all
+#: layers; mixtral at phase 8's cut: its weights and their shards at 32
+#: layers would not fit one card)
+MOE_TP_ARCHS = [("qwen2-moe-a2.7b", None), ("mixtral-8x7b", 8)]
+#: the chunk of phase 11's chunked prefills, and the length of the prompt
+#: that its fp32 parity run chunks (more than 3 chunks)
+MOE_TP_CHUNK, MOE_TP_LONG = 64, 230
+#: phase 11's CLI run: ``CLI_QUEUE`` on one TP pod of qwen2-moe-a2.7b,
+#: chunked, preempting by the ``auto`` break-even
+MOE_TP_CLI = CLI_QUEUE + ["--policy", "isrtf", "--arch", "qwen2-moe-a2.7b",
+                          "--mesh", f"1x{TP}", "--prefill-chunk",
+                          str(MOE_TP_CHUNK), "--preempt-policy", "auto"]
+#: a greedy token may flip between two sums of the same fp32 logits only
+#: where the top two logits tie this closely
+FP32_TIE = 1e-5
+
+
+def chunk_swap_streams(cfg, params, prompts, mesh=None, n_out: int = 16):
+    """Two jobs on one kernel engine (a TP pod with ``mesh``), chunked
+    prefill of ``MOE_TP_CHUNK`` tokens a window: job 0 (``prompts[0]``,
+    over 3 chunks) is swapped to the host and back once mid-prefill, after
+    its first chunk, and once mid-decode, each time across a window of job
+    1 alone (:func:`swap_round_trip`).  Returns (streams, chunk
+    dispatches)."""
+    from repro_torch.core import Job
+    from repro_torch.engine import EngineConfig, InferenceEngine
+
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        max_slots=4, max_len=MAX_LEN, max_output=64, eos_id=-1),
+        device=DEVICE, mesh=mesh)
+    jobs = [Job(job_id=i, prompt="", prompt_tokens=p, arrival_time=0.0)
+            for i, p in enumerate(prompts)]
+
+    def window(batch):
+        toks, _ = eng.run_window(batch, 8, prefill_chunk=MOE_TP_CHUNK)
+        for j, t in zip(batch, toks):
+            j.generated.extend(t)
+
+    window(jobs)
+    if not eng.prefill_incomplete(0):
+        raise AssertionError("chunked prefill: job 0 finished in one chunk")
+    swap_round_trip(eng, jobs[0], lambda: window(jobs[1:]))
+    swapped = False
+    while any(len(j.generated) < n_out for j in jobs):
+        window([j for j in jobs if len(j.generated) < n_out])
+        if (not swapped and 0 < len(jobs[0].generated) < n_out
+                and len(jobs[1].generated) < n_out):
+            swap_round_trip(eng, jobs[0], lambda: window(jobs[1:]))
+            swapped = True
+    if not swapped:
+        raise AssertionError("chunked prefill: no swap mid-decode")
+    return [j.generated[:n_out] for j in jobs], eng.num_chunk_dispatches
+
+
+def first_divergence(cfg, params, prompts, got, want):
+    """Where two greedy streams of the same prompts first differ: (request,
+    position, top-2 margin of the single-device fp32 logits there), or
+    None when they agree."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        pos = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b),
+                   min(len(g), len(w)))
+        seq = list(prompts[i]) + list(w[:pos])
+        logits, _ = T.prefill(params, cfg, {"tokens": torch.as_tensor(
+            [seq], device=DEVICE)}, T.init_cache(cfg, 1, MAX_LEN, DEVICE))
+        top = logits[0, -1].float().topk(2).values
+        return i, pos, float(top[0] - top[1])
+    return None
+
+
+def tp_stream_parity(cfg, requests, mesh) -> list:
+    """fp32 greedy tokens at full width and 2 layers, the TP kernel engine
+    against the single-device kernel engine: through compacted windows,
+    evictions and recompute resumes (:func:`greedy_streams`), and through
+    a chunked prefill and two swap round trips
+    (:func:`chunk_swap_streams`).  Where tokens differ, the first position
+    and the single-device top-2 logit margin there are printed: a margin
+    under ``FP32_TIE`` is a tie, anything larger a fault.  Returns the
+    failures."""
+    cfg2, params2 = fp32_model(cfg, 2)
+    prompts = [list(r.prompt_tokens) for r in requests[:6]]
+    long = [t for r in requests for t in r.prompt_tokens][:MOE_TP_LONG]
+    runs, failures = {}, []
+    for name, m in (("kernel engine", None),
+                    (f"TP={len(mesh.ranks)} kernel engine", mesh)):
+        runs[name] = (greedy_streams(cfg2, params2, prompts, "kernel", 24, m),
+                      chunk_swap_streams(cfg2, params2, [long, prompts[0]],
+                                         m))
+    (one, _), (chunked, chunks) = runs.pop("kernel engine")
+    (name, ((one_tp, ev), (chunked_tp, chunks_tp))), = runs.items()
+    for what, got, want, ps in (
+            ("evictions", one_tp, one, prompts),
+            ("chunked prefill + swaps", chunked_tp, chunked,
+             [long, prompts[0]])):
+        same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+        log(f"[moe-tp] {cfg.arch_id} fp32, full width, 2 layers: {name} vs "
+            f"kernel engine greedy tokens identical on {same}/"
+            f"{sum(map(len, want))} tokens of {len(ps)} requests ({what}"
+            + (f"; {ev} evictions + recompute resumes, compacted windows)"
+               if what == "evictions" else
+               f"; a {len(long)}-token prompt in chunks of {MOE_TP_CHUNK}: "
+               f"{chunks_tp} chunk dispatches (single device {chunks}); "
+               "one swap round trip mid-prefill and one mid-decode, every "
+               "rank's slot rows bit for bit)"))
+        div = first_divergence(cfg2, params2, ps, got, want)
+        if div is not None:
+            i, pos, margin = div
+            tie = margin < FP32_TIE
+            log(f"[moe-tp]   first difference: request {i}, token {pos}; "
+                f"top-2 margin there {margin:.3e} "
+                + ("< FP32_TIE: a tie" if tie else f">= {FP32_TIE}: a fault"))
+            if not tie:
+                failures.append(f"{cfg.arch_id}: fp32 greedy tokens of the "
+                                f"TP engine differ ({what}) at a margin of "
+                                f"{margin:.3e}")
+    if ev <= 0:
+        failures.append(f"{cfg.arch_id}: no eviction was driven")
+    if chunks_tp < 4:
+        failures.append(f"{cfg.arch_id}: {chunks_tp} chunk dispatches")
+    return failures
+
+
+def executor_swap(executor) -> None:
+    """One job admitted, decoded, offloaded to the host and restored
+    through the executor of a TP pod (``EngineExecutor.offload`` /
+    ``restore``), every rank's slot rows bit for bit, then decoded on and
+    evicted."""
+    import torch
+
+    from repro_torch.core import Job
+
+    eng = executor.engines[0]
+    job = Job(job_id=10 ** 6, prompt="", arrival_time=0.0,
+              prompt_tokens=make_requests(1, SEED + 3)[0].prompt_tokens)
+    job.generated.extend(executor.execute(0, [job], 8, 0.0).tokens[0])
+    before = slot_rows(eng, job.job_id)
+    if not executor.offload(0, job) or eng.has_job(job.job_id):
+        raise AssertionError("executor swap: offload refused")
+    if not executor.restore(0, job):
+        raise AssertionError("executor swap: restore refused")
+    after = slot_rows(eng, job.job_id)
+    if not all(torch.equal(a, b) for ra, rb in zip(after, before)
+               for a, b in zip(ra, rb)):
+        raise AssertionError("executor swap: a rank's rows differ")
+    executor.execute(0, [job], 8, 0.0)
+    executor.evict(0, job)
+    log(f"[moe-tp] executor of the CLI's pod: one job offloaded and "
+        f"restored through EngineExecutor.offload/restore, its slot rows "
+        f"on all {len(after)} ranks bit for bit; swapouts "
+        f"{executor.counters()['swapouts']}")
+
+
+def moe_tp_phase() -> dict:
+    """Phase 11: the MoE family on ``TP``-rank pods (ranks on one card when
+    there is one), bf16 at full width, from random weights.  For each arch
+    of :data:`MOE_TP_ARCHS`: fp32 greedy tokens of the TP kernel engine
+    against the single-device kernel engine at 2 layers
+    (:func:`tp_stream_parity`); then at the served depth the bytes
+    allocated beside ``param_count``, phase 4's served path on the pod
+    (launch counts reset before and read after: ``flash_decode_sharded``
+    layers x ranks a decode step, ``flash_attention`` layers x ranks a
+    prefill), one decode window profiled, and the first prefill logits of
+    the pod against the single-device kernel model within
+    ``LOGIT_TOL_BF16`` (:func:`moe_prefill_logit_gaps`).  Then the serve
+    CLI on one pod of qwen2-moe-a2.7b (:data:`MOE_TP_CLI`), and one swap
+    through its executor.  Returns each arch's served-path launch
+    counts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shard_params
+
+    t_phase = time.perf_counter()
+    requests = make_requests(12, SEED)
+    mesh = tp_mesh()
+    failures, launches = [], {}
+    for arch, depth in MOE_TP_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if DEVICE == "cpu":  # a rehearsal: reduced widths, the served window
+            cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16",
+                                      swa_window=cfg.swa_window)
+        failures += tp_stream_parity(cfg, requests, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        n, why = served_depth(cfg, depth, copies=2)
+        full = cfg
+        cfg = dataclasses.replace(cfg, n_layers=n)
+        if why:
+            log(f"[moe-tp] {arch}: depth cut to {why}")
+        base = torch.cuda.memory_allocated() if DEVICE != "cpu" else 0
+        params = random_params(cfg)
+        alloc = (torch.cuda.memory_allocated() - base if DEVICE != "cpu"
+                 else sum(t.numel() * t.element_size()
+                          for t in _tensors(params)))
+        shards = shard_params(params, cfg, mesh)
+        own = {t.data_ptr(): t.numel() * t.element_size()
+               for sh in shards for t in _tensors(sh)}
+        full_ptrs = {t.data_ptr() for t in _tensors(params)}
+        copied = sum(b for p, b in own.items() if p not in full_ptrs)
+        del shards
+        log(f"[moe-tp] {describe(cfg, mesh)}; weights {alloc / 1e9:.3f} GB "
+            f"allocated, param_count {cfg.param_count():,} at this depth "
+            f"({full.param_count():,} at {full.n_layers} layers); the pod's "
+            f"shards copy {copied / 1e9:.3f} GB of split leaves (the "
+            f"replicated router, gates and norms are shared by the ranks)")
+        launches[arch] = served_path(cfg, params, requests, mesh)
+        gc.collect()
+        profile_window(cfg, params, requests, mesh)
+        gc.collect()
+        raw, gap, flips, finite = moe_prefill_logit_gaps(cfg, params,
+                                                         requests, mesh)
+        if not flips:
+            gap = max(gap, raw)
+        if not finite or not gap <= LOGIT_TOL_BF16:
+            failures.append(f"{arch}: bf16 prefill logits, single-device - "
+                            f"TP kernel = {gap:.4e} (tol {LOGIT_TOL_BF16})")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[moe-tp] {arch} in {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError("phase 11: " + "; ".join(failures))
+    t0 = time.perf_counter()
+    run = cli_run("moe tp2 chunk+auto", MOE_TP_CLI, after=executor_swap)
+    c = run["counters"]
+    log(f"[moe-tp] CLI on one TP={TP} pod of qwen2-moe-a2.7b: swapouts "
+        f"{c['swapouts']}, swapins {c['swapins']}, chunk dispatches "
+        f"{c['chunk_dispatches']} in {time.perf_counter() - t0:.1f} s")
+    if c["chunk_dispatches"] <= 0:
+        raise AssertionError("phase 11: the CLI run dispatched no chunk")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe-tp] phase 11 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def random_params(cfg):
     """``transformer.init_params`` on the card from ``SEED``."""
     import torch
@@ -3751,6 +4075,10 @@ def main(argv=None) -> None:
     # phase 10: the audio family, whisper-large-v3 at full width and depth
     audio = audio_phase()
 
+    # phase 11: the MoE family on TP pods; chunked prefill and swap under a
+    # mesh
+    moe_tp = moe_tp_phase()
+
     served = {"flash_decode": dict(dtype="bfloat16", B=4, window=None),
               "flash_decode_int8": dict(dtype="bfloat16", B=4, D=HEAD_DIM,
                                         window=None, note=""),
@@ -3781,12 +4109,16 @@ def main(argv=None) -> None:
     au_rows = {"flash_decode": dict(dtype="bfloat16", B=4, L=AU_ROWS),
                "flash_attention": dict(dtype="bfloat16", B=STEP_SLOTS,
                                        S=STEP_PROMPT)}
+    # the MoE pods' ranks, with phase 11's launches
+    tp_row = dict(dtype="bfloat16", B=4, tp=TP)
     kernels = []
     for name, key, counts, arch in (
             [(n, k, launches, "") for n, k in served.items()]
             + [(n, k, hybrid, HY_ARCH) for n, k in hy_rows.items()]
             + [(n, k, archs[VL_ARCH], VL_ARCH) for n, k in vl_rows.items()]
-            + [(n, k, audio, AU_ARCH) for n, k in au_rows.items()]):
+            + [(n, k, audio, AU_ARCH) for n, k in au_rows.items()]
+            + [("flash_decode_sharded", tp_row, moe_tp[a], a)
+               for a, _, _ in MOE_TP_SHAPES]):
         r = next(r for r in rows[name]
                  if r.get("arch", "") == arch
                  and all(r[k] == v for k, v in key.items()))

@@ -45,8 +45,9 @@ slot cache per rank, each on its rank's device, and drives every rank from
 this one process (:mod:`repro_torch.models.transformer`); the slot
 bookkeeping, the sampler and ``last_token`` stay on rank 0, so the executor
 and the frontend see one engine.  :func:`make_tp_pods` builds data-parallel
-pods of such engines.  Chunked prefill and KV swap under a mesh raise
-``NotImplementedError``.
+pods of such engines (dense and MoE families).  A chunk of a chunked
+prefill runs every rank over its own cache, and a swap stashes every
+rank's slot rows, each copied back to its own rank's device.
 
 The vlm family serves text only, as the reference's engine does: a job's
 tokens, with their positions on all three M-RoPE axes.  An audio engine
@@ -170,8 +171,9 @@ class InferenceEngine:
     device: ``cuda`` unless the caller passes ``device="cpu"``.
 
     With ``mesh`` (a single-axis ``("model",)`` mesh: one TP pod of the
-    dense family) ``params`` is the full tree, which the engine splits by
-    ``launch.partition.shard_params``; ``device`` is then rank 0's device.
+    dense or MoE family) ``params`` is the full tree, which the engine
+    splits by ``launch.partition.shard_params``; ``device`` is then rank
+    0's device.
     Every rank runs the kernels of ``attn_impl``; a layout that does not
     split into ranks of one GQA ratio (the ``layout:`` reason of
     ``launch.partition.kernel_decode_support``) raises ``ValueError``
@@ -250,13 +252,6 @@ class InferenceEngine:
         self._warned.add(key)
         warnings.warn(msg, UserWarning, stacklevel=3)
 
-    def _single_device(self, what: str) -> None:
-        """Raise for ``what`` under a mesh, which is not ported yet."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} under a tensor-parallel mesh is not ported yet "
-                "(ROADMAP queue 1, item 8)")
-
     # ------------------------------------------------------------------ #
     def _set_lens(self, cache, lens: Sequence[int]) -> None:
         """Set ``len`` of every rank's cache to ``lens``: the ranks' lengths
@@ -312,7 +307,6 @@ class InferenceEngine:
         across subsequent windows (stale K/V from a previous occupant is
         dead weight behind the kv_len mask, exactly as after a one-shot
         scatter)."""
-        self._single_device("chunked prefill")
         free = [s for s, owner in enumerate(self.slot_job) if owner is None]
         if not free:
             raise RuntimeError("no free slot to allocate")
@@ -329,7 +323,8 @@ class InferenceEngine:
         self._chunk_target[job.job_id] = len(toks)
         self._chunk_tokens[job.job_id] = toks
         self._chunk_resumed[job.job_id] = bool(job.generated)
-        self.cache["len"][slot] = 0
+        for c in _ranks(self.cache):
+            c["len"][slot] = 0
         return slot
 
     def prefill_incomplete(self, job_id: int) -> bool:
@@ -341,8 +336,8 @@ class InferenceEngine:
     def _run_chunk(self, job: Job, chunk: int) -> None:
         """Ingest the next (at most) ``chunk`` prompt tokens of ``job`` in
         one batch-1 dispatch against its slot's partially filled cache,
-        which it updates in place (the slot's rows and ``len`` only)."""
-        self._single_device("chunked prefill")
+        which it updates in place (the slot's rows and ``len`` only, on
+        every rank)."""
         jid = job.job_id
         toks_all = self._chunk_tokens[jid]
         cur = self._prefill_cursor[jid]
@@ -353,18 +348,22 @@ class InferenceEngine:
         toks = np.full((1, padded), PAD_ID, np.int32)
         toks[0, :n] = toks_all[cur:cur + n]
         slot = self.slot_of[jid]
-        kvc = self.cache["kv"]
-        # views of the slot's rows: the chunk writes through them in place
-        sub = {"len": self.cache["len"][slot:slot + 1],
-               "kv": T.KVCache(kvc.k[:, slot:slot + 1],
-                               kvc.v[:, slot:slot + 1], kvc.ring)}
+        # views of the slot's rows of each rank's cache: the chunk writes
+        # through them in place
+        subs = [{"len": c["len"][slot:slot + 1],
+                 "kv": T.KVCache(c["kv"].k[:, slot:slot + 1],
+                                 c["kv"].v[:, slot:slot + 1], c["kv"].ring)}
+                for c in _ranks(self.cache)]
         self._chunk_shapes.add(padded)
         self.num_chunk_dispatches += 1
         logits, _ = T.prefill_chunk(
             self.params, self.model_cfg,
-            {"tokens": torch.as_tensor(toks, device=self.device)}, sub,
-            attn_impl=self.cfg.attn_impl, start=cur, valid_len=n)
-        self.cache["len"][slot] = cur + n
+            {"tokens": torch.as_tensor(toks, device=self.device)},
+            subs if self.mesh is not None else subs[0],
+            attn_impl=self.cfg.attn_impl, start=cur, valid_len=n,
+            mesh=self.mesh)
+        for c in _ranks(self.cache):
+            c["len"][slot] = cur + n
         self._prefill_cursor[jid] = cur + n
         if self._chunk_resumed[jid]:
             self.resume_context_tokens += n
@@ -385,24 +384,26 @@ class InferenceEngine:
     def offload_job(self, job_id: int) -> bool:
         """Evict a job's slot but keep its cache in HOST memory — resume
         swaps it back in instead of paying recompute.  The stash is a cpu
-        copy of every leaf of the slot's sub-cache plus the decode
-        bookkeeping (last token, pending first emission, chunk cursor), so
-        a restored job continues bit for bit.
+        copy of every leaf of the slot's sub-cache, one per rank under a
+        mesh (each rank's own KV heads), plus the decode bookkeeping (last
+        token, pending first emission, chunk cursor), so a restored job
+        continues bit for bit.
 
         With ``swap_pool_tokens`` set, the host stash is bounded: an
         over-watermark swap-out evicts the COLDEST stashed victims (oldest
         swap-outs, insertion order) to the recompute-fallback path; if the
         fresh stash alone exceeds the pool it is refused (returns False, the
         caller falls back to plain eviction + recompute)."""
-        self._single_device("KV swap")
         slot = self.slot_of.get(job_id)
         if slot is None:
             return False
-        sub = _gather_slots(self.cache, torch.tensor([slot],
-                                                     device=self.device))
-        ctx = int(sub["len"][0])
+        subs = [_gather_slots(c, torch.tensor([slot],
+                                              device=c["len"].device))
+                for c in _ranks(self.cache)]
+        ctx = int(subs[0]["len"][0])
         self._host_stash[job_id] = {
-            "cache": _map_leaves(sub, lambda t: t.to("cpu")),
+            "cache": [_map_leaves(sub, lambda t: t.to("cpu"))
+                      for sub in subs],
             "last": int(self.last_token[slot, 0]),
             "pending": self._pending_first.get(job_id),
             "cursor": self._prefill_cursor.get(job_id),
@@ -441,16 +442,18 @@ class InferenceEngine:
 
     def restore_job(self, job: Job) -> int:
         """Swap a host-stashed job back into a free slot, bit for bit (the
-        stash's values are copied into the slot's rows; nothing aliases
-        the stash)."""
+        stash's values are copied into the slot's rows, each rank's onto
+        its own device; nothing aliases the stash)."""
         st = self._host_stash.pop(job.job_id)
         self.stash_tokens -= st["ctx"]
         free = [s for s, owner in enumerate(self.slot_job) if owner is None]
         if not free:
             raise RuntimeError("no free slot to restore into")
         slot = free[0]
-        sub = _map_leaves(st["cache"], lambda t: t.to(self.device))
-        _scatter_slots(self.cache, sub, [slot], 1)
+        for c, sub in zip(_ranks(self.cache), st["cache"]):
+            dev = c["len"].device
+            _scatter_slots(c, _map_leaves(sub, lambda t: t.to(dev)), [slot],
+                           1)
         self.slot_job[slot] = job.job_id
         self.slot_of[job.job_id] = slot
         self.last_token[slot, 0] = st["last"]

@@ -1,4 +1,4 @@
-"""Tensor-parallel partition rules — the dense subset of
+"""Tensor-parallel partition rules — the dense and MoE subset of
 ``repro.launch.partition``.
 
 The reference hands partition specs to GSPMD, which splits the arrays and
@@ -9,6 +9,14 @@ The rules are the reference's: vocab, heads and the FFN hidden axis on
 "model", norms replicated.  Shards are contiguous ranges of whole heads,
 so each rank's K/V slice is a contiguous tensor that the decode kernel
 takes as it is.
+
+The MoE family follows the reference's baseline "tensor" scheme
+(``_MOE_RULES``, which its ``engine_shardings`` uses): each routed
+expert's hidden axis is on "model", and the router, the shared path's
+sigmoid gate and the experts' own axis are replicated; the shared path's
+MLP takes the dense rules.  The reference's other scheme,
+``moe_scheme="expert"`` (experts on "model"), is an experiment its engine
+never selects, so it is not ported.
 
 Each rank holds the KV heads its own query heads read, a contiguous range:
 its share of them when the rank count divides ``n_kv_heads``, or the one
@@ -43,13 +51,23 @@ _PARAM_RULES: Dict[str, Tuple[int, Tuple]] = {
     "w_gate": (2, (None, "model")),
     "w_up": (2, (None, "model")),
     "w_down": (2, ("model", None)),
+    "router": (2, (None, None)),          # MoE router (d, experts)
+    "gate": (2, (None, None)),            # shared-expert sigmoid gate (d, 1)
     "scale": (1, (None,)),
+}
+#: the routed experts' leaves (a leading expert axis, replicated): under
+#: "moe" and outside "shared" these rules take the place of
+#: :data:`_PARAM_RULES`
+_MOE_RULES: Dict[str, Tuple[int, Tuple]] = {
+    "w_gate": (3, (None, None, "model")),
+    "w_up": (3, (None, None, "model")),
+    "w_down": (3, (None, "model", None)),
 }
 #: leaves split by KV head: each rank takes its kv_head_range
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
 
 #: families the tensor-parallel path serves
-TP_FAMILIES = ("dense",)
+TP_FAMILIES = ("dense", "moe")
 
 
 def tp_ranks(mesh) -> List[torch.device]:
@@ -66,8 +84,6 @@ def tp_ranks(mesh) -> List[torch.device]:
 _TP_DESIGN = {
     "ssm": "the SSM in_proj packs z/x/B/C/dt into one column block, so "
            "column-sharding it needs its own design",
-    "moe": "the experts need their own split (expert or hidden-dim "
-           "parallel) and the router a replicated read",
     "hybrid": "its Mamba2 backbone shares the SSM family's packed in_proj, "
               "and its shared attention block a split of its own",
     "vlm": "its patch embeddings and 3-D M-RoPE positions enter the "
@@ -111,29 +127,42 @@ def kv_head_range(cfg, tp: int, rank: int) -> Tuple[int, int]:
 
 
 def local_config(cfg, tp: int):
-    """The config one rank computes with: its share of the query heads and
-    of the FFN hidden axis, and the KV heads it reads
-    (:func:`kv_head_range`).  ``head_dim`` is a stored field, so it is
-    unchanged.  Raises ``ValueError`` for a layout the port does not
-    serve."""
+    """The config one rank computes with: its share of the query heads, of
+    the FFN hidden axis and of the MoE experts' and shared path's hidden
+    axes, and the KV heads it reads (:func:`kv_head_range`).
+    ``head_dim`` is a stored field, so it is unchanged.  Raises
+    ``ValueError`` for a layout the port does not serve, or a width that
+    does not divide over ``tp`` ranks."""
     check_family(cfg)
     reason = _layout_reason(cfg, tp)
     if reason is not None:
         raise ValueError(reason)
-    for what, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+    m = cfg.moe  # widths 0 outside the MoE family
+    for what, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size),
+                    ("moe.expert_d_ff", m.expert_d_ff),
+                    ("moe.shared_d_ff", m.shared_d_ff)):
         if n % tp:
             raise ValueError(f"{what}={n} does not divide over {tp} ranks")
     lo, hi = kv_head_range(cfg, tp, 0)
+    moe = dataclasses.replace(m, expert_d_ff=m.expert_d_ff // tp,
+                              shared_d_ff=m.shared_d_ff // tp)
     return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
-                               n_kv_heads=hi - lo, d_ff=cfg.d_ff // tp)
+                               n_kv_heads=hi - lo, d_ff=cfg.d_ff // tp,
+                               moe=moe)
 
 
 def _split_axis(names: Tuple[str, ...], leaf: torch.Tensor) -> Optional[int]:
-    """The axis of ``leaf`` split across ranks, or None (replicated)."""
+    """The axis of ``leaf`` split across ranks, or None (replicated).  The
+    table is chosen from the whole path, as the reference's
+    ``param_pspecs`` chooses it: a routed expert's ``w_gate`` is 3-D and
+    split on its last axis, the shared path's 2-D one by the dense
+    rule."""
     name = names[-1]
-    if name not in _PARAM_RULES:
+    in_moe = "moe" in names and "shared" not in names
+    table = _MOE_RULES if in_moe and name in _MOE_RULES else _PARAM_RULES
+    if name not in table:
         raise KeyError(f"no partition rule for param path {names}")
-    ndim, tail = _PARAM_RULES[name]
+    ndim, tail = table[name]
     if "model" not in tail:
         return None
     return leaf.ndim - ndim + tail.index("model")

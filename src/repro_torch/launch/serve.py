@@ -18,12 +18,14 @@ Weights are random, from seed 0.
 Prints one JSON line per request and a summary on stderr.  ``--predictor
 bge`` ranks with the BGE length predictor (a small encoder, random from
 seed 0 unless ``--predictor-ckpt`` restores a trained one, on
-``--device``).  Chunked prefill and swap under ``--mesh``, and ``--mesh``
-with an arch of a family the TP path does not serve (SSM, MoE, hybrid,
-vlm, audio), are not ported yet and exit at launch with the ROADMAP item
-that ports them.  ``--arch qwen2-vl-7b`` serves text, as the reference's
-CLI does; ``--arch whisper-large-v3`` exits at launch: a request carries
-no audio frames for its encoder.
+``--device``).  ``--mesh DxM`` serves D tensor-parallel pods of M ranks
+(dense and MoE archs), chunked prefill and swap included; on a machine
+with fewer cards than ranks, ranks share cards.  ``--mesh`` with an arch
+of a family the TP path does not serve (SSM, hybrid, vlm, audio) is not
+ported yet and exits at launch with the ROADMAP item that ports it.
+``--arch qwen2-vl-7b`` serves text, as the reference's CLI does; ``--arch
+whisper-large-v3`` exits at launch: a request carries no audio frames for
+its encoder.
 """
 from __future__ import annotations
 
@@ -75,9 +77,6 @@ from repro_torch.training import latest_step, restore_checkpoint
 
 #: the probe windows' lengths: each probe pass runs one of each
 PROBE_WINDOWS = (4, 16)
-#: why a flag of a slice not ported yet stops the launch
-MESH_CHUNK_NOT_PORTED = ("chunked prefill and KV swap under a mesh are not "
-                         "ported yet (ROADMAP queue 1, item 8)")
 
 
 def parse_mesh(spec: str):
@@ -197,10 +196,6 @@ def build_predictor(args, device="cuda"):
 def _refuse_unported(args) -> None:
     """Exit at launch on a flag whose slice is not ported yet; never serve
     something else in its place."""
-    if args.mesh and (args.prefill_chunk is not None
-                      or args.preempt_policy != "recompute"):
-        sys.exit(f"--mesh with --prefill-chunk or --preempt-policy "
-                 f"{args.preempt_policy}: {MESH_CHUNK_NOT_PORTED}")
     if get_config(args.arch).family == "audio":
         sys.exit(f"--arch {args.arch}: {AUDIO_PREFILL_NOT_SERVED} "
                  "(ROADMAP.md, section 3)")
@@ -229,8 +224,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default=None, metavar="DxM",
                     help="shard the serving fleet over a DxM data×model "
                          "device mesh: D tensor-parallel pods of M devices "
-                         "each (supersedes --workers; needs D*M cards, or "
-                         "D*M CPU ranks with --device cpu)")
+                         "each (supersedes --workers; D*M ranks on the "
+                         "visible cards, which ranks share when there are "
+                         "fewer, or D*M CPU ranks with --device cpu)")
     ap.add_argument("--pods", type=int, default=None,
                     help="with --mesh DxM: use only the first N of the D "
                          "data rows as live pods (default: all D)")
@@ -333,16 +329,19 @@ def main(argv=None):
         if not 1 <= n_pods <= d:
             sys.exit(f"--pods {n_pods} outside the mesh's {d} data rows")
         args.workers = n_pods
-        devices = (visible_devices() if device.type == "cuda"
-                   else [device] * (n_pods * m))
+        devices = [device] * (n_pods * m)
+        if device.type == "cuda":
+            # one rank a card while they last; ranks share them beyond
+            cards = visible_devices()
+            devices = [cards[i % len(cards)] for i in range(n_pods * m)]
         try:
             engines = make_tp_pods(cfg, params, ecfg, n_pods=n_pods, tp=m,
                                    devices=devices)
         except RuntimeError as e:
             sys.exit(f"--mesh {args.mesh}: {e}")
         print(f"[serve] {n_pods} TP={m} pod(s) x {args.slots} slots over "
-              f"{n_pods * m}/{len(devices)} devices, {cfg.arch_id}, "
-              f"policy={args.policy}", file=sys.stderr)
+              f"{n_pods * m} ranks on {len(set(devices))} device(s), "
+              f"{cfg.arch_id}, policy={args.policy}", file=sys.stderr)
     else:
         engines = {n: InferenceEngine(cfg, params, ecfg, device=device)
                    for n in range(args.workers)}

@@ -38,33 +38,37 @@ Public API:
                                                  sliding_window= for a ring)
   prefill(params, cfg, batch, cache)          -> (last_logits, cache)
   prefill_chunk(params, cfg, batch, cache,
-                start=, valid_len=)           -> (last_logits, cache)
+                start=, valid_len=, mesh=)    -> (last_logits, cache)
   decode_step(params, cfg, tokens, cache)     -> (logits, cache)
 
-The MoE family runs ``models.moe.moe_block`` where the dense family runs
-its MLP, with the reference's ``moe_impl`` defaults: ``"dense"`` in
-``prefill`` and ``prefill_chunk``, ``"grouped"`` in ``decode_step``.  These
-three drop the router's aux loss, as the reference's do.
+The MoE family runs the MoE block (``models.moe.moe_partials``) where the
+dense family runs its MLP, with the reference's ``moe_impl`` defaults:
+``"dense"`` in ``prefill`` and ``prefill_chunk``, ``"grouped"`` in
+``decode_step``.  These three drop the router's aux loss, as the
+reference's do.
 
 ``prefill``, ``prefill_chunk`` and ``decode_step`` update the cache they are
 given in place and return it (the reference returns a new pytree).
 
 Tensor parallelism (``mesh=``, a ``("model",)`` mesh of
-:mod:`repro_torch.launch.mesh`; dense family): ``params`` is then the list
-of per-rank trees from ``launch.partition.shard_params`` and ``cache`` the
-list of per-rank caches from ``init_cache(..., mesh=mesh)``.  The dense
-forward is one body over a list of ranks, a single device being one rank.
-One process drives every rank, layer by layer, each rank with its share
-of the heads and of the FFN (``launch.partition.local_config``); the
-row-parallel partials (after ``wo``, after ``w_down``, the vocab-parallel
-embedding) are summed in rank order on rank 0's device and copied back to
-every rank, and the vocab-parallel logits are concatenated there, so two
-runs agree bit for bit.  The decode read of all ranks is one
-``ops.flash_decode_sharded`` call.  Prefill launches ``flash_attention``
-on each rank's local heads: the reference downgrades prefill under a mesh
-to XLA only because its Pallas prefill kernel has no ``shard_map``
-wrapper, and computes the same function either way.  The MoE family under
-a mesh is not ported (``launch.partition.check_family``).
+:mod:`repro_torch.launch.mesh`; dense and MoE families): ``params`` is
+then the list of per-rank trees from ``launch.partition.shard_params``
+and ``cache`` the list of per-rank caches from ``init_cache(...,
+mesh=mesh)``.  The forward is one body over a list of ranks, a single
+device being one rank.  One process drives every rank, layer by layer,
+each rank with its share of the heads and of the FFN or the experts'
+hidden axes (``launch.partition.local_config``); the row-parallel
+partials (after ``wo``, after ``w_down`` or the MoE block, the
+vocab-parallel embedding) are summed in rank order on rank 0's device
+and copied back to every rank, and the vocab-parallel logits are
+concatenated there, so two runs agree bit for bit.  The MoE router runs
+once a layer, on rank 0, and every rank gets its routing.  The decode
+read of all ranks is one ``ops.flash_decode_sharded`` call.  Prefill
+launches ``flash_attention`` on each rank's local heads: the reference
+downgrades prefill under a mesh to XLA only because its Pallas prefill
+kernel has no ``shard_map`` wrapper, and computes the same function
+either way.  ``prefill_chunk`` runs every rank's heads over its own
+cache, with the same sums.
 """
 from __future__ import annotations
 
@@ -466,7 +470,7 @@ CHUNKABLE_FAMILIES = ("dense", "moe", "vlm")
 
 def prefill_chunk(params: Params, cfg, batch: Dict, cache: Cache, *,
                   attn_impl: str = "kernel", moe_impl: str = "dense",
-                  start, valid_len):
+                  start, valid_len, mesh=None):
     """Process ONE prompt chunk against a partially filled cache.
 
     ``batch["tokens"]`` is (B, C): C chunk tokens (right-padded to a shape
@@ -481,32 +485,34 @@ def prefill_chunk(params: Params, cfg, batch: Dict, cache: Cache, *,
     final chunk's, as it does from one-shot prefill's.
 
     Only :data:`CHUNKABLE_FAMILIES` with dense unquantized KV caches are
-    supported; callers fall back to one-shot prefill otherwise."""
+    supported; callers fall back to one-shot prefill otherwise.  With
+    ``mesh``, see the module docstring: every rank writes its own KV heads'
+    span and reads its own cache; the logits lie on rank 0's device."""
     if cfg.family not in CHUNKABLE_FAMILIES:
         raise ValueError(
             f"prefill_chunk supports families {CHUNKABLE_FAMILIES}, "
             f"got {cfg.family!r} — use one-shot prefill")
-    shards, caches, ranks, lcfg = _ranks(params, cfg, cache, None)
+    shards, caches, ranks, lcfg = _ranks(params, cfg, cache, mesh)
     tokens = batch["tokens"]
     b, c = tokens.shape
-    dev = ranks[0]
-    start = torch.as_tensor(start, dtype=torch.int32, device=dev).expand(b)
-    valid = torch.as_tensor(valid_len, dtype=torch.int32,
-                            device=dev).expand(b)
-    pos = start.long()[:, None] + torch.arange(c, device=dev)[None, :]
+    starts = [torch.as_tensor(start, dtype=torch.int32, device=d).expand(b)
+              for d in ranks]
+    valids = [torch.as_tensor(valid_len, dtype=torch.int32,
+                              device=d).expand(b) for d in ranks]
     hs = _embed(shards, cfg, tokens, ranks)
-    cos_sins = [L.positional_cos_sin(cfg, pos)]
-    layers = _unstack(shards[0]["layers"], cfg.n_layers)
-    kvc = caches[0]["kv"]
-    for i, lp in enumerate(layers):
-        parts = L.attention_decode(
-            [lp["attn"]], lcfg, [L.apply_norm(cfg, lp["attn_norm"], hs[0])],
-            cos_sins, [kvc.layer(i)], [start], attn_impl=attn_impl,
-            valid_lens=[valid])
-        hs = _mlp(cfg, lcfg, [lp], _add_sum(hs, parts), moe_impl)
-    caches[0]["len"] = start + valid
-    h = hs[0][torch.arange(b, device=dev), (valid - 1).long()][:, None, :]
-    return _unembed(shards, cfg, [h]), cache
+    cos_sins = [L.positional_cos_sin(
+        cfg, st.long()[:, None] + torch.arange(c, device=d)[None, :])
+        for st, d in zip(starts, ranks)]
+    layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
+    for i in range(cfg.n_layers):
+        hs = _attn_decode(cfg, lcfg, [per[i] for per in layers], hs,
+                          cos_sins, caches, i, starts, None, attn_impl,
+                          moe_impl, valid_lens=valids)
+    for cc, st, v in zip(caches, starts, valids):
+        cc["len"] = st + v
+    hs = [h[torch.arange(b, device=h.device), (v - 1).long()][:, None, :]
+          for h, v in zip(hs, valids)]
+    return _unembed(shards, cfg, hs), cache
 
 
 # =========================================================================== #
@@ -648,15 +654,16 @@ def _attn_prefill(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
 
 def _attn_decode(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
                  cos_sins, caches, site: int, curs, acts, attn_impl: str,
-                 moe_impl: str, mlp: bool = True) -> List[torch.Tensor]:
-    """One attention layer's decode step on every rank over site ``site``
-    of the caches, then the MLP unless ``mlp`` is False.  Returns the
-    residual stream."""
+                 moe_impl: str, mlp: bool = True,
+                 valid_lens=None) -> List[torch.Tensor]:
+    """One attention layer's decode step (or, with ``valid_lens``, one
+    prefill chunk) on every rank over site ``site`` of the caches, then
+    the MLP unless ``mlp`` is False.  Returns the residual stream."""
     parts = L.attention_decode(
         [lp["attn"] for lp in lps], lcfg,
         [L.apply_norm(cfg, lp["attn_norm"], h) for lp, h in zip(lps, hs)],
         cos_sins, [c["kv"].layer(site) for c in caches], curs,
-        attn_impl=attn_impl, actives=acts)
+        attn_impl=attn_impl, actives=acts, valid_lens=valid_lens)
     hs = _add_sum(hs, parts)
     return _mlp(cfg, lcfg, lps, hs, moe_impl) if mlp else hs
 
@@ -676,13 +683,12 @@ def _cross_mlp(cfg, lp: Params, h: torch.Tensor, ck: torch.Tensor,
 def _mlp(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
          moe_impl: str):
     """The residual stream after each rank's (column/row-parallel) MLP,
-    or after the MoE block (one rank; its aux loss is dropped)."""
+    or after each rank's MoE block (its aux loss is dropped)."""
     if cfg.moe.enabled:
-        (lp,), (h,) = lps, hs
-        out, _ = M.moe_block(lp["moe"], cfg,
-                             L.apply_norm(cfg, lp["mlp_norm"], h),
-                             impl=moe_impl)
-        return [h + out]
+        return _add_sum(hs, M.moe_partials(
+            [lp["moe"] for lp in lps], lcfg,
+            [L.apply_norm(cfg, lp["mlp_norm"], h) for lp, h in zip(lps, hs)],
+            impl=moe_impl))
     return _add_sum(hs, [
         L.mlp_block(lp["mlp"], lcfg, L.apply_norm(cfg, lp["mlp_norm"], h))
         for lp, h in zip(lps, hs)])

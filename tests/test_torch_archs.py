@@ -4,8 +4,8 @@ config field for field (full and reduced), ``d_head_total``,
 archs on the meta device; the engine's greedy tokens against the JAX
 single-device engine on the reduced llama3.2-3b, yi-6b and qwen1.5-32b
 (fp32); ``InferenceEngine.add_job``; the tensor-parallel refusals of the
-SSM and MoE families and the CLI's exit at launch; and ``dense_init``'s
-fp32 transient.  Everything is exact: no tolerance.
+families the TP path does not serve yet (SSM, hybrid, vlm, audio) and the
+CLI's exit at launch; and ``dense_init``'s fp32 transient.  Everything is exact: no tolerance.
 """
 import dataclasses
 
@@ -221,8 +221,8 @@ def test_add_job_matches_reference(arch):
 # --------------------------------------------------------------------------- #
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2-moe-a2.7b",
-                                  "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2-vl-7b",
+                                  "whisper-large-v3"])
 def test_tp_refusal_names_queue_item_8(arch):
     cfg = get_config(arch).reduced()
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
@@ -234,11 +234,11 @@ def test_tp_refusal_names_queue_item_8(arch):
         T.init_cache(cfg, 1, 32, mesh=mesh)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mixtral-8x7b",
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "zamba2-7b",
                                   "mamba2-130m"])
 def test_cli_exits_at_launch_on_mesh_with_an_unported_family(arch, capsys):
-    """``--mesh`` with an MoE (or SSM) ``--arch`` exits before any weight
-    is made; it never serves something else in its place."""
+    """``--mesh`` with a vlm, hybrid or SSM ``--arch`` exits before any
+    weight is made; it never serves something else in its place."""
     with pytest.raises(SystemExit) as e:
         serve.main(["--arch", arch, "--mesh", "1x2", "--n", "2",
                     "--device", "cpu"])

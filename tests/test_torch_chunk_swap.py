@@ -408,27 +408,3 @@ def test_calibrated_profile_and_preempt_costs_match_jax(setup):
     tj.prefilled_tokens = jj.prefilled_tokens = 37
     got, want = tex.preempt_costs(0, tj), jex.preempt_costs(0, jj)
     assert got == pytest.approx(want, rel=1e-12)
-
-
-# --------------------------------------------------------------------------- #
-# Under a mesh: not ported, and never a quiet fallback
-# --------------------------------------------------------------------------- #
-
-
-def test_chunk_and_swap_under_a_mesh_raise(setup):
-    """A TP pod (two CPU ranks) refuses chunked prefill and swap-out with
-    ``NotImplementedError`` (no silent one-shot prefill or recompute)."""
-    from repro_torch.launch import make_mesh
-
-    _, cfg, _, tp = setup
-    eng = InferenceEngine(cfg, tp, EngineConfig(**ECFG),
-                          mesh=make_mesh((2,), ("model",),
-                                         devices=["cpu"] * 2))
-    _, tj = _jobs(7, 9)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        eng.run_window([tj], 4, prefill_chunk=4)
-    assert not eng.has_job(tj.job_id)
-    eng.run_window([tj], 4)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        eng.offload_job(tj.job_id)
-    assert eng.has_job(tj.job_id) and not eng.has_stash(tj.job_id)
