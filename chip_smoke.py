@@ -168,7 +168,29 @@ Phases (any failure raises and exits non-zero):
      serve CLI with ``--mesh 1x2 --arch qwen2-moe-a2.7b --prefill-chunk
      64 --preempt-policy auto`` on ``CLI_QUEUE`` (every request finished,
      its swaps and chunk dispatches printed) and one offload and restore
-     through its executor.
+     through its executor;
+ 12. the SSM and hybrid families on tensor-parallel pods of 2 ranks (on
+     one card when there is one): mamba2-130m at its 24 layers and
+     zamba2-7b at its 81, bf16 at full width.  For each, fp32 greedy
+     tokens of the pods (mamba2-130m at TP=2 and TP=4, all 24 layers;
+     zamba2-7b at TP=2 and phase 9's 13 layers) against the
+     single-device kernel and plain engines through evictions, recompute
+     resumes and a swap, and one swap round trip on the TP=2 pod, every
+     rank's slot rows bit for bit; the bytes allocated beside
+     ``param_count`` and the bytes the shards copy; phase 4's served path
+     on the pod (launch counts reset before and read after: ``ssd_scan``
+     layers x 2 a prefill, each launch on a rank's heads; zamba2-7b's
+     ``flash_attention`` 13 x 2 a prefill and ``flash_decode_sharded`` 13
+     x 2 a decode step); one decode window profiled; the pod's bf16 first
+     prefill logits against the single-device kernel model (and fp32 ones
+     at the parity depth) within ``POD_LOGIT_TOL``; then the serve CLI with
+     ``--mesh 1x2 --arch mamba2-130m --preempt-policy auto`` on
+     ``CLI_QUEUE``, and one offload and restore through its executor
+     when the traffic swapped nothing.  Phase 3's rows tagged
+     ``mamba2-130m TP=2`` and ``zamba2-7b TP=2`` hold the kernels at a
+     rank's share of these pods (``ssd_scan`` at H=12, (64, 128) and
+     H=56, (64, 64); ``flash_attention`` and ``flash_decode_sharded`` at
+     16/16 heads of dim 112 a rank).
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -191,7 +213,10 @@ the bf16 SSD passes do the same with their three fp32 operands;
 ``drop_carried_state``: the SSD scan drops the carried-state term of its
 outputs, in both bodies); ``drop_rank_partial`` instead
 drops one rank's attention output from the TP model's sums, in memory,
-and runs phase 5's TP comparisons.
+and runs phase 5's TP comparisons; ``rank_local_norm`` (alone) makes
+each rank of an SSM or hybrid pod normalise over its own slice of
+``d_inner``, in memory, and runs phase 12's fp32 token and bf16 logit
+checks against it.
 
     python3 chip_smoke.py --window-bench 24
 
@@ -202,6 +227,7 @@ checkout's ``src``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -328,6 +354,24 @@ RECURRENT_LOGIT_TOL = {("ssm", "bfloat16"): SSM_LOGIT_TOL_BF16,
 #: (one rank's attention output left out of every layer's sum) gave 4.98;
 #: the limit lies between them.  fp32 greedy identity caught that fault too.
 TP_LOGIT_TOL_BF16 = 0.1
+#: first prefill logits of phase 12's SSM and hybrid pods against the
+#: single-device kernel model, by family and dtype.  The pod computes the
+#: same function and rounds otherwise: each rank rounds its ``out_proj``
+#: partial to bf16 before the ranks add (as a row-parallel product under
+#: the reference's GSPMD does), and its ``in_proj`` columns come from a
+#: narrower product.  On an H100 the correct bf16 pods read 0.0957
+#: (mamba2-130m, 24 layers, |logit| <= 2.5) and 0.1738 (zamba2-7b, 81
+#: layers), and the planted ``rank_local_norm`` (each rank normalising
+#: over its own slice of ``d_inner``) 0.4258 and 0.3223: the bf16 limits
+#: lie between them, the family's kernel-vs-plain limit
+#: (``RECURRENT_LOGIT_TOL``) held where it can (zamba2-7b's 0.2), not
+#: mamba2-130m's 0.02, which a correct pod's rounding alone exceeds.  So,
+#: as ``HYBRID_TOL_REASON`` says of phase 9, the bf16 limits catch gross
+#: faults only; in fp32 the pod and one device differ by summation order
+#: alone, and the fp32 limit holds them (PERF.md gives the readings).
+POD_LOGIT_TOL = {("ssm", "bfloat16"): 0.2,
+                 ("hybrid", "bfloat16"): HYBRID_LOGIT_TOL_BF16,
+                 ("ssm", "float32"): 1e-3, ("hybrid", "float32"): 1e-3}
 #: bf16 logits of the first decode step after prefill over an int8 cache
 #: (full width and depth): the kernel path (dequantize in fp32) against the
 #: plain path (dequantize to bf16, then sdpa, as the reference reads it).
@@ -345,6 +389,11 @@ VL_LOGIT_TOL_FP32 = 1e-3
 AU_LOGIT_TOL_BF16 = 0.1
 #: ranks of the tensor-parallel cell
 TP = 2
+#: phase 12's tensor-parallel SSM and hybrid pods (``TP`` ranks): the tags
+#: of phase 3's rows at each rank's share of them (mamba2-130m: 12 of 24
+#: SSM heads; zamba2-7b: 56 of 112 SSM heads, 16/16 of its shared block's
+#: 32/32 attention heads)
+SSM_TP_TAG, HY_TP_TAG = f"mamba2-130m TP={TP}", f"{HY_ARCH} TP={TP}"
 #: one-line faults for ``--planted-fault``: (source, regex, replacement)
 PLANTED_FAULTS = {
     # the int8 decode ignores V's scales (V read as its raw codes)
@@ -658,8 +707,13 @@ def check_ssd(record, gen, dtype, timed) -> None:
     dn = str(dtype).split(".")[1]
     long_rows = SSD_LONG_ROWS if dtype == torch.bfloat16 else []
     mamba = (SSM_HEADS, SSM_HEAD_DIM, SSM_STATE)
+    # phase 12's pods: each rank's share of the SSM heads
+    ssm_rank = (SSM_HEADS // TP, SSM_HEAD_DIM, SSM_STATE)
+    hy_rank = (HY_SSD[0] // TP,) + HY_SSD[1:]
     rows = ([(r, mamba, "") for r in SSD_ROWS + long_rows]
-            + [(r, HY_SSD, HY_ARCH) for r in HY_SSD_ROWS])
+            + [(r, HY_SSD, HY_ARCH) for r in HY_SSD_ROWS]
+            + [((512, 256, 0), ssm_rank, SSM_TP_TAG)]
+            + [(r, hy_rank, HY_TP_TAG) for r in HY_SSD_ROWS if r[0] <= 512])
     for (S, chunk, pad), widths, arch in rows:
         x, a, bm, cm = ssd_case(S, pad, dtype, gen, widths)
         b_ms, b_by = bound(*ssd_work(S, chunk, dtype.itemsize, widths), dn)
@@ -814,8 +868,10 @@ def check_kernels(timed: bool = True):
         for B in (4, 128):
             dense_decode(*decode_case(B, dtype, gen, AU_WIDTHS, AU_ROWS),
                          None, 200 if B == 4 else 50, False, AU_ARCH)
-        # the MoE pods of phase 11: each rank's heads of a TP=2 pod
-        for arch, widths, window in MOE_TP_SHAPES:
+        # the MoE pods of phase 11 and the hybrid pod of phase 12: each
+        # rank's heads of a TP=2 pod
+        for arch, widths, window in MOE_TP_SHAPES + [(HY_TP_TAG, hy,
+                                                       HY_WINDOW)]:
             check_sharded(record, *decode_case(4, dtype, gen, widths), dn,
                           es, 200, window=window, tps=(TP,), arch=arch)
         torch.cuda.empty_cache()
@@ -824,9 +880,12 @@ def check_kernels(timed: bool = True):
             for S in (16, 128, 512):
                 for window in (None, 64):
                     prefill_row(B, S, (HEADS, KV_HEADS, HEAD_DIM), window)
-        # zamba2-7b's shared block: exact-length prompts, one at a time
+        # zamba2-7b's shared block: exact-length prompts, one at a time;
+        # and a rank's 16/16 heads of phase 12's pod
         for S in HY_PREFILL_S:
             prefill_row(1, S, hy, HY_WINDOW, HY_ARCH)
+        prefill_row(1, MAX_LEN, (HY_HEADS // TP, HY_HEADS // TP,
+                                 HY_HEAD_DIM), HY_WINDOW, HY_TP_TAG)
         # qwen2-vl-7b: the step path's patches and text, 4 x 512, and the
         # longest of phase 8's prompts alone; whisper's decoder: phase
         # 10's prompts and prefill_32k's 32 x 448
@@ -1358,6 +1417,38 @@ def check_launches(launches, want) -> None:
             raise AssertionError(f"{name} was never launched on the path")
 
 
+def path_launches(cfg, tp: int, prefills: int, steps: int,
+                  step_note: str = "") -> dict:
+    """name -> (launches, why) of a served run on one engine (a pod of
+    ``tp`` ranks) with ``prefills`` one-shot prefill dispatches and
+    ``steps`` decode steps: ``flash_attention`` and ``ssd_scan`` once a
+    layer (or shared-block site) and rank a prefill, the decode kernel
+    (``flash_decode_sharded`` on a pod: one launch a rank) once a layer or
+    site a step; the SSM decode step launches nothing.  A run with no
+    one-shot prefill (every job admitted in chunks) expects no prefill
+    kernel."""
+    decode = "flash_decode" if tp == 1 else "flash_decode_sharded"
+    ranks = f"{tp} ranks x " if tp > 1 else ""
+    per = f"{cfg.n_layers} layers x {ranks}"
+    pf = f"{prefills} prefill dispatches"
+    if cfg.family in ("ssm", "hybrid"):
+        want = {"ssd_scan": (cfg.n_layers * tp * prefills, per + pf)}
+        if cfg.family == "hybrid":
+            from repro_torch.models.transformer import hybrid_layout
+
+            sites = hybrid_layout(cfg)[0]
+            site = f"{sites} shared-block sites x {ranks}"
+            want["flash_attention"] = (sites * tp * prefills, site + pf)
+            want[decode] = (sites * tp * steps,
+                            f"{site}{steps} decode steps{step_note}")
+    else:
+        want = {decode: (cfg.n_layers * tp * steps,
+                         f"{per}{steps} decode steps{step_note}"),
+                "flash_attention": (cfg.n_layers * tp * prefills, per + pf)}
+    return {name: w for name, w in want.items()
+            if prefills or name not in ("ssd_scan", "flash_attention")}
+
+
 def served_path(cfg, params, requests, mesh=None):
     """Serve ``requests`` through the kernel path (on one TP pod with
     ``mesh``) with every launch count set to 0 just before and read just
@@ -1380,30 +1471,9 @@ def served_path(cfg, params, requests, mesh=None):
     if any(not 0 <= t < cfg.vocab_size for r in responses for t in r.tokens):
         raise AssertionError("a generated token lies outside the vocabulary")
     decode_steps = sum(rec["window"] for rec in executor.window_log)
-    prefills = counters["prefill_dispatches"]
     tp = 1 if mesh is None else len(mesh.ranks)
-    per = f"{cfg.n_layers} layers x " + (f"{tp} ranks x " if tp > 1 else "")
-    if cfg.family == "ssm":
-        want_launches = {"ssd_scan": (cfg.n_layers * prefills,
-                                      f"{per}{prefills} prefill dispatches")}
-    elif cfg.family == "hybrid":
-        from repro_torch.models.transformer import hybrid_layout
-
-        sites = hybrid_layout(cfg)[0]
-        want_launches = {
-            "ssd_scan": (cfg.n_layers * prefills,
-                         f"{per}{prefills} prefill dispatches"),
-            "flash_attention": (sites * prefills, f"{sites} shared-block "
-                                f"sites x {prefills} prefill dispatches"),
-            "flash_decode": (sites * decode_steps, f"{sites} shared-block "
-                             f"sites x {decode_steps} decode steps")}
-    else:
-        decode = "flash_decode" if mesh is None else "flash_decode_sharded"
-        want_launches = {
-            decode: (cfg.n_layers * tp * decode_steps,
-                     f"{per}{decode_steps} decode steps"),
-            "flash_attention": (cfg.n_layers * tp * prefills,
-                                f"{per}{prefills} prefill dispatches")}
+    want_launches = path_launches(cfg, tp, counters["prefill_dispatches"],
+                                  decode_steps)
     check_launches(launches, want_launches)
     n_tok = sum(r.n_tokens for r in responses)
     m = summarize(responses)
@@ -2066,7 +2136,8 @@ def planted_fault(kind: str, models) -> dict:
                 # (P, N) = (64, 64); qwen2-vl-7b: GQA 28/4; whisper: D =
                 # 64, MHA; the MoE pods' ranks) are tallied apart
                 for arch in ("", HY_ARCH, VL_ARCH, AU_ARCH,
-                             *(a for a, _, _ in MOE_TP_SHAPES)):
+                             *(a for a, _, _ in MOE_TP_SHAPES),
+                             SSM_TP_TAG, HY_TP_TAG):
                     rs = [r for r in rr if r["dtype"] == dn
                           and r.get("arch", "") == arch]
                     if rs:
@@ -2121,6 +2192,25 @@ def planted_fault(kind: str, models) -> dict:
         build._loaded.clear()
         shutil.rmtree(work, ignore_errors=True)
     return {"planted_fault": kind, "kernel_checks": caught, **served}
+
+
+@contextlib.contextmanager
+def rank_local_norm():
+    """The planted TP fault ``rank_local_norm``, in memory: each rank of a
+    pod normalises its heads' y over its own slice of ``d_inner``, the
+    Mamba2 block's gated norm without the cross-rank sum of squares."""
+    from repro_torch.models import ssm as S
+
+    right = S.gated_partials
+
+    def faulty(ps, cfg, ys, zs):
+        return [right([p], cfg, [y], [z])[0] for p, y, z in zip(ps, ys, zs)]
+
+    S.gated_partials = faulty
+    try:
+        yield
+    finally:
+        S.gated_partials = right
 
 
 def tp_planted_fault(cfg, params, requests) -> dict:
@@ -2276,19 +2366,12 @@ def check_served(name, responses, executor, want_tokens, launches, wall,
             f"dispatches, but {len(decoding)} windows emitted tokens and "
             f"{probe_windows} probe windows ran")
     eng = executor.engines[0]
-    n_layers = eng.model_cfg.n_layers
     tp = 1 if eng.mesh is None else len(eng.mesh.ranks)
     decode = "flash_decode" if tp == 1 else "flash_decode_sharded"
-    per = f"{n_layers} layers x " + (f"{tp} ranks x " if tp > 1 else "")
     prefills = counters["prefill_dispatches"]
-    want = {decode: (n_layers * tp * (steps + probe_steps),
-                     f"{per}{steps + probe_steps} decode steps"
-                     + (f" ({probe_steps} of them probes)"
-                        if probe_steps else ""))}
-    if prefills:  # a chunked run admits every job, resumes too, by chunks
-        want["flash_attention"] = (n_layers * tp * prefills,
-                                   f"{per}{prefills} one-shot prefill "
-                                   "dispatches")
+    want = path_launches(eng.model_cfg, tp, prefills, steps + probe_steps,
+                         f" ({probe_steps} of them probes)"
+                         if probe_steps else "")
     check_launches(launches, want)
     m = summarize(responses)
     n_tok = sum(r.n_tokens for r in responses)
@@ -2309,7 +2392,8 @@ def check_served(name, responses, executor, want_tokens, launches, wall,
         f"dispatches {counters['chunk_dispatches']}, resume prefill tokens "
         f"{counters['resume_context_tokens']}; {decode} "
         f"{launches[decode]}, flash_attention "
-        f"{launches['flash_attention']}; {wall:.1f} s wall")
+        f"{launches['flash_attention']}, ssd_scan {launches['ssd_scan']}; "
+        f"{wall:.1f} s wall")
     return run
 
 
@@ -2794,11 +2878,12 @@ def swap_round_trip(eng, job, between) -> None:
                              "differ from the offloaded ones")
 
 
-def swap_roundtrip(cfg, params, requests) -> None:
-    """One slot's cache offloaded to the host and restored, at full width:
-    bit for bit (:func:`swap_round_trip`), and the greedy streams of both
-    jobs equal to those of an engine that keeps the job resident over the
-    same schedule (the job sits out one window either way)."""
+def swap_roundtrip(cfg, params, requests, mesh=None) -> None:
+    """One slot's cache offloaded to the host and restored, at full width
+    (on one TP pod with ``mesh``): bit for bit on every rank
+    (:func:`swap_round_trip`), and the greedy streams of both jobs equal
+    to those of an engine that keeps the job resident over the same
+    schedule (the job sits out one window either way)."""
     from repro_torch.core import Job
     from repro_torch.engine import EngineConfig, InferenceEngine
 
@@ -2807,7 +2892,7 @@ def swap_roundtrip(cfg, params, requests) -> None:
     for swap in (True, False):
         eng = InferenceEngine(cfg, params, EngineConfig(
             max_slots=2, max_len=MAX_LEN, max_output=64, eos_id=-1),
-            device=DEVICE)
+            device=DEVICE, mesh=mesh)
         jobs = [Job(job_id=i, prompt="", prompt_tokens=p, arrival_time=0.0)
                 for i, p in enumerate(prompts)]
 
@@ -2830,8 +2915,10 @@ def swap_roundtrip(cfg, params, requests) -> None:
     if streams[0] != streams[1]:
         raise AssertionError(f"swap round trip: streams differ from the "
                              f"resident engine's: {streams}")
+    pod = "" if mesh is None else f" on a TP={len(mesh.ranks)} pod"
     log(f"[swap] {cfg.arch_id} {cfg.dtype}, full width, {cfg.n_layers} "
-        f"layers: one slot's cache ({n_bytes / 1e6:.1f} MB, {MAX_LEN} rows"
+        f"layers{pod}: one slot's cache ({n_bytes / 1e6:.1f} MB, "
+        f"{MAX_LEN} rows"
         f"{', its recurrent states too' if cfg.ssm.enabled else ''}) "
         f"offloaded to the host and "
         f"restored bit for bit; greedy streams of both jobs identical to a "
@@ -3807,7 +3894,7 @@ def tp_stream_parity(cfg, requests, mesh) -> list:
     return failures
 
 
-def executor_swap(executor) -> None:
+def executor_swap(executor, tag: str = "moe-tp") -> None:
     """One job admitted, decoded, offloaded to the host and restored
     through the executor of a TP pod (``EngineExecutor.offload`` /
     ``restore``), every rank's slot rows bit for bit, then decoded on and
@@ -3831,7 +3918,7 @@ def executor_swap(executor) -> None:
         raise AssertionError("executor swap: a rank's rows differ")
     executor.execute(0, [job], 8, 0.0)
     executor.evict(0, job)
-    log(f"[moe-tp] executor of the CLI's pod: one job offloaded and "
+    log(f"[{tag}] executor of the CLI's pod: one job offloaded and "
         f"restored through EngineExecutor.offload/restore, its slot rows "
         f"on all {len(after)} ranks bit for bit; swapouts "
         f"{executor.counters()['swapouts']}")
@@ -3881,10 +3968,7 @@ def moe_tp_phase() -> dict:
                  else sum(t.numel() * t.element_size()
                           for t in _tensors(params)))
         shards = shard_params(params, cfg, mesh)
-        own = {t.data_ptr(): t.numel() * t.element_size()
-               for sh in shards for t in _tensors(sh)}
-        full_ptrs = {t.data_ptr() for t in _tensors(params)}
-        copied = sum(b for p, b in own.items() if p not in full_ptrs)
+        copied = pod_copies(params, shards)
         del shards
         log(f"[moe-tp] {describe(cfg, mesh)}; weights {alloc / 1e9:.3f} GB "
             f"allocated, param_count {cfg.param_count():,} at this depth "
@@ -3922,6 +4006,236 @@ def moe_tp_phase() -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 12: the SSM and hybrid families on tensor-parallel pods
+# --------------------------------------------------------------------------- #
+
+#: phase 12's pods: (arch, the pod sizes its fp32 parity runs, the depth of
+#: that run: mamba2-130m whole, zamba2-7b at phase 9's)
+SSM_TP_ARCHS = [("mamba2-130m", (TP, 4), None),
+                (HY_ARCH, (TP,), HY_PARITY_DEPTH)]
+#: phase 12's CLI run: ``CLI_QUEUE`` on one TP pod of mamba2-130m under
+#: ISRTF, preempting by the ``auto`` break-even
+SSM_TP_CLI = CLI_QUEUE + ["--policy", "isrtf", "--arch", "mamba2-130m",
+                          "--mesh", f"1x{TP}", "--preempt-policy", "auto"]
+
+
+def pod_parity(cfg, params, requests, meshes) -> list:
+    """fp32 greedy tokens of each TP kernel engine of ``meshes`` against
+    the single-device kernel engine and the plain engine, through
+    evictions, recompute resumes and one swap round trip
+    (:func:`greedy_streams`).  Where tokens differ, the first position and
+    the single-device top-2 logit margin there (of a one-shot prefill of
+    the context) are printed: a margin under ``FP32_TIE`` is a tie,
+    anything larger a fault.  Returns the failures."""
+    prompts = [list(r.prompt_tokens) for r in requests[:6]]
+    runs = {"kernel engine": ("kernel", None), "plain engine": ("torch", None)}
+    for m in meshes:
+        runs[f"TP={len(m.ranks)} kernel engine"] = ("kernel", m)
+    streams = {name: greedy_streams(cfg, params, prompts, impl, 24, m, True)
+               for name, (impl, m) in runs.items()}
+    failures = []
+    pairs = [(name, other) for name in list(runs)[2:]
+             for other in ("kernel engine", "plain engine")]
+    for name, other in [("kernel engine", "plain engine")] + pairs:
+        (got, evictions), (want, _) = streams[name], streams[other]
+        same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+        log(f"[ssm-tp] {cfg.arch_id} fp32, full width, {cfg.n_layers} "
+            f"layers: {name} vs {other} greedy tokens identical on {same}/"
+            f"{sum(map(len, want))} tokens of {len(prompts)} requests "
+            f"({evictions} evictions + recompute resumes, the first a swap "
+            "round trip)")
+        if evictions <= 0:
+            failures.append(f"{cfg.arch_id}: no eviction was driven")
+        div = first_divergence(cfg, params, prompts, got, want)
+        if div is not None:
+            i, pos, margin = div
+            tie = margin < FP32_TIE
+            log(f"[ssm-tp]   first difference: request {i}, token {pos}; "
+                f"top-2 margin there {margin:.3e} "
+                + ("< FP32_TIE: a tie" if tie else f">= {FP32_TIE}: a fault"))
+            if not tie:
+                failures.append(f"{cfg.arch_id}: fp32 greedy tokens of the "
+                                f"{name} differ from the {other}'s at a "
+                                f"margin of {margin:.3e}")
+    return failures
+
+
+def pod_logit_gap(cfg, params, requests, mesh):
+    """max |pod - single-device kernel model| of the first prefill logits
+    in ``cfg.dtype`` at ``cfg``'s depth, each of the two longest and two
+    shortest prompts alone at its exact length (as the engine admits
+    them).  Returns the failures against ``POD_LOGIT_TOL`` and the
+    gap."""
+    import torch
+
+    from repro_torch.launch import shard_params
+    from repro_torch.models import transformer as T
+
+    by_len = sorted(requests, key=lambda r: len(r.prompt_tokens))
+    prompts = [r.prompt_tokens for r in by_len[:2] + by_len[-2:]]
+    shards = shard_params(params, cfg, mesh)
+    gap, scale, finite = 0.0, 0.0, True
+    for prompt in prompts:
+        out = {}
+        for name, p, m in (("pod", shards, mesh), ("one", params, None)):
+            logits, _ = T.prefill(p, cfg, {"tokens": torch.as_tensor(
+                [prompt], device=DEVICE)},
+                T.init_cache(cfg, 1, MAX_LEN, DEVICE, mesh=m), mesh=m)
+            out[name] = logits.float()
+        finite &= bool(torch.isfinite(out["pod"]).all())
+        gap = max(gap, float((out["pod"] - out["one"]).abs().max()))
+        scale = max(scale, float(out["one"].abs().max()))
+    del shards
+    tol = POD_LOGIT_TOL[cfg.family, cfg.dtype]
+    log(f"[ssm-tp] {cfg.arch_id} {cfg.dtype}, full width, {cfg.n_layers} "
+        f"layers: first prefill logits of prompts of "
+        f"{[len(p) for p in prompts]} tokens, max |TP={len(mesh.ranks)} "
+        f"pod - single-device kernel model| = {gap:.4e} (tol {tol}), max "
+        f"|logit| = {scale:.3f}, finite={finite}")
+    bad = [] if finite and gap <= tol else [
+        f"{cfg.arch_id}: {cfg.dtype} prefill logits at {cfg.n_layers} "
+        f"layers, TP pod - single-device kernel = {gap:.4e} (tol {tol}), "
+        f"finite={finite}"]
+    return bad, gap
+
+
+def pod_copies(params, shards) -> float:
+    """Bytes of the storages the ranks' shards hold apart from the full
+    tree's (a replicated leaf on the full tree's device, and a rank's piece
+    that is a contiguous view of a full leaf, share its storage)."""
+    own = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+           for sh in shards for t in _tensors(sh)}
+    full = {t.untyped_storage().data_ptr() for t in _tensors(params)}
+    return sum(b for p, b in own.items() if p not in full)
+
+
+def pod_model(arch: str, depth):
+    """Phase 12's model of ``arch``: (bf16 config at full width and depth,
+    its requests, the fp32 config and weights of the parity runs at
+    ``depth`` layers, or all of them); on the CPU, a rehearsal, the
+    reduced widths with the served window."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if DEVICE == "cpu":
+        cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16",
+                                  swa_window=cfg.swa_window)
+    return cfg, hybrid_requests(cfg), fp32_model(
+        cfg, min(depth or cfg.n_layers, cfg.n_layers))
+
+
+def ssm_cli_swap(executor) -> None:
+    """After phase 12's CLI run: one swap through its executor when the
+    traffic swapped nothing (:func:`executor_swap`)."""
+    if executor.counters()["swapouts"] == 0:
+        log("[ssm-tp] the CLI run swapped nothing: one swap through its "
+            "executor")
+        executor_swap(executor, "ssm-tp")
+
+
+def ssm_tp_phase() -> dict:
+    """Phase 12: the SSM and hybrid families on ``TP``-rank pods (ranks on
+    one card when there is one), bf16 at full width, from random weights.
+    For each arch of :data:`SSM_TP_ARCHS`: fp32 greedy tokens of the pods
+    against the single-device kernel and plain engines
+    (:func:`pod_parity`) and one swap round trip on the TP=2 pod, every
+    rank's rows bit for bit; then at full depth the bytes allocated beside
+    ``param_count`` and the bytes the shards copy, phase 4's served path
+    on the pod (launch counts reset before and read after: ``ssd_scan``
+    layers x ranks a prefill; zamba2-7b's ``flash_attention`` sites x ranks
+    a prefill and ``flash_decode_sharded`` sites x ranks a decode step),
+    one decode window profiled, and the pod's first prefill logits
+    against the single-device kernel model within ``POD_LOGIT_TOL``, in
+    fp32 at the parity depth and in bf16 at full depth
+    (:func:`pod_logit_gap`).  Then the serve CLI
+    on one pod of mamba2-130m (:data:`SSM_TP_CLI`), with one swap through
+    its executor if its traffic swapped nothing.  Returns each arch's
+    served-path launch counts."""
+    import torch
+
+    from repro_torch.launch import shard_params
+
+    t_phase = time.perf_counter()
+    mesh = tp_mesh()
+    failures, launches = [], {}
+    for arch, tps, depth in SSM_TP_ARCHS:
+        t0 = time.perf_counter()
+        cfg, requests, (cfg32, params32) = pod_model(arch, depth)
+        failures += pod_parity(cfg32, params32, requests,
+                               [tp_mesh(t) for t in tps])
+        failures += pod_logit_gap(cfg32, params32, requests, mesh)[0]
+        swap_roundtrip(cfg32, params32, requests, mesh)
+        del params32
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated() if DEVICE != "cpu" else 0
+        params = random_params(cfg)
+        alloc = (torch.cuda.memory_allocated() - base if DEVICE != "cpu"
+                 else sum(t.numel() * t.element_size()
+                          for t in _tensors(params)))
+        shards = shard_params(params, cfg, mesh)
+        copied = pod_copies(params, shards)
+        pod = (torch.cuda.memory_allocated() - base if DEVICE != "cpu"
+               else alloc + copied)
+        log(f"[ssm-tp] {describe(cfg, mesh)}; weights {alloc / 1e9:.3f} GB "
+            f"allocated, param_count {cfg.param_count():,}; the pod's "
+            f"shards copy {copied / 1e9:.3f} GB (the "
+            "split leaves, each rank's packed in_proj and conv columns with "
+            "B and C whole; replicated leaves are shared), "
+            f"{pod / 1e9:.3f} GB allocated with the full tree")
+        del shards
+        launches[arch] = served_path(cfg, params, requests, mesh)
+        gc.collect()
+        profile_window(cfg, params, requests, mesh)
+        gc.collect()
+        failures += pod_logit_gap(cfg, params, requests, mesh)[0]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[ssm-tp] {arch} in {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError("phase 12: " + "; ".join(failures))
+    t0 = time.perf_counter()
+    run = cli_run("ssm tp2 auto", SSM_TP_CLI, after=ssm_cli_swap)
+    c = run["counters"]
+    log(f"[ssm-tp] CLI on one TP={TP} pod of mamba2-130m: swapouts "
+        f"{c['swapouts']}, swapins {c['swapins']}, preemptions "
+        f"{run['preemptions']} in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[ssm-tp] phase 12 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def ssm_tp_planted_fault() -> dict:
+    """``rank_local_norm``: each rank of a pod normalises over its own
+    slice of ``d_inner`` (:func:`rank_local_norm`), in memory; phase 12's
+    fp32 pod parity and fp32 and bf16 logit gaps run against it on both
+    pods.  Returns whether each caught the fault."""
+    from repro_torch.configs import get_config
+
+    import torch
+
+    out = {"planted_fault": "rank_local_norm"}
+    for arch, tps, depth in SSM_TP_ARCHS:
+        cfg, requests, (cfg32, params32) = pod_model(arch, depth)
+        params = random_params(cfg)
+        with rank_local_norm():
+            bad = pod_parity(cfg32, params32, requests,
+                             [tp_mesh(t) for t in tps])
+            bad32, gap32 = pod_logit_gap(cfg32, params32, requests,
+                                         tp_mesh())
+            bad16, gap16 = pod_logit_gap(cfg, params, requests, tp_mesh())
+        out[arch] = {"greedy_fp32_caught": bool(bad),
+                     "logit_gap_fp32": gap32, "logit_fp32_caught": bool(bad32),
+                     "logit_gap_bf16": gap16, "logit_caught": bool(bad16)}
+        del params32, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def random_params(cfg):
     """``transformer.init_params`` on the card from ``SEED``."""
     import torch
@@ -3943,7 +4257,8 @@ def random_params(cfg):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--planted-fault", nargs="+",
-                    choices=sorted(PLANTED_FAULTS) + ["drop_rank_partial"],
+                    choices=sorted(PLANTED_FAULTS) + ["drop_rank_partial",
+                                                      "rank_local_norm"],
                     help="check the checks against these deliberate "
                          "kernel (or TP) faults instead of running the "
                          "smoke")
@@ -3975,7 +4290,13 @@ def main(argv=None) -> None:
         window_bench(models[0][0], random_params(models[0][0]),
                      args.window_bench)
         return
+    if args.planted_fault == ["rank_local_norm"]:
+        build.build_all()
+        print(json.dumps(ssm_tp_planted_fault()), flush=True)
+        return
     if args.planted_fault:
+        if "rank_local_norm" in args.planted_fault:
+            sys.exit("--planted-fault rank_local_norm runs alone")
         hy = get_config(HY_ARCH)
         with_params = [(cfg, random_params(cfg), reqs) for cfg, reqs in
                        models + [(hy, hybrid_requests(hy)),
@@ -4079,6 +4400,9 @@ def main(argv=None) -> None:
     # mesh
     moe_tp = moe_tp_phase()
 
+    # phase 12: the SSM and hybrid families on TP pods
+    ssm_tp = ssm_tp_phase()
+
     served = {"flash_decode": dict(dtype="bfloat16", B=4, window=None),
               "flash_decode_int8": dict(dtype="bfloat16", B=4, D=HEAD_DIM,
                                         window=None, note=""),
@@ -4118,7 +4442,14 @@ def main(argv=None) -> None:
             + [(n, k, archs[VL_ARCH], VL_ARCH) for n, k in vl_rows.items()]
             + [(n, k, audio, AU_ARCH) for n, k in au_rows.items()]
             + [("flash_decode_sharded", tp_row, moe_tp[a], a)
-               for a, _, _ in MOE_TP_SHAPES]):
+               for a, _, _ in MOE_TP_SHAPES]
+            # the SSM and hybrid pods' ranks, with phase 12's launches
+            + [("ssd_scan", served["ssd_scan"], ssm_tp["mamba2-130m"],
+                SSM_TP_TAG)]
+            + [(n, k, ssm_tp[HY_ARCH], HY_TP_TAG) for n, k in (
+                ("ssd_scan", served["ssd_scan"]),
+                ("flash_attention", hy_rows["flash_attention"]),
+                ("flash_decode_sharded", tp_row))]):
         r = next(r for r in rows[name]
                  if r.get("arch", "") == arch
                  and all(r[k] == v for k, v in key.items()))

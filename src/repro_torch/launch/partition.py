@@ -1,5 +1,5 @@
-"""Tensor-parallel partition rules — the dense and MoE subset of
-``repro.launch.partition``.
+"""Tensor-parallel partition rules — the dense, MoE, SSM and hybrid subset
+of ``repro.launch.partition``.
 
 The reference hands partition specs to GSPMD, which splits the arrays and
 inserts the collectives.  The port splits the parameter tree itself into
@@ -18,6 +18,26 @@ MLP takes the dense rules.  The reference's other scheme,
 ``moe_scheme="expert"`` (experts on "model"), is an experiment its engine
 never selects, so it is not ported.
 
+The SSM family (and the hybrid's Mamba2 layers) split by SSM head.  The
+reference's GSPMD layout is contiguous and its program global: GSPMD
+reshards as it needs.  The port splits by hand, so each rank gets a
+layout it computes with alone (:func:`ssm_widths`):
+
+* ``in_proj`` packs ``[z | x | B | C | dt]`` into one column block; rank
+  ``r``'s piece is ``[z_r | x_r | B | C | dt_r]``, where ``z_r``, ``x_r``
+  and ``dt_r`` are the columns of its heads (a contiguous range of whole
+  heads), and ``B`` / ``C`` are replicated with one group (both served
+  archs) or the rank's own groups when the groups divide over the ranks;
+* ``conv_w`` / ``conv_b`` cover the conv channels ``[x | B | C]``, so rank
+  ``r`` takes ``[x_r | B | C]`` by the same rule;
+* ``A_log``, ``dt_bias``, ``D``, the gated norm's ``norm`` and
+  ``out_proj`` (row-parallel) split by head.  The layer's pre-norm
+  (``scale``) is replicated.
+
+The gated norm spans the whole inner width, so the model sums the ranks'
+sums of squares before it normalises (:mod:`repro_torch.models.ssm`).
+The hybrid's shared attention block takes the dense rules.
+
 Each rank holds the KV heads its own query heads read, a contiguous range:
 its share of them when the rank count divides ``n_kv_heads``, or the one
 KV head of its query heads when ``n_kv_heads`` divides the rank count
@@ -31,7 +51,7 @@ neither count divides the other is refused.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +74,15 @@ _PARAM_RULES: Dict[str, Tuple[int, Tuple]] = {
     "router": (2, (None, None)),          # MoE router (d, experts)
     "gate": (2, (None, None)),            # shared-expert sigmoid gate (d, 1)
     "scale": (1, (None,)),
+    "A_log": (1, ("model",)),
+    "dt_bias": (1, ("model",)),
+    "D": (1, ("model",)),
+    "norm": (1, ("model",)),              # ssm gated-norm weight (d_inner,)
+    "out_proj": (2, ("model", None)),
 }
+#: the SSM leaves whose "model" axis packs several column blocks: name ->
+#: that axis, counted from the end; each rank takes :func:`ssm_columns`
+_PACKED_RULES: Dict[str, int] = {"in_proj": -1, "conv_w": -2, "conv_b": -1}
 #: the routed experts' leaves (a leading expert axis, replicated): under
 #: "moe" and outside "shared" these rules take the place of
 #: :data:`_PARAM_RULES`
@@ -67,7 +95,7 @@ _MOE_RULES: Dict[str, Tuple[int, Tuple]] = {
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
 
 #: families the tensor-parallel path serves
-TP_FAMILIES = ("dense", "moe")
+TP_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def tp_ranks(mesh) -> List[torch.device]:
@@ -80,12 +108,9 @@ def tp_ranks(mesh) -> List[torch.device]:
     return mesh.ranks
 
 
-#: why each family outside :data:`TP_FAMILIES` needs its own TP design
+#: why each family outside :data:`TP_FAMILIES` (the vlm and audio families
+#: that ROADMAP.md's queue 1, item 8.2 ports) needs its own TP design
 _TP_DESIGN = {
-    "ssm": "the SSM in_proj packs z/x/B/C/dt into one column block, so "
-           "column-sharding it needs its own design",
-    "hybrid": "its Mamba2 backbone shares the SSM family's packed in_proj, "
-              "and its shared attention block a split of its own",
     "vlm": "its patch embeddings and 3-D M-RoPE positions enter the "
            "prefill beside the vocab-parallel embedding, which the dense TP "
            "path does not take",
@@ -100,7 +125,8 @@ def check_family(cfg) -> None:
         why = _TP_DESIGN.get(cfg.family, "no TP design yet")
         raise NotImplementedError(
             f"tensor parallelism of family {cfg.family!r} is not ported "
-            f"(ROADMAP.md, queue 1, item 8: {why})")
+            f"(ROADMAP.md, queue 1, item 8.2, the vlm and audio families: "
+            f"{why})")
 
 
 def _layout_reason(cfg, tp: int) -> Optional[str]:
@@ -126,17 +152,75 @@ def kv_head_range(cfg, tp: int, rank: int) -> Tuple[int, int]:
     return g, g + 1
 
 
+class SSMWidths(NamedTuple):
+    """What one rank of a ``tp``-way pod computes of a Mamba2 block."""
+
+    #: its SSM heads, a contiguous range of whole heads
+    n_heads: int
+    #: ``n_heads * head_dim``: its columns of z, x and y
+    d_inner: int
+    #: its B/C groups: all of them when replicated (one group)
+    n_groups: int
+
+
+def ssm_widths(cfg, tp: int = 1) -> SSMWidths:
+    """The SSM widths one of ``tp`` ranks computes with (``tp=1``: the whole
+    block).  ``ssm_d_inner`` and ``ssm_n_heads`` are properties of
+    ``d_model``, which stays whole on every rank, so a rank's config keeps
+    the full ones, and every SSM function takes the rank's from here.
+    Raises ``ValueError`` naming the layout when the heads do not divide
+    over the ranks, or there are several groups that do not."""
+    nh, g = cfg.ssm_n_heads, cfg.ssm.n_groups
+    if nh % tp:
+        raise ValueError(f"layout: {nh} SSM heads do not divide over the "
+                         f"'model' axis (size {tp})")
+    if g > 1 and g % tp:
+        raise ValueError(
+            f"layout: {g} SSM groups over the 'model' axis (size {tp}) — B "
+            "and C are replicated only with one group and split only when "
+            "the groups divide over the ranks; the port serves no other "
+            "layout")
+    h = nh // tp
+    return SSMWidths(h, h * cfg.ssm.head_dim, 1 if g == 1 else g // tp)
+
+
+def ssm_columns(cfg, tp: int, rank: int, conv: bool = False) -> torch.Tensor:
+    """The columns of the packed ``in_proj`` (``[z | x | B | C | dt]``), or
+    with ``conv`` of the conv channels (``[x | B | C]``), that rank
+    ``rank`` of ``tp`` holds, in the order of its piece: its heads' z, x
+    and dt columns, and B and C whole (one group) or its own groups."""
+    w = ssm_widths(cfg, tp)
+    di, n = cfg.ssm_d_inner, cfg.ssm.d_state
+    gn, gw = cfg.ssm.n_groups * n, w.n_groups * n
+    g0 = 0 if cfg.ssm.n_groups == 1 else rank * gw
+    heads = (rank * w.d_inner, w.d_inner)
+    # each block's width, and the (start, size) of the rank's piece of it
+    blocks = [(di, heads), (gn, (g0, gw)), (gn, (g0, gw))]  # x, B, C
+    if not conv:
+        blocks = ([(di, heads)] + blocks
+                  + [(cfg.ssm_n_heads, (rank * w.n_heads, w.n_heads))])
+    cols, off = [], 0
+    for width, (start, size) in blocks:
+        cols.append(torch.arange(off + start, off + start + size))
+        off += width
+    return torch.cat(cols)
+
+
 def local_config(cfg, tp: int):
     """The config one rank computes with: its share of the query heads, of
     the FFN hidden axis and of the MoE experts' and shared path's hidden
     axes, and the KV heads it reads (:func:`kv_head_range`).
-    ``head_dim`` is a stored field, so it is unchanged.  Raises
-    ``ValueError`` for a layout the port does not serve, or a width that
-    does not divide over ``tp`` ranks."""
+    ``head_dim`` is a stored field, so it is unchanged; so are the SSM
+    widths, which :func:`ssm_widths` gives per rank (checked here).
+    Raises ``ValueError`` for a layout the port does not serve, or a width
+    that does not divide over ``tp`` ranks."""
     check_family(cfg)
-    reason = _layout_reason(cfg, tp)
+    # the SSM family has no attention heads to lay out
+    reason = None if cfg.attn_free else _layout_reason(cfg, tp)
     if reason is not None:
         raise ValueError(reason)
+    if cfg.ssm.enabled:
+        ssm_widths(cfg, tp)
     m = cfg.moe  # widths 0 outside the MoE family
     for what, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size),
                     ("moe.expert_d_ff", m.expert_d_ff),
@@ -171,9 +255,11 @@ def _split_axis(names: Tuple[str, ...], leaf: torch.Tensor) -> Optional[int]:
 def shard_params(params: Dict[str, Any], cfg, mesh) -> List[Dict[str, Any]]:
     """The port's parameter tree (from ``init_params`` or the bridge, on
     any device) -> one tree per rank of the ``("model",)`` mesh, on that
-    rank's device.  A split leaf becomes ``tp`` contiguous equal pieces;
-    a replicated leaf is copied to each rank's device (ranks on one device
-    share it).  Raises ``KeyError`` for a leaf with no rule."""
+    rank's device.  A split leaf becomes ``tp`` contiguous equal pieces
+    (a packed SSM leaf the columns of :func:`ssm_columns`, in the JAX
+    layout still); a replicated leaf is copied to each rank's device
+    (ranks on one device share it).  Raises ``KeyError`` for a leaf with
+    no rule."""
     ranks = tp_ranks(mesh)
     tp = len(ranks)
     local_config(cfg, tp)  # family and divisibility checks
@@ -182,6 +268,12 @@ def shard_params(params: Dict[str, Any], cfg, mesh) -> List[Dict[str, Any]]:
         if isinstance(tree, dict):
             per = {k: split(v, names + (k,)) for k, v in tree.items()}
             return [{k: per[k][r] for k in tree} for r in range(tp)]
+        if names[-1] in _PACKED_RULES:
+            axis = tree.ndim + _PACKED_RULES[names[-1]]
+            conv = names[-1] != "in_proj"
+            return [tree.index_select(axis, ssm_columns(cfg, tp, r, conv)
+                                      .to(tree.device)).to(d)
+                    for r, d in enumerate(ranks)]
         axis = _split_axis(names, tree)
         if axis is None:
             return [tree.to(d) for d in ranks]

@@ -9,6 +9,7 @@ cpu`` it serves the reduced config, as the reference's CLI does on its CPU.
 Weights are random, from seed 0.
 
     python -m repro_torch.launch.serve --arch qwen2-1.5b --n 12
+    python -m repro_torch.launch.serve --arch zamba2-7b --mesh 1x2 --n 12
     python -m repro_torch.launch.serve --device cpu --policy isrtf \\
         --prefill-chunk 8 --preempt-policy swap --n 12
 
@@ -19,9 +20,10 @@ Prints one JSON line per request and a summary on stderr.  ``--predictor
 bge`` ranks with the BGE length predictor (a small encoder, random from
 seed 0 unless ``--predictor-ckpt`` restores a trained one, on
 ``--device``).  ``--mesh DxM`` serves D tensor-parallel pods of M ranks
-(dense and MoE archs), chunked prefill and swap included; on a machine
-with fewer cards than ranks, ranks share cards.  ``--mesh`` with an arch
-of a family the TP path does not serve (SSM, hybrid, vlm, audio) is not
+(dense, MoE, SSM and hybrid archs), chunked prefill (the SSM and hybrid
+archs fall back to one-shot prefill, as on one device) and swap included;
+on a machine with fewer cards than ranks, ranks share cards.  ``--mesh``
+with an arch of a family the TP path does not serve (vlm, audio) is not
 ported yet and exits at launch with the ROADMAP item that ports it.
 ``--arch qwen2-vl-7b`` serves text, as the reference's CLI does; ``--arch
 whisper-large-v3`` exits at launch: a request carries no audio frames for

@@ -18,22 +18,37 @@ state in the model dtype.
 State for decode:
     conv: (B, conv_ch, d_conv - 1)   last raw conv inputs
     ssm:  (B, n_heads, head_dim, d_state)
+
+Tensor parallelism (:func:`ssm_partials`, :func:`ssm_decode_partials`):
+each rank holds the leaves of a contiguous range of whole SSM heads
+(``launch.partition``: its z, x and dt columns of ``in_proj``, B and C
+whole with one group, its heads' ``A_log`` / ``dt_bias`` / ``D`` /
+``norm`` rows and ``out_proj``'s rows) and its heads' state, and scans
+its own heads (``conv_ch`` and ``n_heads`` above are then the rank's).
+The gated norm's mean spans the whole inner width, so the ranks' sums of
+squares are summed before any rank normalises (:func:`gated_partials`),
+and each rank returns its partial of ``out_proj``, which the model sums
+in rank order.  One device is one rank: the whole block, its norm the
+reference's mean.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.launch.partition import SSMWidths, ssm_widths
 from repro_torch.models.layers import ATTN_IMPLS, dense_init
 
 Params = Dict[str, torch.Tensor]
 
 
-def conv_channels(cfg) -> int:
-    return cfg.ssm_d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+def conv_channels(cfg, tp: int = 1) -> int:
+    """Conv channels ``[x | B | C]`` of one of ``tp`` ranks."""
+    w = ssm_widths(cfg, tp)
+    return w.d_inner + 2 * w.n_groups * cfg.ssm.d_state
 
 
 def init_ssm(gen: torch.Generator, cfg, n_layers: int,
@@ -133,9 +148,10 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 
-def _split_proj(cfg, proj: torch.Tensor):
-    di, g, n = cfg.ssm_d_inner, cfg.ssm.n_groups, cfg.ssm.d_state
-    return torch.split(proj, [di, di, g * n, g * n, cfg.ssm_n_heads], dim=-1)
+def _split_proj(cfg, w: SSMWidths, proj: torch.Tensor):
+    gn = w.n_groups * cfg.ssm.d_state
+    return torch.split(proj, [w.d_inner, w.d_inner, gn, gn, w.n_heads],
+                       dim=-1)
 
 
 def _causal_conv(p: Params, seq: torch.Tensor) -> torch.Tensor:
@@ -149,39 +165,48 @@ def _causal_conv(p: Params, seq: torch.Tensor) -> torch.Tensor:
     return out + p["conv_b"][None, None, :]
 
 
-def _heads(cfg, xin, bm, cm):
-    b, s, _ = xin.shape
-    nh, hd = cfg.ssm_n_heads, cfg.ssm.head_dim
-    g, n = cfg.ssm.n_groups, cfg.ssm.d_state
-    rep = nh // g
-    xh = xin.reshape(b, s, nh, hd)
-    bmh = bm.reshape(b, s, g, n).repeat_interleave(rep, dim=2)
-    cmh = cm.reshape(b, s, g, n).repeat_interleave(rep, dim=2)
+def _heads(cfg, w: SSMWidths, xin, bm, cm):
+    """x, B and C of the (B, S) tokens by head: (B, S, H, P) and (B, S, H,
+    N), each head reading its group's B and C."""
+    lead = xin.shape[:-1]
+    n, rep = cfg.ssm.d_state, w.n_heads // w.n_groups
+    xh = xin.reshape(lead + (w.n_heads, cfg.ssm.head_dim))
+    bmh = bm.reshape(lead + (w.n_groups, n)).repeat_interleave(rep, dim=-2)
+    cmh = cm.reshape(lead + (w.n_groups, n)).repeat_interleave(rep, dim=-2)
     return xh, bmh, cmh
 
 
-def _gated_out(p: Params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    yf = y.float()
-    var = yf.square().mean(dim=-1, keepdim=True)
-    yn = yf * torch.rsqrt(var + 1e-5) * p["norm"].float()
-    out = (yn * F.silu(z.float())).to(y.dtype)
-    return out @ p["out_proj"]
+def gated_partials(ps: List[Params], cfg, ys: List[torch.Tensor],
+                   zs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """``out_proj(RMSNorm(y) * silu(z))`` of each rank's heads: the ranks'
+    partials, which the caller sums.  The norm's mean spans the whole
+    ``d_inner``: over several ranks each rank's fp32 sum of squares (B, S,
+    1) is summed in rank order on rank 0's device and divided by the full
+    width before any rank normalises.  One rank takes the mean itself, as
+    the reference does."""
+    yfs = [y.float() for y in ys]
+    if len(ys) == 1:
+        var = [yfs[0].square().mean(dim=-1, keepdim=True)]
+    else:
+        sums = [yf.square().sum(dim=-1, keepdim=True) for yf in yfs]
+        total = sums[0]
+        for part in sums[1:]:
+            total = total + part.to(total.device)
+        var = [(total / cfg.ssm_d_inner).to(yf.device) for yf in yfs]
+    outs = []
+    for p, y, yf, z, v in zip(ps, ys, yfs, zs, var):
+        yn = yf * torch.rsqrt(v + 1e-5) * p["norm"].float()
+        out = (yn * F.silu(z.float())).to(y.dtype)
+        outs.append(out @ p["out_proj"])
+    return outs
 
 
-def ssm_forward(p: Params, cfg, x: torch.Tensor, *, impl: str = "kernel",
-                return_state: bool = False):
-    """Full-sequence Mamba2 block: x (B, S, d_model) -> (B, S, d_model).
-
-    The chunk is ``min(chunk_size, S)`` and the sequence is zero-padded to a
-    multiple of it, as in the reference (a 137-token prompt is one 137-long
-    chunk, a 300-token one two 256-long chunks).  With ``return_state`` the
-    second value is the decode state ``{"conv", "ssm"}``; otherwise it is
-    the final SSM state."""
-    if impl not in ATTN_IMPLS:
-        raise ValueError(f"impl must be one of {ATTN_IMPLS}, got {impl!r}")
+def _forward_heads(p: Params, cfg, w: SSMWidths, x: torch.Tensor, impl):
+    """One rank's heads over the full sequence: (y (B, S, d_inner_r), z,
+    decode state)."""
     b, s, _ = x.shape
     proj = x @ p["in_proj"]
-    z, xin, bm, cm, dt = _split_proj(cfg, proj)
+    z, xin, bm, cm, dt = _split_proj(cfg, w, proj)
     conv_in = torch.cat([xin, bm, cm], dim=-1)
     tail = cfg.ssm.d_conv - 1
     if s >= tail:
@@ -189,10 +214,9 @@ def ssm_forward(p: Params, cfg, x: torch.Tensor, *, impl: str = "kernel",
     else:
         conv_tail = F.pad(conv_in.transpose(1, 2), (tail - s, 0))
     conv_out = F.silu(_causal_conv(p, conv_in))
-    di = cfg.ssm_d_inner
-    gn = cfg.ssm.n_groups * cfg.ssm.d_state
-    xin, bm, cm = torch.split(conv_out, [di, gn, gn], dim=-1)
-    xh, bmh, cmh = _heads(cfg, xin, bm, cm)
+    gn = w.n_groups * cfg.ssm.d_state
+    xin, bm, cm = torch.split(conv_out, [w.d_inner, gn, gn], dim=-1)
+    xh, bmh, cmh = _heads(cfg, w, xin, bm, cm)
 
     dt = F.softplus(dt.float() + p["dt_bias"])  # (B, S, H)
     A = -torch.exp(p["A_log"])  # (H,) negative
@@ -216,28 +240,60 @@ def ssm_forward(p: Params, cfg, x: torch.Tensor, *, impl: str = "kernel",
     if pad:
         y = y[:, :s]
     y = y + xh * p["D"][None, None, :, None].to(xh.dtype)
-    y = y.reshape(b, s, di)
-    out = _gated_out(p, y, z)
-    if return_state:
-        return out, {"conv": conv_tail, "ssm": final_state}
-    return out, final_state
+    return y.reshape(b, s, w.d_inner), z, {"conv": conv_tail,
+                                            "ssm": final_state}
 
 
-def init_ssm_state(cfg, batch: int, dtype, device) -> Dict[str, torch.Tensor]:
+def ssm_partials(ps: List[Params], cfg, xs: List[torch.Tensor], *,
+                 impl: str = "kernel"):
+    """The full-sequence Mamba2 block over the ranks of a pod (one rank:
+    the whole block): ``ps[r]`` holds rank r's leaves
+    (``launch.partition.shard_params``) and ``xs[r]`` (B, S, d_model) its
+    copy of the input.  Each rank scans its own heads
+    (``launch.partition.ssm_widths``).  Returns (the ranks' output
+    partials (B, S, d_model), which sum to the block's output; each rank's
+    decode state ``{"conv", "ssm"}``)."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"impl must be one of {ATTN_IMPLS}, got {impl!r}")
+    w = ssm_widths(cfg, len(ps))
+    heads = [_forward_heads(p, cfg, w, x, impl) for p, x in zip(ps, xs)]
+    outs = gated_partials(ps, cfg, [h[0] for h in heads],
+                          [h[1] for h in heads])
+    return outs, [h[2] for h in heads]
+
+
+def ssm_forward(p: Params, cfg, x: torch.Tensor, *, impl: str = "kernel",
+                return_state: bool = False):
+    """Full-sequence Mamba2 block: x (B, S, d_model) -> (B, S, d_model).
+
+    The chunk is ``min(chunk_size, S)`` and the sequence is zero-padded to a
+    multiple of it, as in the reference (a 137-token prompt is one 137-long
+    chunk, a 300-token one two 256-long chunks).  With ``return_state`` the
+    second value is the decode state ``{"conv", "ssm"}``; otherwise it is
+    the final SSM state."""
+    (out,), (state,) = ssm_partials([p], cfg, [x], impl=impl)
+    return out, state if return_state else state["ssm"]
+
+
+def init_ssm_state(cfg, batch: int, dtype, device,
+                   tp: int = 1) -> Dict[str, torch.Tensor]:
+    """Zero decode state of one of ``tp`` ranks: ``conv`` (B, CH_r, d_conv
+    - 1) over its conv channels, ``ssm`` (B, H_r, P, N) over its heads."""
+    w = ssm_widths(cfg, tp)
     return {
-        "conv": torch.zeros((batch, conv_channels(cfg), cfg.ssm.d_conv - 1),
-                            dtype=dtype, device=device),
-        "ssm": torch.zeros((batch, cfg.ssm_n_heads, cfg.ssm.head_dim,
+        "conv": torch.zeros((batch, conv_channels(cfg, tp),
+                             cfg.ssm.d_conv - 1), dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, w.n_heads, cfg.ssm.head_dim,
                             cfg.ssm.d_state), dtype=dtype, device=device),
     }
 
 
-def ssm_decode_step(p: Params, cfg, x: torch.Tensor, state: Dict):
-    """Single-token recurrent step.  x (B, 1, d_model); returns (out, new
-    state) and leaves ``state`` as it was."""
+def _decode_heads(p: Params, cfg, w: SSMWidths, x: torch.Tensor,
+                  state: Dict):
+    """One rank's heads, one token: (y (B, 1, d_inner_r), z, new state)."""
     b = x.shape[0]
     proj = x[:, 0, :] @ p["in_proj"]  # (B, proj)
-    z, xin, bm, cm, dt = _split_proj(cfg, proj)
+    z, xin, bm, cm, dt = _split_proj(cfg, w, proj)
 
     conv_in = torch.cat([xin, bm, cm], dim=-1)  # (B, CH)
     conv_hist = torch.cat([state["conv"], conv_in[:, :, None]], dim=-1)
@@ -245,14 +301,9 @@ def ssm_decode_step(p: Params, cfg, x: torch.Tensor, state: Dict):
     conv_out = F.silu(conv_out)
     new_conv_state = conv_hist[:, :, 1:]
 
-    di = cfg.ssm_d_inner
-    gn = cfg.ssm.n_groups * cfg.ssm.d_state
-    xin, bm, cm = torch.split(conv_out, [di, gn, gn], dim=-1)
-    nh, hd = cfg.ssm_n_heads, cfg.ssm.head_dim
-    g, n = cfg.ssm.n_groups, cfg.ssm.d_state
-    xh = xin.reshape(b, nh, hd)
-    bmh = bm.reshape(b, g, n).repeat_interleave(nh // g, dim=1)
-    cmh = cm.reshape(b, g, n).repeat_interleave(nh // g, dim=1)
+    gn = w.n_groups * cfg.ssm.d_state
+    xin, bm, cm = torch.split(conv_out, [w.d_inner, gn, gn], dim=-1)
+    xh, bmh, cmh = _heads(cfg, w, xin, bm, cm)
 
     dt = F.softplus(dt.float() + p["dt_bias"])  # (B, H)
     A = -torch.exp(p["A_log"])
@@ -263,6 +314,26 @@ def ssm_decode_step(p: Params, cfg, x: torch.Tensor, state: Dict):
         "bhp,bhn,bh->bhpn", xh, bmh, dt.to(xh.dtype))
     y = torch.einsum("bhpn,bhn->bhp", h, cmh)
     y = y + xh * p["D"][None, :, None].to(xh.dtype)
-    y = y.reshape(b, 1, di)
-    out = _gated_out(p, y, z[:, None, :])
-    return out, {"conv": new_conv_state, "ssm": h}
+    return (y.reshape(b, 1, w.d_inner), z[:, None, :],
+            {"conv": new_conv_state, "ssm": h})
+
+
+def ssm_decode_partials(ps: List[Params], cfg, xs: List[torch.Tensor],
+                        states: List[Dict]):
+    """Single-token recurrent step over the ranks of a pod (as
+    :func:`ssm_partials`): x (B, 1, d_model) and each rank's state.
+    Returns (the ranks' output partials, each rank's new state) and leaves
+    ``states`` as they were."""
+    w = ssm_widths(cfg, len(ps))
+    heads = [_decode_heads(p, cfg, w, x, st)
+             for p, x, st in zip(ps, xs, states)]
+    outs = gated_partials(ps, cfg, [h[0] for h in heads],
+                          [h[1] for h in heads])
+    return outs, [h[2] for h in heads]
+
+
+def ssm_decode_step(p: Params, cfg, x: torch.Tensor, state: Dict):
+    """Single-token recurrent step.  x (B, 1, d_model); returns (out, new
+    state) and leaves ``state`` as it was."""
+    (out,), (new,) = ssm_decode_partials([p], cfg, [x], [state])
+    return out, new

@@ -51,24 +51,29 @@ reference's do.
 given in place and return it (the reference returns a new pytree).
 
 Tensor parallelism (``mesh=``, a ``("model",)`` mesh of
-:mod:`repro_torch.launch.mesh`; dense and MoE families): ``params`` is
-then the list of per-rank trees from ``launch.partition.shard_params``
-and ``cache`` the list of per-rank caches from ``init_cache(...,
-mesh=mesh)``.  The forward is one body over a list of ranks, a single
-device being one rank.  One process drives every rank, layer by layer,
-each rank with its share of the heads and of the FFN or the experts'
-hidden axes (``launch.partition.local_config``); the row-parallel
-partials (after ``wo``, after ``w_down`` or the MoE block, the
-vocab-parallel embedding) are summed in rank order on rank 0's device
-and copied back to every rank, and the vocab-parallel logits are
-concatenated there, so two runs agree bit for bit.  The MoE router runs
-once a layer, on rank 0, and every rank gets its routing.  The decode
-read of all ranks is one ``ops.flash_decode_sharded`` call.  Prefill
-launches ``flash_attention`` on each rank's local heads: the reference
-downgrades prefill under a mesh to XLA only because its Pallas prefill
-kernel has no ``shard_map`` wrapper, and computes the same function
-either way.  ``prefill_chunk`` runs every rank's heads over its own
-cache, with the same sums.
+:mod:`repro_torch.launch.mesh`; dense, MoE, SSM and hybrid families):
+``params`` is then the list of per-rank trees from
+``launch.partition.shard_params`` and ``cache`` the list of per-rank
+caches from ``init_cache(..., mesh=mesh)``.  The forward is one body
+over a list of ranks, a single device being one rank.  One process
+drives every rank, layer by layer, each rank with its share of the heads
+and of the FFN or the experts' hidden axes
+(``launch.partition.local_config``), or of the SSM heads
+(``launch.partition.ssm_widths``); the row-parallel partials (after
+``wo``, after ``w_down``, the MoE block or the Mamba2 block's
+``out_proj``, the vocab-parallel embedding) are summed in rank order on
+rank 0's device and copied back to every rank, and the vocab-parallel
+logits are concatenated there, so two runs agree bit for bit.  The
+Mamba2 block's gated norm sums the ranks' sums of squares the same way
+before any rank normalises (``models.ssm.gated_partials``).  The MoE
+router runs once a layer, on rank 0, and every rank gets its routing.
+The decode read of all ranks is one ``ops.flash_decode_sharded`` call
+(the hybrid's shared block included); the SSM decode step stays plain
+on every rank.  Prefill launches ``flash_attention`` and ``ssd_scan`` on
+each rank's local heads: the reference downgrades prefill under a mesh
+to XLA only because its Pallas kernels have no ``shard_map`` wrapper,
+and computes the same function either way.  ``prefill_chunk`` runs every
+rank's heads over its own cache, with the same sums.
 """
 from __future__ import annotations
 
@@ -243,36 +248,45 @@ def _hybrid_layers(params: Params, cfg):
     return groups, tails, params["shared_attn"]
 
 
-def _ssm_layers(cfg, impl, layers, h, states, decode: bool = False,
-                active=None):
-    """Run the SSM layers ``layers`` in order over ``h``.  ``states`` maps
-    each state name to its stack (layer i at index i, views allowed): a
-    prefill writes each layer's decode state there, a decode step reads it
-    and writes the new one, in place."""
-    for i, lp in enumerate(layers):
-        state = {k: v[i] for k, v in states.items()} if decode else None
-        h, st = _ssm_body(cfg, impl, lp, h, state=state, active=active)
-        for k, v in st.items():
-            states[k][i] = v
-    return h
+def _group_states(caches, g: int) -> List[Dict]:
+    """Each rank's state stacks of hybrid group ``g`` (views)."""
+    return [{k: v[g] for k, v in c["groups_ssm"].items()} for c in caches]
 
 
-def _ssm_body(cfg, impl, lp: Params, x, state=None, active=None):
-    """Prefill (``state is None``): returns (x + out, decode state).
-    Decode: returns (x + out, new state); rows with ``active=False`` keep
-    their state bit for bit."""
-    h = L.apply_norm(cfg, lp["norm"], x)
-    if state is None:
-        out, new_state = S.ssm_forward(lp["ssm"], cfg, h, impl=impl,
-                                       return_state=True)
-        return x + out, new_state
-    out, new_state = S.ssm_decode_step(lp["ssm"], cfg, h, state)
-    if active is not None:
-        new_state = {
-            k: torch.where(active.reshape((-1,) + (1,) * (v.ndim - 1)), v,
-                           state[k])
-            for k, v in new_state.items()}
-    return x + out, new_state
+def _ssm_layers(cfg, impl, layers, hs, states, decode: bool = False,
+                actives=None):
+    """Run the SSM layers in order over the residual streams ``hs``, one a
+    rank: ``layers[r]`` is rank r's list of layer trees, ``states[r]`` maps
+    each state name to rank r's stack (layer i at index i, views allowed):
+    a prefill writes each layer's decode state there, a decode step reads
+    it and writes the new one, in place."""
+    for i, lps in enumerate(zip(*layers)):
+        olds = ([{k: v[i] for k, v in st.items()} for st in states]
+                if decode else None)
+        hs, news = _ssm_body(cfg, impl, list(lps), hs, olds, actives)
+        for st, new in zip(states, news):
+            for k, v in new.items():
+                st[k][i] = v
+    return hs
+
+
+def _ssm_body(cfg, impl, lps: List[Params], hs, states=None, actives=None):
+    """One SSM layer on every rank.  Prefill (``states is None``): returns
+    (the residual streams plus the block's output, each rank's decode
+    state).  Decode: returns (the streams, each rank's new state); rows
+    with ``active=False`` keep their state bit for bit."""
+    xs = [L.apply_norm(cfg, lp["norm"], h) for lp, h in zip(lps, hs)]
+    ps = [lp["ssm"] for lp in lps]
+    if states is None:
+        parts, news = S.ssm_partials(ps, cfg, xs, impl=impl)
+        return _add_sum(hs, parts), news
+    parts, news = S.ssm_decode_partials(ps, cfg, xs, states)
+    if actives is not None and actives[0] is not None:
+        news = [{k: torch.where(act.reshape((-1,) + (1,) * (v.ndim - 1)), v,
+                                old[k])
+                 for k, v in new.items()}
+                for new, old, act in zip(news, states, actives)]
+    return _add_sum(hs, parts), news
 
 
 # =========================================================================== #
@@ -308,8 +322,10 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
     the K/V buffers int8 codes with fp32 scales (sites, B, buf); it does
     nothing for the SSM family, as in the reference.  With ``mesh``: one
     cache per rank on the rank's device, with the KV heads the rank's
-    query heads read (``launch.partition.kv_head_range``), each with its
-    own ``len``; an int8 cache under a mesh raises
+    query heads read (``launch.partition.kv_head_range``) and the SSM
+    states of its conv channels and heads (``conv`` (..., B, CH_r, d_conv
+    - 1), ``ssm`` (..., B, H_r, P, N); ``launch.partition.ssm_widths``),
+    each with its own ``len``; an int8 cache under a mesh raises
     ``NotImplementedError``."""
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
@@ -321,15 +337,24 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
                 "(its per-token scale spans every rank's KV heads)")
         ranks = P.tp_ranks(mesh)
         lcfg = P.local_config(cfg, len(ranks))
-        return [init_cache(lcfg, batch, max_len, d, dtype,
-                           sliding_window=sliding_window) for d in ranks]
+        return [_rank_cache(lcfg, batch, max_len, d, dtype, None,
+                            sliding_window, len(ranks)) for d in ranks]
     _check_family(cfg)
+    return _rank_cache(cfg, batch, max_len, device, dtype, kv_dtype,
+                       sliding_window, 1)
+
+
+def _rank_cache(cfg, batch, max_len, device, dtype, kv_dtype, sliding_window,
+                tp: int) -> Cache:
+    """The cache of one of ``tp`` ranks (:func:`init_cache`); ``cfg`` is
+    the rank's config, its SSM states over the rank's conv channels and
+    heads."""
     dtype = dtype or _dtype(cfg)
     cache: Cache = {"len": torch.zeros((batch,), dtype=torch.int32,
                                        device=device)}
     n_sites = cfg.n_layers
     if cfg.family in ("ssm", "hybrid"):
-        state = S.init_ssm_state(cfg, batch, dtype, device)
+        state = S.init_ssm_state(cfg, batch, dtype, device, tp)
 
         def stacked(lead):
             return {k: v.new_zeros(lead + v.shape) for k, v in state.items()}
@@ -421,19 +446,19 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
     if cfg.family != "ssm":
         cos_sins = [L.positional_cos_sin(cfg, pos.to(d)) for d in ranks]
     if cfg.family == "ssm":
-        hs = [_ssm_layers(cfg, attn_impl, _unstack(params["layers"],
-                                                   cfg.n_layers),
-                          hs[0], caches[0]["ssm"])]
+        hs = _ssm_layers(cfg, attn_impl,
+                         [_unstack(p["layers"], cfg.n_layers)
+                          for p in shards], hs, [c["ssm"] for c in caches])
     elif cfg.family == "hybrid":
-        (c,) = caches
-        groups, tails, shared = _hybrid_layers(params, cfg)
-        for g, layers in enumerate(groups):
-            states = {k: v[g] for k, v in c["groups_ssm"].items()}
-            hs = [_ssm_layers(cfg, attn_impl, layers, hs[0], states)]
-            hs = _attn_prefill(cfg, lcfg, [shared], hs, cos_sins, caches, g,
-                               attn_impl, moe_impl)
-        if tails:
-            hs = [_ssm_layers(cfg, attn_impl, tails, hs[0], c["tail_ssm"])]
+        per = [_hybrid_layers(p, cfg) for p in shards]
+        for g in range(len(per[0][0])):
+            hs = _ssm_layers(cfg, attn_impl, [q[0][g] for q in per], hs,
+                             _group_states(caches, g))
+            hs = _attn_prefill(cfg, lcfg, [q[2] for q in per], hs, cos_sins,
+                               caches, g, attn_impl, moe_impl)
+        if per[0][1]:
+            hs = _ssm_layers(cfg, attn_impl, [q[1] for q in per], hs,
+                             [c["tail_ssm"] for c in caches])
     elif cfg.family == "audio":
         (c,) = caches
         enc_out = encode_audio(params, cfg, batch["frames"])
@@ -544,21 +569,20 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
     if cfg.family != "ssm":
         cos_sins = [L.positional_cos_sin(cfg, cur[:, None]) for cur in curs]
     if cfg.family == "ssm":
-        hs = [_ssm_layers(cfg, attn_impl, _unstack(params["layers"],
-                                                   cfg.n_layers),
-                          hs[0], caches[0]["ssm"], True, active)]
+        hs = _ssm_layers(cfg, attn_impl,
+                         [_unstack(p["layers"], cfg.n_layers)
+                          for p in shards], hs, [c["ssm"] for c in caches],
+                         True, acts)
     elif cfg.family == "hybrid":
-        (c,) = caches
-        groups, tails, shared = _hybrid_layers(params, cfg)
-        for g, layers in enumerate(groups):
-            states = {k: v[g] for k, v in c["groups_ssm"].items()}
-            hs = [_ssm_layers(cfg, attn_impl, layers, hs[0], states, True,
-                              active)]
-            hs = _attn_decode(cfg, lcfg, [shared], hs, cos_sins, caches, g,
-                              curs, acts, attn_impl, moe_impl)
-        if tails:
-            hs = [_ssm_layers(cfg, attn_impl, tails, hs[0], c["tail_ssm"],
-                              True, active)]
+        per = [_hybrid_layers(p, cfg) for p in shards]
+        for g in range(len(per[0][0])):
+            hs = _ssm_layers(cfg, attn_impl, [q[0][g] for q in per], hs,
+                             _group_states(caches, g), True, acts)
+            hs = _attn_decode(cfg, lcfg, [q[2] for q in per], hs, cos_sins,
+                              caches, g, curs, acts, attn_impl, moe_impl)
+        if per[0][1]:
+            hs = _ssm_layers(cfg, attn_impl, [q[1] for q in per], hs,
+                             [c["tail_ssm"] for c in caches], True, acts)
     elif cfg.family == "audio":
         (c,) = caches
         cross = c["cross_kv"]

@@ -20,7 +20,8 @@ Pallas kernels; the engine's greedy tokens against the JAX engine through
 recompute evictions and a swap round trip (the swapped slot bit for bit),
 compacted decode windows, the ``groups_ssm`` slot axis in gather and
 scatter, and the chunked-prefill fallback; the step functions; a hybrid
-cache through the bridge; the CLI's refusal of ``--mesh``.
+cache through the bridge; the CLI.  Hybrid pods under a mesh:
+``tests/test_torch_tp_ssm.py``.
 
 Tolerances: logits and cache leaves 2e-5 abs + rel (as
 ``tests/test_torch_ssm.py``: the same fp32 arithmetic summed in another
@@ -59,7 +60,7 @@ from repro_torch.engine import EngineConfig, InferenceEngine  # noqa: E402
 from repro_torch.engine.engine import (_gather_slots, _leaves,  # noqa: E402
                                        _scatter_slots)
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.launch import make_mesh, serve, steps  # noqa: E402
+from repro_torch.launch import serve, steps  # noqa: E402
 from repro_torch.launch import shapes as S  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
@@ -485,25 +486,6 @@ def test_input_specs_match_reference_on_meta(shape):
 
         assert specs(got["cache"]) == specs(want["cache"])
         assert got["cache"]["kv"].ring == want["cache"]["kv"].ring
-
-
-def test_tensor_parallelism_is_refused_at_launch(capsys):
-    """A hybrid engine or cache under a mesh raises naming ROADMAP queue
-    1, item 8, and the CLI exits at launch on ``--mesh`` with zamba2-7b
-    before it makes any weight."""
-    _, _, cfg, _, tp = _setup("reduced")
-    mesh = make_mesh((2,), ("model",), devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        InferenceEngine(cfg, tp, EngineConfig(max_slots=1, max_len=32),
-                        mesh=mesh)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        T.init_cache(cfg, 1, 32, mesh=mesh)
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--arch", ARCH, "--mesh", "1x2", "--n", "2",
-                    "--device", "cpu"])
-    assert "queue 1, item 8" in str(e.value.code)
-    assert ARCH in str(e.value.code)
-    assert capsys.readouterr().out == ""
 
 
 def test_cli_serves_zamba2_on_cpu(capsys):

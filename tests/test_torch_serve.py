@@ -357,18 +357,12 @@ def test_main_restores_a_jax_checkpoint_as_the_jax_cli(tmp_path, capsys,
 
 @pytest.mark.parametrize("argv,match", [
     (["--predictor", "bge", "--predictor-ckpt", "{empty}"], "no checkpoint in"),
-    (["--mesh", "1x2", "--prefill-chunk", "8", "--arch", "zamba2-7b"],
-     "queue 1, item 8"),
-    (["--mesh", "1x2", "--preempt-policy", "swap", "--arch", "mamba2-130m"],
-     "queue 1, item 8"),
     (["--prefill-chunk", "0"], "must be >= 1"),
     (["--mesh", "2x"], "DxM"),
 ])
 def test_main_refuses_at_launch(argv, match, tmp_path):
-    """Flags of slices not ported yet (``--mesh`` with a hybrid or SSM
-    arch, chunked or swapping) exit non-zero with the item that ports them
-    (never a fallback to the oracle or to recompute); so do a checkpoint
-    directory that holds no checkpoint and a malformed flag."""
+    """A checkpoint directory that holds no checkpoint and a malformed flag
+    exit non-zero (never a fallback to the oracle or to recompute)."""
     argv = [a.replace("{empty}", str(tmp_path)) for a in argv]
     with pytest.raises(SystemExit) as e:
         serve.main(argv + ["--device", "cpu"])

@@ -420,13 +420,25 @@ def test_tp_refuses_an_uneven_layout(setup):
 
 
 def test_ssm_family_under_a_mesh_is_not_ported():
+    """The SSM family's pods are served now (``tests/test_torch_tp_ssm.py``
+    holds them against the JAX package): an engine and a cache build
+    under a mesh, each rank with its share of the SSM heads.  What is not
+    ported for the family under a mesh still raises rather than serve
+    something else: an int8 cache, and a prompt chunk into recurrent
+    state (which no engine chunks, on one device either)."""
     cfg = get_config("mamba2-130m").reduced()
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(cfg, params, EngineConfig(max_slots=1, max_len=32),
-                        mesh=cpu_mesh(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_cache(cfg, 1, 32, mesh=cpu_mesh(2))
+    eng = InferenceEngine(cfg, params, EngineConfig(max_slots=1, max_len=32),
+                          mesh=cpu_mesh(2))
+    assert [tuple(c["ssm"]["ssm"].shape) for c in eng.cache] == [
+        (cfg.n_layers, 1, cfg.ssm_n_heads // 2, cfg.ssm.head_dim,
+         cfg.ssm.d_state)] * 2
+    with pytest.raises(NotImplementedError, match="int8 KV cache"):
+        T.init_cache(cfg, 1, 32, mesh=cpu_mesh(2), kv_dtype="int8")
+    with pytest.raises(ValueError, match="one-shot prefill"):
+        T.prefill_chunk(eng.params, cfg, {"tokens": torch.zeros(
+            (1, 4), dtype=torch.int32)}, eng.cache, start=0, valid_len=4,
+            mesh=cpu_mesh(2))
 
 
 # --------------------------------------------------------------------------- #
