@@ -43,7 +43,12 @@ Phases (any failure raises and exits non-zero):
      ``qwen2-moe-a2.7b`` and ``mixtral-8x7b``: ``flash_decode_sharded``
      at each rank's share of a TP=2 pod (16/16 and 32/8 heads of dim 128,
      mixtral with its window of 4096) at B=4 x 512, bit for bit the
-     single-device kernel;
+     single-device kernel; and tagged ``qwen2-vl-7b TP=2`` and
+     ``whisper-large-v3 TP=2`` (phase 13's ranks): ``flash_attention`` at
+     a rank's 14/2 heads of dim 128 (B=4 x 480) and 10/10 of dim 64 (B=4
+     x 128), with ``sdpa`` also over the unsplit heads, and
+     ``flash_decode_sharded`` at B=4 x 512 and B=4 x 448 rows, bit for
+     bit the single-device kernel;
   4. the served paths at full width: ``ElisServer`` -> ISRTF with the
      oracle predictor -> ``EngineExecutor`` ->
      ``InferenceEngine(attn_impl="kernel")`` serving a dozen requests to
@@ -120,8 +125,9 @@ Phases (any failure raises and exits non-zero):
      serve steps over a 4 x 512 bf16 cache, launch counts reset before
      and read after; bf16 logits at 28 layers and fp32 greedy tokens and
      logits at 2 layers, kernel path against plain path); and
-     qwen1.5-32b last, at 64 layers unless the free memory forces a
-     cut, which it prints.  For each: the bytes allocated beside
+     qwen1.5-32b last, cut to 32 of its 64 layers to keep the script
+     inside its time limit (further only if the free memory forces it,
+     which it prints).  For each: the bytes allocated beside
      ``param_count``, fp32 greedy tokens of the kernel and plain engines at
      full width and 2 layers through evictions, and bf16 first prefill
      logits at the served depth within ``LOGIT_TOL_BF16``;
@@ -154,8 +160,8 @@ Phases (any failure raises and exits non-zero):
      random self and cross K/V, every slot's ``len`` below 448);
  11. the MoE family on tensor-parallel pods of 2 ranks (on one card when
      there is one), and chunked prefill and KV swap under a mesh: for
-     qwen2-moe-a2.7b at all 24 layers and mixtral-8x7b at 8 of 32, bf16
-     at full width, fp32 greedy tokens of the TP kernel engine against
+     qwen2-moe-a2.7b served at 12 of its 24 layers and mixtral-8x7b at
+     4 of 32, bf16 at full width, fp32 greedy tokens of the TP kernel engine against
      the single-device kernel engine at 2 layers through evictions and
      compacted windows and through a chunked prefill (chunk 64 of a
      230-token prompt) with one swap round trip mid-prefill and one
@@ -170,8 +176,9 @@ Phases (any failure raises and exits non-zero):
      its swaps and chunk dispatches printed) and one offload and restore
      through its executor;
  12. the SSM and hybrid families on tensor-parallel pods of 2 ranks (on
-     one card when there is one): mamba2-130m at its 24 layers and
-     zamba2-7b at its 81, bf16 at full width.  For each, fp32 greedy
+     one card when there is one): mamba2-130m served at 12 of its 24
+     layers and zamba2-7b at 27 of its 81 (4 groups and the tail), bf16
+     at full width.  For each, fp32 greedy
      tokens of the pods (mamba2-130m at TP=2 and TP=4, all 24 layers;
      zamba2-7b at TP=2 and phase 9's 13 layers) against the
      single-device kernel and plain engines through evictions, recompute
@@ -180,8 +187,9 @@ Phases (any failure raises and exits non-zero):
      ``param_count`` and the bytes the shards copy; phase 4's served path
      on the pod (launch counts reset before and read after: ``ssd_scan``
      layers x 2 a prefill, each launch on a rank's heads; zamba2-7b's
-     ``flash_attention`` 13 x 2 a prefill and ``flash_decode_sharded`` 13
-     x 2 a decode step); one decode window profiled; the pod's bf16 first
+     ``flash_attention`` sites x 2 a prefill and
+     ``flash_decode_sharded`` sites x 2 a decode step); one decode window
+     profiled; the pod's bf16 first
      prefill logits against the single-device kernel model (and fp32 ones
      at the parity depth) within ``POD_LOGIT_TOL``; then the serve CLI with
      ``--mesh 1x2 --arch mamba2-130m --preempt-policy auto`` on
@@ -190,7 +198,27 @@ Phases (any failure raises and exits non-zero):
      ``mamba2-130m TP=2`` and ``zamba2-7b TP=2`` hold the kernels at a
      rank's share of these pods (``ssd_scan`` at H=12, (64, 128) and
      H=56, (64, 64); ``flash_attention`` and ``flash_decode_sharded`` at
-     16/16 heads of dim 112 a rank).
+     16/16 heads of dim 112 a rank);
+ 13. the vlm and audio families on tensor-parallel pods of 2 ranks (on
+     one card when there is one, else on two; the log says which), bf16
+     at full width and depth: qwen2-vl-7b (28 layers) served and
+     whisper-large-v3 (32 + 32 layers) stepped.  First, in fp32 at 2
+     layers (2 + 2 for whisper): the vlm pod's greedy tokens against the
+     single-device kernel and plain engines through evictions and a
+     swap, one swap round trip every rank's rows bit for bit, its first
+     prefill logits; and both pods' step path (``make_prefill_step`` /
+     ``make_serve_step`` with ``mesh=``: 256 stub patches with (3, B, S)
+     positions, or frames) against one device, tokens identical and
+     logits within ``POD_LOGIT_TOL``.  Then at full depth: the bytes
+     allocated beside ``param_count`` and the bytes the shards copy;
+     phase 4's served path on the vlm pod (launch counts reset before
+     and read after: ``flash_decode_sharded`` 28 x 2 a step,
+     ``flash_attention`` 28 x 2 a prefill), one decode window profiled,
+     its first prefill logits against one device; the step path of both
+     pods (prefill and 32 serve steps, launches ``flash_attention``
+     layers x 2 a prefill and ``flash_decode_sharded`` layers x 2 a step,
+     one step profiled) and its bf16 logits against one device within
+     ``POD_LOGIT_TOL``.
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -216,7 +244,11 @@ drops one rank's attention output from the TP model's sums, in memory,
 and runs phase 5's TP comparisons; ``rank_local_norm`` (alone) makes
 each rank of an SSM or hybrid pod normalise over its own slice of
 ``d_inner``, in memory, and runs phase 12's fp32 token and bf16 logit
-checks against it.
+checks against it.  ``mrope_rank0_only`` (ranks > 0 of the vlm pod
+rotate by the 2-D text positions, not the (3, B, S) ones) and
+``cross_rank_local`` (each rank of the whisper pod adds only its own
+heads' cross-attention output), alone or together (``POD_FAULTS``), run
+phase 13's step-path checks of the pod each reaches, fp32 and bf16.
 
     python3 chip_smoke.py --window-bench 24
 
@@ -369,9 +401,18 @@ TP_LOGIT_TOL_BF16 = 0.1
 #: as ``HYBRID_TOL_REASON`` says of phase 9, the bf16 limits catch gross
 #: faults only; in fp32 the pod and one device differ by summation order
 #: alone, and the fp32 limit holds them (PERF.md gives the readings).
+#: Phase 13's vlm and audio pods, bf16 logits of the step path against one
+#: device: on an H100 the correct pods read 0.0391 (qwen2-vl-7b, 28
+#: layers, with stub patches and 3-D positions; its text prefill too) and
+#: 0.0469 (whisper-large-v3, 32 + 32 layers), the planted
+#: ``mrope_rank0_only`` 0.1758 and ``cross_rank_local`` 2.234: the 0.1
+#: limits lie between them.  In fp32 the correct pods read 6.20e-6 and
+#: 3.52e-6, the faults 0.376 and 1.52.
 POD_LOGIT_TOL = {("ssm", "bfloat16"): 0.2,
                  ("hybrid", "bfloat16"): HYBRID_LOGIT_TOL_BF16,
-                 ("ssm", "float32"): 1e-3, ("hybrid", "float32"): 1e-3}
+                 ("ssm", "float32"): 1e-3, ("hybrid", "float32"): 1e-3,
+                 ("vlm", "bfloat16"): 0.1, ("audio", "bfloat16"): 0.1,
+                 ("vlm", "float32"): 1e-3, ("audio", "float32"): 1e-3}
 #: bf16 logits of the first decode step after prefill over an int8 cache
 #: (full width and depth): the kernel path (dequantize in fp32) against the
 #: plain path (dequantize to bf16, then sdpa, as the reference reads it).
@@ -394,6 +435,10 @@ TP = 2
 #: SSM heads; zamba2-7b: 56 of 112 SSM heads, 16/16 of its shared block's
 #: 32/32 attention heads)
 SSM_TP_TAG, HY_TP_TAG = f"mamba2-130m TP={TP}", f"{HY_ARCH} TP={TP}"
+#: phase 13's vlm and audio pods: the tags of phase 3's rows at each
+#: rank's share of them (qwen2-vl-7b: 14/2 heads of dim 128, a GQA group
+#: of 7; whisper-large-v3: 10/10 heads of dim 64)
+VL_TP_TAG, AU_TP_TAG = f"{VL_ARCH} TP={TP}", f"{AU_ARCH} TP={TP}"
 #: one-line faults for ``--planted-fault``: (source, regex, replacement)
 PLANTED_FAULTS = {
     # the int8 decode ignores V's scales (V read as its raw codes)
@@ -815,10 +860,12 @@ def check_kernels(timed: bool = True):
         if sharded:
             check_sharded(record, q, k, v, kv_len, q_off, dn, es, iters)
 
-    def prefill_row(B, S, widths, window, arch=""):
+    def prefill_row(B, S, widths, window, arch="", tp=1):
         """``flash_attention`` (causal) at B x S and ``widths`` (heads, KV
-        heads, head dim) against its plain version, with ``sdpa``."""
-        h, kh, d = widths
+        heads, head dim) against its plain version, with ``sdpa``; with
+        ``tp`` > 1, at one rank's share of a ``tp``-way pod's heads, and
+        ``sdpa`` also timed over the unsplit heads (``unsplit_ms``)."""
+        h, kh, d = widths[0] // tp, widths[1] // tp, widths[2]
         q = torch.randn((B, S, h, d), generator=gen, device="cuda",
                         dtype=dtype)
         k, v = (torch.randn((B, S, kh, d), generator=gen, device="cuda",
@@ -841,6 +888,12 @@ def check_kernels(timed: bool = True):
             if causal else
             (lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=m, enable_gqa=True)), 50)
+        if tp > 1 and timed:
+            qu, ku, vu = (x.repeat_interleave(tp, dim=1)
+                          for x in (qt, kt, vt))
+            rows["flash_attention"][-1]["unsplit_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qu, ku, vu, is_causal=True, enable_gqa=True), 50)
 
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
@@ -874,6 +927,12 @@ def check_kernels(timed: bool = True):
                                                        HY_WINDOW)]:
             check_sharded(record, *decode_case(4, dtype, gen, widths), dn,
                           es, 200, window=window, tps=(TP,), arch=arch)
+        # and phase 13's vlm and audio pods (whisper over its 448 rows)
+        check_sharded(record, *decode_case(4, dtype, gen, VL_WIDTHS), dn,
+                      es, 200, tps=(TP,), arch=VL_TP_TAG)
+        check_sharded(record, *decode_case(4, dtype, gen, AU_WIDTHS,
+                                           AU_ROWS), dn, es, 200,
+                      tps=(TP,), arch=AU_TP_TAG)
         torch.cuda.empty_cache()
         check_int8(record, gen, dtype)
         for B in (1, 4):
@@ -895,6 +954,12 @@ def check_kernels(timed: bool = True):
             prefill_row(B, S, VL_WIDTHS, None, VL_ARCH)
         for B, S in ((STEP_SLOTS, STEP_PROMPT), (32, AU_ROWS)):
             prefill_row(B, S, AU_WIDTHS, None, AU_ARCH)
+        # a rank's heads of phase 13's pods, with sdpa also over the
+        # unsplit heads
+        prefill_row(4, VL_PATCHES + VL_TEXT, VL_WIDTHS, None, VL_TP_TAG,
+                    tp=TP)
+        prefill_row(STEP_SLOTS, STEP_PROMPT, AU_WIDTHS, None, AU_TP_TAG,
+                    tp=TP)
         if dtype == torch.bfloat16:
             check_long_prefill(record, gen)
             if timed:
@@ -939,6 +1004,9 @@ def check_kernels(timed: bool = True):
                 lib = ("no single PyTorch call" if r["library_ms"] is None
                        else f"{r.get('library', 'sdpa')} "
                             f"{r['library_ms']:.4f} ms")
+                if "unsplit_ms" in r:
+                    lib += (f" (over the unsplit heads "
+                            f"{r['unsplit_ms']:.4f} ms)")
                 plain = ("" if r["plain_ms"] is None
                          else f"plain {r['plain_ms']:.4f} ms, ")
                 line += (f"; kernel {r['ms']:.4f} ms (eager "
@@ -2137,7 +2205,7 @@ def planted_fault(kind: str, models) -> dict:
                 # 64, MHA; the MoE pods' ranks) are tallied apart
                 for arch in ("", HY_ARCH, VL_ARCH, AU_ARCH,
                              *(a for a, _, _ in MOE_TP_SHAPES),
-                             SSM_TP_TAG, HY_TP_TAG):
+                             SSM_TP_TAG, HY_TP_TAG, VL_TP_TAG, AU_TP_TAG):
                     rs = [r for r in rr if r["dtype"] == dn
                           and r.get("arch", "") == arch]
                     if rs:
@@ -2211,6 +2279,62 @@ def rank_local_norm():
         yield
     finally:
         S.gated_partials = right
+
+
+@contextlib.contextmanager
+def mrope_rank0_only():
+    """The planted TP fault ``mrope_rank0_only``, in memory: only rank 0 of
+    a pod rotates its heads by the prompt's (3, B, S) M-RoPE positions;
+    the other ranks get the 2-D text positions (0 .. S - 1 on all three
+    axes), as a prefill without ``positions`` gives them."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    right = T._rank_cos_sins
+
+    def faulty(cfg, pos, ranks):
+        out = right(cfg, pos, ranks)
+        if pos.ndim == 3:
+            b, s = pos.shape[1:]
+            text = torch.arange(s, device=pos.device).expand(b, s)
+            out[1:] = right(cfg, text, ranks[1:])
+        return out
+
+    T._rank_cos_sins = faulty
+    try:
+        yield
+    finally:
+        T._rank_cos_sins = right
+
+
+@contextlib.contextmanager
+def cross_rank_local():
+    """The planted TP fault ``cross_rank_local``, in memory: each rank of
+    an audio pod adds only its own heads' cross-attention output to its
+    residual stream, the ranks' ``wo`` partials never summed."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    right = T._cross_mlp
+
+    def faulty(cfg, lcfg, lps, hs, crosses, moe_impl):
+        hs = [h + L.cross_attention_block(
+            lp["cross"], lcfg, L.apply_norm(cfg, lp["cross_norm"], h), kv)
+            for lp, h, kv in zip(lps, hs, crosses)]
+        return T._mlp(cfg, lcfg, lps, hs, moe_impl)
+
+    T._cross_mlp = faulty
+    try:
+        yield
+    finally:
+        T._cross_mlp = right
+
+
+#: phase 13's in-memory pod faults for ``--planted-fault``; each raises
+#: nothing, and phase 13's fp32 checks must catch it
+POD_FAULTS = {"mrope_rank0_only": mrope_rank0_only,
+              "cross_rank_local": cross_rank_local}
 
 
 def tp_planted_fault(cfg, params, requests) -> dict:
@@ -3030,11 +3154,13 @@ def window_bench(cfg, params, n: int) -> None:
 #: reference's does, and its step entry points with the vision stub.
 #: mixtral-8x7b is 93.4 GB of bf16 weights at its 32
 #: layers, one card's worth only under a mesh (ROADMAP queue 1, item 8),
-#: so it is cut to 8 layers.  qwen1.5-32b (70.4 GB) runs last, after every
-#: earlier tensor is freed, and is cut only where it does not fit.
+#: so it is cut to 8 layers.  qwen1.5-32b (70.4 GB at its 64 layers) runs
+#: last, after every earlier tensor is freed, cut to 32 layers: the whole
+#: depth fits one card, but phase 13 needed the room in the script's time
+#: (PERF.md, section 4).
 OTHER_ARCHS = [("qwen2-moe-a2.7b", None), ("llama3.2-3b", None),
                ("yi-6b", None), ("mixtral-8x7b", 8), (VL_ARCH, None),
-               ("qwen1.5-32b", None)]
+               ("qwen1.5-32b", 32)]
 #: the arch whose step entry points phase 8 runs over an int8 cache
 STEP_ARCH = "qwen2-moe-a2.7b"
 #: device memory a served arch keeps free beside its weights and its two
@@ -3062,10 +3188,13 @@ def served_depth(cfg, depth, copies: int = 1):
 
     n, why = cfg.n_layers, None
     if depth is not None and depth < n:
-        n, why = depth, (f"{depth} of {cfg.n_layers} layers: the "
-                         f"{layer_bytes(cfg)[0] * cfg.n_layers / 1e9:.1f} GB "
-                         "of all layers fit one card only under a mesh "
-                         "(ROADMAP queue 1, item 8)")
+        full = layer_bytes(cfg)[0] * cfg.n_layers
+        fits = (DEVICE == "cpu" or full < torch.cuda.get_device_properties(
+            0).total_memory)
+        n, why = depth, (f"{depth} of {cfg.n_layers} layers: " + (
+            "a stated cut that keeps the script inside its time limit"
+            if fits else f"the {full / 1e9:.1f} GB of all layers fit one "
+            "card only under a mesh (ROADMAP queue 1, item 8)"))
     if DEVICE == "cpu":
         return n, why
     free = torch.cuda.mem_get_info()[0]
@@ -3188,19 +3317,21 @@ def vision_batch(cfg, seed: int) -> dict:
         "positions": pos.to(torch.int32).contiguous()}
 
 
-def step_run(cfg, params, batch, cache, attn_impl: str, n_steps: int):
+def step_run(cfg, params, batch, cache, attn_impl: str, n_steps: int,
+             mesh=None):
     """``make_prefill_step`` over ``batch`` into ``cache``, then
-    ``n_steps`` greedy ``make_serve_step`` steps.  Returns (the prefill
-    logits in fp32, tokens (B, 1 + n_steps), host wall seconds of each
-    step, devices synchronised, the cache)."""
+    ``n_steps`` greedy ``make_serve_step`` steps (on one TP pod with
+    ``mesh``: ``params`` the ranks' shards, ``cache`` their caches).
+    Returns (the prefill logits in fp32, tokens (B, 1 + n_steps), host
+    wall seconds of each step, devices synchronised, the cache)."""
     import torch
 
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
 
-    logits, cache = make_prefill_step(cfg, attn_impl=attn_impl)(
+    logits, cache = make_prefill_step(cfg, attn_impl=attn_impl, mesh=mesh)(
         params, {**batch, "cache": cache})
     tok = logits[:, -1].argmax(-1).to(torch.int32)
-    serve = make_serve_step(cfg, attn_impl=attn_impl)
+    serve = make_serve_step(cfg, attn_impl=attn_impl, mesh=mesh)
     toks, walls = [tok], []
     for _ in range(n_steps):
         synchronize_all()
@@ -3767,10 +3898,12 @@ def audio_phase() -> dict:
 # Phase 11: tensor-parallel MoE pods; chunked prefill and KV swap under a mesh
 # --------------------------------------------------------------------------- #
 
-#: phase 11's pods, each arch with the depth it is served at (None: all
-#: layers; mixtral at phase 8's cut: its weights and their shards at 32
-#: layers would not fit one card)
-MOE_TP_ARCHS = [("qwen2-moe-a2.7b", None), ("mixtral-8x7b", 8)]
+#: phase 11's pods, each arch with the depth it is served at: mixtral's
+#: weights and their shards at 32 layers would not fit one card; both are
+#: cut (qwen2-moe-a2.7b to 12 of 24 layers, mixtral to 4, half of phase
+#: 8's 8) to leave phase 13 room in the script's time (PERF.md, section
+#: 4); phase 8 serves qwen2-moe-a2.7b at all 24 on one device
+MOE_TP_ARCHS = [("qwen2-moe-a2.7b", 12), ("mixtral-8x7b", 4)]
 #: the chunk of phase 11's chunked prefills, and the length of the prompt
 #: that its fp32 parity run chunks (more than 3 chunks)
 MOE_TP_CHUNK, MOE_TP_LONG = 64, 230
@@ -4011,16 +4144,19 @@ def moe_tp_phase() -> dict:
 # --------------------------------------------------------------------------- #
 
 #: phase 12's pods: (arch, the pod sizes its fp32 parity runs, the depth of
-#: that run: mamba2-130m whole, zamba2-7b at phase 9's)
-SSM_TP_ARCHS = [("mamba2-130m", (TP, 4), None),
-                (HY_ARCH, (TP,), HY_PARITY_DEPTH)]
+#: that run: mamba2-130m whole, zamba2-7b at phase 9's; the depth the pod
+#: is served at: 12 of mamba2-130m's 24 layers and 27 of zamba2-7b's 81 (4
+#: groups of 6 and the 3 tail layers), cut to leave phase 13 room in the
+#: script's time (PERF.md, section 4); phase 9 serves zamba2-7b at all 81)
+SSM_TP_ARCHS = [("mamba2-130m", (TP, 4), None, 12),
+                (HY_ARCH, (TP,), HY_PARITY_DEPTH, 27)]
 #: phase 12's CLI run: ``CLI_QUEUE`` on one TP pod of mamba2-130m under
 #: ISRTF, preempting by the ``auto`` break-even
 SSM_TP_CLI = CLI_QUEUE + ["--policy", "isrtf", "--arch", "mamba2-130m",
                           "--mesh", f"1x{TP}", "--preempt-policy", "auto"]
 
 
-def pod_parity(cfg, params, requests, meshes) -> list:
+def pod_parity(cfg, params, requests, meshes, tag: str = "ssm-tp") -> list:
     """fp32 greedy tokens of each TP kernel engine of ``meshes`` against
     the single-device kernel engine and the plain engine, through
     evictions, recompute resumes and one swap round trip
@@ -4040,7 +4176,7 @@ def pod_parity(cfg, params, requests, meshes) -> list:
     for name, other in [("kernel engine", "plain engine")] + pairs:
         (got, evictions), (want, _) = streams[name], streams[other]
         same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
-        log(f"[ssm-tp] {cfg.arch_id} fp32, full width, {cfg.n_layers} "
+        log(f"[{tag}] {cfg.arch_id} fp32, full width, {cfg.n_layers} "
             f"layers: {name} vs {other} greedy tokens identical on {same}/"
             f"{sum(map(len, want))} tokens of {len(prompts)} requests "
             f"({evictions} evictions + recompute resumes, the first a swap "
@@ -4051,7 +4187,7 @@ def pod_parity(cfg, params, requests, meshes) -> list:
         if div is not None:
             i, pos, margin = div
             tie = margin < FP32_TIE
-            log(f"[ssm-tp]   first difference: request {i}, token {pos}; "
+            log(f"[{tag}]   first difference: request {i}, token {pos}; "
                 f"top-2 margin there {margin:.3e} "
                 + ("< FP32_TIE: a tie" if tie else f">= {FP32_TIE}: a fault"))
             if not tie:
@@ -4061,7 +4197,7 @@ def pod_parity(cfg, params, requests, meshes) -> list:
     return failures
 
 
-def pod_logit_gap(cfg, params, requests, mesh):
+def pod_logit_gap(cfg, params, requests, mesh, tag: str = "ssm-tp"):
     """max |pod - single-device kernel model| of the first prefill logits
     in ``cfg.dtype`` at ``cfg``'s depth, each of the two longest and two
     shortest prompts alone at its exact length (as the engine admits
@@ -4088,7 +4224,7 @@ def pod_logit_gap(cfg, params, requests, mesh):
         scale = max(scale, float(out["one"].abs().max()))
     del shards
     tol = POD_LOGIT_TOL[cfg.family, cfg.dtype]
-    log(f"[ssm-tp] {cfg.arch_id} {cfg.dtype}, full width, {cfg.n_layers} "
+    log(f"[{tag}] {cfg.arch_id} {cfg.dtype}, full width, {cfg.n_layers} "
         f"layers: first prefill logits of prompts of "
         f"{[len(p) for p in prompts]} tokens, max |TP={len(mesh.ranks)} "
         f"pod - single-device kernel model| = {gap:.4e} (tol {tol}), max "
@@ -4140,14 +4276,15 @@ def ssm_tp_phase() -> dict:
     For each arch of :data:`SSM_TP_ARCHS`: fp32 greedy tokens of the pods
     against the single-device kernel and plain engines
     (:func:`pod_parity`) and one swap round trip on the TP=2 pod, every
-    rank's rows bit for bit; then at full depth the bytes allocated beside
-    ``param_count`` and the bytes the shards copy, phase 4's served path
+    rank's rows bit for bit; then at the served depth of
+    :data:`SSM_TP_ARCHS` the bytes allocated beside ``param_count`` and
+    the bytes the shards copy, phase 4's served path
     on the pod (launch counts reset before and read after: ``ssd_scan``
     layers x ranks a prefill; zamba2-7b's ``flash_attention`` sites x ranks
     a prefill and ``flash_decode_sharded`` sites x ranks a decode step),
     one decode window profiled, and the pod's first prefill logits
     against the single-device kernel model within ``POD_LOGIT_TOL``, in
-    fp32 at the parity depth and in bf16 at full depth
+    fp32 at the parity depth and in bf16 at the served depth
     (:func:`pod_logit_gap`).  Then the serve CLI
     on one pod of mamba2-130m (:data:`SSM_TP_CLI`), with one swap through
     its executor if its traffic swapped nothing.  Returns each arch's
@@ -4159,7 +4296,7 @@ def ssm_tp_phase() -> dict:
     t_phase = time.perf_counter()
     mesh = tp_mesh()
     failures, launches = [], {}
-    for arch, tps, depth in SSM_TP_ARCHS:
+    for arch, tps, depth, served in SSM_TP_ARCHS:
         t0 = time.perf_counter()
         cfg, requests, (cfg32, params32) = pod_model(arch, depth)
         failures += pod_parity(cfg32, params32, requests,
@@ -4169,6 +4306,10 @@ def ssm_tp_phase() -> dict:
         del params32
         gc.collect()
         torch.cuda.empty_cache()
+        n, why = served_depth(cfg, served, copies=2)
+        cfg = dataclasses.replace(cfg, n_layers=n)
+        if why:
+            log(f"[ssm-tp] {arch}: depth cut to {why}")
         base = torch.cuda.memory_allocated() if DEVICE != "cpu" else 0
         params = random_params(cfg)
         alloc = (torch.cuda.memory_allocated() - base if DEVICE != "cpu"
@@ -4218,7 +4359,7 @@ def ssm_tp_planted_fault() -> dict:
     import torch
 
     out = {"planted_fault": "rank_local_norm"}
-    for arch, tps, depth in SSM_TP_ARCHS:
+    for arch, tps, depth, _ in SSM_TP_ARCHS:
         cfg, requests, (cfg32, params32) = pod_model(arch, depth)
         params = random_params(cfg)
         with rank_local_norm():
@@ -4234,6 +4375,264 @@ def ssm_tp_planted_fault() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------- #
+# Phase 13: the vlm and audio families on tensor-parallel pods
+# --------------------------------------------------------------------------- #
+
+#: the depth of phase 13's fp32 runs: the vlm pod's layers, and whisper's
+#: encoder and decoder layers each
+VL_TP_PARITY_DEPTH, AU_TP_PARITY_DEPTH = 2, 2
+
+
+def pod_arch(arch: str):
+    """Phase 13's model of ``arch``: (the bf16 config at full width and
+    depth, the fp32 config and weights of its parity runs, the step
+    path's batch of a config, the cache rows a slot); on the CPU, a
+    rehearsal, the reduced widths with the published rows."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch)
+    if DEVICE == "cpu":
+        cfg = dataclasses.replace(
+            cfg.reduced(), dtype="bfloat16",
+            max_position_embeddings=cfg.max_position_embeddings)
+    if cfg.family == "audio":
+        cfg32 = dataclasses.replace(audio_depth(cfg, AU_TP_PARITY_DEPTH),
+                                    dtype="float32")
+        params32 = T.init_params(
+            cfg32, torch.Generator(device=DEVICE).manual_seed(SEED + 1))
+        return (cfg, (cfg32, params32),
+                lambda c: audio_batch(c, STEP_SLOTS, STEP_PROMPT, SEED + 5),
+                AU_ROWS)
+    return (cfg, fp32_model(cfg, VL_TP_PARITY_DEPTH),
+            lambda c: vision_batch(c, SEED + 4), MAX_LEN)
+
+
+def pod_step_parity(cfg, params, batch, rows: int, mesh, tag: str):
+    """The step path of a TP pod against one device on the same weights
+    and inputs: ``make_prefill_step`` over ``batch`` into caches of
+    ``rows`` rows a slot, then one ``make_serve_step``-sized decode step
+    fed the pod's greedy token; the max |pod - one device| over both
+    logits within ``POD_LOGIT_TOL``.  In fp32 also the greedy tokens of
+    the prefill and ``STEPS`` serve steps (:func:`step_run`), identical.
+    Returns (failures, gap)."""
+    import torch
+
+    from repro_torch.launch import shard_params
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    n_slots = batch["tokens"].shape[0]
+    out, toks, tok = {}, {}, None
+    for name, m in (("pod", mesh), ("one", None)):
+        p = params if m is None else shard_params(params, cfg, m)
+        logits, cache = make_prefill_step(cfg, mesh=m)(
+            p, {**batch, "cache": T.init_cache(cfg, n_slots, rows, DEVICE,
+                                               mesh=m)})
+        if tok is None:
+            tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        step, _ = T.decode_step(p, cfg, tok, cache, mesh=m)
+        out[name] = (logits.float(), step.float())
+        del cache
+        if cfg.dtype == "float32":
+            toks[name] = step_run(cfg, p, batch, T.init_cache(
+                cfg, n_slots, rows, DEVICE, mesh=m), "kernel", STEPS, m)[1]
+        del p
+    gap = max(float((a - b).abs().max())
+              for a, b in zip(out["pod"], out["one"]))
+    scale = max(float(a.abs().max()) for a in out["one"])
+    finite = all(bool(torch.isfinite(a).all()) for a in out["pod"])
+    tol = POD_LOGIT_TOL[cfg.family, cfg.dtype]
+    depth = (f"{cfg.encoder.n_layers} + {cfg.n_layers}"
+             if cfg.family == "audio" else str(cfg.n_layers))
+    log(f"[{tag}] {cfg.arch_id} {cfg.dtype}, full width, {depth} layers, "
+        f"step path ({'frames' if cfg.family == 'audio' else 'stub patches, 3-D positions'}): prefill and "
+        f"first step logits, max |TP={len(mesh.ranks)} pod - one device| "
+        f"= {gap:.4e} (tol {tol}), max |logit| = {scale:.3f}, "
+        f"finite={finite}")
+    bad = [] if finite and gap <= tol else [
+        f"{cfg.arch_id}: {cfg.dtype} step-path logits, pod - one device = "
+        f"{gap:.4e} (tol {tol}), finite={finite}"]
+    if toks:
+        same = int((toks["pod"] == toks["one"]).sum())
+        log(f"[{tag}] {cfg.arch_id} fp32, {depth} layers, step path: greedy "
+            f"tokens, pod vs one device, identical on {same}/"
+            f"{toks['one'].numel()} ({n_slots} slots x {1 + STEPS})")
+        if not torch.equal(toks["pod"], toks["one"]):
+            bad.append(f"{cfg.arch_id}: fp32 step-path tokens of the pod "
+                       f"identical on {same}/{toks['one'].numel()}")
+    return bad, gap
+
+
+def pod_step_path(cfg, params, batch, rows: int, mesh, tag: str) -> dict:
+    """The step path on a TP pod through the kernels: ``make_prefill_step``
+    over ``batch`` and ``STEPS`` serve steps, launch counts set to 0 just
+    before and read just after (``flash_attention`` layers x ranks a
+    prefill, ``flash_decode_sharded`` layers x ranks a step), the step
+    wall median; one serve step profiled.  Returns the launch counts."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shard_params
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as T
+
+    shards = shard_params(params, cfg, mesh)
+    caches = T.init_cache(cfg, STEP_SLOTS, rows, DEVICE, mesh=mesh)
+    ops.reset_launches()
+    _, toks, walls, caches = step_run(cfg, shards, batch, caches, "kernel",
+                                      STEPS, mesh)
+    launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
+    n, tp = cfg.n_layers, len(mesh.ranks)
+    check_launches(launches, {
+        "flash_attention": (n * tp, f"{n} layers x {tp} ranks x 1 prefill"),
+        "flash_decode_sharded": (n * tp * STEPS, f"{n} layers x {tp} ranks "
+                                                 f"x {STEPS} steps")})
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.arch_id} pod step path: a token lies "
+                             "outside the vocabulary")
+    med = statistics.median(walls) * 1e3
+    what = (f"{STEP_SLOTS} prompts of {batch['tokens'].shape[1]} ids over "
+            "their frames" if cfg.family == "audio" else
+            f"{cfg.frontend_tokens} stub patches (3-D positions) and "
+            f"{batch['tokens'].shape[1]} text ids")
+    log(f"[{tag}] make_prefill_step(mesh=) ({what}) and {STEPS} "
+        f"make_serve_step(mesh=) steps over per-rank bf16 caches of "
+        f"{STEP_SLOTS} x {rows} rows, {describe(cfg, mesh)}: step wall "
+        f"median {med:.2f} ms (min {min(walls) * 1e3:.2f}), "
+        f"{STEP_SLOTS / (med / 1e3):.1f} tokens/s; launches: "
+        f"flash_attention {launches['flash_attention']} = {n} x {tp} x 1 "
+        f"prefill, flash_decode_sharded "
+        f"{launches['flash_decode_sharded']} = {n} x {tp} x {STEPS} steps "
+        f"(all counts: {json.dumps(launches)})")
+    last = toks[:, -1]
+    profiled(f"{cfg.arch_id} TP={tp}: one make_serve_step(mesh=) "
+             f"({STEP_SLOTS} slots, {n} layers)",
+             lambda: make_serve_step(cfg, mesh=mesh)(shards, last[:, None],
+                                                     caches))
+    del caches, shards
+    return launches
+
+
+def vlm_audio_tp_phase() -> dict:
+    """Phase 13: qwen2-vl-7b served and whisper-large-v3 stepped on
+    ``TP``-rank pods (ranks on one card when there is one), bf16 at full
+    width and depth, from random weights.  First, at the parity depth in
+    fp32: the vlm pod's greedy tokens against the single-device kernel and
+    plain engines through evictions and a swap (:func:`pod_parity`), one
+    swap round trip every rank's rows bit for bit, its first prefill
+    logits; both pods' step path with patches and 3-D positions, or with
+    frames, against one device (:func:`pod_step_parity`: tokens identical,
+    logits within ``POD_LOGIT_TOL``).  Then at full depth: the bytes
+    allocated beside ``param_count`` and the bytes the shards copy; for
+    the vlm pod phase 4's served path (launch counts reset before and read
+    after: ``flash_decode_sharded`` layers x ranks a step,
+    ``flash_attention`` layers x ranks a prefill), one decode window
+    profiled and its first prefill logits against one device; for both,
+    the step path through the kernels (:func:`pod_step_path`) and its
+    bf16 logits against one device.  Returns each arch's launch counts:
+    the vlm pod's served path and the audio pod's step path."""
+    import torch
+
+    from repro_torch.launch import shard_params
+
+    t_phase = time.perf_counter()
+    mesh = tp_mesh()
+    requests = make_requests(12, SEED)
+    failures, launches = [], {}
+    for arch, tag in ((VL_ARCH, "vlm-tp"), (AU_ARCH, "audio-tp")):
+        t0 = time.perf_counter()
+        cfg, (cfg32, params32), make_batch, rows = pod_arch(arch)
+        if cfg.family == "vlm":
+            failures += pod_parity(cfg32, params32, requests, [mesh], tag)
+            failures += pod_logit_gap(cfg32, params32, requests, mesh,
+                                      tag)[0]
+            swap_roundtrip(cfg32, params32, requests, mesh)
+        failures += pod_step_parity(cfg32, params32, make_batch(cfg32), rows,
+                                    mesh, tag)[0]
+        del params32
+        gc.collect()
+        torch.cuda.empty_cache()
+        n, why = served_depth(cfg, None, copies=2)
+        if why:
+            raise AssertionError(f"phase 13: {arch} does not fit at full "
+                                 f"depth: {why}")
+        base = torch.cuda.memory_allocated() if DEVICE != "cpu" else 0
+        params = random_params(cfg)
+        alloc = (torch.cuda.memory_allocated() - base if DEVICE != "cpu"
+                 else sum(t.numel() * t.element_size()
+                          for t in _tensors(params)))
+        shards = shard_params(params, cfg, mesh)
+        copied = pod_copies(params, shards)
+        del shards
+        log(f"[{tag}] {describe(cfg, mesh)}"
+            + (f", {cfg.encoder.n_layers} encoder layers over "
+               f"{cfg.encoder.n_frames} frames" if cfg.encoder.n_layers
+               else "")
+            + f"; weights {alloc / 1e9:.3f} GB allocated, param_count "
+            f"{cfg.param_count():,}; the pod's shards copy "
+            f"{copied / 1e9:.3f} GB (the split leaves; replicated norms and "
+            "learned positions are shared by the ranks)")
+        batch = make_batch(cfg)
+        if cfg.family == "vlm":
+            launches[arch] = served_path(cfg, params, requests, mesh)
+            gc.collect()
+            profile_window(cfg, params, requests, mesh)
+            gc.collect()
+            failures += pod_logit_gap(cfg, params, requests, mesh, tag)[0]
+            pod_step_path(cfg, params, batch, rows, mesh, tag)
+        else:
+            launches[arch] = pod_step_path(cfg, params, batch, rows, mesh,
+                                           tag)
+        gc.collect()
+        failures += pod_step_parity(cfg, params, batch, rows, mesh, tag)[0]
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[{tag}] {arch} in {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError("phase 13: " + "; ".join(failures))
+    log(f"[vlm-tp] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def pod_planted_fault(kinds) -> dict:
+    """The in-memory pod faults ``kinds`` of :data:`POD_FAULTS`, each run
+    against phase 13's step-path checks of the pod it reaches
+    (``mrope_rank0_only`` the vlm pod with stub patches and 3-D
+    positions, ``cross_rank_local`` the audio pod): fp32 tokens and
+    logits at the parity depth and bf16 logits at full depth.  Returns
+    whether each caught the fault, and the gaps."""
+    import torch
+
+    out = {}
+    for kind in kinds:
+        arch = VL_ARCH if kind == "mrope_rank0_only" else AU_ARCH
+        cfg, (cfg32, params32), make_batch, rows = pod_arch(arch)
+        with POD_FAULTS[kind]():
+            bad32, gap32 = pod_step_parity(cfg32, params32, make_batch(cfg32),
+                                           rows, tp_mesh(), kind)
+            del params32
+            gc.collect()
+            params = random_params(cfg)
+            bad16, gap16 = pod_step_parity(cfg, params, make_batch(cfg),
+                                           rows, tp_mesh(), kind)
+        out[kind] = {"arch": arch, "fp32_caught": bool(bad32),
+                     "fp32_failures": bad32, "logit_gap_fp32": gap32,
+                     "logit_gap_bf16": gap16,
+                     "logit_tol_bf16": POD_LOGIT_TOL[cfg.family, cfg.dtype],
+                     "bf16_caught": bool(bad16)}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"planted_fault": "pod", **out}
 
 
 def random_params(cfg):
@@ -4258,7 +4657,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--planted-fault", nargs="+",
                     choices=sorted(PLANTED_FAULTS) + ["drop_rank_partial",
-                                                      "rank_local_norm"],
+                                                      "rank_local_norm"]
+                    + sorted(POD_FAULTS),
                     help="check the checks against these deliberate "
                          "kernel (or TP) faults instead of running the "
                          "smoke")
@@ -4294,9 +4694,16 @@ def main(argv=None) -> None:
         build.build_all()
         print(json.dumps(ssm_tp_planted_fault()), flush=True)
         return
+    if args.planted_fault and set(args.planted_fault) <= set(POD_FAULTS):
+        build.build_all()
+        print(json.dumps(pod_planted_fault(args.planted_fault)), flush=True)
+        return
     if args.planted_fault:
         if "rank_local_norm" in args.planted_fault:
             sys.exit("--planted-fault rank_local_norm runs alone")
+        if set(args.planted_fault) & set(POD_FAULTS):
+            sys.exit(f"--planted-fault {' / '.join(sorted(POD_FAULTS))} run "
+                     "without the kernel faults")
         hy = get_config(HY_ARCH)
         with_params = [(cfg, random_params(cfg), reqs) for cfg, reqs in
                        models + [(hy, hybrid_requests(hy)),
@@ -4403,6 +4810,9 @@ def main(argv=None) -> None:
     # phase 12: the SSM and hybrid families on TP pods
     ssm_tp = ssm_tp_phase()
 
+    # phase 13: the vlm and audio families on TP pods
+    vlm_audio_tp = vlm_audio_tp_phase()
+
     served = {"flash_decode": dict(dtype="bfloat16", B=4, window=None),
               "flash_decode_int8": dict(dtype="bfloat16", B=4, D=HEAD_DIM,
                                         window=None, note=""),
@@ -4449,7 +4859,14 @@ def main(argv=None) -> None:
             + [(n, k, ssm_tp[HY_ARCH], HY_TP_TAG) for n, k in (
                 ("ssd_scan", served["ssd_scan"]),
                 ("flash_attention", hy_rows["flash_attention"]),
-                ("flash_decode_sharded", tp_row))]):
+                ("flash_decode_sharded", tp_row))]
+            # the vlm and audio pods' ranks, with phase 13's launches
+            + [(n, k, vlm_audio_tp[a], tag) for a, tag, k0 in (
+                (VL_ARCH, VL_TP_TAG, dict(dtype="bfloat16", B=4,
+                                          S=VL_PATCHES + VL_TEXT)),
+                (AU_ARCH, AU_TP_TAG, au_rows["flash_attention"]))
+               for n, k in (("flash_attention", k0),
+                            ("flash_decode_sharded", tp_row))]):
         r = next(r for r in rows[name]
                  if r.get("arch", "") == arch
                  and all(r[k] == v for k, v in key.items()))

@@ -45,15 +45,17 @@ slot cache per rank, each on its rank's device, and drives every rank from
 this one process (:mod:`repro_torch.models.transformer`); the slot
 bookkeeping, the sampler and ``last_token`` stay on rank 0, so the executor
 and the frontend see one engine.  :func:`make_tp_pods` builds data-parallel
-pods of such engines (dense, MoE, SSM and hybrid families).  A chunk of a
+pods of such engines (every family; an audio pod refuses its first
+prefill as one device does).  A chunk of a
 chunked prefill runs every rank over its own cache, and a swap stashes
 every rank's slot rows, each copied back to its own rank's device; the
 SSM families' per-rank states (their conv channels and heads) are slot
 rows like the K/V, on the same slot axes.
 
 The vlm family serves text only, as the reference's engine does: a job's
-tokens, with their positions on all three M-RoPE axes.  An audio engine
-builds its cache (``cross_kv`` included) but raises
+tokens, with their positions on all three M-RoPE axes, on one device or
+a pod.  An audio engine (or pod) builds its cache (``cross_kv``, each
+rank's query heads on a pod) but raises
 ``NotImplementedError`` at its first prefill
 (:data:`AUDIO_PREFILL_NOT_SERVED`).
 
@@ -172,10 +174,11 @@ class InferenceEngine:
     """One backend worker's execution engine (one model, N slots) on one
     device: ``cuda`` unless the caller passes ``device="cpu"``.
 
-    With ``mesh`` (a single-axis ``("model",)`` mesh: one TP pod of the
-    dense, MoE, SSM or hybrid family) ``params`` is the full tree, which
-    the engine splits by ``launch.partition.shard_params``; ``device`` is
-    then rank 0's device.  Every rank runs the kernels of ``attn_impl``; a layout that does not
+    With ``mesh`` (a single-axis ``("model",)`` mesh: one TP pod of any
+    family) ``params`` is the full tree, which the engine splits by
+    ``launch.partition.shard_params``; ``device`` is then rank 0's
+    device.  Every rank runs the kernels of ``attn_impl``; a layout that
+    does not
     split into ranks of one GQA ratio (the ``layout:`` reason of
     ``launch.partition.kernel_decode_support``) raises ``ValueError``
     here."""

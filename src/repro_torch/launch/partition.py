@@ -1,5 +1,5 @@
-"""Tensor-parallel partition rules — the dense, MoE, SSM and hybrid subset
-of ``repro.launch.partition``.
+"""Tensor-parallel partition rules — the port of ``repro.launch.partition``
+for every family the port serves.
 
 The reference hands partition specs to GSPMD, which splits the arrays and
 inserts the collectives.  The port splits the parameter tree itself into
@@ -38,6 +38,17 @@ The gated norm spans the whole inner width, so the model sums the ranks'
 sums of squares before it normalises (:mod:`repro_torch.models.ssm`).
 The hybrid's shared attention block takes the dense rules.
 
+The vlm family is the dense stack; its stub patch embeddings and 3-D
+M-RoPE positions are inputs, replicated on every rank as the reference's
+``batch_pspecs`` replicates them.  The audio family's encoder layers take
+the dense rules, and its learned positions (``pos_embed``, ``enc_pos``)
+and LayerNorm biases (``bias``) are replicated.  Its cross-attention
+(under ``cross``) projects d_model onto all H query heads for Q, K and V
+alike, so ``wq``, ``wk`` and ``wv`` there split by query head (a rank's
+cross K/V are its own query heads'), and ``wo`` by rows; the KV-head
+split of the self-attention's ``wk`` / ``wv`` would be wrong there
+wherever KH != H, with shapes that still fit.
+
 Each rank holds the KV heads its own query heads read, a contiguous range:
 its share of them when the rank count divides ``n_kv_heads``, or the one
 KV head of its query heads when ``n_kv_heads`` divides the rank count
@@ -61,6 +72,8 @@ import torch
 _PARAM_RULES: Dict[str, Tuple[int, Tuple]] = {
     "embed": (2, ("model", None)),        # (vocab, d)
     "lm_head": (2, (None, "model")),      # (d, vocab)
+    "pos_embed": (2, (None, None)),       # learned decoder positions
+    "enc_pos": (2, (None, None)),         # learned encoder positions
     "wq": (2, (None, "model")),
     "wk": (2, (None, "model")),
     "wv": (2, (None, "model")),
@@ -74,6 +87,7 @@ _PARAM_RULES: Dict[str, Tuple[int, Tuple]] = {
     "router": (2, (None, None)),          # MoE router (d, experts)
     "gate": (2, (None, None)),            # shared-expert sigmoid gate (d, 1)
     "scale": (1, (None,)),
+    "bias": (1, (None,)),                 # LayerNorm bias
     "A_log": (1, ("model",)),
     "dt_bias": (1, ("model",)),
     "D": (1, ("model",)),
@@ -91,11 +105,12 @@ _MOE_RULES: Dict[str, Tuple[int, Tuple]] = {
     "w_up": (3, (None, None, "model")),
     "w_down": (3, (None, "model", None)),
 }
-#: leaves split by KV head: each rank takes its kv_head_range
+#: leaves split by KV head: each rank takes its kv_head_range (outside
+#: ``cross``, whose K/V projections are over the query heads)
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
 
 #: families the tensor-parallel path serves
-TP_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+TP_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def tp_ranks(mesh) -> List[torch.device]:
@@ -108,25 +123,12 @@ def tp_ranks(mesh) -> List[torch.device]:
     return mesh.ranks
 
 
-#: why each family outside :data:`TP_FAMILIES` (the vlm and audio families
-#: that ROADMAP.md's queue 1, item 8.2 ports) needs its own TP design
-_TP_DESIGN = {
-    "vlm": "its patch embeddings and 3-D M-RoPE positions enter the "
-           "prefill beside the vocab-parallel embedding, which the dense TP "
-           "path does not take",
-    "audio": "its encoder, its 20/20-head self-attention and the "
-             "cross-attention K/V over the 1500 frames each need a split of "
-             "their own",
-}
-
-
 def check_family(cfg) -> None:
+    """Raise ``NotImplementedError`` for a family with no TP design."""
     if cfg.family not in TP_FAMILIES:
-        why = _TP_DESIGN.get(cfg.family, "no TP design yet")
         raise NotImplementedError(
-            f"tensor parallelism of family {cfg.family!r} is not ported "
-            f"(ROADMAP.md, queue 1, item 8.2, the vlm and audio families: "
-            f"{why})")
+            f"tensor parallelism of family {cfg.family!r}: no TP design "
+            f"(the port's TP families: {TP_FAMILIES})")
 
 
 def _layout_reason(cfg, tp: int) -> Optional[str]:
@@ -226,7 +228,10 @@ def local_config(cfg, tp: int):
                     ("moe.expert_d_ff", m.expert_d_ff),
                     ("moe.shared_d_ff", m.shared_d_ff)):
         if n % tp:
-            raise ValueError(f"{what}={n} does not divide over {tp} ranks")
+            raise ValueError(
+                f"{what}={n} does not divide over {tp} ranks"
+                + (" (ROADMAP.md, queue 1, item 8.4: the reference "
+                   "replicates such a leaf)" if what == "vocab_size" else ""))
     lo, hi = kv_head_range(cfg, tp, 0)
     moe = dataclasses.replace(m, expert_d_ff=m.expert_d_ff // tp,
                               shared_d_ff=m.shared_d_ff // tp)
@@ -279,7 +284,7 @@ def shard_params(params: Dict[str, Any], cfg, mesh) -> List[Dict[str, Any]]:
             return [tree.to(d) for d in ranks]
         n = tree.shape[axis] // tp
         spans = [(r * n, n) for r in range(tp)]
-        if names[-1] in _KV_LEAVES:
+        if names[-1] in _KV_LEAVES and "cross" not in names:
             hd = tree.shape[axis] // cfg.n_kv_heads
             spans = [(lo * hd, (hi - lo) * hd) for lo, hi in
                      (kv_head_range(cfg, tp, r) for r in range(tp))]

@@ -10,6 +10,8 @@ Weights are random, from seed 0.
 
     python -m repro_torch.launch.serve --arch qwen2-1.5b --n 12
     python -m repro_torch.launch.serve --arch zamba2-7b --mesh 1x2 --n 12
+    python -m repro_torch.launch.serve --device cpu --mesh 1x2 \\
+        --arch qwen2-vl-7b --n 12
     python -m repro_torch.launch.serve --device cpu --policy isrtf \\
         --prefill-chunk 8 --preempt-policy swap --n 12
 
@@ -20,14 +22,12 @@ Prints one JSON line per request and a summary on stderr.  ``--predictor
 bge`` ranks with the BGE length predictor (a small encoder, random from
 seed 0 unless ``--predictor-ckpt`` restores a trained one, on
 ``--device``).  ``--mesh DxM`` serves D tensor-parallel pods of M ranks
-(dense, MoE, SSM and hybrid archs), chunked prefill (the SSM and hybrid
-archs fall back to one-shot prefill, as on one device) and swap included;
-on a machine with fewer cards than ranks, ranks share cards.  ``--mesh``
-with an arch of a family the TP path does not serve (vlm, audio) is not
-ported yet and exits at launch with the ROADMAP item that ports it.
-``--arch qwen2-vl-7b`` serves text, as the reference's CLI does; ``--arch
-whisper-large-v3`` exits at launch: a request carries no audio frames for
-its encoder.
+(dense, MoE, SSM, hybrid and vlm archs), chunked prefill (the SSM and
+hybrid archs fall back to one-shot prefill, as on one device) and swap
+included; on a machine with fewer cards than ranks, ranks share cards.
+``--arch qwen2-vl-7b`` serves text, as the reference's CLI does, on one
+device or a pod; ``--arch whisper-large-v3`` exits at launch, with or
+without ``--mesh``: a request carries no audio frames for its encoder.
 """
 from __future__ import annotations
 
@@ -72,7 +72,6 @@ from repro_torch.engine import (
     make_tp_pods,
 )
 from repro_torch.launch.mesh import visible_devices
-from repro_torch.launch.partition import check_family
 from repro_torch.models import transformer as T
 from repro_torch.models.encoder import EncoderArchConfig
 from repro_torch.training import latest_step, restore_checkpoint
@@ -201,11 +200,6 @@ def _refuse_unported(args) -> None:
     if get_config(args.arch).family == "audio":
         sys.exit(f"--arch {args.arch}: {AUDIO_PREFILL_NOT_SERVED} "
                  "(ROADMAP.md, section 3)")
-    if args.mesh:
-        try:
-            check_family(get_config(args.arch))
-        except NotImplementedError as e:
-            sys.exit(f"--mesh with --arch {args.arch}: {e}")
 
 
 def _parser() -> argparse.ArgumentParser:

@@ -356,7 +356,7 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
         raise NotImplementedError(
             "an int8 KV cache under tensor parallelism is not ported: the "
             "scale spans all KV heads of a token, so per-rank scales would "
-            "compute another function")
+            "compute another function (ROADMAP.md, queue 1, item 8.3)")
     actives = actives or [None] * len(ps)
     qs = []
     for p, x, cs, c, cur, act in zip(ps, xs, cos_sins, caches, curs, actives):
@@ -445,21 +445,26 @@ def cross_attention_block(p: Params, cfg, x: torch.Tensor,
                           enc_kv: Tuple[torch.Tensor, torch.Tensor]
                           ) -> torch.Tensor:
     """Decoder cross-attention over precomputed encoder K/V (B, Se, H,
-    d_model // H): plain attention with no mask, as in the reference."""
-    b, s, d = x.shape
-    h = cfg.n_heads
-    q = (x @ p["wq"]).reshape(b, s, h, d // h)
+    head_dim): plain attention with no mask, as in the reference.  ``cfg``
+    may be a tensor-parallel rank's: H is then its query heads, ``p`` its
+    columns of ``wq`` and rows of ``wo``, and the output its partial sum.
+    The head dim is the stored ``head_dim`` (the reference's ``d_model //
+    n_heads`` on one device), never ``d_model`` over a rank's heads."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
     k, v = enc_kv
-    return sdpa(q, k, v, causal=False).reshape(b, s, d) @ p["wo"]
+    return sdpa(q, k, v, causal=False).reshape(b, s, h * hd) @ p["wo"]
 
 
 def encode_cross_kv(p: Params, cfg, enc_out: torch.Tensor):
     """The encoder output (B, Se, d_model) -> cross-attention K and V (B,
-    Se, H, d_model // H)."""
-    b, se, d = enc_out.shape
-    h = cfg.n_heads
-    return ((enc_out @ p["wk"]).reshape(b, se, h, d // h),
-            (enc_out @ p["wv"]).reshape(b, se, h, d // h))
+    Se, H, head_dim), over a tensor-parallel rank's query heads when
+    ``cfg`` and ``p`` are a rank's (:func:`cross_attention_block`)."""
+    b, se, _ = enc_out.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    return ((enc_out @ p["wk"]).reshape(b, se, h, hd),
+            (enc_out @ p["wv"]).reshape(b, se, h, hd))
 
 
 def _check_impl(attn_impl: str) -> None:

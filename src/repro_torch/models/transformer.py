@@ -51,7 +51,7 @@ reference's do.
 given in place and return it (the reference returns a new pytree).
 
 Tensor parallelism (``mesh=``, a ``("model",)`` mesh of
-:mod:`repro_torch.launch.mesh`; dense, MoE, SSM and hybrid families):
+:mod:`repro_torch.launch.mesh`; every family):
 ``params`` is then the list of per-rank trees from
 ``launch.partition.shard_params`` and ``cache`` the list of per-rank
 caches from ``init_cache(..., mesh=mesh)``.  The forward is one body
@@ -61,9 +61,11 @@ and of the FFN or the experts' hidden axes
 (``launch.partition.local_config``), or of the SSM heads
 (``launch.partition.ssm_widths``); the row-parallel partials (after
 ``wo``, after ``w_down``, the MoE block or the Mamba2 block's
-``out_proj``, the vocab-parallel embedding) are summed in rank order on
-rank 0's device and copied back to every rank, and the vocab-parallel
-logits are concatenated there, so two runs agree bit for bit.  The
+``out_proj``, the audio family's cross-attention ``wo`` and its
+encoder's ``wo`` and ``w_down``, the vocab-parallel embedding) are
+summed in rank order on rank 0's device and copied back to every rank,
+and the vocab-parallel logits are concatenated there, so two runs agree
+bit for bit.  The
 Mamba2 block's gated norm sums the ranks' sums of squares the same way
 before any rank normalises (``models.ssm.gated_partials``).  The MoE
 router runs once a layer, on rank 0, and every rank gets its routing.
@@ -73,7 +75,14 @@ on every rank.  Prefill launches ``flash_attention`` and ``ssd_scan`` on
 each rank's local heads: the reference downgrades prefill under a mesh
 to XLA only because its Pallas kernels have no ``shard_map`` wrapper,
 and computes the same function either way.  ``prefill_chunk`` runs every
-rank's heads over its own cache, with the same sums.
+rank's heads over its own cache, with the same sums.  The vlm family's
+patch embeddings and (3, B, S) positions are replicated, as the
+reference's ``batch_pspecs`` replicates them: every rank prepends the
+same patches and rotates its heads by the same M-RoPE angles.  The audio
+family's encoder runs each rank's heads and FFN columns (plain, as on
+one device), each rank adds its own replicated learned positions, writes
+its query heads' cross K/V into its own ``cross_kv`` and reads them
+there.
 """
 from __future__ import annotations
 
@@ -206,25 +215,39 @@ def learned_positions(params: Params, cfg, pos: torch.Tensor):
         pos.long().clamp(0, cfg.max_position_embeddings - 1)]
 
 
-def encode_audio(params: Params, cfg, frames: torch.Tensor) -> torch.Tensor:
+def encode_audio(params: Params, cfg, frames: torch.Tensor, *, mesh=None):
     """The whisper encoder over stub frame embeddings (B, n_frames, d):
     the frames in the model's dtype plus ``enc_pos``, then [norm -> plain
     bidirectional attention -> norm -> MLP] per encoder layer (no rotary,
-    no kernel, as in the reference), then the final norm."""
-    h = (frames.to(params["enc_pos"].device, _dtype(cfg))
-         + params["enc_pos"][None, :frames.shape[1]])
-    b, s, _ = h.shape
-    nh, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    for lp in _unstack(params["enc_layers"], cfg.encoder.n_layers):
-        a = lp["attn"]
-        x = L.apply_norm(cfg, lp["attn_norm"], h)
-        out = L.sdpa((x @ a["wq"]).reshape(b, s, nh, hd),
-                     (x @ a["wk"]).reshape(b, s, kh, hd),
-                     (x @ a["wv"]).reshape(b, s, kh, hd), causal=False)
-        h = h + out.reshape(b, s, nh * hd) @ a["wo"]
-        h = h + L.mlp_block(lp["mlp"], cfg,
-                            L.apply_norm(cfg, lp["mlp_norm"], h))
-    return L.apply_norm(cfg, params["enc_final_norm"], h)
+    no kernel, as in the reference), then the final norm.  With ``mesh``,
+    ``params`` is the list of rank trees: each rank runs its heads and
+    FFN columns, the ranks' partials after ``wo`` and ``w_down`` are
+    summed (module docstring), and the result is the list of each rank's
+    copy of the output."""
+    shards, _, _, lcfg = _ranks(params, cfg, None, mesh)
+    outs = _encode(shards, cfg, lcfg, frames)
+    return outs if mesh is not None else outs[0]
+
+
+def _encode(shards: List[Params], cfg, lcfg, frames: torch.Tensor):
+    """:func:`encode_audio` on every rank (``lcfg`` the rank config)."""
+    hs = [frames.to(p["enc_pos"].device, _dtype(cfg))
+          + p["enc_pos"][None, :frames.shape[1]] for p in shards]
+    b, s, _ = hs[0].shape
+    nh, kh, hd = lcfg.n_heads, lcfg.n_kv_heads, lcfg.head_dim
+    layers = [_unstack(p["enc_layers"], cfg.encoder.n_layers) for p in shards]
+    for lps in zip(*layers):
+        parts = []
+        for lp, h in zip(lps, hs):
+            a = lp["attn"]
+            x = L.apply_norm(cfg, lp["attn_norm"], h)
+            out = L.sdpa((x @ a["wq"]).reshape(b, s, nh, hd),
+                         (x @ a["wk"]).reshape(b, s, kh, hd),
+                         (x @ a["wv"]).reshape(b, s, kh, hd), causal=False)
+            parts.append(out.reshape(b, s, nh * hd) @ a["wo"])
+        hs = _mlp(cfg, lcfg, lps, _add_sum(hs, parts), "dense")
+    return [L.apply_norm(cfg, p["enc_final_norm"], h)
+            for p, h in zip(shards, hs)]
 
 
 def unembed(params: Params, cfg, h: torch.Tensor) -> torch.Tensor:
@@ -317,7 +340,7 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
     buffer is a ring when ``buf < max_len``.  The audio family's K/V
     buffers have ``min(max_len, max_position_embeddings)`` rows, never a
     ring, and beside them ``cross_kv``: the cross-attention K/V (n_layers,
-    B, n_frames, H, d_model // H) that its prefill writes.
+    B, n_frames, H, head_dim) that its prefill writes.
     ``kv_dtype="int8"`` makes
     the K/V buffers int8 codes with fp32 scales (sites, B, buf); it does
     nothing for the SSM family, as in the reference.  With ``mesh``: one
@@ -325,8 +348,9 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
     query heads read (``launch.partition.kv_head_range``) and the SSM
     states of its conv channels and heads (``conv`` (..., B, CH_r, d_conv
     - 1), ``ssm`` (..., B, H_r, P, N); ``launch.partition.ssm_widths``),
-    each with its own ``len``; an int8 cache under a mesh raises
-    ``NotImplementedError``."""
+    and, for the audio family, the cross K/V of its query heads, each
+    with its own ``len``; an int8 cache under a mesh raises
+    ``NotImplementedError`` (ROADMAP.md, queue 1, item 8.3)."""
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
                          f"{kv_dtype!r}")
@@ -334,7 +358,8 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
         if kv_dtype is not None:
             raise NotImplementedError(
                 "an int8 KV cache under tensor parallelism is not ported "
-                "(its per-token scale spans every rank's KV heads)")
+                "(its per-token scale spans every rank's KV heads; "
+                "ROADMAP.md, queue 1, item 8.3)")
         ranks = P.tp_ranks(mesh)
         lcfg = P.local_config(cfg, len(ranks))
         return [_rank_cache(lcfg, batch, max_len, d, dtype, None,
@@ -385,7 +410,7 @@ def _rank_cache(cfg, batch, max_len, device, dtype, kv_dtype, sliding_window,
         cache["kv"] = KVCache(zeros(shape, dtype), zeros(shape, dtype), ring)
     if cfg.family == "audio":
         cross = (cfg.n_layers, batch, cfg.encoder.n_frames, cfg.n_heads,
-                 cfg.d_model // cfg.n_heads)
+                 cfg.head_dim)
         cache["cross_kv"] = KVCache(zeros(cross, dtype), zeros(cross, dtype))
     return cache
 
@@ -436,15 +461,16 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
     hs = _embed(shards, cfg, batch["tokens"], ranks)
     embeds = batch.get("embeds")
     if cfg.frontend == "vision_stub" and embeds is not None:
-        hs = [torch.cat([embeds.to(hs[0].device, hs[0].dtype), hs[0]], 1)]
+        hs = [torch.cat([embeds.to(h.device, h.dtype), h], 1) for h in hs]
     b, s = hs[0].shape[:2]
     pos = batch.get("positions")
     if pos is None:
         pos = torch.arange(s, device=ranks[0])[None, :].expand(b, s)
     if cfg.rope_type == "learned":
-        hs = [hs[0] + learned_positions(params, cfg, pos.to(ranks[0]))]
+        hs = [h + learned_positions(p, cfg, pos.to(h.device))
+              for p, h in zip(shards, hs)]
     if cfg.family != "ssm":
-        cos_sins = [L.positional_cos_sin(cfg, pos.to(d)) for d in ranks]
+        cos_sins = _rank_cos_sins(cfg, pos, ranks)
     if cfg.family == "ssm":
         hs = _ssm_layers(cfg, attn_impl,
                          [_unstack(p["layers"], cfg.n_layers)
@@ -460,16 +486,19 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
             hs = _ssm_layers(cfg, attn_impl, [q[1] for q in per], hs,
                              [c["tail_ssm"] for c in caches])
     elif cfg.family == "audio":
-        (c,) = caches
-        enc_out = encode_audio(params, cfg, batch["frames"])
-        cross = c["cross_kv"]
-        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-            h = _attn_prefill(cfg, lcfg, [lp], hs, cos_sins, caches, i,
-                              attn_impl, moe_impl, mlp=False)[0]
-            ck, cv = L.encode_cross_kv(lp["cross"], cfg, enc_out)
-            cross.k[i].copy_(ck)
-            cross.v[i].copy_(cv)
-            hs = [_cross_mlp(cfg, lp, h, ck, cv)]
+        enc_outs = _encode(shards, cfg, lcfg, batch["frames"])
+        layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
+        for i in range(cfg.n_layers):
+            lps = [per[i] for per in layers]
+            hs = _attn_prefill(cfg, lcfg, lps, hs, cos_sins, caches, i,
+                               attn_impl, moe_impl, mlp=False)
+            crosses = []
+            for lp, c, enc_out in zip(lps, caches, enc_outs):
+                ck, cv = L.encode_cross_kv(lp["cross"], lcfg, enc_out)
+                c["cross_kv"].k[i].copy_(ck)
+                c["cross_kv"].v[i].copy_(cv)
+                crosses.append((ck, cv))
+            hs = _cross_mlp(cfg, lcfg, lps, hs, crosses, moe_impl)
     else:
         layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
         for i in range(cfg.n_layers):
@@ -565,7 +594,8 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
     acts = [None if active is None else active.to(d) for d in ranks]
     hs = _embed(shards, cfg, tokens, ranks)
     if cfg.rope_type == "learned":
-        hs = [hs[0] + learned_positions(params, cfg, curs[0])[:, None, :]]
+        hs = [h + learned_positions(p, cfg, cur)[:, None, :]
+              for p, h, cur in zip(shards, hs, curs)]
     if cfg.family != "ssm":
         cos_sins = [L.positional_cos_sin(cfg, cur[:, None]) for cur in curs]
     if cfg.family == "ssm":
@@ -584,12 +614,14 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
             hs = _ssm_layers(cfg, attn_impl, [q[1] for q in per], hs,
                              [c["tail_ssm"] for c in caches], True, acts)
     elif cfg.family == "audio":
-        (c,) = caches
-        cross = c["cross_kv"]
-        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-            h = _attn_decode(cfg, lcfg, [lp], hs, cos_sins, caches, i, curs,
-                             acts, attn_impl, moe_impl, mlp=False)[0]
-            hs = [_cross_mlp(cfg, lp, h, cross.k[i], cross.v[i])]
+        layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
+        for i in range(cfg.n_layers):
+            lps = [per[i] for per in layers]
+            hs = _attn_decode(cfg, lcfg, lps, hs, cos_sins, caches, i, curs,
+                              acts, attn_impl, moe_impl, mlp=False)
+            hs = _cross_mlp(cfg, lcfg, lps, hs,
+                            [(c["cross_kv"].k[i], c["cross_kv"].v[i])
+                             for c in caches], moe_impl)
     else:
         layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
         for i in range(cfg.n_layers):
@@ -631,6 +663,14 @@ def _add_sum(hs: List[torch.Tensor], parts: List[torch.Tensor]):
     if len(parts) == 1:
         return [hs[0] + parts[0]]
     return [h + s for h, s in zip(hs, _all_reduce(parts))]
+
+
+def _rank_cos_sins(cfg, pos: torch.Tensor, ranks):
+    """Every rank's rotary cos/sin of the prompt positions ``pos`` ((B, S),
+    or (3, B, S) for M-RoPE), replicated as the reference's
+    ``batch_pspecs`` replicates them: each rank rotates its heads by the
+    same angles."""
+    return [L.positional_cos_sin(cfg, pos.to(d)) for d in ranks]
 
 
 def _embed(shards: List[Params], cfg, tokens: torch.Tensor, ranks):
@@ -692,16 +732,17 @@ def _attn_decode(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
     return _mlp(cfg, lcfg, lps, hs, moe_impl) if mlp else hs
 
 
-def _cross_mlp(cfg, lp: Params, h: torch.Tensor, ck: torch.Tensor,
-               cv: torch.Tensor) -> torch.Tensor:
-    """An audio decoder layer after its self-attention: cross-attention
-    over the encoder's K/V ``ck``/``cv``, then the MLP.  Returns the
-    residual stream."""
-    h = h + L.cross_attention_block(lp["cross"], cfg,
-                                    L.apply_norm(cfg, lp["cross_norm"], h),
-                                    (ck, cv))
-    return h + L.mlp_block(lp["mlp"], cfg, L.apply_norm(cfg, lp["mlp_norm"],
-                                                        h))
+def _cross_mlp(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
+               crosses, moe_impl: str) -> List[torch.Tensor]:
+    """An audio decoder layer after its self-attention, on every rank:
+    cross-attention of each rank's query heads over its encoder K/V
+    ``crosses[r]`` (``ck``, ``cv``), the ranks' ``wo`` partials summed
+    before the MLP, then the MLP.  Returns the residual streams."""
+    hs = _add_sum(hs, [
+        L.cross_attention_block(lp["cross"], lcfg,
+                                L.apply_norm(cfg, lp["cross_norm"], h), kv)
+        for lp, h, kv in zip(lps, hs, crosses)])
+    return _mlp(cfg, lcfg, lps, hs, moe_impl)
 
 
 def _mlp(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],

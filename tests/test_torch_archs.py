@@ -3,9 +3,10 @@ config field for field (full and reduced), ``d_head_total``,
 ``param_count`` and ``active_param_count``; ``input_specs`` of the new
 archs on the meta device; the engine's greedy tokens against the JAX
 single-device engine on the reduced llama3.2-3b, yi-6b and qwen1.5-32b
-(fp32); ``InferenceEngine.add_job``; the tensor-parallel refusals of the
-families the TP path does not serve yet (SSM, hybrid, vlm, audio) and the
-CLI's exit at launch; and ``dense_init``'s fp32 transient.  Everything is exact: no tolerance.
+(fp32); ``InferenceEngine.add_job``; vlm and audio pods and the TP
+refusals left (int8 under a mesh, a vocab the ranks do not divide), the
+CLI serving a vlm pod and exiting at launch on an audio arch; and
+``dense_init``'s fp32 transient.  Everything is exact: no tolerance.
 """
 import dataclasses
 
@@ -28,6 +29,7 @@ from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.core import Job  # noqa: E402
 from repro_torch.engine import EngineConfig, InferenceEngine  # noqa: E402
 from repro_torch.launch import make_mesh  # noqa: E402
+from repro_torch.launch import partition as P  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import shapes as S  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -223,26 +225,44 @@ def test_add_job_matches_reference(arch):
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-large-v3"])
 def test_tp_refusal_names_queue_item_8(arch):
+    """The vlm and audio families build TP=2 pods (ROADMAP.md queue 1,
+    item 8.2, landed); the refusals left name their items: an int8 cache
+    under a mesh item 8.3, and a vocab the ranks do not divide (full
+    whisper's 51866 over 4 ranks) item 8.4, with ``vocab_size`` named.
+    (``tests/test_torch_tp_vlm_audio.py`` holds the pods against the JAX
+    package.)"""
     cfg = get_config(arch).reduced()
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
     mesh = make_mesh((2,), ("model",), devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        InferenceEngine(cfg, params, EngineConfig(max_slots=1, max_len=32),
-                        mesh=mesh)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        T.init_cache(cfg, 1, 32, mesh=mesh)
+    eng = InferenceEngine(cfg, params, EngineConfig(max_slots=1, max_len=32),
+                          mesh=mesh)
+    assert [c["kv"].k.shape[3] for c in eng.cache] == [1, 1]
+    with pytest.raises(NotImplementedError, match="queue 1, item 8.3"):
+        T.init_cache(cfg, 1, 32, mesh=mesh, kv_dtype="int8")
+    full = get_config(arch)
+    if full.vocab_size % 4:
+        with pytest.raises(ValueError,
+                           match="vocab_size=51866 .*queue 1, item 8.4"):
+            P.local_config(full, 4)
+    else:
+        assert P.local_config(full, 4).n_heads == full.n_heads // 4
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-7b"])
 def test_cli_exits_at_launch_on_mesh_with_an_unported_family(arch, capsys):
-    """``--mesh`` with a vlm ``--arch`` exits before any weight is made; it
-    never serves something else in its place.  (The SSM and hybrid archs
-    serve under ``--mesh``: ``tests/test_torch_tp_ssm.py``.)"""
+    """``--mesh`` with a vlm ``--arch`` serves (queue 1, item 8.2,
+    landed); the family the CLI does not serve, audio, still exits at
+    launch with ``--mesh``, before any weight is made: it never serves
+    something else in its place."""
+    responses, _ = serve.main(["--arch", arch, "--mesh", "1x2", "--n", "2",
+                               "--max-output", "4", "--device", "cpu"])
+    assert len(responses) == 2 and all(r.ok for r in responses)
+    assert "1 TP=2 pod(s)" in capsys.readouterr().err
     with pytest.raises(SystemExit) as e:
-        serve.main(["--arch", arch, "--mesh", "1x2", "--n", "2",
-                    "--device", "cpu"])
-    assert "queue 1, item 8" in str(e.value.code)
-    assert arch in str(e.value.code)
+        serve.main(["--arch", "whisper-large-v3", "--mesh", "1x2", "--n",
+                    "2", "--device", "cpu"])
+    assert "no frames" in str(e.value.code)
+    assert "whisper-large-v3" in str(e.value.code)
     assert capsys.readouterr().out == ""
 
 

@@ -16,7 +16,8 @@ decode steps past the last learned position (the position clamped, the
 cache write dropped); the step functions with ``frames``; the audio cache
 through the bridge; ``input_specs`` at every shape against the
 reference's; the engine's refusal at its first prefill (the reference's
-engine raises ``KeyError`` there); the tensor-parallel and CLI refusals.
+engine raises ``KeyError`` there); a pod's cache, and the refusals left:
+full whisper over 4 ranks and the CLI.
 
 Tolerances: logits, activations and cache leaves 2e-5 abs + rel, as the
 other family tests (the same fp32 arithmetic summed in another order).
@@ -48,7 +49,8 @@ from repro_torch.core import Job  # noqa: E402
 from repro_torch.engine import EngineConfig, InferenceEngine  # noqa: E402
 from repro_torch.launch import make_mesh, serve, steps  # noqa: E402
 from repro_torch.launch import shapes as S  # noqa: E402
-from repro_torch.launch.partition import check_family  # noqa: E402
+from repro_torch.launch.partition import (check_family,  # noqa: E402
+                                          local_config)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
@@ -337,13 +339,23 @@ def test_engine_refuses_at_its_first_prefill():
 
 
 def test_tensor_parallelism_and_cli_are_refused(capsys):
+    """An audio pod runs the model (ROADMAP.md queue 1, item 8.2, landed;
+    ``tests/test_torch_tp_vlm_audio.py`` holds it against the JAX
+    package): ``check_family`` passes and each rank's cache holds its
+    query heads' cross K/V.  Refused: full whisper over 4 ranks, whose
+    vocab (51866) does not divide (item 8.4, ``vocab_size`` named), and
+    the CLI, with or without ``--mesh``: a request carries no frames."""
     cfg = get_config(ARCH).reduced()
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        check_family(cfg)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        T.init_cache(cfg, 1, 32, mesh=make_mesh((2,), ("model",),
-                                                devices=["cpu"] * 2))
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--arch", ARCH, "--n", "2", "--device", "cpu"])
-    assert "no frames" in str(e.value.code)
+    check_family(cfg)
+    caches = T.init_cache(cfg, 1, 32, mesh=make_mesh((2,), ("model",),
+                                                     devices=["cpu"] * 2))
+    assert [tuple(c["cross_kv"].k.shape) for c in caches] == [
+        (2, 1, cfg.encoder.n_frames, 2, cfg.head_dim)] * 2
+    with pytest.raises(ValueError, match="vocab_size=51866 .*item 8.4"):
+        local_config(get_config(ARCH), 4)
+    for mesh in ([], ["--mesh", "1x2"]):
+        with pytest.raises(SystemExit) as e:
+            serve.main(["--arch", ARCH, "--n", "2", "--device", "cpu"]
+                       + mesh)
+        assert "no frames" in str(e.value.code)
     assert capsys.readouterr().out == ""

@@ -248,16 +248,15 @@ def test_ssm_widths_and_the_layouts_the_port_refuses():
 
 
 def test_tp_serves_the_ssm_and_hybrid_families_only_vlm_audio_refused():
-    """``check_family`` passes the SSM and hybrid families, and its
-    refusal of the vlm and audio families names what remains of ROADMAP
-    queue 1, item 8; the sharded decode kernel serves the hybrid's shared
+    """``check_family`` passes the SSM and hybrid families, and the vlm and
+    audio families too now (ROADMAP.md queue 1, item 8.2, landed;
+    ``tests/test_torch_tp_vlm_audio.py``): it refuses only a family with
+    no TP design.  The sharded decode kernel serves the hybrid's shared
     block (32/32 heads) and keeps its ``family:`` reason for the SSM."""
-    for arch in ARCHS:
+    for arch in ARCHS + ["qwen2-vl-7b", "whisper-large-v3"]:
         P.check_family(get_config(arch))
-    for arch in ("qwen2-vl-7b", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1, item 8.2, the vlm and audio"):
-            P.check_family(get_config(arch))
+    with pytest.raises(NotImplementedError, match="no TP design"):
+        P.check_family(dataclasses.replace(get_config(SSM), family="other"))
     for tp in (2, 4):
         mesh = cpu_mesh(tp)
         assert P.kernel_decode_support(get_config(HYBRID), mesh) is None

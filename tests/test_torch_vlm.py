@@ -12,7 +12,8 @@ kernel wrappers, which run their plain versions on CPU tensors; XLA
 against plain PyTorch), logits and every cache leaf; the step functions
 with ``embeds`` and ``positions``; ``input_specs`` at every shape against
 the reference's; a text-only ``InferenceEngine`` token for token against
-the JAX engine; the tensor-parallel refusal.
+the JAX engine; a pod's cache, its CLI run and the int8 refusal under
+a mesh.
 
 Tolerances: logits and cache leaves 2e-5 abs + rel, as the other family
 tests (the same fp32 arithmetic summed in another order); cos/sin 1e-6;
@@ -264,17 +265,22 @@ def test_text_only_engine_greedy_tokens_match_jax_engine():
 
 
 def test_tensor_parallelism_is_refused(capsys):
+    """A vlm pod is served now (ROADMAP.md queue 1, item 8.2, landed;
+    ``tests/test_torch_tp_vlm_audio.py`` holds it against the JAX
+    package): ``check_family`` passes, each rank's cache holds the KV
+    head its query heads read, and the CLI serves ``--mesh 1x2``.  What
+    stays refused is an int8 cache under a mesh, naming item 8.3."""
     cfg = get_config(ARCH).reduced()
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        check_family(cfg)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        T.init_cache(cfg, 1, 32, mesh=make_mesh((2,), ("model",),
-                                                devices=["cpu"] * 2))
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--arch", ARCH, "--mesh", "1x2", "--n", "2",
-                    "--device", "cpu"])
-    assert "queue 1, item 8" in str(e.value.code)
-    assert capsys.readouterr().out == ""
+    check_family(cfg)
+    mesh = make_mesh((2,), ("model",), devices=["cpu"] * 2)
+    caches = T.init_cache(cfg, 1, 32, mesh=mesh)
+    assert [tuple(c["kv"].k.shape) for c in caches] == [(2, 1, 32, 1, 32)] * 2
+    with pytest.raises(NotImplementedError, match="queue 1, item 8.3"):
+        T.init_cache(cfg, 1, 32, mesh=mesh, kv_dtype="int8")
+    responses, _ = serve.main(["--arch", ARCH, "--mesh", "1x2", "--n", "2",
+                               "--max-output", "4", "--device", "cpu"])
+    assert len(responses) == 2 and all(r.ok for r in responses)
+    assert "1 TP=2 pod(s)" in capsys.readouterr().err
 
 
 def test_cli_serves_qwen2_vl_text_on_cpu(capsys):
