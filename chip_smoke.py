@@ -48,7 +48,9 @@ Phases (any failure raises and exits non-zero):
      a rank's 14/2 heads of dim 128 (B=4 x 480) and 10/10 of dim 64 (B=4
      x 128), with ``sdpa`` also over the unsplit heads, and
      ``flash_decode_sharded`` at B=4 x 512 and B=4 x 448 rows, bit for
-     bit the single-device kernel;
+     bit the single-device kernel; and tagged ``train`` (phase 14's
+     evaluation forward): ``flash_attention`` at B=8 x 512 (qwen2-1.5b's
+     heads) and ``ssd_scan`` at B=8 x 512 (mamba2-130m's);
   4. the served paths at full width: ``ElisServer`` -> ISRTF with the
      oracle predictor -> ``EngineExecutor`` ->
      ``InferenceEngine(attn_impl="kernel")`` serving a dozen requests to
@@ -218,7 +220,27 @@ Phases (any failure raises and exits non-zero):
      pods (prefill and 32 serve steps, launches ``flash_attention``
      layers x 2 a prefill and ``flash_decode_sharded`` layers x 2 a step,
      one step profiled) and its bf16 logits against one device within
-     ``POD_LOGIT_TOL``.
+     ``POD_LOGIT_TOL``;
+ 14. the LM training step (``launch.steps.make_train_step``: autograd of
+     ``models.loss_fn`` with remat and the plain attention, then AdamW),
+     bf16 at full width on ``launch.train.batches`` (B=8 x S=512):
+     qwen2-1.5b (28 layers), mamba2-130m (24) and qwen2-moe-a2.7b at 2
+     of its 24 layers (its AdamW moments alone need ~115 GB at 24).  For
+     each, 3 steps after a warm-up step (losses and gradient norms
+     finite), the step's median wall time, tokens/s, its bound (8 N T
+     plus the causal attention at 989 TFLOP/s) and share, the peak
+     memory; beforehand the card's step in fp32 at 2 layers against the
+     port's CPU step on the same params and batch (loss and every
+     gradient leaf within ``TRAIN_LOSS_RTOL`` / ``TRAIN_GRAD_RTOL``; the
+     planted fault ``detached_paths``, an attention or scan output
+     detached as a kernel without a backward leaves it, must fail that
+     check); the evaluation forward (``attn_impl="kernel"`` under
+     ``torch.no_grad()``, launch counts reset before and read after:
+     ``flash_attention`` once an attention layer, ``ssd_scan`` once an
+     SSM layer) against the plain forward, fp32 at 2 layers and bf16 at
+     the cell's depth; ``loss_fn(attn_impl="kernel")`` under grad must
+     raise; then the CLI ``repro_torch.launch.train.main`` (3 steps of
+     the reduced qwen2-1.5b with a checkpoint, and a ``--resume``).
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -658,9 +680,9 @@ def bound(bytes_moved: float, flops: float, dtype_name: str):
 
 
 def ssd_case(S: int, pad: int, dtype, gen,
-             widths=(SSM_HEADS, SSM_HEAD_DIM, SSM_STATE)):
+             widths=(SSM_HEADS, SSM_HEAD_DIM, SSM_STATE), B: int = 1):
     """ssd_scan inputs at ``widths`` (H, P, N; mamba2-130m's by default),
-    B=1: the model's ``x * dt``, ``a = dt * A``, B and C, with a trained
+    B prompts: the model's ``x * dt``, ``a = dt * A``, B and C, with a trained
     Mamba2's long memory (dt in [1e-3, 0.1], A in [-16, -1]) so that the
     carried state and the far off-diagonal scores matter; the last ``pad``
     positions are zero, as the model pads a prompt to a multiple of the
@@ -669,7 +691,7 @@ def ssd_case(S: int, pad: int, dtype, gen,
 
     import torch
     H, P, N = widths
-    shape = (1, S, H)
+    shape = (B, S, H)
     lo, hi = math.log(1e-3), math.log(0.1)
     dt = torch.exp(torch.rand(shape, generator=gen, device="cuda")
                    * (hi - lo) + lo)
@@ -686,16 +708,17 @@ def ssd_case(S: int, pad: int, dtype, gen,
 
 
 def ssd_work(S: int, chunk: int, es: int,
-             widths=(SSM_HEADS, SSM_HEAD_DIM, SSM_STATE)):
-    """(bytes, flops) the scan needs at B=1 and ``widths`` (H, P, N): x, a,
-    B, C read once, y and the final state written once; per head and chunk
-    the causal scores (c(c+1)/2 pairs x 2N), their product with x (x 2P),
-    and the carried-state term and state update (4cPN)."""
+             widths=(SSM_HEADS, SSM_HEAD_DIM, SSM_STATE), B: int = 1):
+    """(bytes, flops) the scan needs at B prompts and ``widths`` (H, P, N):
+    x, a, B, C read once, y and the final state written once; per head and
+    chunk the causal scores (c(c+1)/2 pairs x 2N), their product with x (x
+    2P), and the carried-state term and state update (4cPN)."""
     H, P, N = widths
-    bytes_moved = (2 * S * H * P * es + 4 * S * H + 2 * S * H * N * es
-                   + H * P * N * es)
+    bytes_moved = B * (2 * S * H * P * es + 4 * S * H + 2 * S * H * N * es
+                       + H * P * N * es)
     pairs = chunk * (chunk + 1) // 2
-    flops = H * (S // chunk) * (2 * pairs * (N + P) + 4 * chunk * P * N)
+    flops = B * H * (S // chunk) * (2 * pairs * (N + P)
+                                    + 4 * chunk * P * N)
     return bytes_moved, flops
 
 
@@ -755,15 +778,18 @@ def check_ssd(record, gen, dtype, timed) -> None:
     # phase 12's pods: each rank's share of the SSM heads
     ssm_rank = (SSM_HEADS // TP, SSM_HEAD_DIM, SSM_STATE)
     hy_rank = (HY_SSD[0] // TP,) + HY_SSD[1:]
-    rows = ([(r, mamba, "") for r in SSD_ROWS + long_rows]
-            + [(r, HY_SSD, HY_ARCH) for r in HY_SSD_ROWS]
-            + [((512, 256, 0), ssm_rank, SSM_TP_TAG)]
-            + [(r, hy_rank, HY_TP_TAG) for r in HY_SSD_ROWS if r[0] <= 512])
-    for (S, chunk, pad), widths, arch in rows:
-        x, a, bm, cm = ssd_case(S, pad, dtype, gen, widths)
-        b_ms, b_by = bound(*ssd_work(S, chunk, dtype.itemsize, widths), dn)
+    # and phase 14's evaluation forward: mamba2-130m's B x S training batch
+    rows = ([(r, mamba, "", 1) for r in SSD_ROWS + long_rows]
+            + [(r, HY_SSD, HY_ARCH, 1) for r in HY_SSD_ROWS]
+            + [((512, 256, 0), ssm_rank, SSM_TP_TAG, 1)]
+            + [(r, hy_rank, HY_TP_TAG, 1) for r in HY_SSD_ROWS if r[0] <= 512]
+            + [((TRAIN_S, 256, 0), mamba, TRAIN_TAG, TRAIN_B)])
+    for (S, chunk, pad), widths, arch, B in rows:
+        x, a, bm, cm = ssd_case(S, pad, dtype, gen, widths, B)
+        b_ms, b_by = bound(*ssd_work(S, chunk, dtype.itemsize, widths, B),
+                           dn)
         H, P, N = widths
-        record("ssd_scan", dict(dtype=dn, B=1, S=S, chunk=chunk, pad=pad,
+        record("ssd_scan", dict(dtype=dn, B=B, S=S, chunk=chunk, pad=pad,
                                 H=H, P=P, N=N, arch=arch, bound_ms=b_ms,
                                 bound_by=b_by),
                lambda: ops.ssd_scan(x, a, bm, cm, chunk=chunk),
@@ -960,6 +986,9 @@ def check_kernels(timed: bool = True):
                     tp=TP)
         prefill_row(STEP_SLOTS, STEP_PROMPT, AU_WIDTHS, None, AU_TP_TAG,
                     tp=TP)
+        # phase 14's evaluation forward: qwen2-1.5b's training batch
+        prefill_row(TRAIN_B, TRAIN_S, (HEADS, KV_HEADS, HEAD_DIM), None,
+                    TRAIN_TAG)
         if dtype == torch.bfloat16:
             check_long_prefill(record, gen)
             if timed:
@@ -1587,13 +1616,18 @@ def profiled(what: str, fn, annotations=()) -> dict:
     cards it is summed over both) and the kernels that took most of it.
     Returns ``wall_ms`` and ``busy_ms``, and for each name in
     ``annotations`` (``record_function`` ranges that ``fn`` opens) the
-    device time of the kernels launched inside those ranges, in ms."""
+    device time of the kernels launched inside those ranges, in ms.  The
+    host's operators are recorded only when ``annotations`` asks for
+    ranges: recording them cost more host time than the window itself
+    (PERF.md, section 4)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     synchronize_all()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if annotations:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         synchronize_all()
@@ -4635,6 +4669,331 @@ def pod_planted_fault(kinds) -> dict:
     return {"planted_fault": "pod", **out}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 14: the LM training step
+# --------------------------------------------------------------------------- #
+
+#: phase 14's cells, bf16 at full width: each arch with the depth it trains
+#: at (None: all its layers).  qwen2-moe-a2.7b trains 2 of its 24 layers:
+#: at 24 its fp32 AdamW moments alone (2 x 14.3 B params) take ~115 GB
+#: (:func:`train_cell` logs the figure from the params it builds)
+TRAIN_ARCHS = [("qwen2-1.5b", None), ("mamba2-130m", None),
+               ("qwen2-moe-a2.7b", 2)]
+#: the training batch (``launch.train.batches``): B x S ids, and the
+#: number of timed steps after one warm-up step
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 3
+#: the tag of phase 3's rows at the evaluation forward's kernel shapes
+TRAIN_TAG = "train"
+#: the fp32 check of the card's training step against the CPU's: each
+#: cell's full width at this depth, a batch of B x S ids
+TRAIN_CHECK_DEPTH, TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 2, 16
+#: the check's gates (TF32 off).  The loss: relative.  Each gradient leaf:
+#: max |card - CPU| over max |CPU|.  Both are fp32 programs that sum in
+#: different orders; a gradient entry sums T = 32 tokens times inner
+#: widths of up to 151936 (the vocab), each order's error growing like
+#: sqrt(n) * 2^-24 ~ 2.3e-5 for the longest sum, through a few such sums
+#: in series over 2 layers: ~1e-4 at most.  The gate is 10x that, and a
+#: path cut by a detached output reads 1.0 (its leaf's gradient is 0).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
+#: the kernel forward's loss against the plain forward's, bf16 at full
+#: depth, absolute: a token's CE moves at most twice the largest logit
+#: move, which phase 5's gates hold to ``LOGIT_TOL_BF16`` (the SSM's plain
+#: scan casts ``a`` to bf16, so its logits differ from the kernel's by
+#: ~0.094; see ``SSM_LOGIT_TOL_BF16``)
+TRAIN_KERNEL_LOSS_TOL_BF16 = 2 * LOGIT_TOL_BF16
+#: the same in fp32 at ``TRAIN_CHECK_DEPTH`` layers, relative
+TRAIN_KERNEL_LOSS_RTOL_FP32 = 1e-4
+
+
+def matmul_params(cfg, params) -> int:
+    """The weights every token multiplies in a training step: all of them
+    but an untied embedding table (a lookup), the dense MoE dispatch's
+    every expert included."""
+    from repro_torch.training.tree import leaves
+
+    n = sum(t.numel() for t in leaves(params))
+    return n - (0 if cfg.tie_embeddings else params["embed"].numel())
+
+
+def train_flops(cfg, params, b: int, s: int) -> float:
+    """The step's flops: 8 N T for the forward, the remat re-forward and
+    the backward (2 + 2 + 4 per weight and token), plus the causal
+    attention's scores and values, 2 B H D S^2 a forward, times 4."""
+    from repro_torch.models import transformer as T
+
+    flops = 8.0 * matmul_params(cfg, params) * b * s
+    if cfg.family == "ssm":
+        return flops
+    sites = (T.hybrid_layout(cfg)[0] if cfg.family == "hybrid"
+             else cfg.n_layers)
+    return flops + 4 * 2.0 * b * cfg.n_heads * cfg.head_dim * s * s * sites
+
+
+def loss_and_grads(cfg, params, batch):
+    """The gradient half of ``launch.steps.make_train_step`` (remat on):
+    (loss, every leaf's gradient in JAX's order, zeros for a leaf the
+    loss does not reach), on the params' device."""
+    import torch
+
+    from repro_torch.models import loss_fn
+    from repro_torch.training.loop import to_device
+    from repro_torch.training.tree import leaves, unflatten
+
+    flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+    loss, _ = loss_fn(unflatten(params, flat), cfg,
+                      to_device(batch, flat[0].device), remat=True)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return loss.item(), [torch.zeros_like(p) if g is None else g.detach()
+                         for p, g in zip(flat, grads)]
+
+
+@contextlib.contextmanager
+def detached_paths():
+    """Phase 14's planted fault: a forward whose attention output (and
+    SSD scan output) is detached from the graph, as a kernel without a
+    backward would leave it: the loss is unchanged, and the gradients of
+    everything before it read 0."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+
+    sdpa, scan = L.sdpa, S.ssd_chunked
+    L.sdpa = lambda *a, **k: sdpa(*a, **k).detach()
+    S.ssd_chunked = lambda *a, **k: tuple(t.detach() for t in scan(*a, **k))
+    try:
+        yield
+    finally:
+        L.sdpa, S.ssd_chunked = sdpa, scan
+
+
+def grad_gap(card, cpu):
+    """(loss gap relative, the largest per-leaf gradient gap): max |card -
+    CPU| over max |CPU| of each leaf (a leaf 0 on both reads 0); the
+    gradients lie on one device."""
+    (lc, gc_), (lp, gp) = card, cpu
+    gaps = []
+    for a, b in zip(gc_, gp):
+        den = float(b.abs().max())
+        num = float((a - b).abs().max())
+        gaps.append(0.0 if den == num == 0 else num / max(den, 1e-30))
+    return abs(lc - lp) / abs(lp), max(gaps)
+
+
+def train_cpu_check(cfg) -> list:
+    """The card's training step against the port's CPU step, fp32 (TF32
+    off) at ``TRAIN_CHECK_DEPTH`` layers of ``cfg``'s width, the same
+    params and batch: the loss and every gradient leaf within their gates;
+    the planted fault (:func:`detached_paths`) must fail the check.  Then
+    the kernel forward under ``torch.no_grad()`` against the plain one
+    within ``TRAIN_KERNEL_LOSS_RTOL_FP32``.  Returns failures."""
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.models import loss_fn
+    from repro_torch.training.tree import tree_map
+
+    failures = []
+    cfg2, params = fp32_model(cfg, min(TRAIN_CHECK_DEPTH, cfg.n_layers))
+    host = tree_map(lambda t: t.cpu(), params)
+    batch = next(train.batches(cfg2, TRAIN_CHECK_B, TRAIN_CHECK_S, SEED))
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(cfg2, host, batch)
+    t_cpu = time.perf_counter() - t0
+    del host
+    # compared on the card: one copy of the CPU's gradients there
+    cpu = loss, [g.to(params["embed"].device) for g in grads]
+    del grads
+    card = loss_and_grads(cfg2, params, batch)
+    dl, dg = grad_gap(card, cpu)
+    with detached_paths():
+        fl, fg = grad_gap(loss_and_grads(cfg2, params, batch), cpu)
+    caught = not (fl <= TRAIN_LOSS_RTOL and fg <= TRAIN_GRAD_RTOL)
+    log(f"[train] {cfg.arch_id}: fp32 step at {cfg2.n_layers} layers, B="
+        f"{TRAIN_CHECK_B} x S={TRAIN_CHECK_S}, card vs CPU ({t_cpu:.1f} s on "
+        f"the CPU): loss {card[0]:.6f} vs {cpu[0]:.6f} (gap {dl:.3e}, gate "
+        f"{TRAIN_LOSS_RTOL:g}), gradients: largest leaf gap {dg:.3e} of "
+        f"{len(cpu[1])} leaves (gate {TRAIN_GRAD_RTOL:g}); planted fault "
+        f"(attention / scan output detached): loss gap {fl:.3e}, gradient "
+        f"gap {fg:.3e}, {'caught' if caught else 'MISSED'}")
+    if not (dl <= TRAIN_LOSS_RTOL and dg <= TRAIN_GRAD_RTOL):
+        failures.append(f"{cfg.arch_id}: fp32 step differs from the CPU's "
+                        f"(loss {dl:.3e}, gradients {dg:.3e})")
+    if not caught:
+        failures.append(f"{cfg.arch_id}: the detached-path fault passed "
+                        "the CPU check")
+    with torch.no_grad():
+        lk, counts = kernel_loss(cfg2, params, batch)
+        lt, _ = loss_fn(params, cfg2, batch, attn_impl="torch")
+    gap = abs(lk - lt.item()) / abs(lt.item())
+    log(f"[train] {cfg.arch_id}: fp32 evaluation forward at "
+        f"{cfg2.n_layers} layers, kernels vs plain: loss {lk:.6f} vs "
+        f"{lt.item():.6f} (gap {gap:.3e}, gate "
+        f"{TRAIN_KERNEL_LOSS_RTOL_FP32:g}); launches {counts}")
+    if not gap <= TRAIN_KERNEL_LOSS_RTOL_FP32:
+        failures.append(f"{cfg.arch_id}: fp32 kernel forward loss gap "
+                        f"{gap:.3e}")
+    return failures
+
+
+def kernel_loss(cfg, params, batch):
+    """``loss_fn(attn_impl="kernel")`` (call under ``torch.no_grad()``)
+    with the launch counts set to 0 just before and read just after;
+    checks they are the forward's: ``flash_attention`` once an attention
+    layer, ``ssd_scan`` once an SSM layer, nothing else.  Returns (loss,
+    counts)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import loss_fn
+    from repro_torch.models import transformer as T
+    from repro_torch.training.loop import to_device
+
+    batch = to_device(batch, params["embed"].device)
+    ops.reset_launches()
+    loss, _ = loss_fn(params, cfg, batch, attn_impl="kernel")
+    counts = {n: f.launches for n, f in ops.KERNELS.items()}
+    n_ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    n_attn = (0 if cfg.family == "ssm" else T.hybrid_layout(cfg)[0]
+              if cfg.family == "hybrid" else cfg.n_layers)
+    want = {"flash_attention": (n_attn, f"{n_attn} attention layers x 1"),
+            "ssd_scan": (n_ssm, f"{n_ssm} SSM layers x 1")}
+    check_launches(counts, {k: v for k, v in want.items() if v[0]})
+    return loss.item(), counts
+
+
+def train_cell(arch: str, depth) -> dict:
+    """One cell of phase 14 (module docstring): returns its numbers and
+    the evaluation forward's launch counts."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps, train
+    from repro_torch.models import loss_fn
+    from repro_torch.training import AdamWConfig, adamw_init
+    from repro_torch.training.loop import to_device
+    from repro_torch.training.tree import leaves
+
+    t_cell = time.perf_counter()
+    full = get_config(arch)
+    cfg = full
+    if depth is not None and depth < full.n_layers:
+        cfg = dataclasses.replace(full, n_layers=depth)
+    failures = train_cpu_check(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = random_params(cfg)
+    n = sum(t.numel() for t in leaves(params))
+    if cfg is not full:
+        per_layer = sum(t.numel() for t in leaves(params["layers"])) / depth
+        log(f"[train] {arch}: trained at {depth} of its {full.n_layers} "
+            f"layers, full width (at {full.n_layers} its fp32 AdamW moments "
+            f"alone would take "
+            f"{8 * (n + (full.n_layers - depth) * per_layer) / 1e9:.1f} GB)")
+    logits = TRAIN_B * TRAIN_S * cfg.vocab_size * 4
+    log(f"[train] {arch}: memory reckoned before the run: {2 * n / 1e9:.2f} "
+        f"GB of bf16 params, {2 * n / 1e9:.2f} GB of gradients, "
+        f"{8 * n / 1e9:.2f} GB of fp32 AdamW moments, {logits / 1e9:.2f} GB "
+        f"of fp32 logits: {(12 * n + logits) / 1e9:.1f} GB "
+        f"before activations (remat keeps one residual stream a layer) and "
+        f"the update's new trees")
+    it = train.batches(cfg, TRAIN_B, TRAIN_S, SEED)
+    step = steps.make_train_step(cfg, opt_cfg=AdamWConfig(
+        lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS + 1))
+    state = adamw_init(params)
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, norms = [], [], []
+    for i in range(TRAIN_STEPS + 1):
+        batch = next(it)
+        synchronize_all()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        synchronize_all()
+        if i:  # the first step warms up
+            walls.append(time.perf_counter() - t0)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(walls) * 1e3
+    tokens = TRAIN_B * TRAIN_S
+    b_ms = train_flops(cfg, params, TRAIN_B, TRAIN_S) / PEAK_FLOPS[
+        "bfloat16"] * 1e3
+    finite = all(math.isfinite(x) for x in losses + norms)
+    log(f"[train] {arch}: make_train_step (remat, AdamW, plain attention) "
+        f"at full width, {cfg.n_layers} layers, bf16, B={TRAIN_B} x S="
+        f"{TRAIN_S}: losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"gradient norms {', '.join(f'{x:.4f}' for x in norms)} (after one "
+        f"warm-up step); step wall median {med:.2f} ms (devices "
+        f"synchronised; {', '.join(f'{w * 1e3:.2f}' for w in walls)}), "
+        f"{tokens / med * 1e3:.0f} tokens/s; bound {b_ms:.2f} ms (8 N T + "
+        f"attention at 989 TFLOP/s, N = {matmul_params(cfg, params) / 1e9:.3f}"
+        f" B): {100 * b_ms / med:.1f}% of it; peak memory allocated "
+        f"{peak / 1e9:.2f} GB ({nvidia_smi_line()})")
+    if not finite:
+        failures.append(f"{arch}: a loss or gradient norm is not finite")
+    del state
+    gc.collect()
+    with torch.no_grad():
+        batch = to_device(next(it), params["embed"].device)
+        lk, counts = kernel_loss(cfg, params, batch)
+        lt = loss_fn(params, cfg, batch, attn_impl="torch")[0].item()
+    gap = abs(lk - lt)
+    log(f"[train] {arch}: bf16 evaluation forward at {cfg.n_layers} layers, "
+        f"kernels vs plain: loss {lk:.5f} vs {lt:.5f} (gap {gap:.3e}, gate "
+        f"{TRAIN_KERNEL_LOSS_TOL_BF16:g}); launches {json.dumps(counts)}")
+    if not gap <= TRAIN_KERNEL_LOSS_TOL_BF16:
+        failures.append(f"{arch}: bf16 kernel forward loss gap {gap:.3e}")
+    grad_on = dict(params, embed=params["embed"].detach().requires_grad_(True))
+    ops.reset_launches()
+    try:
+        loss_fn(grad_on, cfg, batch, attn_impl="kernel")
+        failures.append(f"{arch}: loss_fn(attn_impl='kernel') ran under "
+                        "grad")
+    except NotImplementedError as e:
+        log(f"[train] {arch}: loss_fn(attn_impl='kernel') under grad "
+            f"raises: {e}")
+    if any(f.launches for f in ops.KERNELS.values()):
+        failures.append(f"{arch}: a kernel launched under grad")
+    del params, grad_on
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("phase 14: " + "; ".join(failures))
+    log(f"[train] {arch} in {time.perf_counter() - t_cell:.1f} s")
+    return {"launches": counts, "step_ms": med, "tokens_s": tokens / med
+            * 1e3, "bound_ms": b_ms, "peak_gb": peak / 1e9,
+            "losses": losses}
+
+
+def train_cli() -> None:
+    """``repro_torch.launch.train.main`` in this process: 3 steps of the
+    reduced qwen2-1.5b with a checkpoint under ``build/``, then a
+    ``--resume`` that must report the restored step."""
+    from repro_torch.launch import train
+
+    ckpt = ROOT / "build" / "lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", "qwen2-1.5b", "--log-every", "1", "--ckpt", str(ckpt),
+            "--device", "cpu" if DEVICE == "cpu" else "cuda"]
+    first = train.main(argv + ["--steps", "3"])
+    again = train.main(argv + ["--steps", "1", "--resume"])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if again["start"] != 3 or not all(
+            math.isfinite(x) for x in first["losses"] + again["losses"]):
+        raise AssertionError(f"phase 14: the train CLI's resume started at "
+                             f"{again['start']} or a loss is not finite")
+    log(f"[train] CLI: 3 steps (losses {first['losses']}), checkpoint, "
+        f"--resume from step {again['start']} (loss {again['losses']})")
+
+
+def train_phase() -> dict:
+    """Phase 14 (module docstring).  Returns each cell's numbers."""
+    t0 = time.perf_counter()
+    out = {arch: train_cell(arch, depth) for arch, depth in TRAIN_ARCHS}
+    train_cli()
+    log(f"[train] phase 14 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def random_params(cfg):
     """``transformer.init_params`` on the card from ``SEED``."""
     import torch
@@ -4715,16 +5074,25 @@ def main(argv=None) -> None:
             print(json.dumps(result), flush=True)
         return
 
+    phase_s, last = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Record the seconds since the last lap as phase ``name``'s."""
+        now = time.perf_counter()
+        phase_s[name], last[0] = now - last[0], now
+
     t0 = time.perf_counter()
     build.build_all()
     log(f"[build] {', '.join(f'csrc/{n}.cu' for n in build.SOURCES)} -> "
         f"{build.BUILD_DIR.name}/ in {time.perf_counter() - t0:.1f} s")
     build_report()
+    lap("1-2 device, build")
 
     rows, failures = check_kernels()
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
+    lap("3 kernels")
 
     launches = {}
     # the served cells: each model on one engine, then qwen2-1.5b on one
@@ -4756,6 +5124,7 @@ def main(argv=None) -> None:
                                  f"with the reference path: {bad}")
         del params
         torch.cuda.empty_cache()
+    lap("4-5 served cells")
 
     # phase 6: the serve CLI at full width (it makes its own weights)
     t0 = time.perf_counter()
@@ -4768,11 +5137,13 @@ def main(argv=None) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[cli] phase 6 in {time.perf_counter() - t0:.1f} s")
+    lap("6 serve CLI")
 
     # phase 7: the BGE predictor, its training, ISRTF ranked by it
     predictor_phase(cli_phase["isrtf_jct"])
     gc.collect()
     torch.cuda.empty_cache()
+    lap("7 predictor")
 
     # the step entry points over int8 caches (launch/steps.py), qwen2-1.5b
     params = random_params(cfg)
@@ -4791,27 +5162,43 @@ def main(argv=None) -> None:
     decode_32k_steps(cfg)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("4-5 int8 step path")
 
     # phase 8: the other archs at full width, qwen1.5-32b last
     t0 = time.perf_counter()
     archs = other_archs_phase()
     log(f"[archs] phase 8 in {time.perf_counter() - t0:.1f} s ({smi})")
+    lap("8 other archs")
 
     # phase 9: the hybrid family, zamba2-7b at full width and depth
     hybrid = hybrid_phase()
+    lap("9 hybrid")
 
     # phase 10: the audio family, whisper-large-v3 at full width and depth
     audio = audio_phase()
+    lap("10 audio")
 
     # phase 11: the MoE family on TP pods; chunked prefill and swap under a
     # mesh
     moe_tp = moe_tp_phase()
+    lap("11 MoE pods")
 
     # phase 12: the SSM and hybrid families on TP pods
     ssm_tp = ssm_tp_phase()
+    lap("12 SSM/hybrid pods")
 
     # phase 13: the vlm and audio families on TP pods
     vlm_audio_tp = vlm_audio_tp_phase()
+    lap("13 vlm/audio pods")
+
+    # phase 14: the LM training step
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train_phase()
+    lap("14 training")
+    log("[time] each phase, s: " + json.dumps(
+        {k: round(v, 1) for k, v in phase_s.items()}) + f"; in all "
+        f"{sum(phase_s.values()):.1f} s after the imports")
 
     served = {"flash_decode": dict(dtype="bfloat16", B=4, window=None),
               "flash_decode_int8": dict(dtype="bfloat16", B=4, D=HEAD_DIM,
@@ -4866,12 +5253,17 @@ def main(argv=None) -> None:
                                           S=VL_PATCHES + VL_TEXT)),
                 (AU_ARCH, AU_TP_TAG, au_rows["flash_attention"]))
                for n, k in (("flash_attention", k0),
-                            ("flash_decode_sharded", tp_row))]):
+                            ("flash_decode_sharded", tp_row))]
+            # the training batch, with phase 14's evaluation forwards
+            + [(n, dict(dtype="bfloat16", B=TRAIN_B, S=TRAIN_S),
+                trained[a]["launches"], TRAIN_TAG) for n, a in (
+                ("flash_attention", "qwen2-1.5b"),
+                ("ssd_scan", "mamba2-130m"))]):
         r = next(r for r in rows[name]
                  if r.get("arch", "") == arch
                  and all(r[k] == v for k, v in key.items()))
         if name == "ssd_scan":
-            shape = f"B=1 S={r['S']} H={r['H']} P={r['P']} N={r['N']}"
+            shape = f"B={r['B']} S={r['S']} H={r['H']} P={r['P']} N={r['N']}"
         elif name == "flash_attention":
             shape = f"B={r['B']} S={r['S']} heads {r['heads']} D={r['D']}"
         else:  # the decode wrappers (heads per rank when sharded)

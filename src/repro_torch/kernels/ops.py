@@ -4,8 +4,13 @@ A wrapper given CPU tensors runs the kernel's plain PyTorch version
 (:mod:`repro_torch.kernels.ref`).  Given CUDA tensors it checks them,
 launches the kernel on the tensors' device and that device's current
 stream, and adds one to its ``launches`` count, or raises: there is no
-fallback from the kernel to the plain version.  The kernels are built from
-``repro_torch/csrc`` at first use (:mod:`repro_torch.kernels.build`).
+fallback from the kernel to the plain version.  The kernels have no
+backward, as the reference's Pallas kernels have no ``custom_vjp``: a
+wrapper raises ``NotImplementedError`` when autograd is on and a tensor
+it is given requires grad, on either device (:func:`refuse_autograd`), so
+a loss never trains through a kernel with silently zero gradients.  The
+kernels are built from ``repro_torch/csrc`` at first use
+(:mod:`repro_torch.kernels.build`).
 """
 from __future__ import annotations
 
@@ -74,6 +79,18 @@ def _split_scratch(q: torch.Tensor, L: int):
             torch.empty((b * h * n_split * (d + 2),), dtype=torch.float32,
                         device=q.device))
     return n_split, s_len, part
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when ``torch.is_grad_enabled()`` and
+    any of ``tensors`` requires grad: the kernel writes its output through
+    a raw pointer, so the output would carry no ``grad_fn``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the kernel has no backward (the reference's Pallas "
+            "kernels have no custom_vjp either); call it under "
+            "torch.no_grad(), or train through the plain path "
+            "(attn_impl='torch')")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -155,6 +172,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``pos - window + 1``.  Returns (B,Sq,H,D) in q's dtype.  On the card a
     bf16 call runs the tensor-core body of the kernel and an fp32 call its
     CUDA-core body (``csrc/flash_attention.cu``)."""
+    refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, window=window, q_offset=q_offset)
     _check("flash_attention", q, k, v)
@@ -199,6 +217,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """One-token attention over the slot cache: q (B,1,H,D), k/v
     (B,L,KH,D); ``kv_len`` and ``q_offset`` are per-slot (B,) int32 vectors
     (or ints) that the kernel reads on the device.  Returns (B,1,H,D)."""
+    refuse_autograd("flash_decode", q, k, v)
     if q.device.type == "cpu":
         return ref.flash_decode(q, k, v, kv_len=kv_len, q_offset=q_offset,
                                 window=window)
@@ -230,6 +249,7 @@ def flash_decode_sharded(qs: Sequence[torch.Tensor],
     side by side, are bit for bit the single-device kernel's.
     Returns the per-rank outputs (B,1,H/tp,D).  Raises ``ValueError`` when
     the shards are not equal numbers of whole heads."""
+    refuse_autograd("flash_decode_sharded", *qs, *ks, *vs)
     tp = len(qs)
     if tp == 0 or len(ks) != tp or len(vs) != tp:
         raise ValueError(f"flash_decode_sharded: want one q, k and v per "
@@ -264,6 +284,7 @@ def flash_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k/v (B,L,KH,D) int8 codes, ``k_scale``/``v_scale`` (B,L) fp32 per-token
     scales (a key is ``code * scale``).  Returns (B,1,H,D) in q's dtype.
     Raises ``ValueError`` on other types or shapes, on any device."""
+    refuse_autograd("flash_decode_int8", q, k_scale, v_scale)
     if k.dtype != torch.int8 or v.dtype != torch.int8:
         raise ValueError(f"flash_decode_int8: k and v must be int8, got "
                          f"{k.dtype}, {v.dtype}")
@@ -328,6 +349,7 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     the card a bf16 call runs the kernel's tensor-core passes (two or three
     kernels, over an fp32 workspace of :func:`ssd_workspace_floats`) and
     an fp32 call its CUDA-core body; either counts one launch."""
+    refuse_autograd("ssd_scan", x, a, Bm, Cm)
     if x.device.type == "cpu":
         return ref.ssd_scan(x, a, Bm, Cm, chunk=chunk)
     if x.device.type != "cuda":

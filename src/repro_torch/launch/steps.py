@@ -1,6 +1,7 @@
-"""Step functions of the serving entry point (the port of
-``repro.launch.steps``), runnable on the card:
+"""Step functions (the port of ``repro.launch.steps``), runnable on the
+card:
 
+  train_step(params, opt_state, batch) -> (params, opt_state, metrics)
   prefill_step(params, batch_with_cache) -> (logits, cache)
   serve_step(params, tokens, cache) -> (next_token, cache)   # ONE new token
 
@@ -22,8 +23,15 @@ caches of ``transformer.init_cache(..., mesh=mesh)``; the batch's inputs
 are replicated to every rank, the decode read is one
 ``flash_decode_sharded`` call a layer, and the outputs lie on rank 0's
 device.  An int8 cache under a mesh is refused by ``init_cache``
-(ROADMAP.md, queue 1, item 8.3).  The training step waits for the port
-of the training stack.
+(ROADMAP.md, queue 1, item 8.3).
+
+The training step takes ``loss_fn`` and its gradients by autograd, then
+one :func:`repro_torch.training.adamw_update`, and returns new trees, as
+the reference does; its third value is the step's metrics (``loss``,
+``ce``, ``aux``, ``grad_norm``, ``lr``) where the reference returns the
+loss alone.  It runs the plain attention by default (the reference's
+``"xla"``): the kernels have no backward, and their wrappers raise under
+grad.  It takes no ``mesh`` (``transformer.forward`` refuses one).
 """
 from __future__ import annotations
 
@@ -32,6 +40,29 @@ from typing import Dict
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.models.objective import loss_fn
+from repro_torch.training import loop
+from repro_torch.training.optimizer import AdamWConfig, AdamWState
+from repro_torch.training.tree import tree_map
+
+DRYRUN_OPT = AdamWConfig(lr=3e-4, schedule="cosine", warmup_steps=100,
+                         total_steps=10_000)
+
+
+def make_train_step(cfg, *, remat: bool = True, moe_impl: str = "dense",
+                    opt_cfg: AdamWConfig = DRYRUN_OPT,
+                    attn_impl: str = "torch"):
+    """One AdamW step on ``loss_fn(params, cfg, batch)``: ``train_step(
+    params, opt_state, batch) -> (params, opt_state, metrics)``; the batch
+    goes to the parameters' device.  A leaf the loss does not reach gets
+    a zero gradient, as the reference's does (so a path cut by a detached
+    output would also read zero: hold the gradients against a reference,
+    not only the loss)."""
+    def loss(params, batch):
+        return loss_fn(params, cfg, batch, attn_impl=attn_impl,
+                       moe_impl=moe_impl, remat=remat)
+
+    return loop.make_train_step(loss, opt_cfg)
 
 
 def make_prefill_step(cfg, *, attn_impl: str = "kernel",
@@ -57,3 +88,15 @@ def make_serve_step(cfg, *, attn_impl: str = "kernel",
         return logits[:, -1, :].argmax(dim=-1).to(torch.int32), cache
 
     return serve_step
+
+
+def abstract_opt_state(abstract_params) -> AdamWState:
+    """The AdamW state of ``abstract_params`` on the meta device: an int32
+    step and fp32 moments shaped like the params (nothing allocated)."""
+    def f32like():
+        return tree_map(lambda leaf: torch.empty(
+            tuple(leaf.shape), dtype=torch.float32, device="meta"),
+            abstract_params)
+
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      mu=f32like(), nu=f32like())

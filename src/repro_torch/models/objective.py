@@ -1,6 +1,7 @@
-"""Learning-to-rank losses for the length predictor's ranking head
-(pairwise margin / listwise softmax over in-batch pools): the ranking half
-of ``repro.models.objective``.
+"""Training objectives (the port of ``repro.models.objective``):
+next-token cross-entropy (+ the MoE aux loss) for the serving models, and
+the learning-to-rank losses for the length predictor's ranking head
+(pairwise margin / listwise softmax over in-batch pools).
 
 ISRTF only consumes the *order* of predicted remaining lengths, so a head
 trained to rank (Fu et al., arXiv 2408.15792; Tao et al., arXiv 2510.03243)
@@ -12,9 +13,56 @@ head as a sibling on the shared encoder trunk."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.models import transformer as T
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Mean masked token-level CE in fp32 (log-sum-exp over the vocab).
+    labels < 0 are also ignored."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    safe = labels.long().clamp(min=0)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    mask = mask & (labels >= 0)
+    denom = torch.clamp(mask.sum(), min=1)
+    return torch.where(mask, lse - gold, torch.zeros_like(lse)).sum() / denom
+
+
+def loss_fn(params, cfg, batch: Dict, *, attn_impl: str = "torch",
+            moe_impl: str = "dense", remat: bool = False
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, {"ce", "aux"}) of :func:`transformer.forward` on ``batch``:
+    next-token CE over ``batch["labels"]``, plus ``router_aux_weight``
+    times the aux loss for MoE configs.  The vlm's logits cover [patches |
+    text]: labels shorter than the logits are left-padded with -1 (no
+    loss at the patches), and a ``loss_mask`` shorter than the labels is
+    left-padded with False."""
+    logits, aux = T.forward(params, cfg, batch, attn_impl=attn_impl,
+                            moe_impl=moe_impl, remat=remat)
+    labels = batch["labels"].to(logits.device)
+    extra = logits.shape[1] - labels.shape[1]
+    if extra:
+        labels = torch.cat([labels.new_full((labels.shape[0], extra), -1),
+                            labels], dim=1)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.bool,
+                          device=labels.device)
+    else:
+        mask = mask.to(labels.device, torch.bool)
+        extra = labels.shape[1] - mask.shape[1]
+        if extra:
+            mask = torch.cat([mask.new_zeros((mask.shape[0], extra)), mask],
+                             dim=1)
+    ce = cross_entropy(logits, labels, mask)
+    total = ce + cfg.moe.router_aux_weight * aux if cfg.moe.enabled else ce
+    return total, {"ce": ce, "aux": aux}
+
 
 RANKING_LOSSES = ("pairwise", "listwise")
 PAIR_SAMPLING = ("all", "same_step")

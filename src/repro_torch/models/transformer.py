@@ -34,6 +34,9 @@ exceeds ``swa_window``.
 
 Public API:
   init_params(cfg, generator)                 -> params dict
+  embed_inputs(params, cfg, batch)            -> (hidden, positions)
+  forward(params, cfg, batch, attn_impl=,
+          moe_impl=, remat=)                  -> (logits, aux_loss)
   init_cache(cfg, batch, max_len, device)     -> cache dict (kv_dtype="int8",
                                                  sliding_window= for a ring)
   prefill(params, cfg, batch, cache)          -> (last_logits, cache)
@@ -43,9 +46,10 @@ Public API:
 
 The MoE family runs the MoE block (``models.moe.moe_partials``) where the
 dense family runs its MLP, with the reference's ``moe_impl`` defaults:
-``"dense"`` in ``prefill`` and ``prefill_chunk``, ``"grouped"`` in
-``decode_step``.  These three drop the router's aux loss, as the
-reference's do.
+``"dense"`` in ``forward``, ``prefill`` and ``prefill_chunk``,
+``"grouped"`` in ``decode_step``.  ``forward`` returns the router's aux
+loss summed over layers; ``prefill``, ``prefill_chunk`` and
+``decode_step`` drop it, as the reference's do.
 
 ``prefill``, ``prefill_chunk`` and ``decode_step`` update the cache they are
 given in place and return it (the reference returns a new pytree).
@@ -90,6 +94,7 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.launch import partition as P
 from repro_torch.models import layers as L
@@ -231,23 +236,35 @@ def encode_audio(params: Params, cfg, frames: torch.Tensor, *, mesh=None):
 
 def _encode(shards: List[Params], cfg, lcfg, frames: torch.Tensor):
     """:func:`encode_audio` on every rank (``lcfg`` the rank config)."""
-    hs = [frames.to(p["enc_pos"].device, _dtype(cfg))
-          + p["enc_pos"][None, :frames.shape[1]] for p in shards]
-    b, s, _ = hs[0].shape
-    nh, kh, hd = lcfg.n_heads, lcfg.n_kv_heads, lcfg.head_dim
+    hs = [_frames_in(p, cfg, frames) for p in shards]
     layers = [_unstack(p["enc_layers"], cfg.encoder.n_layers) for p in shards]
     for lps in zip(*layers):
-        parts = []
-        for lp, h in zip(lps, hs):
-            a = lp["attn"]
-            x = L.apply_norm(cfg, lp["attn_norm"], h)
-            out = L.sdpa((x @ a["wq"]).reshape(b, s, nh, hd),
-                         (x @ a["wk"]).reshape(b, s, kh, hd),
-                         (x @ a["wv"]).reshape(b, s, kh, hd), causal=False)
-            parts.append(out.reshape(b, s, nh * hd) @ a["wo"])
-        hs = _mlp(cfg, lcfg, lps, _add_sum(hs, parts), "dense")
+        hs = _enc_layer(cfg, lcfg, list(lps), hs)
     return [L.apply_norm(cfg, p["enc_final_norm"], h)
             for p, h in zip(shards, hs)]
+
+
+def _frames_in(p: Params, cfg, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder's input: the frames in the model's dtype plus
+    ``enc_pos``."""
+    return (frames.to(p["enc_pos"].device, _dtype(cfg))
+            + p["enc_pos"][None, :frames.shape[1]])
+
+
+def _enc_layer(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor]):
+    """One encoder layer on every rank: plain bidirectional attention, the
+    ranks' ``wo`` partials summed, then the MLP."""
+    b, s, _ = hs[0].shape
+    nh, kh, hd = lcfg.n_heads, lcfg.n_kv_heads, lcfg.head_dim
+    parts = []
+    for lp, h in zip(lps, hs):
+        a = lp["attn"]
+        x = L.apply_norm(cfg, lp["attn_norm"], h)
+        out = L.sdpa((x @ a["wq"]).reshape(b, s, nh, hd),
+                     (x @ a["wk"]).reshape(b, s, kh, hd),
+                     (x @ a["wv"]).reshape(b, s, kh, hd), causal=False)
+        parts.append(out.reshape(b, s, nh * hd) @ a["wo"])
+    return _mlp(cfg, lcfg, lps, _add_sum(hs, parts), "dense")
 
 
 def unembed(params: Params, cfg, h: torch.Tensor) -> torch.Tensor:
@@ -255,6 +272,133 @@ def unembed(params: Params, cfg, h: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return h @ params["embed"].T
     return h @ params["lm_head"]
+
+
+# =========================================================================== #
+# Forward (training / full sequence)
+# =========================================================================== #
+
+
+def embed_inputs(params: Params, cfg, batch: Dict):
+    """(hidden (B, S, d_model), positions (B, S) or (3, B, S)) of a
+    full-sequence batch: the tokens embedded (ids clamped,
+    :func:`embed_tokens`), the vlm's stub ``batch["embeds"]`` prepended,
+    ``batch["positions"]`` when given (else 0..S-1 on every row), and the
+    learned positions added where the config has them."""
+    dev = params["embed"].device
+    h = embed_tokens(params, cfg, batch["tokens"].to(dev))
+    embeds = batch.get("embeds")
+    if cfg.frontend == "vision_stub" and embeds is not None:
+        h = torch.cat([embeds.to(dev, h.dtype), h], 1)
+    b, s = h.shape[:2]
+    pos = batch.get("positions")
+    pos = (torch.arange(s, device=dev)[None, :].expand(b, s) if pos is None
+           else pos.to(dev))
+    if cfg.rope_type == "learned":
+        h = h + learned_positions(params, cfg, pos)
+    return h, pos
+
+
+def forward(params: Params, cfg, batch: Dict, *, attn_impl: str = "torch",
+            moe_impl: str = "dense", remat: bool = False, mesh=None):
+    """Teacher-forced full-sequence forward of every family: (logits (B,
+    S, V), aux) with S the batch's positions (the vlm's patches and text),
+    and ``aux`` the sum over MoE layers of the router's load-balance loss
+    (fp32; 0 for the other families, the hybrid's shared block included,
+    as in the reference).  No cache is read or written.
+
+    ``attn_impl="torch"`` (the default, the reference's ``"xla"``) runs
+    the plain attention and SSD scan, which autograd differentiates;
+    ``"kernel"`` runs ``flash_attention`` and ``ssd_scan``, which have no
+    backward: an evaluation forward under ``torch.no_grad()`` (under grad
+    the wrappers raise, :func:`repro_torch.kernels.ops.refuse_autograd`).
+    The audio family's encoder and cross-attention are plain either way.
+    ``remat=True`` recomputes each layer body in the backward pass
+    (``torch.utils.checkpoint``), the encoder's too, and for the hybrid
+    each inner SSM layer and each group, as the reference's
+    ``jax.checkpoint`` does.  ``mesh`` is refused: training under tensor
+    parallelism goes with ``dryrun.py``."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "forward under a mesh (training under tensor parallelism) is "
+            "not ported; it comes with dryrun.py's step layouts (ROADMAP.md, "
+            "queue 1, item 8.5)")
+    _check_family(cfg)
+    run = _checkpointed if remat else (lambda fn, *args: fn(*args))
+    h, pos = embed_inputs(params, cfg, batch)
+    cos_sin = L.positional_cos_sin(cfg, pos)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family == "ssm":
+        for lp in _unstack(params["layers"], cfg.n_layers):
+            h = run(_ssm_layer, cfg, attn_impl, lp, h)
+    elif cfg.family == "hybrid":
+        groups, tails, shared = _hybrid_layers(params, cfg)
+
+        def group(x, lps):
+            for lp in lps:
+                x = run(_ssm_layer, cfg, attn_impl, lp, x)
+            return _dense_layer(cfg, attn_impl, moe_impl, shared, x,
+                                cos_sin)[0]
+
+        for lps in groups:
+            h = run(group, h, lps)
+        for lp in tails:
+            h = run(_ssm_layer, cfg, attn_impl, lp, h)
+    elif cfg.family == "audio":
+        enc = _frames_in(params, cfg, batch["frames"])
+        for lp in _unstack(params["enc_layers"], cfg.encoder.n_layers):
+            enc = run(lambda x, lp: _enc_layer(cfg, cfg, [lp], [x])[0],
+                      enc, lp)
+        enc = L.apply_norm(cfg, params["enc_final_norm"], enc)
+        for lp in _unstack(params["layers"], cfg.n_layers):
+            h = run(_audio_layer, cfg, attn_impl, lp, h, enc)
+    else:
+        for lp in _unstack(params["layers"], cfg.n_layers):
+            h, a = run(_dense_layer, cfg, attn_impl, moe_impl, lp, h,
+                       cos_sin)
+            aux = aux + a
+    return unembed(params, cfg, h), aux
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _dense_layer(cfg, attn_impl: str, moe_impl: str, lp: Params,
+                 x: torch.Tensor, cos_sin):
+    """One attention + MLP (or MoE) layer over the full sequence: (the
+    residual stream, the layer's aux loss)."""
+    out, _ = L.attention_block(lp["attn"], cfg,
+                               L.apply_norm(cfg, lp["attn_norm"], x), cos_sin,
+                               attn_impl=attn_impl)
+    x = x + out
+    h = L.apply_norm(cfg, lp["mlp_norm"], x)
+    if cfg.moe.enabled:
+        out, aux = M.moe_block(lp["moe"], cfg, h, impl=moe_impl)
+        return x + out, aux
+    return (x + L.mlp_block(lp["mlp"], cfg, h),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _ssm_layer(cfg, impl: str, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    """One Mamba2 layer over the full sequence."""
+    return x + S.ssm_forward(lp["ssm"], cfg, L.apply_norm(cfg, lp["norm"], x),
+                             impl=impl)[0]
+
+
+def _audio_layer(cfg, attn_impl: str, lp: Params, x: torch.Tensor,
+                 enc_out: torch.Tensor) -> torch.Tensor:
+    """One whisper decoder layer over the full sequence: causal self
+    attention, cross-attention over ``enc_out``, the MLP."""
+    out, _ = L.attention_block(lp["attn"], cfg,
+                               L.apply_norm(cfg, lp["attn_norm"], x), None,
+                               attn_impl=attn_impl)
+    x = x + out
+    x = x + L.cross_attention_block(
+        lp["cross"], cfg, L.apply_norm(cfg, lp["cross_norm"], x),
+        L.encode_cross_kv(lp["cross"], cfg, enc_out))
+    return x + L.mlp_block(lp["mlp"], cfg, L.apply_norm(cfg, lp["mlp_norm"], x))
 
 
 # =========================================================================== #
