@@ -240,7 +240,29 @@ Phases (any failure raises and exits non-zero):
      SSM layer) against the plain forward, fp32 at 2 layers and bf16 at
      the cell's depth; ``loss_fn(attn_impl="kernel")`` under grad must
      raise; then the CLI ``repro_torch.launch.train.main`` (3 steps of
-     the reduced qwen2-1.5b with a checkpoint, and a ``--resume``).
+     the reduced qwen2-1.5b with a checkpoint, and a ``--resume``);
+ 15. the live-to-simulation loop (``repro_torch.simulate``): (a) on phase
+     4's qwen2-1.5b executor (full width and depth, bf16, the kernels),
+     after its dozen requests under ISRTF, probe windows of 4 and 16
+     tokens at batches of 1 and 2, three of each, then the simulator's
+     latency model fitted to every window (``calibrated_profile``,
+     ``fit_overhead_s``: decode_ms_1, batch_slowdown, the window
+     overhead, ``kv_capacity_tokens``), launch counts from phase 4's
+     reset to after the probes; (b) the same requests replayed through
+     ``ElisServer`` over ``SimExecutor(profile, sched_overhead_s=...)``,
+     live against simulated mean JCT (every request finished in both,
+     ``assert_drained``; the ratio printed, not gated); (c) after phase
+     7, the paper's Table 5 cell (``run_experiment``: llama-13b's A100
+     profile, 200 requests, batch 4, 1x AVG.RequestRate, K = 50) under
+     FCFS and ISRTF ranked by phase 7's full-width predictor on the card,
+     its dispatches timed, then ISRTF again: the per-job completion times
+     must agree bit for bit; (d) meanwhile, in worker processes, the
+     scale fast path over (a)'s profile (``ScaleSimConfig``, noisy
+     oracle, FCFS and ISRTF over ``SIM_SCALE_N`` flash_crowd requests at
+     1x the profile's AVG.RequestRate at batch 4), and its head slice of
+     ``SIM_EXACT_HEAD`` requests against the exact event loop: one node
+     under ISRTF must be trace-identical; three under FCFS (a reference
+     caveat) is printed.
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -1440,26 +1462,31 @@ def tp_mesh(tp: int = TP):
     return make_mesh((tp,), ("model",), devices=tp_devices(tp))
 
 
+def served_frontend():
+    """The served path's frontend (serve.py's defaults): ISRTF, windows of
+    8, 4 slots, preemption on."""
+    from repro_torch.core import (FrontendConfig, PreemptionConfig,
+                                  SchedulerConfig)
+
+    return FrontendConfig(
+        n_nodes=1,
+        scheduler=SchedulerConfig(policy="isrtf", window=8, batch_size=4),
+        preemption=PreemptionConfig(enabled=True),
+        observe_in_flight=False)
+
+
 def serve(cfg, params, requests, *, attn_impl: str, mesh=None):
     """Drive the served path (serve.py's defaults) over ``requests`` on one
     engine (a TP pod with ``mesh``); returns (responses, executor, wall
     seconds)."""
-    from repro_torch.core import (ElisServer, FrontendConfig,
-                                  OraclePredictor, PreemptionConfig,
-                                  SchedulerConfig)
+    from repro_torch.core import ElisServer, OraclePredictor
     from repro_torch.engine import EngineConfig, EngineExecutor, InferenceEngine
 
     ecfg = EngineConfig(max_slots=4, max_len=MAX_LEN, max_output=32,
                         eos_id=-1, respect_job_max=True, attn_impl=attn_impl)
     engine = InferenceEngine(cfg, params, ecfg, device=DEVICE, mesh=mesh)
     executor = EngineExecutor({0: engine})
-    server = ElisServer(
-        FrontendConfig(
-            n_nodes=1,
-            scheduler=SchedulerConfig(policy="isrtf", window=8, batch_size=4),
-            preemption=PreemptionConfig(enabled=True),
-            observe_in_flight=False),
-        OraclePredictor(), executor)
+    server = ElisServer(served_frontend(), OraclePredictor(), executor)
     for r in requests:
         server.submit(r)
     synchronize_all()
@@ -1546,11 +1573,13 @@ def path_launches(cfg, tp: int, prefills: int, steps: int,
             if prefills or name not in ("ssd_scan", "flash_attention")}
 
 
-def served_path(cfg, params, requests, mesh=None):
+def served_path(cfg, params, requests, mesh=None, keep=None):
     """Serve ``requests`` through the kernel path (on one TP pod with
     ``mesh``) with every launch count set to 0 just before and read just
     after; check every request, and that the path's kernels ran as often
-    as its dispatches say.  Returns the launch counts."""
+    as its dispatches say.  Returns the launch counts; ``keep``, a dict,
+    also receives the executor and the responses (phase 15 calibrates on
+    them)."""
     from repro_torch.core import summarize
     from repro_torch.kernels import ops
 
@@ -1586,6 +1615,8 @@ def served_path(cfg, params, requests, mesh=None):
         for name, (_, why) in want_launches.items())
         + f" (all counts: {json.dumps(launches)})")
     log(f"[serve] engine counters: {json.dumps(counters)}")
+    if keep is not None:
+        keep.update(executor=executor, responses=responses)
     return launches
 
 
@@ -2997,7 +3028,8 @@ def predictor_phase(oracle_isrtf_jct) -> dict:
             f"{run['jct_mean'] / oracle:.4f}")
     log(f"[predictor] (b) online head updates: {run_b['n_updates']}")
     out["runs"] = [run_a, run_b]
-    del pred
+    # phase 15 (c) ranks Table 5's cell by this predictor
+    out["pred"] = pred
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[predictor] phase 7 in {time.perf_counter() - t_phase:.1f} s")
@@ -4994,6 +5026,342 @@ def train_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# Phase 15: the live-to-simulation loop (repro_torch.simulate)
+# --------------------------------------------------------------------------- #
+
+
+#: (a)'s probe windows on phase 4's dense executor, after its dozen
+#: requests: each window length at each batch width, three times (the
+#: first of each shape is dropped by the fit), so that the fit can tell
+#: the per-window overhead from the per-token rate
+SIM_PROBE_WINDOWS, SIM_PROBE_BATCHES, SIM_PROBE_REPEATS = (4, 16), (1, 2), 3
+#: (c): the paper's Table 5 cell (llama-13b's A100 latency profile, batch
+#: 4, 1x AVG.RequestRate, K = 50), ranked by phase 7's predictor
+SIM_TABLE5 = dict(model="lam13", n_requests=200, batch_size=4,
+                  rps_multiple=1.0, window=50, predictor="bge", seed=7)
+#: (d): the scale fast path over (a)'s profile: requests of the flash_crowd
+#: scenario at 1x the profile's AVG.RequestRate at batch 4 (50,000: at
+#: 100,000 the two policies took 131 and 169 s of host time beside an
+#: H100, more than the phase's room; PERF.md, section 4); the head
+#: slice held against the exact event loop; the node count of the
+#: multi-node FCFS slice (a reference caveat: printed, not gated)
+SIM_SCALE_N, SIM_SCALE_BATCH, SIM_EXACT_HEAD, SIM_MULTI_NODE = (
+    50_000, 4, 2_000, 3)
+
+
+def probe_jobs(first_id: int, batch: int):
+    """``batch`` probe jobs of 3 prompt tokens (benchmarks/live_engine.py's
+    probes), ids from ``first_id``."""
+    from repro_torch.core import Job
+
+    return [Job(job_id=first_id + k, prompt="probe", arrival_time=0.0,
+                prompt_tokens=[10 + (7 * (first_id + k) + i) % 50
+                               for i in range(3)])
+            for k in range(batch)]
+
+
+def sim_calibrate(cfg, requests, served) -> dict:
+    """Phase 15 (a) and (b) on phase 4's dense executor (``served``: its
+    executor and responses, after the dozen requests under ISRTF): the
+    probe windows, the fit of the simulator's latency model
+    (``calibrated_profile``, ``fit_overhead_s``), and the same requests
+    replayed through ``SimExecutor`` over the fit.  Launch counts run on
+    from phase 4's reset (before the dozen requests) to after the probes.
+    Returns the fitted profile and overhead."""
+    from repro_torch.core import ElisServer, OraclePredictor, summarize
+    from repro_torch.kernels import ops
+    from repro_torch.simulate import SimExecutor
+
+    t0 = time.perf_counter()
+    executor, live = served["executor"], served["responses"]
+    eng = executor.engines[0]
+    first = 1 << 20
+    for window in SIM_PROBE_WINDOWS:
+        for batch in SIM_PROBE_BATCHES:
+            for _ in range(SIM_PROBE_REPEATS):
+                probes = probe_jobs(first, batch)
+                first += batch
+                executor.execute(0, probes, window, 0.0)
+                for job in probes:
+                    eng.evict_job(job.job_id)
+    synchronize_all()
+    launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
+    counters = executor.counters()
+    steps = sum(rec["window"] for rec in executor.window_log)
+    check_launches(launches, path_launches(
+        cfg, 1, counters["prefill_dispatches"], steps))
+    log("[sim] (a) windows (batch, window, duration ms): " + ", ".join(
+        f"({r['batch']}, {r['window']}, {r['duration_s'] * 1e3:.2f})"
+        for r in executor.window_log))
+    prof = executor.calibrated_profile(name=f"live-{cfg.arch_id}")
+    overhead = executor.fit_overhead_s
+    fitted = {"decode_ms_1": prof.decode_ms_1,
+              "batch_slowdown": prof.batch_slowdown,
+              "window_overhead_ms": overhead * 1e3,
+              "kv_capacity_tokens": prof.kv_capacity_tokens(),
+              "avg_latency_ms": prof.avg_latency_ms}
+    log(f"[sim] (a) {cfg.arch_id} ({cfg.n_layers} layers, {cfg.dtype}, "
+        f"kernels) calibrated on {len(executor.window_log)} windows (phase "
+        f"4's and the probes: windows {SIM_PROBE_WINDOWS} x batches "
+        f"{SIM_PROBE_BATCHES} x {SIM_PROBE_REPEATS}): decode_ms_1 {prof.decode_ms_1:.4f} ms, "
+        f"batch_slowdown {prof.batch_slowdown:.5f}, window overhead "
+        f"{overhead * 1e3:.4f} ms, kv_capacity_tokens "
+        f"{prof.kv_capacity_tokens()}, avg_latency_ms "
+        f"{prof.avg_latency_ms:.2f}; launches over the run "
+        f"{json.dumps({n: c for n, c in launches.items() if c})} "
+        f"({nvidia_smi_line()})")
+    # the rate and the capacity must be positive; the fit clamps the
+    # overhead and the slowdown at 0 from below, where a window's fixed
+    # cost or a wider batch's extra cost is lost in the noise
+    if not (all(math.isfinite(v) for v in fitted.values())
+            and fitted["decode_ms_1"] > 0
+            and fitted["kv_capacity_tokens"] > 0
+            and fitted["window_overhead_ms"] >= 0
+            and fitted["batch_slowdown"] >= 0):
+        raise AssertionError(f"phase 15 (a): fitted numbers not finite, or "
+                             f"the rate or capacity not positive: {fitted}")
+    for name in ("flash_attention", "flash_decode"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 15 (a): {name} never launched")
+
+    # (b): the same requests through the simulator over the fit; each
+    # replays the stream the live run emitted (the live run capped it at
+    # the engine's max_output)
+    by_id = {r.request_id: r for r in live}
+    replay = [dataclasses.replace(
+        r, true_output_len=by_id[r.request_id].n_tokens,
+        output_tokens=list(by_id[r.request_id].tokens)) for r in requests]
+    server = ElisServer(served_frontend(), OraclePredictor(),
+                        SimExecutor(prof, sched_overhead_s=overhead))
+    for r in replay:
+        server.submit(r)
+    sim = server.drain()
+    server.frontend.state.assert_drained()
+    bad = [(r.request_id, r.status.value, r.n_tokens) for r in sim
+           if not r.ok or r.n_tokens != by_id[r.request_id].n_tokens]
+    if len(sim) != len(requests) or bad or not all(r.ok for r in live):
+        raise AssertionError(f"phase 15 (b): requests not finished in both "
+                             f"runs: {bad}")
+    m_live, m_sim = summarize(live), summarize(sim)
+    log(f"[sim] (b) {len(sim)}/{len(requests)} requests finished live and "
+        f"simulated: JCT mean live {m_live['jct_mean']:.4f} s, simulated "
+        f"{m_sim['jct_mean']:.4f} s (ratio sim/live "
+        f"{m_sim['jct_mean'] / m_live['jct_mean']:.4f}); p99 live "
+        f"{m_live['jct_p99']:.4f} s, simulated {m_sim['jct_p99']:.4f} s; "
+        f"preemptions live {m_live['preemptions']}, simulated "
+        f"{m_sim['preemptions']}; (a)+(b) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"profile": prof, "overhead_s": overhead, "fitted": fitted,
+            "launches": launches, "jct_live": m_live["jct_mean"],
+            "jct_sim": m_sim["jct_mean"]}
+
+
+@contextlib.contextmanager
+def finished_responses(out: list):
+    """Collect the finished responses ``run_experiment`` summarizes (its
+    per-job completion times) into ``out``."""
+    from repro_torch.simulate import runner
+
+    summarize = runner.summarize
+
+    def tap(done):
+        out[:] = list(done)
+        return summarize(done)
+
+    runner.summarize = tap
+    try:
+        yield
+    finally:
+        runner.summarize = summarize
+
+
+def table5_run(pred, policy: str) -> dict:
+    """One run of (c): the cell under ``policy``, ranked by ``pred``, with
+    its dispatches timed and every job's predictions and completion time
+    recorded."""
+    from repro_torch.simulate import ExperimentConfig, run_experiment
+
+    for attr in ("_apply", "predict"):     # earlier timers' wrappers
+        pred.__dict__.pop(attr, None)
+    timer = DispatchTimer(pred)
+    predict, preds = pred.predict, {}
+
+    def recorded(jobs):
+        out = predict(jobs)
+        for job, p in zip(jobs, out):
+            preds.setdefault(job.job_id, []).append(p.mean)
+        return out
+
+    pred.predict = recorded
+    done = []
+    t0 = time.perf_counter()
+    with finished_responses(done):
+        m = run_experiment(ExperimentConfig(policy=policy, **SIM_TABLE5),
+                           bge=pred)
+    wall = time.perf_counter() - t0
+    for attr in ("_apply", "predict"):
+        pred.__dict__.pop(attr, None)
+    return {"summary": m, "wall_s": wall, "predictor": timer.summary(wall),
+            "finish": {r.request_id: r.finish_time for r in done},
+            "order": [r.request_id for r in sorted(
+                done, key=lambda r: (r.finish_time, r.request_id))],
+            "predictions": preds}
+
+
+def table5_cell(pred) -> dict:
+    """Phase 15 (c): Table 5's cell under FCFS and ISRTF (twice), ranked by
+    phase 7's full-width predictor on the card."""
+    from repro_torch.core import improvement
+    from repro_torch.data import n_shape_buckets
+
+    t0 = time.perf_counter()
+    runs = {name: table5_run(pred, name.split()[0])
+            for name in ("fcfs", "isrtf", "isrtf again")}
+    n = SIM_TABLE5["n_requests"]
+    bound = n_shape_buckets(n, pred.cfg.max_len)
+    for name, run in runs.items():
+        m, s = run["summary"], run["predictor"]
+        if m["n_finished"] != n or m["n_unfinished"]:
+            raise AssertionError(f"phase 15 (c): {name}: {m['n_finished']}"
+                                 f"/{n} finished")
+        if name != "fcfs" and not (0 < s["dispatches"]
+                                   and len(s["shapes"]) <= bound):
+            raise AssertionError(f"phase 15 (c): {name}: {s['dispatches']} "
+                                 f"dispatches over shapes {s['shapes']} "
+                                 f"(bound {bound})")
+        log(f"[sim] (c) Table 5 cell ({SIM_TABLE5['model']}'s A100 profile, "
+            f"{n} requests, batch {SIM_TABLE5['batch_size']}, "
+            f"{SIM_TABLE5['rps_multiple']}x AVG.RequestRate, K = "
+            f"{SIM_TABLE5['window']}) {name}: JCT mean "
+            f"{m['jct_mean']:.4f} s, p99 {m['jct_p99']:.4f} s (simulated "
+            f"clock); {run['wall_s']:.2f} s on the host; predictor "
+            f"{s['dispatches']} dispatches over {len(s['shapes'])} shapes "
+            f"(bound {bound}): {s['shapes']}, device time "
+            f"{s['device_ms_median']:.3f} ms median "
+            f"({s['device_ms_mean']:.3f} mean) a dispatch, "
+            f"{s['wall_ms_mean']:.3f} ms on the host clock, "
+            f"{100 * s['share_of_wall']:.2f}% of the run's host time")
+    a, b = runs["isrtf"], runs["isrtf again"]
+    if a["finish"] != b["finish"]:
+        jid = next(j for j in a["order"] if a["finish"][j]
+                   != b["finish"].get(j))
+        pa, pb = a["predictions"].get(jid, []), b["predictions"].get(jid, [])
+        k = next((i for i, (x, y) in enumerate(zip(pa, pb)) if x != y),
+                 min(len(pa), len(pb)))
+        raise AssertionError(
+            f"phase 15 (c): the two ISRTF runs differ first at job {jid}: "
+            f"finished at {a['finish'][jid]!r} and "
+            f"{b['finish'].get(jid)!r}; its predictions first differ at "
+            f"dispatch {k}: {pa[k:k + 1]} and {pb[k:k + 1]}")
+    imp = improvement(runs["fcfs"]["summary"], a["summary"])
+    log(f"[sim] (c) ISRTF over FCFS: {imp:.2f}% lower mean JCT; the two "
+        f"ISRTF runs' {n} completion times are identical bit for bit; (c) "
+        f"in {time.perf_counter() - t0:.1f} s ({nvidia_smi_line()})")
+    return {"runs": {k: {"summary": v["summary"], "wall_s": v["wall_s"],
+                         "predictor": v["predictor"]}
+                     for k, v in runs.items()},
+            "improvement": imp}
+
+
+def scale_cell(profile, overhead_s: float, n: int, policy: str,
+               predictor: str, n_nodes: int = 1, head: int = 0) -> dict:
+    """Phase 15 (d), one run, in a worker process: the scale fast path over
+    ``n`` flash_crowd requests at 1x ``profile``'s AVG.RequestRate (batch
+    ``SIM_SCALE_BATCH``); with ``head``, the first ``head`` requests
+    through the fast path and the exact event loop, compared trace for
+    trace."""
+    import numpy as np
+
+    from repro_torch.data.workload import build_scale_workload
+    from repro_torch.simulate import (ScaleSimConfig, ScaleSimulator,
+                                      avg_request_rate, run_exact_reference)
+
+    rate = avg_request_rate(profile, SIM_SCALE_BATCH)
+    w = build_scale_workload("flash_crowd", n, rate,
+                             np.random.RandomState(SEED))
+    cfg = ScaleSimConfig(model=profile, sched_overhead_s=overhead_s,
+                         predictor=predictor, policy=policy,
+                         n_nodes=n_nodes, batch_size=SIM_SCALE_BATCH,
+                         seed=SEED)
+    out = {"policy": policy, "predictor": predictor, "n_nodes": n_nodes,
+           "rate": rate}
+    if not head:
+        res = ScaleSimulator(cfg).run(w)
+        m = res.metrics()
+        out.update({k: m[k] for k in ("n_finished", "jct_mean", "jct_p99",
+                                      "fairness_jct", "n_windows",
+                                      "n_coalesced_windows", "wall_s")},
+                   n=w.n)
+        return out
+    w = w.head(head)
+    fast = ScaleSimulator(cfg).run(w)
+    t0 = time.perf_counter()
+    exact = run_exact_reference(cfg, w)
+    out.update(n=w.n, fast_s=fast.wall_s,
+               exact_s=time.perf_counter() - t0,
+               same_order=bool(np.array_equal(fast.finished_order,
+                                              exact.finished_order)),
+               same_finish=bool(np.array_equal(fast.finish, exact.finish,
+                                               equal_nan=True)),
+               n_finished=int(len(exact.finished_order)))
+    return out
+
+
+def sim_phase(pred, calibration) -> dict:
+    """Phase 15 (c) and (d): Table 5's cell ranked by ``pred`` on the card
+    while worker processes run the scale fast path over ``calibration``'s
+    fitted profile (host code only)."""
+    import concurrent.futures
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    cell = (calibration["profile"], calibration["overhead_s"], SIM_SCALE_N)
+    jobs = {"fcfs": cell + ("fcfs", "noisy_oracle"),
+            "isrtf": cell + ("isrtf", "noisy_oracle"),
+            "exact isrtf": cell + ("isrtf", "oracle", 1, SIM_EXACT_HEAD),
+            f"exact fcfs x{SIM_MULTI_NODE}": cell + (
+                "fcfs", "oracle", SIM_MULTI_NODE, SIM_EXACT_HEAD)}
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=len(jobs),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {k: pool.submit(scale_cell, *a) for k, a in jobs.items()}
+        table5 = table5_cell(pred)
+        scale = {k: f.result() for k, f in futures.items()}
+    for k in ("fcfs", "isrtf"):
+        r = scale[k]
+        if r["n_finished"] != r["n"]:
+            raise AssertionError(f"phase 15 (d): {k}: {r['n_finished']}/"
+                                 f"{r['n']} finished")
+        log(f"[sim] (d) scale fast path, {r['n']} flash_crowd requests at "
+            f"{r['rate']:.4f} req/s (1x AVG.RequestRate of (a)'s profile at "
+            f"batch {SIM_SCALE_BATCH}), 1 node, {k}, noisy oracle: JCT mean "
+            f"{r['jct_mean']:.4f} s, p99 {r['jct_p99']:.4f} s, fairness "
+            f"ratio {r['fairness_jct']:.4f}; {r['n_windows']} windows "
+            f"({r['n_coalesced_windows']} coalesced) in {r['wall_s']:.2f} s "
+            f"on the host")
+    for k in ("exact isrtf", f"exact fcfs x{SIM_MULTI_NODE}"):
+        r = scale[k]
+        same = r["same_order"] and r["same_finish"]
+        log(f"[sim] (d) head slice of {r['n']}, {r['policy']}, "
+            f"{r['predictor']}, {r['n_nodes']} node(s): fast path "
+            f"{'trace-identical to' if same else 'DIFFERS from'} the exact "
+            f"loop (finished_order {r['same_order']}, finish times "
+            f"{r['same_finish']}); fast {r['fast_s']:.2f} s, exact "
+            f"{r['exact_s']:.2f} s on the host"
+            + ("" if r["n_nodes"] == 1 else
+               " (multi-node FCFS is a reference caveat: printed, not "
+               "gated)"))
+    r = scale["exact isrtf"]
+    if not (r["same_order"] and r["same_finish"]
+            and r["n_finished"] == SIM_EXACT_HEAD):
+        raise AssertionError("phase 15 (d): the fast path is not "
+                             "trace-identical to the exact loop on the "
+                             "one-node ISRTF head slice")
+    log(f"[sim] (c)+(d) in {time.perf_counter() - t0:.1f} s")
+    return {"table5": table5, "scale": scale}
+
+
 def random_params(cfg):
     """``transformer.init_params`` on the card from ``SEED``."""
     import torch
@@ -5099,13 +5467,19 @@ def main(argv=None) -> None:
     # tensor-parallel pod
     cells = [(cfg, requests, None) for cfg, requests in models]
     cells.append((models[0][0], models[0][1], tp_mesh()))
+    calibration = None
     for cfg, requests, mesh in cells:
         name = cfg.arch_id + ("" if mesh is None else f" TP={TP}")
         params = random_params(cfg)
-        path = served_path(cfg, params, requests, mesh)
+        served = {}
+        path = served_path(cfg, params, requests, mesh, keep=served)
         for n, c in path.items():
             if c:
                 launches.setdefault(n, c)
+        if calibration is None and mesh is None and cfg.family == "dense":
+            # phase 15 (a) and (b): calibrate the simulator on this run
+            calibration = sim_calibrate(cfg, requests, served)
+        del served
         profile_window(cfg, params, requests, mesh)
         if not greedy_parity(cfg, requests,
                              () if mesh is None else (mesh, tp_mesh(4))):
@@ -5140,10 +5514,16 @@ def main(argv=None) -> None:
     lap("6 serve CLI")
 
     # phase 7: the BGE predictor, its training, ISRTF ranked by it
-    predictor_phase(cli_phase["isrtf_jct"])
+    pred = predictor_phase(cli_phase["isrtf_jct"])["pred"]
+    lap("7 predictor")
+
+    # phase 15 (c) and (d): Table 5's cell ranked by phase 7's predictor,
+    # and the scale fast path over (a)'s profile
+    sim_phase(pred, calibration)
+    del pred
     gc.collect()
     torch.cuda.empty_cache()
-    lap("7 predictor")
+    lap("15 simulator (c), (d)")
 
     # the step entry points over int8 caches (launch/steps.py), qwen2-1.5b
     params = random_params(cfg)

@@ -96,6 +96,9 @@ class Request:
     #: ground-truth response length: the oracle predictors read it, and an
     #: engine with ``respect_job_max`` stops the request there
     true_output_len: int = 0
+    #: ground-truth response stream: the cluster simulator replays it; the
+    #: live engine ignores it
+    output_tokens: Sequence[int] = ()
 
     @classmethod
     def from_workload(cls, r, options: Optional[RequestOptions] = None
@@ -120,6 +123,7 @@ class Request:
             request_id=r.request_id,
             options=options,
             true_output_len=r.true_output_len,
+            output_tokens=r.output_tokens,
         )
 
 
@@ -290,6 +294,7 @@ class ElisServer:
             prompt_tokens=list(request.prompt_tokens),
             arrival_time=request.arrival_time,
             true_output_len=max_out,
+            output_tokens=list(request.output_tokens),
             deadline=opts.deadline,
             tenant=opts.tenant,
             priority_class=opts.priority_class,

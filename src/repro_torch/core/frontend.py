@@ -1,7 +1,10 @@
 """ELIS frontend scheduler — Algorithm 1 as a *steppable* event loop.
 
-It drives the live engine (:class:`repro_torch.engine.EngineExecutor`):
-real decode windows, wall clock measured and fed back as event durations.
+One implementation drives both backends:
+  * the cluster simulator (:class:`repro_torch.simulate.SimExecutor`):
+    virtual time and the calibrated per-model latency model;
+  * the live engine (:class:`repro_torch.engine.EngineExecutor`): real
+    decode windows, wall clock measured and fed back as event durations.
 
 Semantics (faithful to the paper):
   * iteration-level batching with a fixed window of K=50 tokens;
@@ -56,8 +59,10 @@ from repro_torch.core.job import TERMINAL_STATES, Job, JobState
 from repro_torch.core.load_balancer import GlobalState, LoadBalancer, make_placement
 from repro_torch.core.predictor import Predictor
 from repro_torch.core.scheduler import (
+    PRIORITY_CLASS_WEIGHT,
     PreemptionConfig,
     SchedulerConfig,
+    batch_effective,
     cached_expected_remaining,
     cached_raw_priority,
     effective_priority,
@@ -69,7 +74,12 @@ from repro_torch.core.scheduler import (
     select_preemptions,
 )
 
-__all__ = ["Backend", "ELISFrontend", "Event", "ExecResult", "FrontendConfig"]
+__all__ = [
+    "Backend", "ELISFrontend", "Event", "ExecResult", "FrontendConfig",
+    # re-exported for callers that import these from here; they live in
+    # repro_torch.core.scheduler
+    "PRIORITY_CLASS_WEIGHT", "batch_effective",
+]
 
 
 class ExecResult:
@@ -81,7 +91,7 @@ class ExecResult:
 
 
 class Backend(abc.ABC):
-    """Execution backend behind the frontend (the live engine).
+    """Execution backend behind the frontend (simulator or live engine).
 
     ``execute`` runs one scheduling window for a batch and reports the new
     tokens (which the frontend re-emits as per-window ``TokenChunk``\\ s);

@@ -36,8 +36,10 @@ class Job:
     prompt: str
     prompt_tokens: List[int]
     arrival_time: float
-    #: ground-truth response length — known to the oracle only
+    #: ground-truth response length — known to the generator/oracle only
     true_output_len: int = 0
+    #: precomputed response token stream (the simulator replays it)
+    output_tokens: List[int] = field(default_factory=list)
 
     node: int = -1
     state: JobState = JobState.WAITING

@@ -36,9 +36,11 @@ re-predicting policy orders the pool by the ranking head's
 """
 from __future__ import annotations
 
+import heapq
+import itertools
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.job import Job
 from repro_torch.core.predictor import (LengthPrediction, Predictor,
@@ -304,6 +306,15 @@ def cached_expected_remaining(job: Job) -> float:
                - (job.tokens_generated - job.tokens_at_last_score), 0.0)
 
 
+def batch_effective(policy: Policy, jobs: Sequence[Job],
+                    now: float) -> List[float]:
+    """Score ``jobs`` fresh and return effective priorities (one fused
+    predictor dispatch; see :func:`score_jobs`)."""
+    raw = score_jobs(policy, jobs, now)
+    return [effective_priority(policy.cfg, j, p, now)
+            for j, p in zip(jobs, raw)]
+
+
 def score_pool(policy: Policy, running: Sequence[Job], waiting: Sequence[Job],
                now: float, *, full: bool = True
                ) -> Tuple[List[float], List[float]]:
@@ -334,6 +345,31 @@ def score_pool(policy: Policy, running: Sequence[Job], waiting: Sequence[Job],
                               now)
            for j, p in zip(pool, raw)]
     return eff[: len(running)], eff[len(running):]
+
+
+# --------------------------------------------------------------------------- #
+# PriorityBuffer (paper §4.1: one priority queue per backend node)
+# --------------------------------------------------------------------------- #
+
+
+class PriorityBuffer:
+    def __init__(self):
+        self._heaps: Dict[int, List] = {}
+        self._count = itertools.count()
+
+    def push(self, node: int, prio: float, job: Job) -> None:
+        heapq.heappush(self._heaps.setdefault(node, []),
+                       (prio, next(self._count), job))
+
+    def pop_batch(self, node: int, k: int) -> List[Job]:
+        heap = self._heaps.get(node, [])
+        out = []
+        while heap and len(out) < k:
+            out.append(heapq.heappop(heap)[2])
+        return out
+
+    def depth(self, node: int) -> int:
+        return len(self._heaps.get(node, []))
 
 
 # --------------------------------------------------------------------------- #

@@ -12,6 +12,9 @@ card (2e-5, 2^-7), one bf16 ulp of the result.
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several test processes at once, and
+# more threads than cores only make each of them wait
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

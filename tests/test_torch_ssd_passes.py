@@ -16,6 +16,9 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several test processes at once, and
+# more threads than cores only make each of them wait
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
