@@ -76,8 +76,9 @@ Phases (any failure raises and exits non-zero):
      step path, identical fp32 greedy tokens and agreeing bf16 decode
      logits;
   6. the serve CLI (``python -m repro_torch.launch.serve``, run in this
-     process through ``main``) at full width, qwen2-1.5b in bf16 with 28
-     layers: serve.py's defaults with ``--n 12``; then traffic that queues
+     process through ``main``) at full width, qwen2-1.5b in bf16 at 14 of
+     its 28 layers (``CLI_DEPTH``, cut for the script's time): serve.py's
+     defaults with ``--n 12``; then traffic that queues
      and preempts (``CLI_QUEUE``: 4 slots, 24 requests at 4 req/s, outputs
      up to 128 tokens) under ISRTF and FCFS on the same arrivals, in the
      order isrtf, fcfs, fcfs, isrtf (mean JCT of each, the ISRTF/FCFS
@@ -88,7 +89,7 @@ Phases (any failure raises and exits non-zero):
      the swap run must swap out, swap in and run prefill chunks, and each
      run's ``flash_attention`` and ``flash_decode`` launch counts (set to 0
      before it, read after) must be the engine's one-shot prefills and
-     decode steps times 28 layers.  Beside it, one slot's cache is
+     decode steps times its layers.  Beside it, one slot's cache is
      offloaded to the host and restored bit for bit at full width, its
      greedy stream equal to a resident engine's, and chunked prefill gives
      the fp32 greedy tokens of one-shot prefill at full width and 2
@@ -174,9 +175,9 @@ Phases (any failure raises and exits non-zero):
      decode window profiled; the pod's bf16 first prefill logits against
      the single-device kernel model within ``LOGIT_TOL_BF16``; then the
      serve CLI with ``--mesh 1x2 --arch qwen2-moe-a2.7b --prefill-chunk
-     64 --preempt-policy auto`` on ``CLI_QUEUE`` (every request finished,
-     its swaps and chunk dispatches printed) and one offload and restore
-     through its executor;
+     64 --preempt-policy auto`` on ``CLI_QUEUE`` at the pod's 12 layers
+     (every request finished, its swaps and chunk dispatches printed) and
+     one offload and restore through its executor;
  12. the SSM and hybrid families on tensor-parallel pods of 2 ranks (on
      one card when there is one): mamba2-130m served at 12 of its 24
      layers and zamba2-7b at 27 of its 81 (4 groups and the tail), bf16
@@ -195,7 +196,8 @@ Phases (any failure raises and exits non-zero):
      prefill logits against the single-device kernel model (and fp32 ones
      at the parity depth) within ``POD_LOGIT_TOL``; then the serve CLI with
      ``--mesh 1x2 --arch mamba2-130m --preempt-policy auto`` on
-     ``CLI_QUEUE``, and one offload and restore through its executor
+     ``CLI_QUEUE`` at the pod's 12 layers, and one offload and restore
+     through its executor
      when the traffic swapped nothing.  Phase 3's rows tagged
      ``mamba2-130m TP=2`` and ``zamba2-7b TP=2`` hold the kernels at a
      rank's share of these pods (``ssd_scan`` at H=12, (64, 128) and
@@ -263,6 +265,35 @@ Phases (any failure raises and exits non-zero):
      ``SIM_EXACT_HEAD`` requests against the exact event loop: one node
      under ISRTF must be trace-identical; three under FCFS (a reference
      caveat) is printed.
+ 16. int8 pods, the dry run held against the card, and pod training
+     (``launch.dryrun``, qwen2-1.5b): (a) served as a TP=2 pod (on one
+     card) over int8 caches at full width and depth, bf16, through
+     ``make_prefill_step`` and ``make_serve_step`` with ``mesh=``: ``STEPS``
+     steps with launch counts reset before and read after
+     (``flash_attention`` 28 x 2 a prefill, ``flash_decode_int8_sharded``
+     28 x 2 a step), its first step's logits against one device's within
+     ``INT8_POD_LOGIT_TOL_BF16``; fp32 at ``INT8_POD_DEPTH`` layers its
+     greedy tokens and logits against one device's, and the planted
+     per-rank scales (each rank quantizing with its own heads' amax) must
+     fail that check; phase 3's ``flash_decode_int8_sharded`` row (tagged
+     ``qwen2-1.5b TP=2``: 6/1 heads a rank) holds the kernel.  (b) the
+     dry run on the meta device against the same rank program on the
+     card (``dryrun.rank_program``) for the serve step over a 16 x 512
+     int8 cache and the train step at B=8 x 512, each at a (1, 1) and a
+     (1, 2) mesh: ``flops`` against ``FlopCounterMode`` over the card's
+     step and the argument bytes against the card's inputs (both exact),
+     the peak at most ``DRY_PEAK_MARGIN`` under ``max_memory_allocated``
+     and never over it (a dry run without the cache, or without the
+     largest leaf's moments, must fail that), the
+     record's roofline beside the step's time, and the dry-run roofline of
+     decode_32k and of the train step beside their hand bounds
+     (``HAND_BOUND_MS``); (c) the training step as a TP=2 pod, fp32 at
+     ``INT8_POD_DEPTH`` layers, its gathered gradients against one
+     device's within phase 14's gates, and one ZeRO-1 step on a (2, 1)
+     mesh at a constant lr against the unsliced step, its moments within
+     ``ZERO1_MOMENT_RTOL`` and its params within ``ZERO1_PARAM_RTOL`` of
+     the update's norm; the planted fault, the first pod's gradients in
+     place of the pods' sum, must fail both.
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -349,9 +380,9 @@ AU_ROWS = 448
 #: steps, which fill the 4 x ``MAX_LEN`` cache to its last row
 VL_PATCHES = 256
 #: published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
-#: flop/s by operand type (bf16 on the tensor cores, fp32 outside them)
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+#: flop/s by operand type (bf16 on the tensor cores, fp32 outside them),
+#: kept with the port's roofline constants
+from repro_torch.launch.mesh import HBM_BYTES_S, PEAK_FLOPS  # noqa: E402
 #: kernel vs plain version, (atol, rtol) in |kernel - plain| <= atol + rtol
 #: * |plain|.  Both compute in fp32 from the same inputs, so in fp32 they
 #: differ only by summation order (online vs full softmax).  In bf16 each
@@ -836,7 +867,8 @@ def check_kernels(timed: bool = True):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {"flash_decode": [], "flash_attention": [], "ssd_scan": [],
-            "flash_decode_sharded": [], "flash_decode_int8": []}
+            "flash_decode_sharded": [], "flash_decode_int8": [],
+            "flash_decode_int8_sharded": []}
     failures = []
 
     def record(name, row, run, plain, lib, iters, timed_fns=None,
@@ -983,6 +1015,7 @@ def check_kernels(timed: bool = True):
                       tps=(TP,), arch=AU_TP_TAG)
         torch.cuda.empty_cache()
         check_int8(record, gen, dtype)
+        check_int8_sharded(record, gen, dtype)
         for B in (1, 4):
             for S in (16, 128, 512):
                 for window in (None, 64):
@@ -1029,6 +1062,12 @@ def check_kernels(timed: bool = True):
             elif name == "flash_decode":
                 shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
                          f"window={r['window']} n_split={r['n_split']}")
+            elif name == "flash_decode_int8_sharded":
+                shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
+                         f"{r['heads']} heads per rank x {r['tp']} ranks on "
+                         f"one card, D={r['D']} window={r['window']} "
+                         f"n_split={r['n_split']}, bitwise == single-device "
+                         f"kernel: {r['bitwise']}; per call, all shards")
             elif name == "flash_decode_int8":
                 shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
                          f"{r['heads']} heads D={r['D']} "
@@ -1428,6 +1467,67 @@ def check_int8(record, gen, dtype) -> None:
          f" (decode_32k, first {n} slots)", 20)
     del q, k, v, ks, vs
     torch.cuda.empty_cache()
+
+
+def check_int8_sharded(record, gen, dtype, tp: int = TP) -> None:
+    """``flash_decode_int8_sharded`` at the shard shapes of phase 16's
+    int8 pod (qwen2-1.5b at TP=2: 6/1 heads of dim 128 a rank), B=4 x
+    ``MAX_LEN``, all ranks on one card: each rank's int8 codes of its KV
+    head and the shared scales.  The stitched output must equal the
+    single-device int8 kernel bit for bit and lie within the tolerance of
+    the plain version.  Times per call, all shards: the wrapper, its plain
+    version, and ``sdpa`` (GQA) over the unsplit heads' K/V dequantized
+    to bf16 (the dequantize not timed); the bound is the whole call's
+    bytes (each shard reads its own KV head's codes and both scales)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.partition import kv_head_range
+
+    dn = str(dtype).split(".")[1]
+    B, L = 4, MAX_LEN
+    q = torch.randn((B, 1, HEADS, HEAD_DIM), generator=gen, device="cuda",
+                    dtype=dtype)
+    k, v, ks, vs = int8_kv(B, L, KV_HEADS, HEAD_DIM, gen)
+    kv_len = torch.tensor([1, 200, 377, MAX_LEN], dtype=torch.int32,
+                          device="cuda")
+    q_off = kv_len - 1
+    heads = SimpleNamespace(n_heads=HEADS, n_kv_heads=KV_HEADS)
+    ranges = [kv_head_range(heads, tp, r) for r in range(tp)]
+    qs = [c.contiguous() for c in q.chunk(tp, dim=2)]
+    kss, vss = ([x[:, :, lo:hi].contiguous() for lo, hi in ranges]
+                for x in (k, v))
+    kw = dict(kv_len=kv_len, q_offset=q_off)
+    args = (qs, kss, vss, [ks] * tp, [vs] * tp)
+    bitwise = bool(torch.equal(
+        torch.cat(ops.flash_decode_int8_sharded(*args, **kw), dim=2),
+        ops.flash_decode_int8(q, k, v, ks, vs, **kw)))
+    n_keys = sum(visible_keys(o, min(n, L), None)
+                 for o, n in zip(q_off.tolist(), kv_len.tolist()))
+    kv_read = sum(hi - lo for lo, hi in ranges)
+    b_ms, b_by = bound(int8_bytes(q, kv_read, HEAD_DIM, n_keys)
+                       + 8 * n_keys * (tp - 1) + 8 * B * (tp - 1),
+                       4 * HEADS * HEAD_DIM * n_keys, dn)
+    pos = torch.arange(L, device="cuda")
+    keep = ((pos[None] < kv_len[:, None]) & (pos[None] <= q_off[:, None]))
+    qt = q.transpose(1, 2).to(torch.bfloat16).contiguous()
+    kt, vt = (ref.dequantize(c, sc).to(torch.bfloat16).transpose(1, 2)
+              .contiguous() for c, sc in ((k, ks), (v, vs)))
+    record("flash_decode_int8_sharded", dict(
+        dtype=dn, B=B, L=L, kv_len=kv_len.tolist(), tp=tp,
+        heads=f"{HEADS // tp}/{ranges[0][1] - ranges[0][0]}", D=HEAD_DIM,
+        window=None, n_split=ops.decode_plan(B, L, q.device)[0],
+        bitwise=bitwise, bound_ms=b_ms, bound_by=b_by,
+        arch=f"qwen2-1.5b TP={tp}",
+        library="sdpa over bf16-dequantized K/V (dequantize not timed)"),
+        lambda: torch.cat(ops.flash_decode_int8_sharded(*args, **kw), dim=2),
+        lambda: torch.cat(ref.flash_decode_int8_sharded(*args, **kw), dim=2),
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=keep[:, None, None, :], enable_gqa=True),
+        200, timed_fns=(lambda: ops.flash_decode_int8_sharded(*args, **kw),
+                        lambda: ref.flash_decode_int8_sharded(*args, **kw)),
+        exact=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -2450,6 +2550,11 @@ def tp_planted_fault(cfg, params, requests) -> dict:
 #: serve far fewer requests a second at full width
 CLI_QUEUE = ["--slots", "4", "--window", "8", "--n", "24", "--rate", "4",
              "--max-output", "128", "--seed", "0"]
+#: the depth phase 6 serves qwen2-1.5b at (full width, 14 of its 28
+#: layers): cut for the script's time once phase 16 took it to 1099 s of
+#: its 1200 on an H100 with a slow host; phase 4 serves all 28, and phase
+#: 7's runs too
+CLI_DEPTH = 14
 #: the runs of phase 6, in order: serve.py's defaults, then ISRTF and FCFS
 #: on the same arrivals (isrtf, fcfs, fcfs, isrtf), then ISRTF with chunked
 #: prefill and swap preemption, and with the ``auto`` break-even after a
@@ -2469,13 +2574,13 @@ CLI_RUNS = [
 ]
 
 
-def cli_run(name: str, argv, predictor_probe=None, after=None):
+def cli_run(name: str, argv, predictor_probe=None, after=None, depth=None):
     """Run ``repro_torch.launch.serve.main(argv)`` in this process with
     every launch count set to 0 just before and read just after; check
     it as :func:`check_served` does.  ``predictor_probe``, when given, is
     called on the predictor the CLI builds, before it serves; ``after``
-    on the executor it served with, after the check.  Returns the run's
-    numbers."""
+    on the executor it served with, after the check; ``depth`` cuts the
+    arch to that many layers.  Returns the run's numbers."""
     import contextlib
     import io
 
@@ -2487,7 +2592,10 @@ def cli_run(name: str, argv, predictor_probe=None, after=None):
     want_tokens = {r.request_id: min(r.true_output_len, args.max_output)
                    for r in cli.load_requests(args)[0]}
     out, err = io.StringIO(), io.StringIO()
-    build_predictor = cli.build_predictor
+    build_predictor, get_config = cli.build_predictor, cli.get_config
+    if depth is not None:
+        cli.get_config = lambda arch: dataclasses.replace(
+            get_config(arch), n_layers=depth)
     if predictor_probe is not None:
         def probed(*a):
             pred = build_predictor(*a)
@@ -2501,7 +2609,7 @@ def cli_run(name: str, argv, predictor_probe=None, after=None):
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             responses, executor = cli.main(argv)
     finally:
-        cli.build_predictor = build_predictor
+        cli.build_predictor, cli.get_config = build_predictor, get_config
     synchronize_all()
     wall = time.perf_counter() - t0
     launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
@@ -2592,7 +2700,7 @@ def serve_cli_phase() -> dict:
     swap run swaps out and in and runs prefill chunks; print ISRTF's and
     FCFS's mean JCT and their ratio.  Returns the phase's launch counts,
     summed over its runs, and the ISRTF runs' mean JCTs."""
-    runs = [cli_run(name, argv) for name, argv in CLI_RUNS]
+    runs = [cli_run(name, argv, depth=CLI_DEPTH) for name, argv in CLI_RUNS]
     by = {}
     for r in runs:
         by.setdefault(r["name"], []).append(r)
@@ -3974,7 +4082,9 @@ MOE_TP_ARCHS = [("qwen2-moe-a2.7b", 12), ("mixtral-8x7b", 4)]
 #: that its fp32 parity run chunks (more than 3 chunks)
 MOE_TP_CHUNK, MOE_TP_LONG = 64, 230
 #: phase 11's CLI run: ``CLI_QUEUE`` on one TP pod of qwen2-moe-a2.7b,
-#: chunked, preempting by the ``auto`` break-even
+#: chunked, preempting by the ``auto`` break-even, at the pod's served
+#: depth (12 of 24 layers: at 24 it took 117.9 of the phase's 144.0 s on
+#: an H100 with a slow host)
 MOE_TP_CLI = CLI_QUEUE + ["--policy", "isrtf", "--arch", "qwen2-moe-a2.7b",
                           "--mesh", f"1x{TP}", "--prefill-chunk",
                           str(MOE_TP_CHUNK), "--preempt-policy", "auto"]
@@ -4192,7 +4302,8 @@ def moe_tp_phase() -> dict:
     if failures:
         raise AssertionError("phase 11: " + "; ".join(failures))
     t0 = time.perf_counter()
-    run = cli_run("moe tp2 chunk+auto", MOE_TP_CLI, after=executor_swap)
+    run = cli_run("moe tp2 chunk+auto", MOE_TP_CLI, after=executor_swap,
+                  depth=dict(MOE_TP_ARCHS)["qwen2-moe-a2.7b"])
     c = run["counters"]
     log(f"[moe-tp] CLI on one TP={TP} pod of qwen2-moe-a2.7b: swapouts "
         f"{c['swapouts']}, swapins {c['swapins']}, chunk dispatches "
@@ -4217,7 +4328,9 @@ def moe_tp_phase() -> dict:
 SSM_TP_ARCHS = [("mamba2-130m", (TP, 4), None, 12),
                 (HY_ARCH, (TP,), HY_PARITY_DEPTH, 27)]
 #: phase 12's CLI run: ``CLI_QUEUE`` on one TP pod of mamba2-130m under
-#: ISRTF, preempting by the ``auto`` break-even
+#: ISRTF, preempting by the ``auto`` break-even, at the pod's served
+#: depth (12 of 24 layers: at 24 it took ~70 of the phase's 140.7 s on
+#: the same host)
 SSM_TP_CLI = CLI_QUEUE + ["--policy", "isrtf", "--arch", "mamba2-130m",
                           "--mesh", f"1x{TP}", "--preempt-policy", "auto"]
 
@@ -4404,7 +4517,8 @@ def ssm_tp_phase() -> dict:
     if failures:
         raise AssertionError("phase 12: " + "; ".join(failures))
     t0 = time.perf_counter()
-    run = cli_run("ssm tp2 auto", SSM_TP_CLI, after=ssm_cli_swap)
+    run = cli_run("ssm tp2 auto", SSM_TP_CLI, after=ssm_cli_swap,
+                  depth=SSM_TP_ARCHS[0][3])
     c = run["counters"]
     log(f"[ssm-tp] CLI on one TP={TP} pod of mamba2-130m: swapouts "
         f"{c['swapouts']}, swapins {c['swapins']}, preemptions "
@@ -5362,6 +5476,477 @@ def sim_phase(pred, calibration) -> dict:
     return {"table5": table5, "scale": scale}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 16: int8 pods, the dry run held against the card, pod training
+# --------------------------------------------------------------------------- #
+
+#: the depth of phase 16's fp32 checks (the int8 pod's tokens and logits,
+#: the pod's gradients, the ZeRO-1 step): full width, as phase 5's
+INT8_POD_DEPTH = 2
+#: fp32 decode logits of the int8 pod against one device's, the largest
+#: difference over the largest |logit|: the ranks' K/V projections sum in
+#: another order than one device's, which could move a code by one step.
+#: On the CPU at small widths the correct pods read 3e-7 to 4e-7 and the
+#: planted per-rank scales 2.6e-3 to 3.0e-3 (tests/test_torch_mesh_steps.py);
+#: the reduced qwen2-1.5b at 2 layers read 1.2e-5 and 3.0e-3
+INT8_POD_RTOL = 3e-4
+#: bf16 logits of the int8 pod's first decode step at full depth against
+#: one device's int8 step: the limit ``POD_LOGIT_TOL`` sets for the other
+#: families' pods
+INT8_POD_LOGIT_TOL_BF16 = 0.1
+#: the dry run's peak against ``max_memory_allocated`` over the card's
+#: step, as a share of the card's, signed: the meta run sees neither the
+#: allocator's rounding nor a kernel's scratch, which only add on the
+#: card, so the dry run may lie under the card's peak by this share and
+#: never over it.  On an H100 the four cases read 0.01% to 0.20% under
+#: it; a dry run that left out the int8 serve step's cache reads 3.65%
+#: to 3.78% under it, and one that left out the train step's largest
+#: leaf's moments 3.52% to 6.63% (printed beside each case)
+DRY_PEAK_MARGIN = 0.01
+#: ``memory_allocated`` of the card's inputs against the blocks of their
+#: bytes rounded to 512, as a share: the caching allocator also leaves a
+#: large block's remainder of up to 1 MiB unsplit (on an H100: 2.0 MiB of
+#: 14.4 GiB on one device, 19.1 MiB at TP=2)
+ALLOC_MARGIN = 0.002
+#: phase 16 (b)'s serve step: the int8-small cache's 512 rows at 16 slots,
+#: the least batch the reference lays out without a context-parallel
+#: cache (``global_batch < 16``, which the dry run skips: item 8.5)
+DRY_SERVE_B = 16
+#: phase 16 (c)'s ZeRO-1 step: AdamW at a constant lr from the first step,
+#: so that one step moves every param by about lr (the train step's
+#: default warmup moves it by lr / 100, under any absolute limit a fault
+#: would read); its two gates, as tests/test_torch_mesh_steps.py defines
+#: and reads them on the CPU: the moments' largest leaf gap over the
+#: leaf's largest |value|, and the params' gap norm over the norm of one
+#: device's update (Adam's first step is lr * g / (|g| + eps): a gradient
+#: within its rounding of zero may flip an element's step)
+ZERO1_LR = 1e-3
+ZERO1_MOMENT_RTOL = 1e-4
+ZERO1_PARAM_RTOL = 1e-3
+#: the hand bounds of chip_smoke's earlier phases that phase 16 sets the
+#: dry run's roofline beside (PERF.md section 2): decode_32k's bytes
+#: bound (phase 4) and train-dense's flop bound (phase 14), ms
+HAND_BOUND_MS = {"decode_32k": 19.15, "train": 51.88}
+
+
+def int8_pod_run(cfg, params, mesh, n_steps: int):
+    """Prefill ``step_prompts`` into a fresh int8 cache of ``STEP_SLOTS``
+    x ``MAX_LEN`` rows (one per rank with ``mesh``) through
+    ``make_prefill_step``, one ``transformer.decode_step`` for the first
+    step's logits, then ``make_serve_step``: (tokens (B, 1 + n_steps),
+    the first step's logits in fp32, the serve steps' wall seconds)."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+
+    prompts = torch.as_tensor(step_prompts(), device=DEVICE)
+    cache = (small_cache(cfg) if mesh is None else T.init_cache(
+        cfg, STEP_SLOTS, MAX_LEN, mesh=mesh, kv_dtype="int8"))
+    logits, cache = make_prefill_step(cfg, mesh=mesh)(
+        params, {"tokens": prompts, "cache": cache})
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    first, cache = T.decode_step(params, cfg, tok[:, None], cache,
+                                 moe_impl="dense", mesh=mesh)
+    first = first[:, -1].float()
+    toks = [tok, first.argmax(-1).to(torch.int32)]
+    serve, walls = make_serve_step(cfg, mesh=mesh), []
+    for _ in range(n_steps - 1):
+        synchronize_all()
+        t0 = time.perf_counter()
+        tok, cache = serve(params, toks[-1][:, None], cache)
+        synchronize_all()
+        walls.append(time.perf_counter() - t0)
+        toks.append(tok)
+    return torch.stack(toks, dim=1), first, walls
+
+
+def rel_gap(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-30))
+
+
+def int8_pod_phase(cfg) -> tuple:
+    """Phase 16 (a): qwen2-1.5b served as a TP=2 pod over int8 caches at
+    full width and depth, bf16: prefill and ``STEPS`` serve steps with
+    the launch counts set to 0 just before and read just after
+    (``flash_attention`` layers x 2 a prefill, ``flash_decode_int8_sharded``
+    layers x 2 a step), the first step's logits against one device's;
+    then in fp32 at ``INT8_POD_DEPTH`` layers the pod's greedy tokens and
+    logits against one device's, and the planted per-rank scales, which
+    must fail that check.  Returns (launch counts, failures)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shard_params
+    from repro_torch.models import layers as L
+
+    failures = []
+    mesh = tp_mesh()
+    params = random_params(cfg)
+    one_toks, one_first, _ = int8_pod_run(cfg, params, None, 2)
+    shards = shard_params(params, cfg, mesh)
+    del params
+    ops.reset_launches()
+    toks, first, walls = int8_pod_run(cfg, shards, mesh, STEPS)
+    synchronize_all()
+    launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
+    n = cfg.n_layers
+    check_launches(launches, {
+        "flash_attention": (n * TP, f"{n} layers x {TP} ranks x 1 prefill"),
+        "flash_decode_int8_sharded": (n * TP * STEPS, f"{n} layers x {TP} "
+                                      f"ranks x {STEPS} steps")})
+    gap = float((first - one_first).abs().max())
+    med = statistics.median(walls) * 1e3
+    log(f"[int8-pod] {describe(cfg, mesh)} over int8 caches ({STEP_SLOTS} "
+        f"slots x {MAX_LEN} rows a rank): {STEPS} steps, step wall median "
+        f"{med:.2f} ms; launches flash_attention "
+        f"{launches['flash_attention']} = {n} x {TP} x 1 prefill, "
+        f"flash_decode_int8_sharded "
+        f"{launches['flash_decode_int8_sharded']} = {n} x {TP} x {STEPS}; "
+        f"bf16 first-step logits vs one device: {gap:.4e} (limit "
+        f"{INT8_POD_LOGIT_TOL_BF16}); first 3 tokens equal one device's "
+        f"on {int((toks[:, :3] == one_toks).all(1).sum())}/{STEP_SLOTS} "
+        "slots")
+    if not gap <= INT8_POD_LOGIT_TOL_BF16:
+        failures.append(f"int8 pod: bf16 logits {gap:.4e} off one device")
+    cost = op_dispatch_cost(cfg)
+    log(f"[int8-pod] flash_decode_int8_sharded at the pod's per-rank "
+        f"shapes, host wall a call over 200 back-to-back calls: direct "
+        f"{cost['direct']:.1f} us, through its custom op "
+        f"{cost['custom op']:.1f} us; {n} calls a step: "
+        f"{(cost['custom op'] - cost['direct']) * n / 1e3:+.3f} ms a step "
+        f"beside the step's wall median {med:.2f} ms")
+    del shards
+    torch.cuda.empty_cache()
+    cfg2, params = fp32_model(cfg, INT8_POD_DEPTH)
+    shards = shard_params(params, cfg2, mesh)
+    want, want_first, _ = int8_pod_run(cfg2, params, None, 8)
+    got, got_first, _ = int8_pod_run(cfg2, shards, mesh, 8)
+    right = L.quantize_kv_shared
+    L.quantize_kv_shared = lambda xs: [L.quantize_kv(x) for x in xs]
+    try:
+        _, bad_first, _ = int8_pod_run(cfg2, shards, mesh, 1)
+    finally:
+        L.quantize_kv_shared = right
+    same, g, bad = (bool(torch.equal(got, want)),
+                    rel_gap(got_first, want_first),
+                    rel_gap(bad_first, want_first))
+    log(f"[int8-pod] fp32 at {cfg2.n_layers} layers: pod vs one device "
+        f"greedy tokens over 8 steps {'identical' if same else 'DIFFER'}, "
+        f"first-step logits gap {g:.3e} of the largest (gate "
+        f"{INT8_POD_RTOL:g}); planted per-rank scales: {bad:.3e}, "
+        f"{'caught' if bad > INT8_POD_RTOL else 'MISSED'}")
+    if not (same and g <= INT8_POD_RTOL):
+        failures.append(f"int8 pod: fp32 tokens or logits ({g:.3e}) differ "
+                        "from one device")
+    if not bad > INT8_POD_RTOL:
+        failures.append("int8 pod: the per-rank-scale fault passed")
+    del params, shards
+    torch.cuda.empty_cache()
+    return launches, failures
+
+
+def op_dispatch_cost(cfg, calls: int = 200) -> dict:
+    """Host microseconds a call of ``flash_decode_int8_sharded`` takes at
+    the int8 pod's per-rank shapes (``STEP_SLOTS`` x ``MAX_LEN``, TP=2),
+    launched directly as the serving path launches it, and through its
+    custom op, as the wrapper calls it while a dispatch mode counts:
+    ``calls`` back-to-back calls each, synchronized once, alternated
+    twice, the smaller of each (the launches count; call it outside a
+    counted window)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    h, kh, d = cfg.n_heads // TP, cfg.n_kv_heads // TP, cfg.head_dim
+    qs = [torch.randn((STEP_SLOTS, 1, h, d), generator=g, device=DEVICE,
+                      dtype=torch.bfloat16) for _ in range(TP)]
+    ks = [torch.randint(-127, 128, (STEP_SLOTS, MAX_LEN, kh, d), generator=g,
+                        device=DEVICE, dtype=torch.int8) for _ in range(2 * TP)]
+    sc = [torch.rand((STEP_SLOTS, MAX_LEN), generator=g, device=DEVICE)
+          for _ in range(2 * TP)]
+    kv_len = torch.full((STEP_SLOTS,), MAX_LEN, dtype=torch.int32,
+                        device=DEVICE)
+    q_off = kv_len - 1
+    paths = {
+        "direct": lambda: ops._flash_decode_int8_sharded(
+            qs, ks[:TP], ks[TP:], sc[:TP], sc[TP:], kv_len, q_off, None),
+        "custom op": lambda: torch.ops.repro_torch.flash_decode_int8_sharded(
+            qs, ks[:TP], ks[TP:], sc[:TP], sc[TP:], kv_len, q_off, 0)}
+    best = {}
+    for _ in range(2):
+        for name, fn in paths.items():
+            for _ in range(10):
+                fn()
+            synchronize_all()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            synchronize_all()
+            us = (time.perf_counter() - t0) / calls * 1e6
+            best[name] = min(best.get(name, us), us)
+    return best
+
+
+def round_block(nbytes: int) -> int:
+    """The bytes the caching allocator holds for a tensor of ``nbytes``:
+    a multiple of 512."""
+    return max(-(-nbytes // 512) * 512, 512)
+
+
+def dry_vs_card(cfg, shape, mesh_shape, kv_dtype) -> list:
+    """Phase 16 (b), one case: the dry run's record on the meta device
+    against the same rank program on the card (``dryrun.rank_program``):
+    its ``flops`` times the pod's ranks against ``FlopCounterMode`` over
+    the card's step (exact); its argument bytes against the card inputs'
+    (exact), and ``memory_allocated`` of those inputs against their
+    512-byte blocks within ``ALLOC_MARGIN``; its peak at most
+    ``DRY_PEAK_MARGIN`` under ``max_memory_allocated`` over the step and
+    never over it, and a planted miss outside that;
+    its roofline beside the step's time.  Returns failures."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun, make_mesh
+
+    failures = []
+    tag = f"{shape.name} {shape.global_batch}x{shape.seq_len} {mesh_shape}"
+    rec = dryrun.lower_one(cfg.arch_id, shape.name, False, input_shape=shape,
+                           cfg_override=cfg, mesh_shape=mesh_shape,
+                           kv_dtype=kv_dtype)
+    if rec["status"] != "ok":
+        return [f"dry run {tag}: {rec}"]
+    mesh = make_mesh(mesh_shape, ("data", "model"),
+                     devices=[DEVICE] * mesh_shape[0] * mesh_shape[1])
+    gc.collect()
+    torch.cuda.empty_cache()
+    synchronize_all()
+    base = torch.cuda.memory_allocated()
+    step, inputs, tp = dryrun.rank_program(cfg, shape, mesh,
+                                           kv_dtype=kv_dtype)
+    synchronize_all()
+    held = torch.cuda.memory_allocated() - base
+    sizes = dryrun._storages(inputs).values()
+    raw, blocks = sum(sizes), sum(round_block(b) for b in sizes)
+    ma = rec["memory_analysis"]
+    grad = (torch.no_grad() if shape.kind != "train"
+            else contextlib.nullcontext())
+    torch.cuda.reset_peak_memory_stats()
+    with grad, FlopCounterMode(display=False) as fc:
+        out = step(*inputs)
+    synchronize_all()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    ms = []
+    for _ in range(3):
+        with grad:
+            ms.append(event_ms(lambda: step(*inputs), reps=1, warmup=0))
+    t = sorted(ms)[1]
+    flops, dry_peak = fc.get_total_flops(), ma["peak_memory_in_bytes"] * tp
+    # the planted miss: a dry run that left out the serve step's cache, or
+    # the train step's largest leaf's two moments
+    if shape.kind == "train":
+        what = "the largest leaf's moments"
+        miss = 2 * max(x.nbytes for x in dryrun._tensors(inputs[1].mu))
+    else:
+        what = "the cache"
+        miss = sum(dryrun._storages(inputs[-1]).values())
+
+    def peak_ok(dry):
+        return 0 <= peak - dry <= DRY_PEAK_MARGIN * peak
+
+    missed = (dry_peak - miss - peak) / peak
+    dt = "bfloat16" if cfg.dtype == "bfloat16" else "float32"
+    t_f = rec["flops"] * tp / PEAK_FLOPS[dt] * 1e3
+    t_b = rec["bytes_accessed"] * tp / HBM_BYTES_S * 1e3
+    log(f"[dryrun] {cfg.arch_id} {tag}, {tp} rank(s) on one card: flops "
+        f"dry {rec['flops'] * tp:.6e} vs card {flops:.6e}; argument bytes "
+        f"dry {ma['argument_size_in_bytes'] * tp:.0f} vs card inputs {raw} "
+        f"(memory_allocated {held} vs their 512-byte blocks {blocks}); peak "
+        f"dry {dry_peak / 1e9:.4f} GB vs max_memory_allocated "
+        f"{peak / 1e9:.4f} GB ({(dry_peak - peak) / peak:+.2%}, gate 0 to "
+        f"-{DRY_PEAK_MARGIN:.0%}; without {what}: {missed:+.2%}, "
+        f"{'MISSED' if peak_ok(dry_peak - miss) else 'caught'}); "
+        f"collectives {rec['collectives']['count']}"
+        f" ({rec['collectives']['total']:.4e} B a device); roofline of the "
+        f"pod at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s and "
+        f"{HBM_BYTES_S / 1e12:.2f} TB/s: flops {t_f:.3f} ms, bytes "
+        f"{t_b:.3f} ms; the step on the card {t:.3f} ms (median of 3)")
+    if flops != rec["flops"] * tp:
+        failures.append(f"dry run {tag}: flops differ from the card's")
+    if raw != ma["argument_size_in_bytes"] * tp:
+        failures.append(f"dry run {tag}: argument bytes differ")
+    if not 0 <= held - blocks <= ALLOC_MARGIN * blocks:
+        failures.append(f"dry run {tag}: memory_allocated {held} vs "
+                        f"{blocks}")
+    if not peak_ok(dry_peak):
+        failures.append(f"dry run {tag}: peak {dry_peak} vs {peak}")
+    if peak_ok(dry_peak - miss):
+        failures.append(f"dry run {tag}: the peak's gate passed a dry run "
+                        f"without {what}")
+    del step, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures
+
+
+def dry_roofline(cfg, shape_name: str, shape=None, kv_dtype=None) -> None:
+    """The dry run's roofline of one device's step beside a hand bound."""
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.lower_one(cfg.arch_id, shape_name, False, input_shape=shape,
+                           cfg_override=cfg, mesh_shape=(1, 1),
+                           kv_dtype=kv_dtype)
+    dt = "bfloat16" if cfg.dtype == "bfloat16" else "float32"
+    t_f = rec["flops"] / PEAK_FLOPS[dt] * 1e3
+    t_b = rec["bytes_accessed"] / HBM_BYTES_S * 1e3
+    key = "train" if shape is not None else shape_name
+    log(f"[dryrun] {cfg.arch_id} {shape_name} on one device, dry-run "
+        f"roofline: flops {rec['flops']:.4e} -> {t_f:.3f} ms, bytes "
+        f"accessed {rec['bytes_accessed']:.4e} -> {t_b:.3f} ms, bound "
+        f"{max(t_f, t_b):.3f} ms; the hand bound {HAND_BOUND_MS[key]} ms "
+        f"(trace {rec['lower_s']} s)")
+
+
+def zero1_gaps(cfg, params, batch, mesh, pod_grads=None) -> tuple:
+    """One AdamW step at ``ZERO1_LR`` on one device and one ZeRO-1 step on
+    ``mesh`` from the same params: (the moments' gap, the params' gap, as
+    ``ZERO1_*_RTOL`` define them).  ``pod_grads`` replaces
+    ``steps._pod_grads`` in the ZeRO-1 step (the planted fault)."""
+    import torch
+
+    from repro_torch.launch import partition as PT
+    from repro_torch.launch import steps
+    from repro_torch.training import AdamWConfig, adamw_init
+    from repro_torch.training.tree import leaves
+
+    opt = AdamWConfig(lr=ZERO1_LR, schedule="constant", warmup_steps=1)
+    p1, s1, _ = steps.make_train_step(cfg, opt_cfg=opt)(
+        params, adamw_init(params), batch)
+    pods = steps.shard_pods(params, cfg, mesh)
+    right = steps._pod_grads
+    steps._pod_grads = pod_grads or right
+    try:
+        p2, s2, _ = steps.make_train_step(cfg, mesh=mesh, opt_cfg=opt)(
+            pods, steps.zero1_init(pods, cfg, mesh), batch)
+    finally:
+        steps._pod_grads = right
+    moment = 0.0
+    for got, want in ((s2.mu, s1.mu), (s2.nu, s1.nu)):
+        for g, w in zip(leaves(steps.zero1_gather(got, pods, cfg, mesh)),
+                        leaves(want)):
+            moment = max(moment, rel_gap(g, w))
+    update = torch.cat([(a - b).flatten()
+                        for a, b in zip(leaves(p1), leaves(params))]).norm()
+    param = max(float(torch.cat([
+        (a - w).flatten() for a, w in zip(
+            leaves(PT.gather_shards(pp, cfg, pod)), leaves(p1))]).norm()
+        / update) for pod, pp in zip(steps._pod_list(mesh)[0], p2))
+    return moment, param
+
+
+def pod_train_phase(cfg) -> list:
+    """Phase 16 (c): qwen2-1.5b's training step as a TP=2 pod, fp32 at
+    full width and ``INT8_POD_DEPTH`` layers: the pod's loss and its
+    gradients gathered (``partition.gather_shards``) against one
+    device's within phase 14's gates; then one ZeRO-1 step on a (2, 1)
+    mesh against the unsliced step within ``ZERO1_MOMENT_RTOL`` and
+    ``ZERO1_PARAM_RTOL``, and the planted fault, the first pod's
+    gradients alone in place of the pods' sum, which must fail both.
+    Returns failures."""
+    import torch
+
+    from repro_torch.launch import make_mesh, shard_params, steps, train
+    from repro_torch.launch import partition as PT
+    from repro_torch.models import loss_fn
+    from repro_torch.training.loop import to_device
+    from repro_torch.training.tree import leaves, tree_map, unflatten
+
+    failures = []
+    cfg2, params = fp32_model(cfg, INT8_POD_DEPTH)
+    batch = next(train.batches(cfg2, TRAIN_CHECK_B, TRAIN_CHECK_S, SEED))
+    one = loss_and_grads(cfg2, params, batch)
+    mesh = tp_mesh()
+    shards = shard_params(params, cfg2, mesh)
+    flat = [[t.detach().requires_grad_(True) for t in leaves(s)]
+            for s in shards]
+    loss, _ = loss_fn([unflatten(s, f) for s, f in zip(shards, flat)], cfg2,
+                      to_device(batch, mesh.ranks[0]), remat=True, mesh=mesh)
+    every = [t for f in flat for t in f]
+    grads = iter(torch.autograd.grad(loss, every))
+    gathered = PT.gather_shards([unflatten(s, [next(grads) for _ in f])
+                                 for s, f in zip(shards, flat)], cfg2, mesh,
+                                add=True)
+    dl, dg = grad_gap((loss.item(), leaves(gathered)), one)
+    del shards, flat, every, gathered
+    dmesh = make_mesh((2, 1), ("data", "model"), devices=[DEVICE] * 2)
+    moment, param = zero1_gaps(cfg2, params, batch, dmesh)
+    calls = [0]
+
+    def first_pod_only(*args, **kwargs):
+        g, m = right(*args, **kwargs)
+        calls[0] += 1
+        return (g if calls[0] % 2 else tree_map(torch.zeros_like, g)), m
+
+    right = steps._pod_grads
+    bad_moment, bad_param = zero1_gaps(cfg2, params, batch, dmesh,
+                                       first_pod_only)
+    caught = bad_moment > ZERO1_MOMENT_RTOL and bad_param > ZERO1_PARAM_RTOL
+    log(f"[pod-train] {cfg.arch_id} fp32 at {cfg2.n_layers} layers, B="
+        f"{TRAIN_CHECK_B} x S={TRAIN_CHECK_S}: TP=2 pod vs one device loss "
+        f"gap {dl:.3e} (gate {TRAIN_LOSS_RTOL:g}), gathered gradients' "
+        f"largest leaf gap {dg:.3e} (gate {TRAIN_GRAD_RTOL:g}); ZeRO-1 on a "
+        f"(2, 1) mesh at a constant lr {ZERO1_LR:g}, one step vs the "
+        f"unsliced step: moments {moment:.3e} (gate "
+        f"{ZERO1_MOMENT_RTOL:g}), params {param:.3e} of the update's norm "
+        f"(gate {ZERO1_PARAM_RTOL:g}); planted first pod's gradients "
+        f"alone: {bad_moment:.3e} and {bad_param:.3e}, "
+        f"{'caught' if caught else 'MISSED'}")
+    if not (dl <= TRAIN_LOSS_RTOL and dg <= TRAIN_GRAD_RTOL):
+        failures.append(f"pod training: loss {dl:.3e} / gradients {dg:.3e}")
+    if not (moment <= ZERO1_MOMENT_RTOL and param <= ZERO1_PARAM_RTOL):
+        failures.append(f"ZeRO-1 step differs from the unsliced: moments "
+                        f"{moment:.3e}, params {param:.3e}")
+    if not caught:
+        failures.append("ZeRO-1: the unsummed-gradient fault passed")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures
+
+
+def dryrun_phase() -> dict:
+    """Phase 16 (module docstring).  Returns (a)'s launch counts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import InputShape
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    launches, failures = int8_pod_phase(cfg)
+    t_a = time.perf_counter() - t0
+    serve = InputShape("serve_512", MAX_LEN, DRY_SERVE_B, "decode")
+    trainer = InputShape("train_8x512", TRAIN_S, TRAIN_B, "train")
+    for shape, kv in ((serve, "int8"), (trainer, None)):
+        for mesh_shape in ((1, 1), (1, TP)):
+            failures += dry_vs_card(cfg, shape, mesh_shape, kv)
+    dry_roofline(cfg, "decode_32k", kv_dtype="int8")
+    dry_roofline(cfg, "train_8x512", trainer)
+    t_b = time.perf_counter() - t0 - t_a
+    failures += pod_train_phase(cfg)
+    torch.cuda.empty_cache()
+    log(f"[dryrun] phase 16 in {time.perf_counter() - t0:.1f} s ((a) "
+        f"{t_a:.1f}, (b) {t_b:.1f})")
+    if failures:
+        raise AssertionError("phase 16: " + "; ".join(failures))
+    return launches
+
+
 def random_params(cfg):
     """``transformer.init_params`` on the card from ``SEED``."""
     import torch
@@ -5576,6 +6161,10 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
     trained = train_phase()
     lap("14 training")
+
+    # phase 16: int8 pods, the dry run held against the card, pod training
+    pod16 = dryrun_phase()
+    lap("16 dry run, int8 pods")
     log("[time] each phase, s: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}) + f"; in all "
         f"{sum(phase_s.values()):.1f} s after the imports")
@@ -5612,6 +6201,9 @@ def main(argv=None) -> None:
                                        S=STEP_PROMPT)}
     # the MoE pods' ranks, with phase 11's launches
     tp_row = dict(dtype="bfloat16", B=4, tp=TP)
+    meta["flash_decode_int8_sharded"] = (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:81")
     kernels = []
     for name, key, counts, arch in (
             [(n, k, launches, "") for n, k in served.items()]
@@ -5634,6 +6226,9 @@ def main(argv=None) -> None:
                 (AU_ARCH, AU_TP_TAG, au_rows["flash_attention"]))
                for n, k in (("flash_attention", k0),
                             ("flash_decode_sharded", tp_row))]
+            # the int8 pod's ranks, with phase 16's launches
+            + [("flash_decode_int8_sharded", tp_row, pod16,
+                f"qwen2-1.5b TP={TP}")]
             # the training batch, with phase 14's evaluation forwards
             + [(n, dict(dtype="bfloat16", B=TRAIN_B, S=TRAIN_S),
                 trained[a]["launches"], TRAIN_TAG) for n, a in (

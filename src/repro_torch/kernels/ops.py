@@ -11,14 +11,32 @@ it is given requires grad, on either device (:func:`refuse_autograd`), so
 a loss never trains through a kernel with silently zero gradients.  The
 kernels are built from ``repro_torch/csrc`` at first use
 (:mod:`repro_torch.kernels.build`).
+
+Costs.  Each wrapper is also a ``torch.library`` custom op
+(``torch.ops.repro_torch.<name>``) with a shape-only flop formula
+registered with ``torch.utils.flop_counter``.  While a
+``TorchDispatchMode`` is active (``FlopCounterMode``, the dry run's byte
+counter), a wrapper calls its op: a counter then sees the kernel as one
+op with its formula's flops and its operands' bytes, and not the plain
+version's ops on the CPU nor nothing on the card, so the CPU, the card
+and the meta device count the same work.  Under such a mode a wrapper
+also takes ``meta`` tensors (the dry run), whose op only shapes its
+outputs; outside one it refuses them, as any device but the CPU and the
+card.  Outside a mode a wrapper launches directly.  The formulas count every key a mask may
+leave visible, as a shape-only count must: the prefill's causal and
+window pairs, the decode's buffer rows (up to the window), and for the
+SSD scan each chunk's full c x c products and its state terms.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
 
@@ -173,6 +191,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16 call runs the tensor-core body of the kernel and an fp32 call its
     CUDA-core body (``csrc/flash_attention.cu``)."""
     refuse_autograd("flash_attention", q, k, v)
+    if _costed(q):
+        return torch.ops.repro_torch.flash_attention(q, k, v, int(window or 0),
+                                                     int(q_offset))
+    return _flash_attention(q, k, v, window, q_offset)
+
+
+def _flash_attention(q, k, v, window, q_offset):
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, window=window, q_offset=q_offset)
     _check("flash_attention", q, k, v)
@@ -218,6 +243,15 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B,L,KH,D); ``kv_len`` and ``q_offset`` are per-slot (B,) int32 vectors
     (or ints) that the kernel reads on the device.  Returns (B,1,H,D)."""
     refuse_autograd("flash_decode", q, k, v)
+    if _costed(q):
+        b = q.shape[0]
+        return torch.ops.repro_torch.flash_decode(
+            q, k, v, _slot_vector(kv_len, b, q.device),
+            _slot_vector(q_offset, b, q.device), int(window or 0))
+    return _flash_decode(q, k, v, kv_len, q_offset, window)
+
+
+def _flash_decode(q, k, v, kv_len, q_offset, window):
     if q.device.type == "cpu":
         return ref.flash_decode(q, k, v, kv_len=kv_len, q_offset=q_offset,
                                 window=window)
@@ -250,17 +284,31 @@ def flash_decode_sharded(qs: Sequence[torch.Tensor],
     Returns the per-rank outputs (B,1,H/tp,D).  Raises ``ValueError`` when
     the shards are not equal numbers of whole heads."""
     refuse_autograd("flash_decode_sharded", *qs, *ks, *vs)
+    _check_shards("flash_decode_sharded", qs, ks, vs)
+    if _costed(qs[0]):
+        b = qs[0].shape[0]
+        return torch.ops.repro_torch.flash_decode_sharded(
+            list(qs), list(ks), list(vs), _slot_vector(kv_len, b, qs[0].device),
+            _slot_vector(q_offset, b, qs[0].device), int(window or 0))
+    return _flash_decode_sharded(qs, ks, vs, kv_len, q_offset, window)
+
+
+def _check_shards(name: str, qs, *rest) -> None:
+    """One q and one of each of ``rest`` per rank, and equal shards of
+    whole heads."""
     tp = len(qs)
-    if tp == 0 or len(ks) != tp or len(vs) != tp:
-        raise ValueError(f"flash_decode_sharded: want one q, k and v per "
-                         f"rank, got {len(qs)}, {len(ks)}, {len(vs)}")
+    if tp == 0 or any(len(r) != tp for r in rest):
+        raise ValueError(f"{name}: want one q, k and v per rank, got "
+                         f"{[len(qs)] + [len(r) for r in rest]}")
     hs = {q.shape[2] for q in qs}
-    khs = {k.shape[2] for k in ks}
+    khs = {k.shape[2] for k in rest[0]}
     if len(hs) != 1 or len(khs) != 1:
         raise ValueError(
-            f"flash_decode_sharded: heads ({sorted(hs)} q / {sorted(khs)} kv "
-            f"per rank) must divide the {tp} ranks into equal shards of "
-            "whole heads")
+            f"{name}: heads ({sorted(hs)} q / {sorted(khs)} kv per rank) "
+            f"must divide the {tp} ranks into equal shards of whole heads")
+
+
+def _flash_decode_sharded(qs, ks, vs, kv_len, q_offset, window):
     if all(q.device.type == "cpu" for q in qs):
         return ref.flash_decode_sharded(qs, ks, vs, kv_len=kv_len,
                                         q_offset=q_offset, window=window)
@@ -275,6 +323,7 @@ def flash_decode_sharded(qs: Sequence[torch.Tensor],
 
 
 flash_decode_sharded.launches = 0
+
 
 def flash_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       k_scale: torch.Tensor, v_scale: torch.Tensor, *,
@@ -297,9 +346,28 @@ def flash_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_decode_int8: scales must be float32 "
                              f"(B,L) = {tuple(k.shape[:2])}, got {s.dtype} "
                              f"{tuple(s.shape)}")
+    if _costed(q):
+        b = q.shape[0]
+        return torch.ops.repro_torch.flash_decode_int8(
+            q, k, v, k_scale, v_scale, _slot_vector(kv_len, b, q.device),
+            _slot_vector(q_offset, b, q.device), int(window or 0))
+    return _flash_decode_int8(q, k, v, k_scale, v_scale, kv_len, q_offset,
+                              window)
+
+
+def _flash_decode_int8(q, k, v, k_scale, v_scale, kv_len, q_offset, window):
     if q.device.type == "cpu":
         return ref.flash_decode_int8(q, k, v, k_scale, v_scale, kv_len=kv_len,
                                      q_offset=q_offset, window=window)
+    out = _int8_launch(q, k, v, k_scale, v_scale, kv_len, q_offset, window)
+    flash_decode_int8.launches += 1
+    return out
+
+
+def _int8_launch(q, k, v, k_scale, v_scale, kv_len, q_offset,
+                 window) -> torch.Tensor:
+    """Check the CUDA tensors and launch the int8 decode kernel
+    (uncounted)."""
     _check_decode("flash_decode_int8", q, k, v, torch.int8)
     if any(s.device != q.device or not s.is_contiguous()
            for s in (k_scale, v_scale)):
@@ -318,11 +386,64 @@ def flash_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), _ptr(part), b, L, h, kh, d, DTYPE_CODES[q.dtype],
             int(window or 0), 1.0 / math.sqrt(d), n_split, s_len,
             _stream(q.device))
-    flash_decode_int8.launches += 1
     return out
 
 
 flash_decode_int8.launches = 0
+
+
+def flash_decode_int8_sharded(qs: Sequence[torch.Tensor],
+                              ks: Sequence[torch.Tensor],
+                              vs: Sequence[torch.Tensor],
+                              k_scales: Sequence[torch.Tensor],
+                              v_scales: Sequence[torch.Tensor], *, kv_len,
+                              q_offset, window: Optional[int] = None
+                              ) -> List[torch.Tensor]:
+    """:func:`flash_decode_int8` under tensor parallelism, as
+    :func:`flash_decode_sharded` is :func:`flash_decode`'s: ``qs[r]``
+    (B,1,H/tp,D) and the int8 codes ``ks[r]``/``vs[r]`` (B,L,KHr,D) of
+    rank r's heads, with ``k_scales[r]``/``v_scales[r]`` (B,L) its copy
+    of the per-token scales, which every rank shares (the cache's writes
+    take one cross-rank max, ``models.layers.quantize_kv_shared``).  The
+    int8 kernel runs once per shard over its local heads, each launch
+    adding one to this wrapper's count (not to :func:`flash_decode_int8`'s);
+    its outputs side by side are the single-device kernel's, bit for bit.
+    Returns the per-rank outputs (B,1,H/tp,D)."""
+    refuse_autograd("flash_decode_int8_sharded", *qs, *k_scales, *v_scales)
+    _check_shards("flash_decode_int8_sharded", qs, ks, vs, k_scales,
+                  v_scales)
+    if _costed(qs[0]):
+        b = qs[0].shape[0]
+        return torch.ops.repro_torch.flash_decode_int8_sharded(
+            list(qs), list(ks), list(vs), list(k_scales), list(v_scales),
+            _slot_vector(kv_len, b, qs[0].device),
+            _slot_vector(q_offset, b, qs[0].device), int(window or 0))
+    return _flash_decode_int8_sharded(qs, ks, vs, k_scales, v_scales, kv_len,
+                                      q_offset, window)
+
+
+def _flash_decode_int8_sharded(qs, ks, vs, k_scales, v_scales, kv_len,
+                               q_offset, window):
+    if all(q.device.type == "cpu" for q in qs):
+        return ref.flash_decode_int8_sharded(
+            qs, ks, vs, k_scales, v_scales, kv_len=kv_len, q_offset=q_offset,
+            window=window)
+    outs = []
+    for q, k, v, ksc, vsc in zip(qs, ks, vs, k_scales, v_scales):
+        if q.device.type != "cuda":
+            raise ValueError("flash_decode_int8_sharded: shards must all lie "
+                             f"on cuda or all on cpu, got {q.device}")
+        for t in (k, v):
+            if t.dtype != torch.int8:
+                raise ValueError("flash_decode_int8_sharded: k and v must be "
+                                 f"int8, got {t.dtype}")
+        outs.append(_int8_launch(q, k, v, ksc, vsc, kv_len, q_offset,
+                                 window))
+        flash_decode_int8_sharded.launches += 1
+    return outs
+
+
+flash_decode_int8_sharded.launches = 0
 
 #: (head dim P, state dim N) pairs the SSD-scan kernel is built for
 SSD_SHAPES = ((32, 16), (32, 128), (64, 16), (64, 64), (64, 128))
@@ -350,6 +471,12 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     kernels, over an fp32 workspace of :func:`ssd_workspace_floats`) and
     an fp32 call its CUDA-core body; either counts one launch."""
     refuse_autograd("ssd_scan", x, a, Bm, Cm)
+    if _costed(x):
+        return torch.ops.repro_torch.ssd_scan(x, a, Bm, Cm, int(chunk))
+    return _ssd_scan(x, a, Bm, Cm, chunk)
+
+
+def _ssd_scan(x, a, Bm, Cm, chunk):
     if x.device.type == "cpu":
         return ref.ssd_scan(x, a, Bm, Cm, chunk=chunk)
     if x.device.type != "cuda":
@@ -402,7 +529,164 @@ ssd_scan.launches = 0
 #: every kernel wrapper, by name
 KERNELS = {"flash_attention": flash_attention, "flash_decode": flash_decode,
            "flash_decode_sharded": flash_decode_sharded,
-           "flash_decode_int8": flash_decode_int8, "ssd_scan": ssd_scan}
+           "flash_decode_int8": flash_decode_int8,
+           "flash_decode_int8_sharded": flash_decode_int8_sharded,
+           "ssd_scan": ssd_scan}
+
+
+# --------------------------------------------------------------------------- #
+# The wrappers as custom ops, with their flop formulas (module docstring)
+# --------------------------------------------------------------------------- #
+
+
+def _costed(t: torch.Tensor) -> bool:
+    """Call the custom op: a dispatch mode counts."""
+    return _get_current_dispatch_mode() is not None
+
+
+def _win(window: int) -> Optional[int]:
+    return window or None
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: int, q_offset: int) -> torch.Tensor:
+    return _flash_attention(q, k, v, _win(window), q_offset)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, window, q_offset):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::flash_decode", mutates_args=())
+def _flash_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor, q_offset: torch.Tensor,
+                     window: int) -> torch.Tensor:
+    return _flash_decode(q, k, v, kv_len, q_offset, _win(window))
+
+
+@_flash_decode_op.register_fake
+def _(q, k, v, kv_len, q_offset, window):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::flash_decode_sharded", mutates_args=())
+def _flash_decode_sharded_op(qs: List[torch.Tensor], ks: List[torch.Tensor],
+                             vs: List[torch.Tensor], kv_len: torch.Tensor,
+                             q_offset: torch.Tensor,
+                             window: int) -> List[torch.Tensor]:
+    return _flash_decode_sharded(qs, ks, vs, kv_len, q_offset, _win(window))
+
+
+@_flash_decode_sharded_op.register_fake
+def _(qs, ks, vs, kv_len, q_offset, window):
+    return [torch.empty_like(q) for q in qs]
+
+
+@torch.library.custom_op("repro_torch::flash_decode_int8", mutates_args=())
+def _flash_decode_int8_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          k_scale: torch.Tensor, v_scale: torch.Tensor,
+                          kv_len: torch.Tensor, q_offset: torch.Tensor,
+                          window: int) -> torch.Tensor:
+    return _flash_decode_int8(q, k, v, k_scale, v_scale, kv_len, q_offset,
+                              _win(window))
+
+
+@_flash_decode_int8_op.register_fake
+def _(q, k, v, k_scale, v_scale, kv_len, q_offset, window):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::flash_decode_int8_sharded",
+                         mutates_args=())
+def _flash_decode_int8_sharded_op(
+        qs: List[torch.Tensor], ks: List[torch.Tensor],
+        vs: List[torch.Tensor], k_scales: List[torch.Tensor],
+        v_scales: List[torch.Tensor], kv_len: torch.Tensor,
+        q_offset: torch.Tensor, window: int) -> List[torch.Tensor]:
+    return _flash_decode_int8_sharded(qs, ks, vs, k_scales, v_scales, kv_len,
+                                      q_offset, _win(window))
+
+
+@_flash_decode_int8_sharded_op.register_fake
+def _(qs, ks, vs, k_scales, v_scales, kv_len, q_offset, window):
+    return [torch.empty_like(q) for q in qs]
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def _ssd_scan_op(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, chunk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _ssd_scan(x, a, Bm, Cm, chunk)
+
+
+@_ssd_scan_op.register_fake
+def _(x, a, Bm, Cm, chunk):
+    b, _, h, p = x.shape
+    return (torch.empty_like(x),
+            x.new_empty((b, h, p, Bm.shape[-1])))
+
+
+def attention_pairs(sq: int, skv: int, q_offset: int, window: int) -> int:
+    """(query, key) pairs a causal prefill of ``sq`` queries at positions
+    ``q_offset + i`` over ``skv`` keys may attend, within ``window``
+    (0: none)."""
+    pos = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(pos + 1, skv)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros_like(pos)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _decode_rows(L: int, window: int) -> int:
+    return min(L, window) if window else L
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q, k, v, window, q_offset, *args, out_shape=None,
+                           **kwargs) -> int:
+    b, sq, h, d = q
+    return 4 * b * h * d * attention_pairs(sq, k[1], q_offset, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode)
+def _flash_decode_flops(q, k, v, kv_len, q_offset, window, *args,
+                        out_shape=None, **kwargs) -> int:
+    b, _, h, d = q
+    return 4 * b * h * d * _decode_rows(k[1], window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode_int8)
+def _flash_decode_int8_flops(q, k, v, k_scale, v_scale, kv_len, q_offset,
+                             window, *args, out_shape=None, **kwargs) -> int:
+    b, _, h, d = q
+    return 4 * b * h * d * _decode_rows(k[1], window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode_sharded)
+def _flash_decode_sharded_flops(qs, ks, vs, kv_len, q_offset, window, *args,
+                                out_shape=None, **kwargs) -> int:
+    return sum(4 * q[0] * q[2] * q[3] * _decode_rows(k[1], window)
+               for q, k in zip(qs, ks))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode_int8_sharded)
+def _flash_decode_int8_sharded_flops(qs, ks, vs, k_scales, v_scales, kv_len,
+                                     q_offset, window, *args, out_shape=None,
+                                     **kwargs) -> int:
+    return sum(4 * q[0] * q[2] * q[3] * _decode_rows(k[1], window)
+               for q, k in zip(qs, ks))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _ssd_scan_flops(x, a, Bm, Cm, chunk, *args, out_shape=None,
+                    **kwargs) -> int:
+    b, s, h, p = x
+    n = Bm[-1]
+    # per chunk: C B^T and its product with x (c x c each), the chunk's
+    # state and the carried state's outputs (c x N x P each)
+    return b * h * (s // chunk) * (2 * chunk * chunk * (n + p)
+                                   + 4 * chunk * n * p)
 
 
 def reset_launches() -> None:

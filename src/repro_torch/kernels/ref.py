@@ -155,6 +155,16 @@ def flash_decode_sharded(qs, ks, vs, *, kv_len, q_offset,
                          window=window) for q, k, v in zip(qs, ks, vs)]
 
 
+def flash_decode_int8_sharded(qs, ks, vs, k_scales, v_scales, *, kv_len,
+                              q_offset, window: Optional[int] = None):
+    """Plain version of the sharded int8 decode: :func:`flash_decode_int8`
+    on each rank's int8 KV heads and its copy of the shared scales;
+    returns the per-rank outputs."""
+    return [flash_decode_int8(q, k, v, ks, vs, kv_len=kv_len,
+                              q_offset=q_offset, window=window)
+            for q, k, v, ks, vs in zip(qs, ks, vs, k_scales, v_scales)]
+
+
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, *, chunk: int):
     """Plain version of the SSD-scan kernel: x (B,S,H,P) already multiplied

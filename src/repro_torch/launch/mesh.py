@@ -8,13 +8,22 @@ touches a card when it is imported.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+
+#: NVIDIA H100 SXM5 (700 W), per card, from NVIDIA's H100 Tensor Core GPU
+#: data sheet: HBM3 bytes/s, dense peak flop/s by operand type (bf16 on
+#: the tensor cores, fp32 outside them), and NVLink 4's bytes/s in each
+#: direction (900 GB/s in all, 18 links)
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+NVLINK_BYTES_S = 450e9
 
 
 @dataclass(frozen=True, eq=False)
@@ -35,6 +44,11 @@ class Mesh:
         """The devices in row-major order: rank r of a ``("model",)`` mesh
         holds the r-th shard."""
         return list(self.devices.ravel())
+
+
+def _resolve(d) -> torch.device:
+    d = torch.device(d)
+    return d if d.type == "meta" else resolve_device(d)
 
 
 def visible_devices() -> List[torch.device]:
@@ -59,7 +73,7 @@ def make_mesh(shape, axes=("data", "model"), *,
             "devices= (a device may be listed more than once)")
     grid = np.empty(n, dtype=object)
     for i, d in enumerate(devices[:n]):
-        grid[i] = resolve_device(d)
+        grid[i] = _resolve(d)
     return Mesh(grid.reshape(shape), tuple(axes))
 
 
@@ -74,3 +88,52 @@ def pod_meshes(mesh) -> List[Mesh]:
     rows = np.asarray(mesh.devices).reshape(-1, tp)
     return [make_mesh((tp,), ("model",), devices=list(row)) for row in rows]
 
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production meshes over the meta device: 16 x 16
+    ``("data", "model")`` (256 ranks), or 2 x 16 x 16 ``("pod", "data",
+    "model")`` (512) with ``multi_pod``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices=["meta"] * int(np.prod(shape)))
+
+
+def batch_axes(mesh) -> tuple:
+    """Mesh axes the global batch is sharded over."""
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+# --------------------------------------------------------------------------- #
+# Collectives: the data the port moves between ranks
+# --------------------------------------------------------------------------- #
+
+#: XLA's collective kinds, the keys of the reference's ``collective_bytes``
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_COUNTERS: List[Dict[str, float]] = []
+
+
+def collective(kind: str, nbytes: float) -> None:
+    """Record one collective of ``kind`` whose output on each device is
+    ``nbytes`` (as XLA's per-device count of a collective's output
+    operand) in every active :func:`counting_collectives`; nothing when
+    none is active."""
+    for c in _COUNTERS:
+        c[kind] += float(nbytes)
+        c["count"] += 1
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Count the collectives recorded while the block runs; yields the
+    dict of the reference's keys (bytes by kind, ``count``), whose
+    ``total`` is set when the block ends."""
+    c: Dict[str, float] = {k: 0.0 for k in COLLECTIVES}
+    c["count"] = 0
+    _COUNTERS.append(c)
+    try:
+        yield c
+    finally:
+        _COUNTERS.remove(c)
+        c["total"] = sum(c[k] for k in COLLECTIVES)

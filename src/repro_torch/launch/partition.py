@@ -58,6 +58,17 @@ ratio, so the decode and prefill kernels serve every rank as they are.
 The reference replicates KV in the second layout (``sanitize_specs``) and
 falls back to XLA; the port serves it through the kernels.  A layout where
 neither count divides the other is refused.
+
+The reference's spec functions are here too (:class:`P`,
+:func:`param_pspecs`, :func:`cache_pspecs`, :func:`batch_pspecs`,
+:func:`opt_pspecs`, :func:`sanitize_specs`, :func:`local_shape`).  They
+describe layouts and place nothing: the dry run reads them for the
+batch rows a data index holds and for the ZeRO-1 slices of the AdamW
+moments.  Where the port has its own per-rank layout (the functions
+above), that layout is what runs, and the dry run's record says so.  The
+reference's ``shardings`` and ``engine_shardings`` have no counterpart: a
+JAX ``NamedSharding`` places arrays, which :func:`shard_params` and
+``transformer.init_cache(mesh=)`` do here.
 """
 from __future__ import annotations
 
@@ -113,6 +124,201 @@ _KV_LEAVES = ("wk", "wv", "bk", "bv")
 TP_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
+class P(tuple):
+    """A partition spec: per dimension an axis name, a tuple of axis
+    names, or None (replicated) — the reference's ``PartitionSpec`` read
+    as a tuple."""
+
+    def __new__(cls, *entries):
+        # a one-name tuple is that name, as JAX normalises it
+        return super().__new__(cls, (e[0] if isinstance(e, tuple)
+                                     and len(e) == 1 else e
+                                     for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+#: the reference's rules for the leaves :data:`_PACKED_RULES` splits by
+#: columns
+_SPEC_RULES = {**_PARAM_RULES, "in_proj": (2, (None, "model")),
+               "conv_w": (2, ("model", None)), "conv_b": (1, ("model",))}
+
+
+def _map_specs(fn, tree, names=()):
+    """``fn(names, leaf)`` over a parameter or cache tree: dicts by key,
+    a ``KVCache`` by its buffers (``k``, ``v``, ``k_scale``, ``v_scale``;
+    absent scales stay None)."""
+    from repro_torch.models.layers import KVCache
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, names + (k,)) for k, v in tree.items()}
+    if isinstance(tree, KVCache):
+        return KVCache(*(None if t is None else fn(names + (f,), t)
+                         for f, t in (("k", tree.k), ("v", tree.v))),
+                       tree.ring,
+                       *(None if t is None else fn(names + (f,), t)
+                         for f, t in (("k_scale", tree.k_scale),
+                                      ("v_scale", tree.v_scale))))
+    return fn(names, tree)
+
+
+def _zip_specs(fn, specs, tree):
+    """``fn(spec, leaf)`` over a spec tree and the tree it describes."""
+    from repro_torch.models.layers import KVCache
+    if isinstance(specs, P):
+        return fn(specs, tree)
+    if isinstance(specs, dict):
+        return {k: _zip_specs(fn, v, tree[k]) for k, v in specs.items()}
+    if isinstance(specs, KVCache):
+        return KVCache(*(None if s is None else _zip_specs(fn, s, t)
+                         for s, t in ((specs.k, tree.k), (specs.v, tree.v))),
+                       specs.ring,
+                       *(None if s is None else _zip_specs(fn, s, t)
+                         for s, t in ((specs.k_scale, tree.k_scale),
+                                      (specs.v_scale, tree.v_scale))))
+    raise TypeError(f"not a spec tree: {type(specs)}")
+
+
+def param_pspecs(cfg, abstract_params=None) -> Any:
+    """The reference's spec tree of ``init_params(cfg)`` (its baseline
+    ``moe_scheme="tensor"``); ``abstract_params`` defaults to
+    ``transformer.abstract_params(cfg)``."""
+    if abstract_params is None:
+        from repro_torch.models.transformer import abstract_params as ap
+        abstract_params = ap(cfg)
+
+    def spec_for(names, leaf):
+        name = names[-1]
+        in_moe = "moe" in names and "shared" not in names
+        table = _MOE_RULES if in_moe and name in _MOE_RULES else _SPEC_RULES
+        if name not in table:
+            raise KeyError(f"no partition rule for param path {names}")
+        ndim, tail = table[name]
+        pad = leaf.ndim - ndim
+        assert pad >= 0, (names, leaf.ndim, ndim)
+        return P(*((None,) * pad + tuple(tail)))
+
+    return _map_specs(spec_for, abstract_params)
+
+
+#: the ``kv_shard`` choices of :func:`cache_pspecs`
+KV_SHARDS = ("auto", "seq", "head_dim", "heads")
+
+
+def cache_pspecs(cfg, abstract_cache, batch_ax, *,
+                 context_parallel: bool = False, model_size: int = 16,
+                 kv_shard: str = "auto") -> Any:
+    """The reference's spec tree of a decode cache: the batch on
+    ``batch_ax``, KV heads on "model" (``kv_shard="heads"``, or "auto"
+    when ``n_kv_heads`` divides ``model_size``), else the sequence axis
+    ("seq", or "auto" otherwise) or the head dim ("head_dim");
+    ``context_parallel`` puts the sequence axis on "data" and replicates
+    the batch.  The int8 scales (sites, B, L) are replicated across
+    "model" unless the sequence axis is sharded."""
+    if kv_shard not in KV_SHARDS:
+        raise ValueError(f"kv_shard must be one of {KV_SHARDS}")
+    heads_fit = cfg.n_kv_heads > 0 and cfg.n_kv_heads % model_size == 0
+    seq = kv_shard == "seq" or (kv_shard == "auto" and not heads_fit)
+
+    def spec_for(names, leaf):
+        name = names[-1]
+        if name == "len":
+            return P() if context_parallel else P(batch_ax)
+        if len(names) >= 2 and names[-2] in ("kv", "cross_kv"):
+            if leaf.ndim == 3:  # int8 scales (sites, B, L)
+                if context_parallel:
+                    return P(None, None, "data")
+                return P(None, batch_ax, "model" if seq else None)
+            if context_parallel:
+                return P(None, None, "data", "model", None)
+            if kv_shard == "head_dim":
+                return P(None, batch_ax, None, None, "model")
+            if seq:
+                return P(None, batch_ax, "model", None, None)
+            return P(None, batch_ax, None, "model", None)
+        bax = None if context_parallel else batch_ax
+        if name == "conv":  # (..., B, CH, k)
+            return P(*((None,) * (leaf.ndim - 3)), bax, "model", None)
+        if name == "ssm":  # (..., B, H, P, N)
+            return P(*((None,) * (leaf.ndim - 4)), bax, "model", None, None)
+        raise KeyError(f"no partition rule for cache path {names}")
+
+    return _map_specs(spec_for, abstract_cache)
+
+
+def batch_pspecs(batch_abstract, batch_ax) -> Any:
+    """Specs of the token, label, ``embeds``, ``frames`` and
+    ``positions`` inputs: the batch axis on ``batch_ax``."""
+    def spec_for(names, leaf):
+        name = names[-1]
+        if name == "positions":  # (3, B, S)
+            return P(None, batch_ax, None)
+        if name in ("embeds", "frames"):  # (B, S, d)
+            return P(batch_ax, None, None)
+        return P(batch_ax, None)  # tokens / labels (B, S)
+
+    return _map_specs(spec_for, batch_abstract)
+
+
+def _axis_product(sizes, ax) -> int:
+    n = 1
+    for a in (ax if isinstance(ax, tuple) else (ax,)):
+        n *= sizes[a]
+    return n
+
+
+def opt_pspecs(mesh, param_spec_tree, abstract_params):
+    """ZeRO-1: each moment's spec with the ("pod", "data") axes on the
+    first dimension its param spec leaves unsharded and the data degree
+    divides.  The parameters stay TP-only."""
+    sizes = dict(zip(mesh.axis_names, np.shape(mesh.devices)))
+    dax = tuple(a for a in ("pod", "data") if a in sizes)
+    ddeg = _axis_product(sizes, dax) if dax else 1
+
+    def fix(spec, leaf):
+        entries = list(spec) + [None] * (leaf.ndim - len(spec))
+        for dim, ax in enumerate(entries if dax else ()):
+            if ax is None and leaf.shape[dim] % ddeg == 0 and leaf.shape[dim] > 0:
+                entries[dim] = dax if len(dax) > 1 else dax[0]
+                break
+        return P(*entries)
+
+    return _zip_specs(fix, param_spec_tree, abstract_params)
+
+
+def sanitize_specs(mesh, spec_tree, abstract_tree):
+    """Replicate every spec entry whose dimension the mesh axes' size does
+    not divide (e.g. 2 KV heads over a 16-way "model" axis)."""
+    sizes = dict(zip(mesh.axis_names, np.shape(mesh.devices)))
+
+    def fix(spec, leaf):
+        return P(*(None if ax is None
+                   or leaf.shape[dim] % _axis_product(sizes, ax) else ax
+                   for dim, ax in enumerate(spec)))
+
+    return _zip_specs(fix, spec_tree, abstract_tree)
+
+
+def local_shape(mesh, spec, leaf) -> Tuple[int, ...]:
+    """The shape of one device's shard of ``leaf`` under ``spec``."""
+    sizes = dict(zip(mesh.axis_names, np.shape(mesh.devices)))
+    shape = list(leaf.shape)
+    for dim, ax in enumerate(spec):
+        if ax is not None:
+            shape[dim] //= _axis_product(sizes, ax)
+    return tuple(shape)
+
+
+def data_dim(spec) -> Optional[int]:
+    """The dimension a ZeRO-1 spec (:func:`opt_pspecs`) puts the data
+    axes on, or None."""
+    for dim, ax in enumerate(spec):
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        if ax is not None and ("data" in axes or "pod" in axes):
+            return dim
+    return None
+
+
 def tp_ranks(mesh) -> List[torch.device]:
     """The ranks of a single-axis ``("model",)`` mesh (one TP pod), in
     order; raises ``ValueError`` for any other mesh."""
@@ -129,6 +335,18 @@ def check_family(cfg) -> None:
         raise NotImplementedError(
             f"tensor parallelism of family {cfg.family!r}: no TP design "
             f"(the port's TP families: {TP_FAMILIES})")
+
+
+def layout_reason(cfg, tp: int) -> Optional[str]:
+    """Why the port has no per-rank layout of ``cfg`` over ``tp`` ranks
+    (heads, KV heads, SSM heads or widths that do not divide), naming
+    ROADMAP.md's item 8.4, or None."""
+    try:
+        local_config(cfg, tp)
+    except (ValueError, NotImplementedError) as e:
+        item = "ROADMAP.md, queue 1, item 8.4"
+        return str(e) if item in str(e) else f"{e} ({item})"
+    return None
 
 
 def _layout_reason(cfg, tp: int) -> Optional[str]:
@@ -240,7 +458,7 @@ def local_config(cfg, tp: int):
                                moe=moe)
 
 
-def _split_axis(names: Tuple[str, ...], leaf: torch.Tensor) -> Optional[int]:
+def split_axis(names: Tuple[str, ...], leaf: torch.Tensor) -> Optional[int]:
     """The axis of ``leaf`` split across ranks, or None (replicated).  The
     table is chosen from the whole path, as the reference's
     ``param_pspecs`` chooses it: a routed expert's ``w_gate`` is 3-D and
@@ -255,6 +473,33 @@ def _split_axis(names: Tuple[str, ...], leaf: torch.Tensor) -> Optional[int]:
     if "model" not in tail:
         return None
     return leaf.ndim - ndim + tail.index("model")
+
+
+def _pieces(names: Tuple[str, ...], leaf: torch.Tensor, cfg,
+            tp: int) -> Optional[Tuple[int, List[torch.Tensor]]]:
+    """(axis, each rank's indices along it) of a split leaf, or None for
+    a replicated one: ``tp`` contiguous equal pieces, a packed SSM leaf's
+    :func:`ssm_columns`, a KV leaf's :func:`kv_head_range` columns (two
+    ranks may hold the same ones)."""
+    if names[-1] in _PACKED_RULES:
+        conv = names[-1] != "in_proj"
+        return (leaf.ndim + _PACKED_RULES[names[-1]],
+                [ssm_columns(cfg, tp, r, conv) for r in range(tp)])
+    axis = split_axis(names, leaf)
+    if axis is None:
+        return None
+    n = leaf.shape[axis] // tp
+    spans = [(r * n, n) for r in range(tp)]
+    if names[-1] in _KV_LEAVES and "cross" not in names:
+        hd = leaf.shape[axis] // cfg.n_kv_heads
+        spans = [(lo * hd, (hi - lo) * hd) for lo, hi in
+                 (kv_head_range(cfg, tp, r) for r in range(tp))]
+    return axis, [torch.arange(a, a + size) for a, size in spans]
+
+
+def replicated(names: Tuple[str, ...], leaf: torch.Tensor) -> bool:
+    """Every rank holds the leaf at ``names`` whole."""
+    return names[-1] not in _PACKED_RULES and split_axis(names, leaf) is None
 
 
 def shard_params(params: Dict[str, Any], cfg, mesh) -> List[Dict[str, Any]]:
@@ -273,25 +518,68 @@ def shard_params(params: Dict[str, Any], cfg, mesh) -> List[Dict[str, Any]]:
         if isinstance(tree, dict):
             per = {k: split(v, names + (k,)) for k, v in tree.items()}
             return [{k: per[k][r] for k in tree} for r in range(tp)]
-        if names[-1] in _PACKED_RULES:
-            axis = tree.ndim + _PACKED_RULES[names[-1]]
-            conv = names[-1] != "in_proj"
-            return [tree.index_select(axis, ssm_columns(cfg, tp, r, conv)
-                                      .to(tree.device)).to(d)
-                    for r, d in enumerate(ranks)]
-        axis = _split_axis(names, tree)
-        if axis is None:
+        pieces = _pieces(names, tree, cfg, tp)
+        if pieces is None:
             return [tree.to(d) for d in ranks]
-        n = tree.shape[axis] // tp
-        spans = [(r * n, n) for r in range(tp)]
-        if names[-1] in _KV_LEAVES and "cross" not in names:
-            hd = tree.shape[axis] // cfg.n_kv_heads
-            spans = [(lo * hd, (hi - lo) * hd) for lo, hi in
-                     (kv_head_range(cfg, tp, r) for r in range(tp))]
-        return [tree.narrow(axis, start, size).contiguous().to(d)
-                for (start, size), d in zip(spans, ranks)]
+        axis, idx = pieces
+        if names[-1] not in _PACKED_RULES:  # contiguous: narrow, no gather
+            return [tree.narrow(axis, int(i[0]), len(i)).contiguous().to(d)
+                    for i, d in zip(idx, ranks)]
+        return [tree.index_select(axis, i.to(tree.device)).to(d)
+                for i, d in zip(idx, ranks)]
 
     return split(params, ())
+
+
+def gather_shards(shards: List[Dict[str, Any]], cfg, mesh, *,
+                  add: bool = False) -> Dict[str, Any]:
+    """The inverse of :func:`shard_params`: the rank trees -> one tree on
+    rank 0's device.  With ``add`` the pieces that ranks share are summed
+    (the gradients of a pod: a replicated leaf's, and a KV head's that two
+    ranks hold, are the sums of the ranks' partials); without it a shared
+    piece is taken from the first rank that holds it."""
+    ranks = tp_ranks(mesh)
+    tp, dev = len(ranks), ranks[0]
+
+    def join(trees, names):
+        if isinstance(trees[0], dict):
+            return {k: join([t[k] for t in trees], names + (k,))
+                    for k in trees[0]}
+        parts = [t.to(dev) for t in trees]
+        shape = list(parts[0].shape)
+        pieces = _pieces(names, parts[0], cfg, 1)  # the axis, if split
+        if pieces is None:
+            if not add:
+                return parts[0]
+            total = parts[0]
+            for t in parts[1:]:
+                total = total + t
+            return total
+        axis = pieces[0]
+        shape[axis] = _global_width(names, parts[0], cfg, tp, axis)
+        _, idx = _pieces(names, torch.empty(shape, device="meta"), cfg, tp)
+        out = parts[0].new_zeros(shape)
+        for i, t in zip(idx, parts):
+            i = i.to(dev)
+            if add:
+                out.index_add_(axis, i, t)
+            else:
+                out.index_copy_(axis, i, t)
+        return out
+
+    return join(shards, ())
+
+
+def _global_width(names, piece: torch.Tensor, cfg, tp: int, axis: int) -> int:
+    """The unsplit width along ``axis`` of a leaf whose rank piece is
+    ``piece``."""
+    if names[-1] in _PACKED_RULES:
+        conv = cfg.ssm_d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+        return conv + (cfg.ssm_d_inner + cfg.ssm_n_heads
+                       if names[-1] == "in_proj" else 0)
+    if names[-1] in _KV_LEAVES and "cross" not in names:
+        return cfg.n_kv_heads * cfg.head_dim
+    return piece.shape[axis] * tp
 
 
 def kernel_decode_support(cfg, mesh) -> Optional[str]:

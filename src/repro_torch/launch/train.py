@@ -14,13 +14,17 @@ the reference).
     python -m repro_torch.launch.train --arch mamba2-130m --steps 100 \\
         --ckpt build/lm_ckpt
 
-The reference's ``--dry-run`` (and ``--mesh multi``) lowers the full
-config on the production mesh through ``dryrun.py``, which is not ported:
-both exit with a message naming it (ROADMAP.md, queue 1, item 10).
+``--dry-run`` (and ``--mesh multi``) runs the port's dry run of the
+FULL config's train step (``train_4k``) on the production mesh, single
+or multi-pod, over the meta device, in a subprocess, as the reference
+hands its dry run to ``repro.launch.dryrun``:
+
+    python -m repro_torch.launch.train --arch yi-6b --dry-run --mesh multi
 """
 from __future__ import annotations
 
 import argparse
+import subprocess
 import sys
 import time
 
@@ -39,12 +43,6 @@ from repro_torch.training import (
     restore_checkpoint,
     save_checkpoint,
 )
-
-DRY_RUN_NOT_PORTED = (
-    "--dry-run and --mesh multi lower the full config on the production "
-    "mesh through dryrun.py, which is not ported yet (ROADMAP.md, queue 1, "
-    "item 10)")
-
 
 def batches(cfg, batch_size: int, seq_len: int, seed: int = 0):
     """The reference's token stream: the synthetic requests' prompt and
@@ -88,19 +86,28 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=20)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--dry-run", action="store_true",
-                    help="not ported: lower the FULL config on the "
-                         "production mesh")
+                    help="dry-run the FULL config's train step on the "
+                         "production mesh (meta device)")
     ap.add_argument("--mesh", default="single", choices=["single", "multi"])
+    ap.add_argument("--dry-run-out", default=None,
+                    help="the dry run's record directory (default: "
+                         "dryrun's, experiments/dryrun_torch/)")
     return ap
 
 
 def main(argv=None) -> dict:
     """Run the CLI; returns ``start`` (the step trained from), ``losses``
     (per step, host floats) and ``ckpt`` (the checkpoint written, or
-    None)."""
+    None), or for a dry run ``dry_run``: the subprocess's exit code."""
     args = _parser().parse_args(argv)
     if args.dry_run or args.mesh != "single":
-        sys.exit(DRY_RUN_NOT_PORTED)
+        out = [] if args.dry_run_out is None else ["--out", args.dry_run_out]
+        rc = subprocess.call([
+            sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            args.arch, "--shape", "train_4k", "--mesh", args.mesh] + out)
+        if rc:
+            sys.exit(rc)
+        return {"dry_run": rc}
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

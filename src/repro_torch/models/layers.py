@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import reference_attention as sdpa
+from repro_torch.launch.mesh import collective
 
 Params = Dict[str, torch.Tensor]
 ATTN_IMPLS = ("kernel", "torch")
@@ -58,15 +59,38 @@ class KVCache:
                          for s in (self.k_scale, self.v_scale)))
 
 
-def quantize_kv(x: torch.Tensor):
+def quantize_kv(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
     """x (B, S, KH, D) -> (int8 codes, fp32 scales (B, S)): symmetric, one
     scale per token, ``max(amax / 127, 1e-8)`` over its heads x dims; codes
     are ``x / scale`` rounded half to even and clipped to +-127 (the
-    reference divides, so the port does too)."""
+    reference divides, so the port does too).  ``amax`` (B, S) replaces
+    the token's amax over ``x``'s heads (:func:`quantize_kv_shared`)."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=(-1, -2)) / 127.0, min=1e-8)
+    if amax is None:
+        amax = xf.abs().amax(dim=(-1, -2))
+    scale = torch.clamp(amax.to(xf.device) / 127.0, min=1e-8)
     q = torch.clamp(torch.round(xf / scale[..., None, None]), -127, 127)
     return q.to(torch.int8), scale
+
+
+def quantize_kv_shared(xs: Sequence[torch.Tensor]):
+    """:func:`quantize_kv` of one token's K (or V) split over the
+    tensor-parallel ranks' KV heads, ``xs[r]`` (B, S, KHr, D) on rank r's
+    device: each rank takes the amax over its heads, the ranks take one
+    max of those (B, S) vectors in rank order on rank 0's device (a
+    cross-rank all-reduce), and every rank quantizes with that shared
+    amax.  The max is exact, so every rank's codes and its copy of the
+    scales are the single-device cache's; a KV head that two ranks hold
+    (replicated by need) changes no max.  Returns ``[(codes, scales)]``
+    a rank; one rank is :func:`quantize_kv`."""
+    if len(xs) == 1:
+        return [quantize_kv(xs[0])]
+    amax = [x.float().abs().amax(dim=(-1, -2)) for x in xs]
+    top = amax[0]
+    for a in amax[1:]:
+        top = torch.maximum(top, a.to(top.device))
+    collective("all-reduce", top.nbytes)
+    return [quantize_kv(x, top) for x in xs]
 
 
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
@@ -113,6 +137,19 @@ def masked_span_write(buf: torch.Tensor, start: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the meta device, which torch
+    has not: the initialisers then draw nothing and allocate nothing
+    (``transformer.abstract_params``)."""
+
+    device = torch.device("meta")
+
+
+def rng(gen):
+    """The generator to draw from on ``gen.device`` (None on meta)."""
+    return None if isinstance(gen, MetaGenerator) else gen
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                dtype=torch.float32, *, lead: Tuple[int, ...] = ()):
     """Uniform(-1/sqrt(in), 1/sqrt(in)) weights of shape lead + (in, out).
@@ -125,7 +162,7 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
     out = torch.empty(lead + (in_dim, out_dim), dtype=dtype,
                       device=gen.device)
     for m in out.view(-1, in_dim, out_dim):
-        w = torch.rand((in_dim, out_dim), generator=gen, device=gen.device,
+        w = torch.rand((in_dim, out_dim), generator=rng(gen), device=gen.device,
                        dtype=torch.float32)
         m.copy_(w.mul_(2 * scale).sub_(scale))
     return out
@@ -134,7 +171,7 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                dtype=torch.float32) -> torch.Tensor:
     """Normal(0, 0.02) embeddings."""
-    e = torch.randn((vocab, dim), generator=gen, device=gen.device,
+    e = torch.randn((vocab, dim), generator=rng(gen), device=gen.device,
                     dtype=torch.float32)
     return e.mul_(0.02).to(dtype)
 
@@ -327,7 +364,8 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
     attention over the cache -> out proj, with ``cfg`` the rank's config;
     x is (B, 1, d_model).  Rows whose ``actives[r]`` entry is False write
     nothing, so their cache stays bit for bit.  An int8 cache stores the
-    row's codes and scales (:func:`quantize_kv`).
+    row's codes and scales, the scale shared by the ranks
+    (:func:`quantize_kv_shared`).
 
     Chunked prefill: x is (B, C>1, d_model), C fresh tokens starting at
     absolute position ``curs[r]`` (B,), of which the first
@@ -341,10 +379,11 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
     K/V.
 
     Reads: the kernel path reads all ranks with one
-    ``ops.flash_decode_sharded`` call (one rank: ``ops.flash_decode``, or
-    ``ops.flash_decode_int8`` over an int8 cache, which dequantizes in
-    fp32); the plain path dequantizes an int8 cache to q's dtype and calls
-    ``sdpa``, as the reference does.  A ring is read plain whatever
+    ``ops.flash_decode_sharded`` call, or over an int8 cache one
+    ``ops.flash_decode_int8_sharded`` call (one rank:
+    ``ops.flash_decode``, or ``ops.flash_decode_int8``, which dequantizes
+    in fp32); the plain path dequantizes each rank's int8 cache to q's
+    dtype and calls ``sdpa``, as the reference does.  A ring is read plain whatever
     ``attn_impl`` is, as in the reference, which has no kernel for it.
     Returns each rank's (B, S, d_model) output (a partial sum when there
     are several ranks)."""
@@ -352,32 +391,36 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
     if xs[0].shape[1] > 1:
         return _attention_chunk(ps, cfg, xs, cos_sins, caches, curs,
                                 valid_lens)
-    if caches[0].quantized and len(caches) > 1:
-        raise NotImplementedError(
-            "an int8 KV cache under tensor parallelism is not ported: the "
-            "scale spans all KV heads of a token, so per-rank scales would "
-            "compute another function (ROADMAP.md, queue 1, item 8.3)")
     actives = actives or [None] * len(ps)
+    qkvs = [project_qkv(p, cfg, x, cs) for p, x, cs in zip(ps, xs, cos_sins)]
+    c0 = caches[0]
+    if c0.quantized:
+        kqs = quantize_kv_shared([k for _, k, _ in qkvs])
+        vqs = quantize_kv_shared([v for _, _, v in qkvs])
     qs = []
-    for p, x, cs, c, cur, act in zip(ps, xs, cos_sins, caches, curs, actives):
-        q, k, v = project_qkv(p, cfg, x, cs)
+    for r, ((q, k, v), c, cur, act) in enumerate(zip(qkvs, caches, curs,
+                                                      actives)):
         slot = cur % c.k.shape[1] if c.ring else cur
         rows = [(c.k, k), (c.v, v)]
         if c.quantized:
-            (kq, ksc), (vq, vsc) = quantize_kv(k), quantize_kv(v)
+            (kq, ksc), (vq, vsc) = kqs[r], vqs[r]
             rows = [(c.k, kq), (c.v, vq), (c.k_scale, ksc), (c.v_scale, vsc)]
         for buf, val in rows:
             masked_row_write(buf, slot, val[:, 0], act)
         qs.append(q)
     window = cfg.swa_window if cfg.attention_type == "swa" else None
-    c0 = caches[0]
     if c0.ring or attn_impl == "torch":
         outs = [_plain_read(q, c, cur, window)
                 for q, c, cur in zip(qs, caches, curs)]
-    elif c0.quantized:
+    elif c0.quantized and len(qs) == 1:
         outs = [ops.flash_decode_int8(qs[0], c0.k, c0.v, c0.k_scale,
                                       c0.v_scale, kv_len=curs[0] + 1,
                                       q_offset=curs[0], window=window)]
+    elif c0.quantized:
+        outs = ops.flash_decode_int8_sharded(
+            qs, [c.k for c in caches], [c.v for c in caches],
+            [c.k_scale for c in caches], [c.v_scale for c in caches],
+            kv_len=curs[0] + 1, q_offset=curs[0], window=window)
     elif len(qs) == 1:
         outs = [ops.flash_decode(qs[0], c0.k, c0.v, kv_len=curs[0] + 1,
                                  q_offset=curs[0], window=window)]

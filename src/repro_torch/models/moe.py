@@ -37,6 +37,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import collective
 from repro_torch.models.layers import dense_init
 
 Params = Dict[str, torch.Tensor]
@@ -207,7 +208,8 @@ def moe_block_grouped(p: Params, cfg, x: torch.Tensor
 
 
 def moe_partials(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor], *,
-                 impl: str = "dense") -> List[torch.Tensor]:
+                 impl: str = "dense",
+                 aux_out: Optional[List] = None) -> List[torch.Tensor]:
     """The MoE block on every tensor-parallel rank (a single device is one
     rank), its aux loss dropped: rank r's output over its slice of the
     experts' and shared path's hidden axes (``ps[r]``, ``xs[r]``; every
@@ -215,11 +217,19 @@ def moe_partials(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor], *,
     once, on rank 0's copy of x, and every rank gets that routing on its
     device: the ranks must add partials of the same experts, and two
     routers could order a near-tie differently (bf16 probabilities over 60
-    experts tie often)."""
+    experts tie often); over several ranks that send is recorded as one
+    collective-permute.  With ``aux_out`` (a list) the routing's
+    load-balance loss is appended to it, on rank 0's device."""
     _check_impl(impl)
     x0 = xs[0]
     routing = route(ps[0], cfg, x0.reshape(-1, x0.shape[-1]),
                     dense=impl == "dense")
+    if aux_out is not None:
+        aux_out.append(load_balance_loss(routing.probs, routing.topk_i,
+                                         cfg.moe.num_experts))
+    if len(ps) > 1:
+        collective("collective-permute",
+                   sum(t.nbytes for t in routing if t is not None))
     return [_routed(p, x, routing.to(x.device)) for p, x in zip(ps, xs)]
 
 

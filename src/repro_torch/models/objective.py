@@ -34,16 +34,19 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params, cfg, batch: Dict, *, attn_impl: str = "torch",
-            moe_impl: str = "dense", remat: bool = False
+            moe_impl: str = "dense", remat: bool = False, mesh=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, {"ce", "aux"}) of :func:`transformer.forward` on ``batch``:
     next-token CE over ``batch["labels"]``, plus ``router_aux_weight``
     times the aux loss for MoE configs.  The vlm's logits cover [patches |
     text]: labels shorter than the logits are left-padded with -1 (no
     loss at the patches), and a ``loss_mask`` shorter than the labels is
-    left-padded with False."""
+    left-padded with False.  With ``mesh`` (a ``("model",)`` mesh),
+    ``params`` is the list of rank trees and the forward runs over the
+    ranks (``transformer.forward(mesh=)``); the loss lies on rank 0's
+    device."""
     logits, aux = T.forward(params, cfg, batch, attn_impl=attn_impl,
-                            moe_impl=moe_impl, remat=remat)
+                            moe_impl=moe_impl, remat=remat, mesh=mesh)
     labels = batch["labels"].to(logits.device)
     extra = logits.shape[1] - labels.shape[1]
     if extra:

@@ -39,8 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import collective
 from repro_torch.launch.partition import SSMWidths, ssm_widths
-from repro_torch.models.layers import ATTN_IMPLS, dense_init
+from repro_torch.models.layers import ATTN_IMPLS, dense_init, rng
 
 Params = Dict[str, torch.Tensor]
 
@@ -62,8 +63,8 @@ def init_ssm(gen: torch.Generator, cfg, n_layers: int,
     dev, lead = gen.device, (n_layers,)
     proj_out = 2 * di + 2 * s.n_groups * s.d_state + nh  # z, x, B, C, dt
     lo, hi = s.a_init_range
-    a = torch.rand(lead + (nh,), generator=gen, device=dev) * (hi - lo) + lo
-    conv_w = torch.randn(lead + (conv_channels(cfg), s.d_conv), generator=gen,
+    a = torch.rand(lead + (nh,), generator=rng(gen), device=dev) * (hi - lo) + lo
+    conv_w = torch.randn(lead + (conv_channels(cfg), s.d_conv), generator=rng(gen),
                          device=dev) * 0.1
     return {
         "in_proj": dense_init(gen, d, proj_out, dtype, lead=lead),
@@ -192,6 +193,10 @@ def gated_partials(ps: List[Params], cfg, ys: List[torch.Tensor],
         total = sums[0]
         for part in sums[1:]:
             total = total + part.to(total.device)
+        collective("all-reduce", total.nbytes)
+        if total.requires_grad:
+            total.register_hook(
+                lambda g: collective("all-reduce", g.nbytes))
         var = [(total / cfg.ssm_d_inner).to(yf.device) for yf in yfs]
     outs = []
     for p, y, yf, z, v in zip(ps, ys, yfs, zs, var):

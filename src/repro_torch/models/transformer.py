@@ -34,9 +34,11 @@ exceeds ``swa_window``.
 
 Public API:
   init_params(cfg, generator)                 -> params dict
+  abstract_params(cfg)                        -> params on the meta device
+  abstract_cache(cfg, batch, max_len)         -> a cache on the meta device
   embed_inputs(params, cfg, batch)            -> (hidden, positions)
   forward(params, cfg, batch, attn_impl=,
-          moe_impl=, remat=)                  -> (logits, aux_loss)
+          moe_impl=, remat=, mesh=)           -> (logits, aux_loss)
   init_cache(cfg, batch, max_len, device)     -> cache dict (kv_dtype="int8",
                                                  sliding_window= for a ring)
   prefill(params, cfg, batch, cache)          -> (last_logits, cache)
@@ -86,10 +88,25 @@ same patches and rotates its heads by the same M-RoPE angles.  The audio
 family's encoder runs each rank's heads and FFN columns (plain, as on
 one device), each rank adds its own replicated learned positions, writes
 its query heads' cross K/V into its own ``cross_kv`` and reads them
-there.
+there.  An int8 cache under a mesh holds each rank's KV heads' codes and
+a copy of the per-token scales that is the same on every rank: each
+write takes one cross-rank max of the ranks' amaxes
+(``layers.quantize_kv_shared``), and the decode read is one
+``ops.flash_decode_int8_sharded`` call a layer.  ``forward(mesh=)``
+runs the same rank bodies over the full sequence with no cache, for
+training: the sums above are tensor ops, so autograd runs through them.
+
+Each place where the ranks exchange data records one collective with
+:func:`repro_torch.launch.mesh.collective` (the dry run counts them): a
+sum of partials an all-reduce (and, when its result is differentiated,
+one more for the gradient the ranks' copies gather), the gated norm's
+sum of squares and the int8 writes' max an all-reduce, the MoE routing
+sent from rank 0 a collective-permute, and the vocab-parallel logits
+gathered on rank 0 an all-gather.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional
 
@@ -97,6 +114,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.launch import partition as P
+from repro_torch.launch.mesh import collective
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -191,6 +209,21 @@ def init_params(cfg, generator: torch.Generator) -> Params:
         params["lm_head"] = L.dense_init(generator, cfg.d_model,
                                          cfg.vocab_size, dtype)
     return params
+
+
+def abstract_params(cfg) -> Params:
+    """``init_params(cfg)``'s tree on the meta device: every leaf's shape
+    and dtype, nothing drawn or allocated (the reference's
+    ``jax.eval_shape`` of its ``init_params``)."""
+    return init_params(cfg, L.MetaGenerator())
+
+
+def abstract_cache(cfg, batch: int, max_len: int,
+                   sliding_window: Optional[int] = None,
+                   kv_dtype: Optional[str] = None) -> Cache:
+    """:func:`init_cache` on the meta device (nothing allocated)."""
+    return init_cache(cfg, batch, max_len, torch.device("meta"),
+                      kv_dtype=kv_dtype, sliding_window=sliding_window)
 
 
 def _unstack(tree, n: int) -> List[Any]:
@@ -316,13 +349,15 @@ def forward(params: Params, cfg, batch: Dict, *, attn_impl: str = "torch",
     ``remat=True`` recomputes each layer body in the backward pass
     (``torch.utils.checkpoint``), the encoder's too, and for the hybrid
     each inner SSM layer and each group, as the reference's
-    ``jax.checkpoint`` does.  ``mesh`` is refused: training under tensor
-    parallelism goes with ``dryrun.py``."""
+    ``jax.checkpoint`` does.  With ``mesh`` (a ``("model",)`` mesh)
+    ``params`` is the list of rank trees of ``launch.partition
+    .shard_params``: every rank runs its share of each layer and the
+    ranks sum their partials (module docstring), remat per layer over
+    the ranks' bodies; the logits and ``aux`` lie on rank 0's device, and
+    autograd reaches every rank's leaves."""
     if mesh is not None:
-        raise NotImplementedError(
-            "forward under a mesh (training under tensor parallelism) is "
-            "not ported; it comes with dryrun.py's step layouts (ROADMAP.md, "
-            "queue 1, item 8.5)")
+        return _forward_ranks(params, cfg, batch, attn_impl, moe_impl, remat,
+                              mesh)
     _check_family(cfg)
     run = _checkpointed if remat else (lambda fn, *args: fn(*args))
     h, pos = embed_inputs(params, cfg, batch)
@@ -358,6 +393,75 @@ def forward(params: Params, cfg, batch: Dict, *, attn_impl: str = "torch",
                        cos_sin)
             aux = aux + a
     return unembed(params, cfg, h), aux
+
+
+def _forward_ranks(params, cfg, batch: Dict, attn_impl: str, moe_impl: str,
+                   remat: bool, mesh):
+    """:func:`forward` over the ranks of ``mesh``: the prefill's rank
+    bodies with no cache."""
+    shards, _, ranks, lcfg = _ranks(params, cfg, None, mesh)
+    run = _checkpointed if remat else (lambda fn, *args: fn(*args))
+    hs, pos = _embed_batch(shards, cfg, batch, ranks)
+    cos_sins = None if cfg.family == "ssm" else _rank_cos_sins(cfg, pos,
+                                                               ranks)
+    zero = torch.zeros((), dtype=torch.float32, device=ranks[0])
+    auxs = [zero]
+
+    def ssm_layer(*hs, lps):
+        return tuple(_ssm_body(cfg, attn_impl, list(lps), list(hs))[0])
+
+    def attn_layer(*hs, lps, mlp=True):
+        aux = []
+        out = _attn_prefill(cfg, lcfg, list(lps), list(hs), cos_sins, None,
+                            0, attn_impl, moe_impl, mlp=mlp, aux=aux)
+        return (*out, sum(aux) if aux else zero)
+
+    if cfg.family == "ssm":
+        for lps in zip(*[_unstack(p["layers"], cfg.n_layers)
+                         for p in shards]):
+            hs = run(functools.partial(ssm_layer, lps=lps), *hs)
+    elif cfg.family == "hybrid":
+        per = [_hybrid_layers(p, cfg) for p in shards]
+
+        def group(*hs, g):
+            for lps in zip(*[q[0][g] for q in per]):
+                hs = run(functools.partial(ssm_layer, lps=lps), *hs)
+            return attn_layer(*hs, lps=[q[2] for q in per])[:-1]
+
+        for g in range(len(per[0][0])):
+            hs = run(functools.partial(group, g=g), *hs)
+        for lps in zip(*[q[1] for q in per]):
+            hs = run(functools.partial(ssm_layer, lps=lps), *hs)
+    elif cfg.family == "audio":
+        enc = [_frames_in(p, cfg, batch["frames"]) for p in shards]
+        for lps in zip(*[_unstack(p["enc_layers"], cfg.encoder.n_layers)
+                         for p in shards]):
+            enc = run(lambda *e, lps=lps: tuple(
+                _enc_layer(cfg, lcfg, list(lps), list(e))), *enc)
+        enc = [L.apply_norm(cfg, p["enc_final_norm"], e)
+               for p, e in zip(shards, enc)]
+        n = len(shards)
+
+        def dec_layer(*args, lps):
+            hs, encs = list(args[:n]), args[n:]
+            hs = attn_layer(*hs, lps=lps, mlp=False)[:-1]
+            crosses = [L.encode_cross_kv(lp["cross"], lcfg, e)
+                       for lp, e in zip(lps, encs)]
+            return tuple(_cross_mlp(cfg, lcfg, list(lps), list(hs), crosses,
+                                    moe_impl))
+
+        for lps in zip(*[_unstack(p["layers"], cfg.n_layers)
+                         for p in shards]):
+            hs = run(functools.partial(dec_layer, lps=lps), *hs, *enc)
+    else:
+        for lps in zip(*[_unstack(p["layers"], cfg.n_layers)
+                         for p in shards]):
+            *hs, aux = run(functools.partial(attn_layer, lps=lps), *hs)
+            auxs.append(aux)
+    aux = auxs[0]
+    for a in auxs[1:]:
+        aux = aux + a.to(aux.device)
+    return _unembed(shards, cfg, list(hs)), aux
 
 
 def _checkpointed(fn, *args):
@@ -493,20 +597,16 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
     states of its conv channels and heads (``conv`` (..., B, CH_r, d_conv
     - 1), ``ssm`` (..., B, H_r, P, N); ``launch.partition.ssm_widths``),
     and, for the audio family, the cross K/V of its query heads, each
-    with its own ``len``; an int8 cache under a mesh raises
-    ``NotImplementedError`` (ROADMAP.md, queue 1, item 8.3)."""
+    with its own ``len``; an int8 cache holds each rank's KV heads' codes
+    and its own copy of the per-token scales (sites, B, buf), which the
+    writes keep equal on every rank (module docstring)."""
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
                          f"{kv_dtype!r}")
     if mesh is not None:
-        if kv_dtype is not None:
-            raise NotImplementedError(
-                "an int8 KV cache under tensor parallelism is not ported "
-                "(its per-token scale spans every rank's KV heads; "
-                "ROADMAP.md, queue 1, item 8.3)")
         ranks = P.tp_ranks(mesh)
         lcfg = P.local_config(cfg, len(ranks))
-        return [_rank_cache(lcfg, batch, max_len, d, dtype, None,
+        return [_rank_cache(lcfg, batch, max_len, d, dtype, kv_dtype,
                             sliding_window, len(ranks)) for d in ranks]
     _check_family(cfg)
     return _rank_cache(cfg, batch, max_len, device, dtype, kv_dtype,
@@ -559,17 +659,28 @@ def _rank_cache(cfg, batch, max_len, device, dtype, kv_dtype, sliding_window,
     return cache
 
 
-def _write_prompt(kvc: KVCache, i: int, k: torch.Tensor,
-                  v: torch.Tensor) -> None:
-    """Write a prompt's K/V (B, S, KH, D) into layer ``i`` of the cache, in
-    place: rows [0, S), or in a ring the last ``min(S, L)`` tokens at rows
-    ``pos % L``; an int8 cache takes their codes and scales.  The prompt's
-    own attention read the fresh K/V, unquantized, as in the reference."""
-    pairs = [(kvc.k, k), (kvc.v, v)]
-    if kvc.quantized:
-        (kq, ks), (vq, vs) = L.quantize_kv(k), L.quantize_kv(v)
-        pairs = [(kvc.k, kq), (kvc.v, vq), (kvc.k_scale, ks),
-                 (kvc.v_scale, vs)]
+def _write_prompts(kvcs: List[KVCache], i: int, ks: List[torch.Tensor],
+                   vs: List[torch.Tensor]) -> None:
+    """Write each rank's prompt K/V (B, S, KHr, D) into layer ``i`` of its
+    cache, in place (:func:`_write_prompt`); an int8 cache takes their
+    codes under the scales the ranks share (``layers.quantize_kv_shared``).
+    The prompt's own attention read the fresh K/V, unquantized, as in the
+    reference."""
+    if not kvcs[0].quantized:
+        for kvc, k, v in zip(kvcs, ks, vs):
+            _write_prompt(kvc, i, [(kvc.k, k), (kvc.v, v)])
+        return
+    for kvc, (kq, ksc), (vq, vsc) in zip(kvcs, L.quantize_kv_shared(ks),
+                                         L.quantize_kv_shared(vs)):
+        _write_prompt(kvc, i, [(kvc.k, kq), (kvc.v, vq), (kvc.k_scale, ksc),
+                               (kvc.v_scale, vsc)])
+
+
+def _write_prompt(kvc: KVCache, i: int, pairs) -> None:
+    """Write each (buffer, prompt rows (B, S, ...)) pair of ``pairs`` into
+    layer ``i`` of the cache ``kvc``, in place: rows [0, S), or in a ring
+    the last ``min(S, L)`` tokens at rows ``pos % L``."""
+    k = pairs[0][1]
     s, buf = k.shape[1], kvc.k.shape[2]
     if kvc.ring:
         take = min(s, buf)
@@ -602,17 +713,8 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
     ``mesh``, see the module docstring; the logits lie on rank 0's
     device."""
     shards, caches, ranks, lcfg = _ranks(params, cfg, cache, mesh)
-    hs = _embed(shards, cfg, batch["tokens"], ranks)
-    embeds = batch.get("embeds")
-    if cfg.frontend == "vision_stub" and embeds is not None:
-        hs = [torch.cat([embeds.to(h.device, h.dtype), h], 1) for h in hs]
+    hs, pos = _embed_batch(shards, cfg, batch, ranks)
     b, s = hs[0].shape[:2]
-    pos = batch.get("positions")
-    if pos is None:
-        pos = torch.arange(s, device=ranks[0])[None, :].expand(b, s)
-    if cfg.rope_type == "learned":
-        hs = [h + learned_positions(p, cfg, pos.to(h.device))
-              for p, h in zip(shards, hs)]
     if cfg.family != "ssm":
         cos_sins = _rank_cos_sins(cfg, pos, ranks)
     if cfg.family == "ssm":
@@ -795,10 +897,17 @@ def _ranks(params, cfg, cache, mesh):
 def _all_reduce(parts: List[torch.Tensor]) -> List[torch.Tensor]:
     """Sum the ranks' partials in rank order on rank 0's device; returns a
     copy of the sum on every rank's device (ranks on one device share it),
-    so the sum is the same on every rank and in every run."""
+    so the sum is the same on every rank and in every run.  Records one
+    all-reduce, and when the sum is differentiated one more for the
+    gradient its copies gather (module docstring)."""
     total = parts[0]
     for p in parts[1:]:
         total = total + p.to(total.device)
+    if len(parts) > 1:
+        collective("all-reduce", total.nbytes)
+        if total.requires_grad:
+            total.register_hook(
+                lambda g: collective("all-reduce", g.nbytes))
     return [total.to(p.device) for p in parts]
 
 
@@ -815,6 +924,24 @@ def _rank_cos_sins(cfg, pos: torch.Tensor, ranks):
     ``batch_pspecs`` replicates them: each rank rotates its heads by the
     same angles."""
     return [L.positional_cos_sin(cfg, pos.to(d)) for d in ranks]
+
+
+def _embed_batch(shards: List[Params], cfg, batch: Dict, ranks):
+    """Every rank's embedded prompt batch and the positions ((B, S), or
+    the vlm's (3, B, S) when given): the tokens (:func:`_embed`), the
+    vlm's stub ``embeds`` prepended, the learned positions added."""
+    hs = _embed(shards, cfg, batch["tokens"], ranks)
+    embeds = batch.get("embeds")
+    if cfg.frontend == "vision_stub" and embeds is not None:
+        hs = [torch.cat([embeds.to(h.device, h.dtype), h], 1) for h in hs]
+    b, s = hs[0].shape[:2]
+    pos = batch.get("positions")
+    if pos is None:
+        pos = torch.arange(s, device=ranks[0])[None, :].expand(b, s)
+    if cfg.rope_type == "learned":
+        hs = [h + learned_positions(p, cfg, pos.to(h.device))
+              for p, h in zip(shards, hs)]
+    return hs, pos
 
 
 def _embed(shards: List[Params], cfg, tokens: torch.Tensor, ranks):
@@ -840,24 +967,31 @@ def _unembed(shards: List[Params], cfg, hs: List[torch.Tensor]):
     outs = [unembed(p, cfg, h) for p, h in zip(shards, hs)]
     if len(outs) == 1:
         return outs[0]
-    return torch.cat([o.to(outs[0].device) for o in outs], dim=-1)
+    logits = torch.cat([o.to(outs[0].device) for o in outs], dim=-1)
+    collective("all-gather", logits.nbytes)
+    return logits
 
 
 def _attn_prefill(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
                   cos_sins, caches, site: int, attn_impl: str,
-                  moe_impl: str, mlp: bool = True) -> List[torch.Tensor]:
+                  moe_impl: str, mlp: bool = True,
+                  aux: Optional[List] = None) -> List[torch.Tensor]:
     """One attention layer's prefill on every rank (``lps[r]``, ``hs[r]``):
-    attention, its K/V written into site ``site`` of each rank's cache,
-    then the MLP unless ``mlp`` is False.  Returns the residual stream."""
-    parts = []
-    for lp, h, cs, c in zip(lps, hs, cos_sins, caches):
+    attention, its K/V written into site ``site`` of each rank's cache
+    (none when ``caches`` is None), then the MLP unless ``mlp`` is False
+    (``aux``: :func:`_mlp`'s).  Returns the residual stream."""
+    parts, ks, vs = [], [], []
+    for lp, h, cs in zip(lps, hs, cos_sins):
         out, (k, v) = L.attention_block(
             lp["attn"], lcfg, L.apply_norm(cfg, lp["attn_norm"], h), cs,
             attn_impl=attn_impl)
-        _write_prompt(c["kv"], site, k, v)
         parts.append(out)
+        ks.append(k)
+        vs.append(v)
+    if caches is not None:
+        _write_prompts([c["kv"] for c in caches], site, ks, vs)
     hs = _add_sum(hs, parts)
-    return _mlp(cfg, lcfg, lps, hs, moe_impl) if mlp else hs
+    return _mlp(cfg, lcfg, lps, hs, moe_impl, aux) if mlp else hs
 
 
 def _attn_decode(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
@@ -890,14 +1024,16 @@ def _cross_mlp(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
 
 
 def _mlp(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
-         moe_impl: str):
+         moe_impl: str, aux: Optional[List] = None):
     """The residual stream after each rank's (column/row-parallel) MLP,
-    or after each rank's MoE block (its aux loss is dropped)."""
+    or after each rank's MoE block, whose aux loss is appended to ``aux``
+    when it is a list (else dropped)."""
     if cfg.moe.enabled:
+        kw = {} if aux is None else {"aux_out": aux}
         return _add_sum(hs, M.moe_partials(
             [lp["moe"] for lp in lps], lcfg,
             [L.apply_norm(cfg, lp["mlp_norm"], h) for lp, h in zip(lps, hs)],
-            impl=moe_impl))
+            impl=moe_impl, **kw))
     return _add_sum(hs, [
         L.mlp_block(lp["mlp"], lcfg, L.apply_norm(cfg, lp["mlp_norm"], h))
         for lp, h in zip(lps, hs)])

@@ -79,6 +79,25 @@ def adamw_init(params: Any) -> AdamWState:
                       mu=zeros(), nu=zeros())
 
 
+def adamw_leaf(cfg: AdamWConfig, step: torch.Tensor, lr: torch.Tensor,
+               p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+               v: torch.Tensor):
+    """One leaf's AdamW update at ``step`` (already advanced) and ``lr``:
+    (new p, new m, new v), elementwise, so a slice of a leaf (ZeRO-1)
+    updates as the same slice of the whole."""
+    b1c = 1.0 - cfg.b1 ** step.float().to(m.device)
+    b2c = 1.0 - cfg.b2 ** step.float().to(m.device)
+    g32 = g.float()
+    m = cfg.b1 * m + (1 - cfg.b1) * g32
+    v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g32)
+    mhat = m / b1c
+    vhat = v / b2c
+    delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * (
+        p.float())
+    newp = (p.float() - lr.to(m.device) * delta).to(p.dtype)
+    return newp, m, v
+
+
 def adamw_update(
     cfg: AdamWConfig,
     grads: Any,
@@ -96,21 +115,11 @@ def adamw_update(
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
     step = state.step + 1
     lr = schedule_lr(cfg, step)
-    b1c = 1.0 - cfg.b1 ** step.float()
-    b2c = 1.0 - cfg.b2 ** step.float()
 
     def upd(p, g, m, v, t):
         if not t:
             return p, torch.zeros_like(m), torch.zeros_like(v)
-        g32 = g.float()
-        m = cfg.b1 * m + (1 - cfg.b1) * g32
-        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g32)
-        mhat = m / b1c
-        vhat = v / b2c
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * (
-            p.float())
-        newp = (p.float() - lr * delta).to(p.dtype)
-        return newp, m, v
+        return adamw_leaf(cfg, step, lr, p, g, m, v)
 
     if trainable_mask is None:
         trainable_mask = tree_map(lambda _: True, params)

@@ -229,19 +229,22 @@ def test_add_job_matches_reference(arch):
 @pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-large-v3"])
 def test_tp_refusal_names_queue_item_8(arch):
     """The vlm and audio families build TP=2 pods (ROADMAP.md queue 1,
-    item 8.2, landed); the refusals left name their items: an int8 cache
-    under a mesh item 8.3, and a vocab the ranks do not divide (full
-    whisper's 51866 over 4 ranks) item 8.4, with ``vocab_size`` named.
-    (``tests/test_torch_tp_vlm_audio.py`` holds the pods against the JAX
-    package.)"""
+    item 8.2, landed), over int8 caches too (item 8.3, landed: each rank
+    its KV heads' codes and a copy of the per-token scales); the refusal
+    left names its item: a vocab the ranks do not divide (full whisper's
+    51866 over 4 ranks) item 8.4, with ``vocab_size`` named.
+    (``tests/test_torch_tp_vlm_audio.py`` and ``tests/test_torch_dryrun
+    .py`` hold the pods against the JAX package.)"""
     cfg = get_config(arch).reduced()
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
     mesh = make_mesh((2,), ("model",), devices=["cpu"] * 2)
     eng = InferenceEngine(cfg, params, EngineConfig(max_slots=1, max_len=32),
                           mesh=mesh)
     assert [c["kv"].k.shape[3] for c in eng.cache] == [1, 1]
-    with pytest.raises(NotImplementedError, match="queue 1, item 8.3"):
-        T.init_cache(cfg, 1, 32, mesh=mesh, kv_dtype="int8")
+    caches = T.init_cache(cfg, 1, 32, mesh=mesh, kv_dtype="int8")
+    for c in caches:
+        assert c["kv"].k.dtype == torch.int8 and c["kv"].k.shape[3] == 1
+        assert c["kv"].k_scale.shape == c["kv"].k.shape[:3]
     full = get_config(arch)
     if full.vocab_size % 4:
         with pytest.raises(ValueError,

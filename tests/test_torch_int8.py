@@ -29,7 +29,7 @@ from repro_torch.bridge import (cache_from_numpy, cache_to_numpy,  # noqa: E402
                                 params_from_numpy)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.launch import make_mesh  # noqa: E402
+from repro_torch.launch import make_mesh, shard_params  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
@@ -277,18 +277,27 @@ def test_ring_read_launches_no_kernel(setup):
 
 
 def test_int8_under_tensor_parallelism_raises(setup):
+    """An int8 cache under a mesh raised until ROADMAP.md queue 1, item
+    8.3 landed; now a TP=2 pod's decode step over it writes every rank
+    the one-device cache's scales (one cross-rank max; relative 1e-6: the
+    ranks' K projections sum in another order) and its KV head's codes,
+    and gives one device's logits (``tests/test_torch_mesh_steps.py``
+    holds the pods against the JAX package, the scales bit for bit on
+    the same K/V)."""
     _, cfg, _, tp = setup
     mesh = make_mesh((2,), ("model",), devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="int8"):
-        T.init_cache(cfg, 2, 32, "cpu", mesh=mesh, kv_dtype="int8")
-    cache = T.init_cache(cfg, 2, 32, "cpu", kv_dtype="int8")
-    lp = T._unstack(tp["layers"], cfg.n_layers)[0]
-    x = torch.zeros((2, 1, cfg.d_model))
-    cs = L.positional_cos_sin(cfg, torch.zeros((2, 1), dtype=torch.int32))
-    cur = torch.zeros((2,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="int8"):
-        L.attention_decode([lp["attn"]] * 2, cfg, [x] * 2, [cs] * 2,
-                           [cache["kv"].layer(0)] * 2, [cur] * 2)
+    pod = T.init_cache(cfg, 2, 32, "cpu", mesh=mesh, kv_dtype="int8")
+    one = T.init_cache(cfg, 2, 32, "cpu", kv_dtype="int8")
+    tok = torch.tensor([[5], [9]], dtype=torch.int32)
+    want, _ = T.decode_step(tp, cfg, tok, one)
+    got, _ = T.decode_step(shard_params(tp, cfg, mesh), cfg, tok, pod,
+                           mesh=mesh)
+    assert float((got - want).abs().max()) <= 1e-4
+    for c in pod:
+        for got_s, want_s in ((c["kv"].k_scale, one["kv"].k_scale),
+                              (c["kv"].v_scale, one["kv"].v_scale)):
+            assert torch.allclose(got_s, want_s, rtol=1e-6, atol=0)
+        assert c["kv"].k.shape[3] == 1
     with pytest.raises(ValueError, match="kv_dtype"):
         T.init_cache(cfg, 2, 32, "cpu", kv_dtype="fp8")
 

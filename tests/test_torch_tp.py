@@ -425,10 +425,13 @@ def test_tp_refuses_an_uneven_layout(setup):
 def test_ssm_family_under_a_mesh_is_not_ported():
     """The SSM family's pods are served now (``tests/test_torch_tp_ssm.py``
     holds them against the JAX package): an engine and a cache build
-    under a mesh, each rank with its share of the SSM heads.  What is not
-    ported for the family under a mesh still raises rather than serve
-    something else: an int8 cache, and a prompt chunk into recurrent
-    state (which no engine chunks, on one device either)."""
+    under a mesh, each rank with its share of the SSM heads.  An int8
+    cache under a mesh is built now (ROADMAP.md queue 1, item 8.3,
+    landed): for this family it holds the states alone, as the
+    reference's ``init_cache`` ignores ``kv_dtype`` here.  What is not
+    ported for the family still raises rather than serve something else:
+    a prompt chunk into recurrent state (which no engine chunks, on one
+    device either)."""
     cfg = get_config("mamba2-130m").reduced()
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
     eng = InferenceEngine(cfg, params, EngineConfig(max_slots=1, max_len=32),
@@ -436,8 +439,10 @@ def test_ssm_family_under_a_mesh_is_not_ported():
     assert [tuple(c["ssm"]["ssm"].shape) for c in eng.cache] == [
         (cfg.n_layers, 1, cfg.ssm_n_heads // 2, cfg.ssm.head_dim,
          cfg.ssm.d_state)] * 2
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        T.init_cache(cfg, 1, 32, mesh=cpu_mesh(2), kv_dtype="int8")
+    int8 = T.init_cache(cfg, 1, 32, mesh=cpu_mesh(2), kv_dtype="int8")
+    assert [sorted(c) for c in int8] == [["len", "ssm"]] * 2
+    assert [tuple(c["ssm"]["ssm"].shape) for c in int8] == [
+        tuple(c["ssm"]["ssm"].shape) for c in eng.cache]
     with pytest.raises(ValueError, match="one-shot prefill"):
         T.prefill_chunk(eng.params, cfg, {"tokens": torch.zeros(
             (1, 4), dtype=torch.int32)}, eng.cache, start=0, valid_len=4,

@@ -33,6 +33,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import shapes as S  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch import dryrun, shard_params  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import forward, loss_fn  # noqa: E402
 from repro_torch.training import AdamWConfig, adamw_init  # noqa: E402
@@ -147,10 +148,16 @@ def _kernel_inputs(name):
     if name == "flash_decode_sharded":
         return ([q1[:, :, :2], q1[:, :, 2:]], [k[:, :, :1], k[:, :, 1:]],
                 [v[:, :, :1], v[:, :, 1:]]), lens
-    if name == "flash_decode_int8":
+    if name.startswith("flash_decode_int8"):
         codes = torch.randint(-127, 128, (1, 8, 2, 16), generator=g,
                               dtype=torch.int8)
-        return (q1, codes, codes.clone(), rand(1, 8), rand(1, 8)), lens
+        args = (q1, codes, codes.clone(), rand(1, 8), rand(1, 8))
+        if name == "flash_decode_int8":
+            return args, lens
+        # two ranks, one KV head each, sharing the scales
+        return ([q1[:, :, :2], q1[:, :, 2:]], [codes[:, :, :1].contiguous(),
+                codes[:, :, 1:].contiguous()], [codes[:, :, :1].clone(),
+                codes[:, :, 1:].clone()], [args[3]] * 2, [args[4]] * 2), lens
     return (rand(1, 8, 2, 16), -rand(1, 8, 2).abs(), rand(1, 8, 2, 16),
             rand(1, 8, 2, 16)), dict(chunk=4)
 
@@ -184,9 +191,19 @@ def test_loss_through_kernels_refuses_grad_and_mesh():
     with torch.no_grad():
         got, _ = loss_fn(tp, r["cfg"], b, attn_impl="kernel")
     assert abs(got.item() - r["loss"]) <= H.LOSS_RTOL * r["loss"]
+    # under a mesh (ROADMAP.md queue 1, item 8.5's training part, landed)
+    # the loss is the reference's; what stays refused is ZeRO-3, which
+    # the dry run skips naming item 8.5
     mesh = make_mesh((2,), ("model",), devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8.5"):
-        forward(r["tp"], r["cfg"], b, mesh=mesh)
+    pod, _ = loss_fn(shard_params(r["tp"], r["cfg"], mesh), r["cfg"], b,
+                     mesh=mesh)
+    assert abs(pod.item() - r["loss"]) <= H.LOSS_RTOL * r["loss"]
+    assert forward(shard_params(r["tp"], r["cfg"], mesh), r["cfg"], b,
+                   mesh=mesh)[0].shape == forward(r["tp"], r["cfg"],
+                                                   b)[0].shape
+    reason = dryrun.skip_reason(get_config("yi-6b"), S.SHAPES["train_4k"],
+                                mesh, params_data_sharded=True)
+    assert "ZeRO-3" in reason and "item 8.5" in reason
 
 
 def test_abstract_opt_state_is_fp32_on_meta():

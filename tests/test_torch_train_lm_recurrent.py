@@ -3,9 +3,10 @@ hybrid and audio families (as ``tests/test_torch_train_lm.py`` does for
 the others, with its tolerances), and the entry points:
 ``repro_torch.launch.train`` (the loss falls; checkpoints cross to the
 reference and back; its token stream is the reference's; ``--dry-run`` and
-``--mesh multi`` are refused) and ``repro_torch.launch.generate`` (the
+``--mesh multi`` run the port's dry run) and ``repro_torch.launch.generate`` (the
 reference's JSONL byte for byte, read by ``serve --trace``).
 """
+import json
 import sys
 
 import pytest
@@ -142,10 +143,22 @@ def test_checkpoint_crosses_to_reference_and_back(tmp_path):
         assert torch.equal(a, b)
 
 
-def test_train_cli_refuses_dry_run_and_mesh_multi():
-    for extra in (["--dry-run"], ["--mesh", "multi"]):
-        with pytest.raises(SystemExit, match="queue 1, item 10"):
-            train.main(["--device", "cpu", "--steps", "1"] + extra)
+def test_train_cli_refuses_dry_run_and_mesh_multi(capfd, tmp_path):
+    """``--dry-run`` and ``--mesh multi`` ran nothing before the dry run
+    was ported (ROADMAP.md queue 1, item 10, landed); now they run it on
+    the full config's train_4k step in a subprocess, as the reference's
+    CLI does, and its record lands where ``--dry-run-out`` puts it:
+    qwen2-1.5b's 12 query heads over the production mesh's 16-way model
+    axis are skipped naming item 8.4, the layout the port lacks."""
+    for extra, mesh in ((["--dry-run"], "single"), (["--mesh", "multi"],
+                                                    "multi")):
+        assert train.main(["--arch", "qwen2-1.5b", "--dry-run-out",
+                           str(tmp_path)] + extra) == {"dry_run": 0}
+        out = capfd.readouterr().out
+        assert f"SKIP qwen2-1.5b x train_4k x {mesh}" in out
+        path = tmp_path / f"qwen2-1.5b_train_4k_{mesh}.json"
+        rec = json.loads(path.read_text())
+        assert rec["status"] == "skipped" and "item 8.4" in rec["reason"]
 
 
 @pytest.mark.parametrize("seed", [0, 3])

@@ -271,15 +271,18 @@ def test_tensor_parallelism_is_refused(capsys):
     """A vlm pod is served now (ROADMAP.md queue 1, item 8.2, landed;
     ``tests/test_torch_tp_vlm_audio.py`` holds it against the JAX
     package): ``check_family`` passes, each rank's cache holds the KV
-    head its query heads read, and the CLI serves ``--mesh 1x2``.  What
-    stays refused is an int8 cache under a mesh, naming item 8.3."""
+    head its query heads read, and the CLI serves ``--mesh 1x2``.  An
+    int8 cache under a mesh is built now (item 8.3, landed): the same
+    heads in int8 codes, with each rank's copy of the per-token scales."""
     cfg = get_config(ARCH).reduced()
     check_family(cfg)
     mesh = make_mesh((2,), ("model",), devices=["cpu"] * 2)
     caches = T.init_cache(cfg, 1, 32, mesh=mesh)
     assert [tuple(c["kv"].k.shape) for c in caches] == [(2, 1, 32, 1, 32)] * 2
-    with pytest.raises(NotImplementedError, match="queue 1, item 8.3"):
-        T.init_cache(cfg, 1, 32, mesh=mesh, kv_dtype="int8")
+    caches = T.init_cache(cfg, 1, 32, mesh=mesh, kv_dtype="int8")
+    assert [tuple(c["kv"].k.shape) for c in caches] == [(2, 1, 32, 1, 32)] * 2
+    assert all(c["kv"].k.dtype == torch.int8 for c in caches)
+    assert [tuple(c["kv"].v_scale.shape) for c in caches] == [(2, 1, 32)] * 2
     responses, _ = serve.main(["--arch", ARCH, "--mesh", "1x2", "--n", "2",
                                "--max-output", "4", "--device", "cpu"])
     assert len(responses) == 2 and all(r.ok for r in responses)
