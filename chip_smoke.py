@@ -104,7 +104,8 @@ Phases (any failure raises and exits non-zero):
      step against the CPU copy, then the CLI's predictor trained by
      ``examples/train_predictor.py``'s recipe (Table 2's metrics before and
      after) and checkpointed; then ISRTF served over ``CLI_QUEUE`` ranked
-     by each: (a) the CLI with ``--predictor bge --predictor-ckpt
+     by each, qwen2-1.5b at phase 6's ``CLI_DEPTH`` layers: (a) the CLI
+     with ``--predictor bge --predictor-ckpt
      --calibrate ema+conformal``, (b) an ``ElisServer`` ordered by the
      full-width predictor's ranking head (``RankedPredictor`` under
      ``ema+conformal``, online head updates).  Each run must finish every
@@ -175,8 +176,9 @@ Phases (any failure raises and exits non-zero):
      decode window profiled; the pod's bf16 first prefill logits against
      the single-device kernel model within ``LOGIT_TOL_BF16``; then the
      serve CLI with ``--mesh 1x2 --arch qwen2-moe-a2.7b --prefill-chunk
-     64 --preempt-policy auto`` on ``CLI_QUEUE`` at the pod's 12 layers
-     (every request finished, its swaps and chunk dispatches printed) and
+     64 --preempt-policy auto`` on ``CLI_QUEUE`` at ``POD_CLI_DEPTH`` (6)
+     layers (every request finished, its swaps and chunk dispatches
+     printed) and
      one offload and restore through its executor;
  12. the SSM and hybrid families on tensor-parallel pods of 2 ranks (on
      one card when there is one): mamba2-130m served at 12 of its 24
@@ -196,7 +198,7 @@ Phases (any failure raises and exits non-zero):
      prefill logits against the single-device kernel model (and fp32 ones
      at the parity depth) within ``POD_LOGIT_TOL``; then the serve CLI with
      ``--mesh 1x2 --arch mamba2-130m --preempt-policy auto`` on
-     ``CLI_QUEUE`` at the pod's 12 layers, and one offload and restore
+     ``CLI_QUEUE`` at ``POD_CLI_DEPTH`` (6) layers, and one offload and restore
      through its executor
      when the traffic swapped nothing.  Phase 3's rows tagged
      ``mamba2-130m TP=2`` and ``zamba2-7b TP=2`` hold the kernels at a
@@ -280,7 +282,9 @@ Phases (any failure raises and exits non-zero):
      dry run on the meta device against the same rank program on the
      card (``dryrun.rank_program``) for the serve step over a 16 x 512
      int8 cache and the train step at B=8 x 512, each at a (1, 1) and a
-     (1, 2) mesh: ``flops`` against ``FlopCounterMode`` over the card's
+     (1, 2) mesh, and the serve step also at (1, 16), the production
+     mesh's model axis, where 4 of qwen2-1.5b's 16 ranks hold no heads
+     (``DRY_WIDE_TP``): ``flops`` against ``FlopCounterMode`` over the card's
      step and the argument bytes against the card's inputs (both exact),
      the peak at most ``DRY_PEAK_MARGIN`` under ``max_memory_allocated``
      and never over it (a dry run without the cache, or without the
@@ -294,6 +298,26 @@ Phases (any failure raises and exits non-zero):
      ``ZERO1_MOMENT_RTOL`` and its params within ``ZERO1_PARAM_RTOL`` of
      the update's norm; the planted fault, the first pod's gradients in
      place of the pods' sum, must fail both.
+ 17. uneven pods (:func:`uneven_phase`): (a) llama3.2-3b as a TP=3 pod at
+     full width and 28 layers (8 query heads a rank over GQA groups of 3,
+     so ranks 0-2 read KV heads [0, 3), [2, 6), [5, 8) and launch each
+     attention kernel as 2, 3 and 2 uniform segments; d_ff 8192 as
+     2731 / 2731 / 2730 and vocab 128256 as 3 x 42752): fp32 at 2 layers
+     its greedy tokens against the single-device kernel and plain engines
+     through evictions and a swap, its prefill logits against one
+     device's within ``POD_LOGIT_TOL`` (1e-3), which the planted
+     ``segment_kv_offset`` (a cut rank's segments read their KV heads
+     from the rank's first) must fail; phase 4's served path on the pod
+     with launch counts (``rank_launches``: 7 a layer), its bf16 prefill
+     logits against one device's (``TP_LOGIT_TOL_BF16``), and
+     ``UNEVEN_INT8_STEPS`` steps over int8 caches; (b) whisper-large-v3
+     as a TP=4 pod (vocab 51866 as 12967 / 12967 / 12966 / 12966) through
+     the step functions, fp32 and bf16 logits against one device's
+     within ``POD_LOGIT_TOL``, its step path with launch counts.  Phase
+     3's rows tagged ``llama3.2-3b TP=3`` (the decode, the int8 decode
+     and every rank's prefill over the cut shards, the decodes bit for
+     bit the single-device kernel) and ``whisper-large-v3 TP=4`` hold the
+     kernels at those shards.
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -483,7 +507,14 @@ TP_LOGIT_TOL_BF16 = 0.1
 #: ``mrope_rank0_only`` 0.1758 and ``cross_rank_local`` 2.234: the 0.1
 #: limits lie between them.  In fp32 the correct pods read 6.20e-6 and
 #: 3.52e-6, the faults 0.376 and 1.52.
+#: Phase 17's llama3.2-3b pod at TP=3 against one device: its bf16
+#: limit is the dense TP=2 pod's (``TP_LOGIT_TOL_BF16``: a rank's partial
+#: rounds to bf16 before the sum, twice a layer), its fp32 limit the
+#: families' 1e-3; the planted ``segment_kv_offset`` must break the fp32
+#: one.
 POD_LOGIT_TOL = {("ssm", "bfloat16"): 0.2,
+                 ("dense", "bfloat16"): TP_LOGIT_TOL_BF16,
+                 ("dense", "float32"): 1e-3,
                  ("hybrid", "bfloat16"): HYBRID_LOGIT_TOL_BF16,
                  ("ssm", "float32"): 1e-3, ("hybrid", "float32"): 1e-3,
                  ("vlm", "bfloat16"): 0.1, ("audio", "bfloat16"): 0.1,
@@ -514,6 +545,18 @@ SSM_TP_TAG, HY_TP_TAG = f"mamba2-130m TP={TP}", f"{HY_ARCH} TP={TP}"
 #: rank's share of them (qwen2-vl-7b: 14/2 heads of dim 128, a GQA group
 #: of 7; whisper-large-v3: 10/10 heads of dim 64)
 VL_TP_TAG, AU_TP_TAG = f"{VL_ARCH} TP={TP}", f"{AU_ARCH} TP={TP}"
+#: phase 17's uneven pods: llama3.2-3b (24 / 8 heads of dim 128) at TP=3,
+#: whose ranks hold 8 query heads each and cut GQA groups of 3 (KV heads
+#: [0, 3), [2, 6), [5, 8): 2 + 3 + 2 segment launches a layer), d_ff 8192
+#: as 2731 / 2731 / 2730 and vocab 128256 as 3 x 42752; and
+#: whisper-large-v3 at TP=4, its vocab 51866 as 12967 / 12967 / 12966 /
+#: 12966.  The tags of phase 3's rows at their shards
+UNEVEN_ARCH, UNEVEN_TP, LL_WIDTHS = "llama3.2-3b", 3, (24, 8, 128)
+AU_UNEVEN_TP = 4
+UNEVEN_TAG = f"{UNEVEN_ARCH} TP={UNEVEN_TP}"
+AU_UNEVEN_TAG = f"{AU_ARCH} TP={AU_UNEVEN_TP}"
+#: int8 serve steps of phase 17 (a)'s pod
+UNEVEN_INT8_STEPS = 8
 #: one-line faults for ``--planted-fault``: (source, regex, replacement)
 PLANTED_FAULTS = {
     # the int8 decode ignores V's scales (V read as its raw codes)
@@ -1013,9 +1056,18 @@ def check_kernels(timed: bool = True):
         check_sharded(record, *decode_case(4, dtype, gen, AU_WIDTHS,
                                            AU_ROWS), dn, es, 200,
                       tps=(TP,), arch=AU_TP_TAG)
+        # phase 17's uneven pods: llama3.2-3b's ranks at TP=3, which cut
+        # GQA groups, and whisper's at TP=4
+        check_sharded(record, *decode_case(4, dtype, gen, LL_WIDTHS), dn, es,
+                      200, tps=(UNEVEN_TP,), arch=UNEVEN_TAG)
+        check_sharded(record, *decode_case(4, dtype, gen, AU_WIDTHS,
+                                           AU_ROWS), dn, es, 200,
+                      tps=(AU_UNEVEN_TP,), arch=AU_UNEVEN_TAG)
         torch.cuda.empty_cache()
         check_int8(record, gen, dtype)
         check_int8_sharded(record, gen, dtype)
+        check_int8_sharded(record, gen, dtype, UNEVEN_TP, LL_WIDTHS,
+                           UNEVEN_TAG)
         for B in (1, 4):
             for S in (16, 128, 512):
                 for window in (None, 64):
@@ -1041,6 +1093,12 @@ def check_kernels(timed: bool = True):
                     tp=TP)
         prefill_row(STEP_SLOTS, STEP_PROMPT, AU_WIDTHS, None, AU_TP_TAG,
                     tp=TP)
+        # and phase 17's: every rank of the llama3.2-3b pod, cut groups as
+        # segments; a rank of the whisper pod at TP=4
+        check_cut_prefill(record, gen, dtype, LL_WIDTHS, UNEVEN_TP, 4,
+                          MAX_LEN, UNEVEN_TAG)
+        prefill_row(STEP_SLOTS, STEP_PROMPT, AU_WIDTHS, None, AU_UNEVEN_TAG,
+                    tp=AU_UNEVEN_TP)
         # phase 14's evaluation forward: qwen2-1.5b's training batch
         prefill_row(TRAIN_B, TRAIN_S, (HEADS, KV_HEADS, HEAD_DIM), None,
                     TRAIN_TAG)
@@ -1057,15 +1115,17 @@ def check_kernels(timed: bool = True):
                 shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
                          f"window={r['window']} n_split={r['n_split']} "
                          f"{r['heads']} heads per rank x {r['tp']} ranks on "
-                         f"one card, bitwise == single-device kernel: "
-                         f"{r['bitwise']}; per call, all shards")
+                         f"one card ({r['segments']} launches), bitwise == "
+                         f"single-device kernel: {r['bitwise']}; per call, "
+                         "all shards")
             elif name == "flash_decode":
                 shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
                          f"window={r['window']} n_split={r['n_split']}")
             elif name == "flash_decode_int8_sharded":
                 shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
                          f"{r['heads']} heads per rank x {r['tp']} ranks on "
-                         f"one card, D={r['D']} window={r['window']} "
+                         f"one card ({r['segments']} launches), D={r['D']} "
+                         f"window={r['window']} "
                          f"n_split={r['n_split']}, bitwise == single-device "
                          f"kernel: {r['bitwise']}; per call, all shards")
             elif name == "flash_decode_int8":
@@ -1262,22 +1322,46 @@ def check_long_prefill(record, gen) -> None:
         torch.cuda.empty_cache()
 
 
+def rank_shards(heads, tp: int):
+    """The shards of a ``tp``-rank pod of ``heads`` (``n_heads``,
+    ``n_kv_heads``): each rank's query heads ``[q0, q1)``, the KV heads
+    they read, its uniform GQA segments (``kernels.ops.head_segments``),
+    and the wrappers' ``head_starts`` / ``group`` arguments."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.partition import head_range, kv_head_range
+
+    g = heads.n_heads // heads.n_kv_heads
+    qr = [head_range(heads, tp, r) for r in range(tp)]
+    kr = [kv_head_range(heads, tp, r) for r in range(tp)]
+    segs = [ops.head_segments(a, b - a, g) for a, b in qr]
+    return qr, kr, segs, dict(head_starts=[a for a, _ in qr], group=g)
+
+
+def shard_heads(qr, kr) -> str:
+    """A pod's heads per rank, "q/kv": one figure where the ranks hold
+    equal shares, else each rank's."""
+    per = [f"{b - a}/{d - c}" for (a, b), (c, d) in zip(qr, kr)]
+    return per[0] if len(set(per)) == 1 else ",".join(per)
+
+
 def check_sharded(record, q, k, v, kv_len, q_off, dn, es, iters,
                   window=None, tps=(2, 4), arch=""):
     """``flash_decode_sharded`` at the shard shapes of ``tps``-way pods
-    with all ranks on one card: the decode inputs split into ``tp``
-    contiguous query-head ranges, each with the KV heads it reads.  The
-    stitched output must equal the single-device kernel bit for bit and lie
-    within the tolerance of the plain version.  Times are per call, all
-    shards: the wrapper, its plain version, and ``sdpa`` over the unsplit
-    heads (one call computing the stitched function); the bound is that of
-    the whole call (each shard reads its own KV heads' rows).  ``arch``
-    tags rows at another arch's widths than the served ones."""
+    with all ranks on one card: the decode inputs split into each rank's
+    contiguous query-head range (``partition.head_range``: unequal where
+    the ranks do not divide the heads), each with the KV heads it reads,
+    and launched with the ranks' first heads and the group size, so a rank
+    that cuts a GQA group runs as uniform segments.  The stitched output
+    must equal the single-device kernel bit for bit and lie within the
+    tolerance of the plain version.  Times are per call, all shards: the
+    wrapper, its plain version, and ``sdpa`` over the unsplit heads (one
+    call computing the stitched function); the bound is that of the whole
+    call (each shard reads its own KV heads' rows).  ``arch`` tags rows at
+    another arch's widths than the served ones."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch.partition import kv_head_range
 
     h, kh, d = q.shape[2], k.shape[2], q.shape[3]
     heads = SimpleNamespace(n_heads=h, n_kv_heads=kh)
@@ -1292,32 +1376,90 @@ def check_sharded(record, q, k, v, kv_len, q_off, dn, es, iters,
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     kw = dict(kv_len=kv_len, q_offset=q_off, window=window)
     for tp in tps:
-        ranges = [kv_head_range(heads, tp, r) for r in range(tp)]
-        qs = [c.contiguous() for c in q.chunk(tp, dim=2)]
+        qr, ranges, segs, at = rank_shards(heads, tp)
+        qs = [q[:, :, a:b].contiguous() for a, b in qr]
         ks, vs = ([x[:, :, lo:hi].contiguous() for lo, hi in ranges]
                   for x in (k, v))
         bitwise = bool(torch.equal(
-            torch.cat(ops.flash_decode_sharded(qs, ks, vs, **kw), dim=2),
+            torch.cat(ops.flash_decode_sharded(qs, ks, vs, **kw, **at),
+                      dim=2),
             ops.flash_decode(q, k, v, **kw)))
         kv_read = sum(hi - lo for lo, hi in ranges)
-        bytes_moved = (2 * q.numel() * es + 8 * q.shape[0] * tp
+        n_launch = sum(map(len, segs))
+        bytes_moved = (2 * q.numel() * es + 8 * q.shape[0] * n_launch
                        + 2 * sum(n_keys) * kv_read * d * es)
         b_ms, b_by = bound(bytes_moved, 4 * h * d * sum(n_keys), dn)
         record("flash_decode_sharded", dict(
             dtype=dn, B=q.shape[0], L=L, kv_len=kv_len.tolist(), tp=tp,
-            heads=f"{h // tp}/{ranges[0][1] - ranges[0][0]}", D=d,
-            window=window, arch=arch,
+            heads=shard_heads(qr, ranges), D=d, window=window, arch=arch,
             n_split=ops.decode_plan(q.shape[0], L, q.device)[0],
-            bitwise=bitwise, bound_ms=b_ms, bound_by=b_by),
-            lambda: torch.cat(ops.flash_decode_sharded(qs, ks, vs, **kw),
-                              dim=2),
-            lambda: torch.cat(ref.flash_decode_sharded(qs, ks, vs, **kw),
-                              dim=2),
+            segments=n_launch, bitwise=bitwise, bound_ms=b_ms,
+            bound_by=b_by),
+            lambda: torch.cat(ops.flash_decode_sharded(qs, ks, vs, **kw,
+                                                       **at), dim=2),
+            lambda: torch.cat(ref.flash_decode_sharded(
+                qs, ks, vs, segments=segs, **kw), dim=2),
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=keep, enable_gqa=True), iters,
-            timed_fns=(lambda: ops.flash_decode_sharded(qs, ks, vs, **kw),
-                       lambda: ref.flash_decode_sharded(qs, ks, vs, **kw)),
+            timed_fns=(lambda: ops.flash_decode_sharded(qs, ks, vs, **kw,
+                                                        **at),
+                       lambda: ref.flash_decode_sharded(
+                           qs, ks, vs, segments=segs, **kw)),
             exact=True)
+
+
+def check_cut_prefill(record, gen, dtype, widths, tp: int, B: int, S: int,
+                      arch: str) -> None:
+    """``flash_attention`` on each rank's heads of a ``tp``-rank pod of
+    ``widths`` (heads, KV heads, head dim) whose ranks cut GQA groups,
+    all ranks on one card, as the pod's prefill launches it (each rank's
+    first head and the group size: a cut rank runs as uniform segments).
+    The stitched output must lie within the tolerance of the plain
+    version; whether it is bit for bit the single-device kernel's is
+    printed (the bf16 body's tiles are per head, so it should be).  Times
+    per call, all ranks: the wrapper, its plain version, and ``sdpa`` over
+    the unsplit heads; the bound is the whole call's."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    dn, es = str(dtype).split(".")[1], dtype.itemsize
+    h, kh, d = widths
+    q = torch.randn((B, S, h, d), generator=gen, device="cuda", dtype=dtype)
+    k, v = (torch.randn((B, S, kh, d), generator=gen, device="cuda",
+                        dtype=dtype) for _ in range(2))
+    qr, kr, segs, at = rank_shards(SimpleNamespace(n_heads=h, n_kv_heads=kh),
+                                   tp)
+    qs = [q[:, :, a:b].contiguous() for a, b in qr]
+    ks, vs = ([x[:, :, lo:hi].contiguous() for lo, hi in kr] for x in (k, v))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def run():
+        return [ops.flash_attention(qq, kk, vv, head_start=h0,
+                                    group=at["group"])
+                for qq, kk, vv, h0 in zip(qs, ks, vs, at["head_starts"])]
+
+    def plain():
+        return [ref.over_segments(ref.flash_attention, qq, kk, vv, sg)
+                for qq, kk, vv, sg in zip(qs, ks, vs, segs)]
+
+    bitwise = bool(torch.equal(torch.cat(run(), dim=2),
+                               ops.flash_attention(q, k, v)))
+    n_pairs = sum(visible_keys(p, S, None) for p in range(S))
+    kv_read = sum(hi - lo for lo, hi in kr)
+    b_ms, b_by = bound((2 * q.numel() + 2 * B * S * kv_read * d) * es,
+                       4 * B * h * d * n_pairs, dn)
+    record("flash_attention", dict(
+        dtype=dn, B=B, S=S, window=None, bound_ms=b_ms, bound_by=b_by,
+        note=(f", {tp} ranks ({shard_heads(qr, kr)} heads), "
+              f"{sum(map(len, segs))} segment launches, bitwise == "
+              f"single-device kernel: {bitwise}; per call, all ranks"),
+        arch=arch, heads=shard_heads(qr, kr), D=d, tp=tp, bitwise=bitwise),
+        lambda: torch.cat(run(), dim=2), lambda: torch.cat(plain(), dim=2),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True), 50,
+        timed_fns=(run, plain))
 
 
 #: int8 decode cases of phase 3: (B, L, heads, KV heads, head dim, kv_len
@@ -1469,46 +1611,50 @@ def check_int8(record, gen, dtype) -> None:
     torch.cuda.empty_cache()
 
 
-def check_int8_sharded(record, gen, dtype, tp: int = TP) -> None:
-    """``flash_decode_int8_sharded`` at the shard shapes of phase 16's
-    int8 pod (qwen2-1.5b at TP=2: 6/1 heads of dim 128 a rank), B=4 x
-    ``MAX_LEN``, all ranks on one card: each rank's int8 codes of its KV
-    head and the shared scales.  The stitched output must equal the
-    single-device int8 kernel bit for bit and lie within the tolerance of
-    the plain version.  Times per call, all shards: the wrapper, its plain
-    version, and ``sdpa`` (GQA) over the unsplit heads' K/V dequantized
-    to bf16 (the dequantize not timed); the bound is the whole call's
-    bytes (each shard reads its own KV head's codes and both scales)."""
+def check_int8_sharded(record, gen, dtype, tp: int = TP,
+                       widths=(HEADS, KV_HEADS, HEAD_DIM),
+                       arch: str = "") -> None:
+    """``flash_decode_int8_sharded`` at the shard shapes of a ``tp``-rank
+    pod of ``widths`` (by default phase 16's int8 pod: qwen2-1.5b at TP=2,
+    6/1 heads of dim 128 a rank), B=4 x ``MAX_LEN``, all ranks on one
+    card: each rank's int8 codes of its KV heads and the shared scales,
+    launched with the ranks' first heads and the group size (a rank that
+    cuts a group runs as uniform segments).  The stitched output must
+    equal the single-device int8 kernel bit for bit and lie within the
+    tolerance of the plain version.  Times per call, all shards: the
+    wrapper, its plain version, and ``sdpa`` (GQA) over the unsplit
+    heads' K/V dequantized to bf16 (the dequantize not timed); the bound
+    is the whole call's bytes (each shard reads its own KV heads' codes
+    and both scales)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch.partition import kv_head_range
 
     dn = str(dtype).split(".")[1]
     B, L = 4, MAX_LEN
-    q = torch.randn((B, 1, HEADS, HEAD_DIM), generator=gen, device="cuda",
-                    dtype=dtype)
-    k, v, ks, vs = int8_kv(B, L, KV_HEADS, HEAD_DIM, gen)
+    h, kh, d = widths
+    q = torch.randn((B, 1, h, d), generator=gen, device="cuda", dtype=dtype)
+    k, v, ks, vs = int8_kv(B, L, kh, d, gen)
     kv_len = torch.tensor([1, 200, 377, MAX_LEN], dtype=torch.int32,
                           device="cuda")
     q_off = kv_len - 1
-    heads = SimpleNamespace(n_heads=HEADS, n_kv_heads=KV_HEADS)
-    ranges = [kv_head_range(heads, tp, r) for r in range(tp)]
-    qs = [c.contiguous() for c in q.chunk(tp, dim=2)]
+    qr, ranges, segs, at = rank_shards(SimpleNamespace(n_heads=h,
+                                                       n_kv_heads=kh), tp)
+    qs = [q[:, :, a:b].contiguous() for a, b in qr]
     kss, vss = ([x[:, :, lo:hi].contiguous() for lo, hi in ranges]
                 for x in (k, v))
     kw = dict(kv_len=kv_len, q_offset=q_off)
     args = (qs, kss, vss, [ks] * tp, [vs] * tp)
     bitwise = bool(torch.equal(
-        torch.cat(ops.flash_decode_int8_sharded(*args, **kw), dim=2),
+        torch.cat(ops.flash_decode_int8_sharded(*args, **kw, **at), dim=2),
         ops.flash_decode_int8(q, k, v, ks, vs, **kw)))
     n_keys = sum(visible_keys(o, min(n, L), None)
                  for o, n in zip(q_off.tolist(), kv_len.tolist()))
     kv_read = sum(hi - lo for lo, hi in ranges)
-    b_ms, b_by = bound(int8_bytes(q, kv_read, HEAD_DIM, n_keys)
+    b_ms, b_by = bound(int8_bytes(q, kv_read, d, n_keys)
                        + 8 * n_keys * (tp - 1) + 8 * B * (tp - 1),
-                       4 * HEADS * HEAD_DIM * n_keys, dn)
+                       4 * h * d * n_keys, dn)
     pos = torch.arange(L, device="cuda")
     keep = ((pos[None] < kv_len[:, None]) & (pos[None] <= q_off[:, None]))
     qt = q.transpose(1, 2).to(torch.bfloat16).contiguous()
@@ -1516,17 +1662,21 @@ def check_int8_sharded(record, gen, dtype, tp: int = TP) -> None:
               .contiguous() for c, sc in ((k, ks), (v, vs)))
     record("flash_decode_int8_sharded", dict(
         dtype=dn, B=B, L=L, kv_len=kv_len.tolist(), tp=tp,
-        heads=f"{HEADS // tp}/{ranges[0][1] - ranges[0][0]}", D=HEAD_DIM,
-        window=None, n_split=ops.decode_plan(B, L, q.device)[0],
-        bitwise=bitwise, bound_ms=b_ms, bound_by=b_by,
-        arch=f"qwen2-1.5b TP={tp}",
+        heads=shard_heads(qr, ranges), D=d, window=None,
+        n_split=ops.decode_plan(B, L, q.device)[0],
+        segments=sum(map(len, segs)), bitwise=bitwise, bound_ms=b_ms,
+        bound_by=b_by, arch=arch or f"qwen2-1.5b TP={tp}",
         library="sdpa over bf16-dequantized K/V (dequantize not timed)"),
-        lambda: torch.cat(ops.flash_decode_int8_sharded(*args, **kw), dim=2),
-        lambda: torch.cat(ref.flash_decode_int8_sharded(*args, **kw), dim=2),
+        lambda: torch.cat(ops.flash_decode_int8_sharded(*args, **kw, **at),
+                          dim=2),
+        lambda: torch.cat(ref.flash_decode_int8_sharded(
+            *args, segments=segs, **kw), dim=2),
         lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=keep[:, None, None, :], enable_gqa=True),
-        200, timed_fns=(lambda: ops.flash_decode_int8_sharded(*args, **kw),
-                        lambda: ref.flash_decode_int8_sharded(*args, **kw)),
+        200, timed_fns=(
+            lambda: ops.flash_decode_int8_sharded(*args, **kw, **at),
+            lambda: ref.flash_decode_int8_sharded(*args, segments=segs,
+                                                  **kw)),
         exact=True)
 
 
@@ -1601,7 +1751,7 @@ def describe(cfg, mesh=None) -> str:
         return (f"{describe(cfg)}, tensor parallel over {len(mesh.ranks)} "
                 f"ranks on "
                 f"{', '.join(map(str, mesh.ranks))}"
-                + (" (both ranks share one card: no interconnect is measured)"
+                + (" (the ranks share one card: no interconnect is measured)"
                    if len(set(mesh.ranks)) == 1 else ""))
     if cfg.family == "ssm":
         s = cfg.ssm
@@ -1641,34 +1791,56 @@ def check_launches(launches, want) -> None:
             raise AssertionError(f"{name} was never launched on the path")
 
 
+def rank_launches(cfg, tp: int) -> int:
+    """The attention kernels' launches a layer (or shared-block site) over
+    the ranks of a ``tp``-rank pod: one per uniform GQA segment of each
+    rank's query heads (``kernels.ops.head_segments``), so ``tp`` where
+    the ranks cut no group, up to three a rank where they do
+    (llama3.2-3b at TP=3: 2 + 3 + 2 = 7), none for a rank with no heads;
+    1 on one device."""
+    if tp == 1:
+        return 1
+    from repro_torch.kernels import ops
+    from repro_torch.launch import partition as P
+
+    return sum(len(ops.head_segments(q0, P.local_config(cfg, tp, r).n_heads,
+                                     g))
+               for r, (q0, g) in enumerate(P.rank_heads(cfg, tp)))
+
+
 def path_launches(cfg, tp: int, prefills: int, steps: int,
                   step_note: str = "") -> dict:
     """name -> (launches, why) of a served run on one engine (a pod of
     ``tp`` ranks) with ``prefills`` one-shot prefill dispatches and
     ``steps`` decode steps: ``flash_attention`` and ``ssd_scan`` once a
-    layer (or shared-block site) and rank a prefill, the decode kernel
-    (``flash_decode_sharded`` on a pod: one launch a rank) once a layer or
-    site a step; the SSM decode step launches nothing.  A run with no
-    one-shot prefill (every job admitted in chunks) expects no prefill
-    kernel."""
+    layer (or shared-block site) and rank a prefill; the decode kernel (``flash_decode_sharded`` on
+    a pod: one launch a rank) once a layer or site a step; a rank whose
+    heads cut a GQA group launches each attention kernel once per uniform
+    segment (:func:`rank_launches`).  The SSM decode step launches
+    nothing.  A run with no one-shot prefill (every job admitted in
+    chunks) expects no prefill kernel."""
     decode = "flash_decode" if tp == 1 else "flash_decode_sharded"
-    ranks = f"{tp} ranks x " if tp > 1 else ""
+    segs = rank_launches(cfg, tp) if cfg.family != "ssm" else tp
+    ranks = (f"{tp} ranks x " if segs == tp else
+             f"{segs} segment launches over {tp} ranks x ") if tp > 1 else ""
     per = f"{cfg.n_layers} layers x {ranks}"
     pf = f"{prefills} prefill dispatches"
     if cfg.family in ("ssm", "hybrid"):
-        want = {"ssd_scan": (cfg.n_layers * tp * prefills, per + pf)}
+        want = {"ssd_scan": (cfg.n_layers * tp * prefills,
+                             f"{cfg.n_layers} layers x "
+                             + (f"{tp} ranks x " if tp > 1 else "") + pf)}
         if cfg.family == "hybrid":
             from repro_torch.models.transformer import hybrid_layout
 
             sites = hybrid_layout(cfg)[0]
             site = f"{sites} shared-block sites x {ranks}"
-            want["flash_attention"] = (sites * tp * prefills, site + pf)
-            want[decode] = (sites * tp * steps,
+            want["flash_attention"] = (sites * segs * prefills, site + pf)
+            want[decode] = (sites * segs * steps,
                             f"{site}{steps} decode steps{step_note}")
     else:
-        want = {decode: (cfg.n_layers * tp * steps,
+        want = {decode: (cfg.n_layers * segs * steps,
                          f"{per}{steps} decode steps{step_note}"),
-                "flash_attention": (cfg.n_layers * tp * prefills, per + pf)}
+                "flash_attention": (cfg.n_layers * segs * prefills, per + pf)}
     return {name: w for name, w in want.items()
             if prefills or name not in ("ssd_scan", "flash_attention")}
 
@@ -2483,11 +2655,11 @@ def cross_rank_local():
 
     right = T._cross_mlp
 
-    def faulty(cfg, lcfg, lps, hs, crosses, moe_impl):
+    def faulty(cfg, lcfgs, lps, hs, crosses, moe_impl):
         hs = [h + L.cross_attention_block(
-            lp["cross"], lcfg, L.apply_norm(cfg, lp["cross_norm"], h), kv)
-            for lp, h, kv in zip(lps, hs, crosses)]
-        return T._mlp(cfg, lcfg, lps, hs, moe_impl)
+            lp["cross"], lc, L.apply_norm(cfg, lp["cross_norm"], h), kv)
+            for lp, lc, h, kv in zip(lps, lcfgs, hs, crosses)]
+        return T._mlp(cfg, lcfgs, lps, hs, moe_impl)
 
     T._cross_mlp = faulty
     try:
@@ -2550,11 +2722,16 @@ def tp_planted_fault(cfg, params, requests) -> dict:
 #: serve far fewer requests a second at full width
 CLI_QUEUE = ["--slots", "4", "--window", "8", "--n", "24", "--rate", "4",
              "--max-output", "128", "--seed", "0"]
-#: the depth phase 6 serves qwen2-1.5b at (full width, 14 of its 28
-#: layers): cut for the script's time once phase 16 took it to 1099 s of
-#: its 1200 on an H100 with a slow host; phase 4 serves all 28, and phase
-#: 7's runs too
+#: the depth phases 6 and 7 serve qwen2-1.5b at (full width, 14 of its
+#: 28 layers): cut for the script's time once phase 16 took it to 1099 s
+#: of its 1200 on an H100 with a slow host, and phase 7's two ranked runs
+#: too once phase 17 took it to 1106 s (they ran all 28, so their JCT was
+#: not comparable with phase 6's oracle ISRTF runs); phase 4 serves all 28
 CLI_DEPTH = 14
+#: the depth of the pod CLI runs of phases 11 (qwen2-moe-a2.7b) and 12
+#: (mamba2-130m): 6 layers, cut from their served depth of 12 for the
+#: script's time once phase 17 took it to 1106 s on a slow host
+POD_CLI_DEPTH = 6
 #: the runs of phase 6, in order: serve.py's defaults, then ISRTF and FCFS
 #: on the same arrivals (isrtf, fcfs, fcfs, isrtf), then ISRTF with chunked
 #: prefill and swap preemption, and with the ``auto`` break-even after a
@@ -2983,9 +3160,10 @@ def train_cli_predictor(small, ckpt_dir: str) -> dict:
 
 
 def ranked_server_run(pred) -> dict:
-    """(b): an ``ElisServer`` of full-width qwen2-1.5b (bf16, the kernels)
-    over ``CLI_QUEUE``'s traffic, ISRTF ordered by the ranking head of the
-    full-width two-head predictor (ranked adapter, ``ema+conformal``)."""
+    """(b): an ``ElisServer`` of full-width qwen2-1.5b at ``CLI_DEPTH``
+    layers (bf16, the kernels) over ``CLI_QUEUE``'s traffic, ISRTF ordered
+    by the ranking head of the full-width two-head predictor (ranked
+    adapter, ``ema+conformal``)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3002,8 +3180,8 @@ def ranked_server_run(pred) -> dict:
     want_tokens = {r.request_id: min(r.true_output_len, args.max_output)
                    for r in requests}
     cfg = get_config("qwen2-1.5b")
-    if DEVICE == "cpu":
-        cfg = cfg.reduced()
+    cfg = (cfg.reduced() if DEVICE == "cpu"
+           else dataclasses.replace(cfg, n_layers=CLI_DEPTH))
     params = T.init_params(cfg, torch.Generator(DEVICE).manual_seed(0))
     engine = InferenceEngine(cfg, params, EngineConfig(
         max_slots=args.slots, max_len=512, max_output=args.max_output,
@@ -3106,7 +3284,7 @@ def predictor_phase(oracle_isrtf_jct) -> dict:
                                  "--predictor-ckpt", str(ckpt),
                                  "--calibrate", "ema+conformal"],
                     predictor_probe=lambda p: timers.append(
-                        DispatchTimer(p.base.base)))
+                        DispatchTimer(p.base.base)), depth=CLI_DEPTH)
     run_a["predictor"] = timers[0].summary(run_a["wall_s"])
     run_a["max_pool"] = int(CLI_QUEUE[CLI_QUEUE.index("--n") + 1])
     # (b) an ElisServer ranked by the full-width two-head predictor
@@ -4303,7 +4481,7 @@ def moe_tp_phase() -> dict:
         raise AssertionError("phase 11: " + "; ".join(failures))
     t0 = time.perf_counter()
     run = cli_run("moe tp2 chunk+auto", MOE_TP_CLI, after=executor_swap,
-                  depth=dict(MOE_TP_ARCHS)["qwen2-moe-a2.7b"])
+                  depth=POD_CLI_DEPTH)
     c = run["counters"]
     log(f"[moe-tp] CLI on one TP={TP} pod of qwen2-moe-a2.7b: swapouts "
         f"{c['swapouts']}, swapins {c['swapins']}, chunk dispatches "
@@ -4518,7 +4696,7 @@ def ssm_tp_phase() -> dict:
         raise AssertionError("phase 12: " + "; ".join(failures))
     t0 = time.perf_counter()
     run = cli_run("ssm tp2 auto", SSM_TP_CLI, after=ssm_cli_swap,
-                  depth=SSM_TP_ARCHS[0][3])
+                  depth=POD_CLI_DEPTH)
     c = run["counters"]
     log(f"[ssm-tp] CLI on one TP={TP} pod of mamba2-130m: swapouts "
         f"{c['swapouts']}, swapins {c['swapins']}, preemptions "
@@ -4671,10 +4849,13 @@ def pod_step_path(cfg, params, batch, rows: int, mesh, tag: str) -> dict:
                                       STEPS, mesh)
     launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
     n, tp = cfg.n_layers, len(mesh.ranks)
+    segs = rank_launches(cfg, tp)
     check_launches(launches, {
-        "flash_attention": (n * tp, f"{n} layers x {tp} ranks x 1 prefill"),
-        "flash_decode_sharded": (n * tp * STEPS, f"{n} layers x {tp} ranks "
-                                                 f"x {STEPS} steps")})
+        "flash_attention": (n * segs, f"{n} layers x {segs} rank launches "
+                                      "x 1 prefill"),
+        "flash_decode_sharded": (n * segs * STEPS, f"{n} layers x {segs} "
+                                                   f"rank launches x {STEPS} "
+                                                   "steps")})
     if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise AssertionError(f"{cfg.arch_id} pod step path: a token lies "
                              "outside the vocabulary")
@@ -4688,9 +4869,9 @@ def pod_step_path(cfg, params, batch, rows: int, mesh, tag: str) -> dict:
         f"{STEP_SLOTS} x {rows} rows, {describe(cfg, mesh)}: step wall "
         f"median {med:.2f} ms (min {min(walls) * 1e3:.2f}), "
         f"{STEP_SLOTS / (med / 1e3):.1f} tokens/s; launches: "
-        f"flash_attention {launches['flash_attention']} = {n} x {tp} x 1 "
+        f"flash_attention {launches['flash_attention']} = {n} x {segs} x 1 "
         f"prefill, flash_decode_sharded "
-        f"{launches['flash_decode_sharded']} = {n} x {tp} x {STEPS} steps "
+        f"{launches['flash_decode_sharded']} = {n} x {segs} x {STEPS} steps "
         f"(all counts: {json.dumps(launches)})")
     last = toks[:, -1]
     profiled(f"{cfg.arch_id} TP={tp}: one make_serve_step(mesh=) "
@@ -5512,6 +5693,10 @@ ALLOC_MARGIN = 0.002
 #: the least batch the reference lays out without a context-parallel
 #: cache (``global_batch < 16``, which the dry run skips: item 8.5)
 DRY_SERVE_B = 16
+#: phase 16 (b)'s widest pod: the dry-serve shape of qwen2-1.5b at mesh
+#: (1, 16), the production mesh's model axis, where ranks 12-15 hold no
+#: heads (all 16 ranks on one card)
+DRY_WIDE_TP = 16
 #: phase 16 (c)'s ZeRO-1 step: AdamW at a constant lr from the first step,
 #: so that one step moves every param by about lr (the train step's
 #: default warmup moves it by lr / 100, under any absolute limit a fault
@@ -5676,7 +5861,7 @@ def op_dispatch_cost(cfg, calls: int = 200) -> dict:
         "direct": lambda: ops._flash_decode_int8_sharded(
             qs, ks[:TP], ks[TP:], sc[:TP], sc[TP:], kv_len, q_off, None),
         "custom op": lambda: torch.ops.repro_torch.flash_decode_int8_sharded(
-            qs, ks[:TP], ks[TP:], sc[:TP], sc[TP:], kv_len, q_off, 0)}
+            qs, ks[:TP], ks[TP:], sc[:TP], sc[TP:], kv_len, q_off, 0, [], 0)}
     best = {}
     for _ in range(2):
         for name, fn in paths.items():
@@ -5694,8 +5879,9 @@ def op_dispatch_cost(cfg, calls: int = 200) -> dict:
 
 def round_block(nbytes: int) -> int:
     """The bytes the caching allocator holds for a tensor of ``nbytes``:
-    a multiple of 512."""
-    return max(-(-nbytes // 512) * 512, 512)
+    a multiple of 512, and none for an empty one (a rank of a pod that
+    holds no heads)."""
+    return max(-(-nbytes // 512) * 512, 512) if nbytes else 0
 
 
 def dry_vs_card(cfg, shape, mesh_shape, kv_dtype) -> list:
@@ -5935,6 +6121,9 @@ def dryrun_phase() -> dict:
     for shape, kv in ((serve, "int8"), (trainer, None)):
         for mesh_shape in ((1, 1), (1, TP)):
             failures += dry_vs_card(cfg, shape, mesh_shape, kv)
+    # the production mesh's model axis: 12 query heads over 16 ranks, four
+    # of which hold none
+    failures += dry_vs_card(cfg, serve, (1, DRY_WIDE_TP), "int8")
     dry_roofline(cfg, "decode_32k", kv_dtype="int8")
     dry_roofline(cfg, "train_8x512", trainer)
     t_b = time.perf_counter() - t0 - t_a
@@ -5944,6 +6133,148 @@ def dryrun_phase() -> dict:
         f"{t_a:.1f}, (b) {t_b:.1f})")
     if failures:
         raise AssertionError("phase 16: " + "; ".join(failures))
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# Phase 17: pods whose ranks do not divide the heads, groups or widths
+# --------------------------------------------------------------------------- #
+
+
+@contextlib.contextmanager
+def segment_kv_offset():
+    """The planted fault of phase 17, in memory: every uniform GQA segment
+    of a rank whose heads cut a group reads its KV heads from the first of
+    the rank's cache (query head j of the segment reads KV head j // G of
+    the rank, without the offset of the segment's first KV head).  A rank
+    of one segment is unchanged, so only the cut ranks go wrong."""
+    from repro_torch.kernels import ops
+
+    right = ops._segments
+
+    def faulty(name, q, k, q0, group):
+        return [(a, b, 0, d - c) for a, b, c, d in right(name, q, k, q0,
+                                                          group)]
+
+    ops._segments = faulty
+    try:
+        yield
+    finally:
+        ops._segments = right
+
+
+def uneven_phase() -> dict:
+    """Phase 17: pods whose ranks do not divide the heads, the GQA groups
+    or the widths, every rank on one card, bf16 at full width and depth
+    from random weights.  (a) llama3.2-3b as a TP=3 pod (8 query heads a
+    rank over GQA groups of 3: a rank cuts a group and launches each
+    attention kernel as up to three uniform segments; d_ff and vocab
+    split as whole columns, the first ranks one more): first in fp32 at
+    2 layers its greedy tokens against the single-device kernel and plain
+    engines through evictions and a swap (:func:`pod_parity`) and its
+    first prefill logits against one device's within ``POD_LOGIT_TOL``,
+    then the planted ``segment_kv_offset``, which that logit check must
+    catch; at 28 layers phase 4's served path on the pod (launch counts
+    reset before and read after, :func:`path_launches` with its segment
+    launches), the bf16 prefill logits against one device's, and
+    ``UNEVEN_INT8_STEPS`` steps over int8 caches
+    (``flash_decode_int8_sharded`` in segments).  (b) whisper-large-v3 as
+    a TP=4 pod (its vocab 51866 split unevenly) through the step
+    functions: fp32 at the parity depth and bf16 at full depth against one
+    device (:func:`pod_step_parity`), and the step path through the
+    kernels (:func:`pod_step_path`).  Returns each pod's launch counts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shard_params
+    from repro_torch.launch.partition import vocab_range
+
+    t_phase = time.perf_counter()
+    failures, launches = [], {}
+    cfg = get_config(UNEVEN_ARCH)
+    if DEVICE == "cpu":  # the rehearsal: 6 / 2 heads, so ranks cut groups
+        cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16",
+                                  n_heads=6, n_kv_heads=2)
+    mesh = tp_mesh(UNEVEN_TP)
+    requests = make_requests(12, SEED)
+    cfg32, params32 = fp32_model(cfg, 2)
+    failures += pod_parity(cfg32, params32, requests, [mesh], "uneven")
+    bad, gap32 = pod_logit_gap(cfg32, params32, requests, mesh, "uneven")
+    failures += bad
+    with segment_kv_offset():
+        caught, gap_f = pod_logit_gap(cfg32, params32, requests, mesh,
+                                      "uneven, planted segment_kv_offset")
+    log(f"[uneven] planted segment_kv_offset: fp32 logit gap {gap_f:.4e} "
+        f"against the correct pod's {gap32:.4e}: "
+        + ("caught" if caught else "MISSED"))
+    if not caught:
+        failures.append("the planted segment_kv_offset passed the fp32 "
+                        "logit check")
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = random_params(cfg)
+    launches[UNEVEN_TAG] = dict(served_path(cfg, params, requests, mesh))
+    gc.collect()
+    failures += pod_logit_gap(cfg, params, requests, mesh, "uneven")[0]
+    shards = shard_params(params, cfg, mesh)
+    ops.reset_launches()
+    toks, first, walls = int8_pod_run(cfg, shards, mesh, UNEVEN_INT8_STEPS)
+    counts = {name: fn.launches for name, fn in ops.KERNELS.items()}
+    n, segs = cfg.n_layers, rank_launches(cfg, UNEVEN_TP)
+    check_launches(counts, {
+        "flash_attention": (n * segs, f"{n} layers x {segs} segment "
+                                      "launches x 1 prefill"),
+        "flash_decode_int8_sharded": (
+            n * segs * UNEVEN_INT8_STEPS,
+            f"{n} layers x {segs} segment launches x {UNEVEN_INT8_STEPS} "
+            "steps")})
+    finite = bool(torch.isfinite(first).all())
+    if not finite or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        failures.append(f"{UNEVEN_TAG} int8 steps: logits finite={finite}, "
+                        "or a token outside the vocabulary")
+    launches[UNEVEN_TAG]["flash_decode_int8_sharded"] = counts[
+        "flash_decode_int8_sharded"]
+    log(f"[uneven] {UNEVEN_TAG} over int8 caches of {STEP_SLOTS} x "
+        f"{MAX_LEN} rows: {UNEVEN_INT8_STEPS} steps, wall median "
+        f"{sorted(walls)[len(walls) // 2] * 1e3:.2f} ms; launches "
+        f"flash_attention {counts['flash_attention']}, "
+        f"flash_decode_int8_sharded {counts['flash_decode_int8_sharded']} "
+        f"= {n} x {segs} x {UNEVEN_INT8_STEPS}; first-step logits "
+        f"finite={finite}")
+    del shards, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh4, tag = tp_mesh(AU_UNEVEN_TP), "uneven-audio"
+    cfg, (cfg32, params32), make_batch, rows = pod_arch(AU_ARCH)
+    if DEVICE == "cpu":  # the rehearsal: a vocab 4 does not divide
+        from repro_torch.models import transformer as T
+
+        cfg, cfg32 = (dataclasses.replace(c, vocab_size=509)
+                      for c in (cfg, cfg32))
+        params32 = T.init_params(cfg32, torch.Generator(
+            device=DEVICE).manual_seed(SEED + 1))
+    rows_of = [hi - lo for lo, hi in (vocab_range(cfg, AU_UNEVEN_TP, r)
+                                      for r in range(AU_UNEVEN_TP))]
+    log(f"[{tag}] vocab {cfg.vocab_size} over {AU_UNEVEN_TP} ranks: "
+        f"{rows_of} rows")
+    failures += pod_step_parity(cfg32, params32, make_batch(cfg32), rows,
+                                mesh4, tag)[0]
+    del params32
+    gc.collect()
+    params = random_params(cfg)
+    batch = make_batch(cfg)
+    launches[AU_UNEVEN_TAG] = pod_step_path(cfg, params, batch, rows, mesh4,
+                                            tag)
+    gc.collect()
+    failures += pod_step_parity(cfg, params, batch, rows, mesh4, tag)[0]
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[uneven] phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("phase 17: " + "; ".join(failures))
     return launches
 
 
@@ -6165,6 +6496,10 @@ def main(argv=None) -> None:
     # phase 16: int8 pods, the dry run held against the card, pod training
     pod16 = dryrun_phase()
     lap("16 dry run, int8 pods")
+
+    # phase 17: pods whose ranks do not divide the heads, groups or widths
+    uneven = uneven_phase()
+    lap("17 uneven pods")
     log("[time] each phase, s: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}) + f"; in all "
         f"{sum(phase_s.values()):.1f} s after the imports")
@@ -6229,6 +6564,15 @@ def main(argv=None) -> None:
             # the int8 pod's ranks, with phase 16's launches
             + [("flash_decode_int8_sharded", tp_row, pod16,
                 f"qwen2-1.5b TP={TP}")]
+            # the uneven pods' ranks, with phase 17's launches
+            + [(n, k, uneven[UNEVEN_TAG], UNEVEN_TAG) for n, k in (
+                ("flash_decode_sharded", dict(tp_row, tp=UNEVEN_TP)),
+                ("flash_decode_int8_sharded", dict(tp_row, tp=UNEVEN_TP)),
+                ("flash_attention", dict(dtype="bfloat16", B=4,
+                                         S=MAX_LEN)))]
+            + [(n, k, uneven[AU_UNEVEN_TAG], AU_UNEVEN_TAG) for n, k in (
+                ("flash_decode_sharded", dict(tp_row, tp=AU_UNEVEN_TP)),
+                ("flash_attention", au_rows["flash_attention"]))]
             # the training batch, with phase 14's evaluation forwards
             + [(n, dict(dtype="bfloat16", B=TRAIN_B, S=TRAIN_S),
                 trained[a]["launches"], TRAIN_TAG) for n, a in (

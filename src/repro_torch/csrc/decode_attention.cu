@@ -3,7 +3,10 @@
 // positions.  One body serves two caches through its K/V-loader template
 // parameter: K/V in the query's dtype (flash_decode_launch, also run once per
 // rank by the wrapper flash_decode_sharded), and int8 K/V with per-token fp32
-// scales (flash_decode_int8_launch).
+// scales (flash_decode_int8_launch).  A tensor-parallel rank whose query
+// heads cut a GQA group is launched once per uniform segment of its heads,
+// each a strided view of the rank's q, cache and output (the entries' row
+// strides HR and KHR); a head's arithmetic does not depend on the view.
 //
 // Replaces: src/repro/kernels/decode_attention.py::_decode_kernel (entries
 // flash_decode and flash_decode_sharded), the Pallas TPU kernel on every
@@ -292,8 +295,8 @@ template <typename T, int D, int KG, typename KV>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_len,
               const int* __restrict__ q_off, T* __restrict__ out,
-              float* __restrict__ part, int L, int H, int KH, int window,
-              float scale, int n_split, int s_len) {
+              float* __restrict__ part, int L, int H, int KH, int HR, int KHR,
+              int window, float scale, int n_split, int s_len) {
   using Raw = typename KV::Raw;
   using Ly = Layout<Raw, D>;
   constexpr int W = Ly::kWarps;
@@ -322,9 +325,9 @@ decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_l
   const int n_mine = n_all > warp ? (n_all - 1 - warp) / W + 1 : 0;
 
   for (int i = threadIdx.x; i < KG * D; i += blockDim.x)
-    qs[i] = i < G * D ? to_f(q[((size_t)b * H + kh * G) * D + i]) : 0.f;
+    qs[i] = i < G * D ? to_f(q[((size_t)b * HR + kh * G) * D + i]) : 0.f;
 
-  const size_t row = (size_t)KH * D;
+  const size_t row = (size_t)KHR * D;
   const size_t off = (size_t)b * L * row + (size_t)kh * D;
   unsigned char* ring = smem + warp * kStages * Ly::kStage;
 
@@ -463,7 +466,7 @@ decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_l
     if (n_split == 1) {
       if (!owner) continue;
       const float denom = fmaxf(lt, 1e-30f);
-      T* dst = out + bh * D + lane * PER;
+      T* dst = out + ((size_t)b * HR + kh * G + h) * D + lane * PER;
 #pragma unroll
       for (int i = 0; i < PER; ++i) dst[i] = from_f<T>(o[i] / denom);
       continue;
@@ -484,10 +487,12 @@ decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_l
 
 // Merge the n_split partial states of each (slot, query head), in the order
 // of s, into the output: one warp per row of BH = B*H, lane i owning dims
-// [i*PER, (i+1)*PER), PER = ceil(D/32) (lanes past D / PER own none).
+// [i*PER, (i+1)*PER), PER = ceil(D/32) (lanes past D / PER own none).  Row
+// r is head r % H of slot r / H, which lies at row (r / H) * HR + r % H of
+// the output (HR heads a slot).
 template <typename T, int D>
 __global__ void combine_kernel(const float* __restrict__ part, T* __restrict__ out,
-                               int BH, int n_split) {
+                               int BH, int H, int HR, int n_split) {
   constexpr int PER = (D + 31) / 32;
   const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -506,7 +511,7 @@ __global__ void combine_kernel(const float* __restrict__ part, T* __restrict__ o
     for (int i = 0; i < PER; ++i) o[i] += pa[(size_t)s * D + i] * e_s;
   }
   const float denom = fmaxf(l, 1e-30f);
-  T* dst = out + (size_t)r * D + lane * PER;
+  T* dst = out + ((size_t)(r / H) * HR + r % H) * D + lane * PER;
 #pragma unroll
   for (int i = 0; i < PER; ++i) dst[i] = from_f<T>(o[i] / denom);
 }
@@ -518,8 +523,8 @@ struct Split {
 
 template <typename T, int D, int KG, typename KV>
 cudaError_t launch(const void* q, const KV& kv, const int* kv_len, const int* q_off,
-                   void* out, Split sp, int B, int L, int H, int KH, int window,
-                   float scale, cudaStream_t stream) {
+                   void* out, Split sp, int B, int L, int H, int KH, int HR, int KHR,
+                   int window, float scale, cudaStream_t stream) {
   using Ly = Layout<typename KV::Raw, D>;
   const size_t smem = smem_bytes<typename KV::Raw, D, KG>();
   auto kernel = decode_kernel<T, D, KG, KV>;
@@ -528,23 +533,24 @@ cudaError_t launch(const void* q, const KV& kv, const int* kv_len, const int* q_
   if (err != cudaSuccess) return err;
   kernel<<<dim3(B, KH, sp.n_split), 32 * Ly::kWarps, smem, stream>>>(
       static_cast<const T*>(q), kv, kv_len, q_off, static_cast<T*>(out), sp.part, L,
-      H, KH, window, scale, sp.n_split, sp.s_len);
+      H, KH, HR, KHR, window, scale, sp.n_split, sp.s_len);
   err = cudaGetLastError();
   if (err != cudaSuccess || sp.n_split == 1) return err;
   const int BH = B * H;
   combine_kernel<T, D><<<(BH + 3) / 4, 128, 0, stream>>>(sp.part, static_cast<T*>(out),
-                                                         BH, sp.n_split);
+                                                         BH, H, HR, sp.n_split);
   return cudaGetLastError();
 }
 
 // The group size G = H / KH rounded up to the heads a kernel is built for.
 template <typename T, int D, typename KV>
 cudaError_t launch_g(const void* q, const KV& kv, const int* kv_len, const int* q_off,
-                     void* out, Split sp, int B, int L, int H, int KH, int window,
-                     float scale, cudaStream_t stream) {
+                     void* out, Split sp, int B, int L, int H, int KH, int HR, int KHR,
+                     int window, float scale, cudaStream_t stream) {
   const int G = H / KH;
-#define DECODE_LAUNCH(KG) \
-  launch<T, D, KG>(q, kv, kv_len, q_off, out, sp, B, L, H, KH, window, scale, stream)
+#define DECODE_LAUNCH(KG)                                                          \
+  launch<T, D, KG>(q, kv, kv_len, q_off, out, sp, B, L, H, KH, HR, KHR, window, scale, \
+                   stream)
   if (G <= 1) return DECODE_LAUNCH(1);
   if (G <= 2) return DECODE_LAUNCH(2);
   if (G <= 4) return DECODE_LAUNCH(4);
@@ -557,20 +563,25 @@ cudaError_t launch_g(const void* q, const KV& kv, const int* kv_len, const int* 
 template <typename T, typename KV>
 cudaError_t launch_d(int D, const void* q, const KV& kv, const int* kv_len,
                      const int* q_off, void* out, Split sp, int B, int L, int H,
-                     int KH, int window, float scale, cudaStream_t stream) {
+                     int KH, int HR, int KHR, int window, float scale,
+                     cudaStream_t stream) {
+#define DECODE_D(DD) \
+  launch_g<T, DD>(q, kv, kv_len, q_off, out, sp, B, L, H, KH, HR, KHR, window, scale, stream)
   switch (D) {
-    case 32: return launch_g<T, 32>(q, kv, kv_len, q_off, out, sp, B, L, H, KH, window, scale, stream);
-    case 64: return launch_g<T, 64>(q, kv, kv_len, q_off, out, sp, B, L, H, KH, window, scale, stream);
-    case 112: return launch_g<T, 112>(q, kv, kv_len, q_off, out, sp, B, L, H, KH, window, scale, stream);
-    case 128: return launch_g<T, 128>(q, kv, kv_len, q_off, out, sp, B, L, H, KH, window, scale, stream);
+    case 32: return DECODE_D(32);
+    case 64: return DECODE_D(64);
+    case 112: return DECODE_D(112);
+    case 128: return DECODE_D(128);
     default: return cudaErrorInvalidValue;
   }
+#undef DECODE_D
 }
 
 // The splits must be tile-aligned, cover [0, L), and leave no split wholly
 // past L; more than one needs the scratch.
-bool bad_shape(int B, int L, int H, int KH, const Split& sp) {
+bool bad_shape(int B, int L, int H, int KH, int HR, int KHR, const Split& sp) {
   return B <= 0 || L <= 0 || KH <= 0 || H % KH != 0 || H / KH > kMaxGroup ||
+         HR < H || KHR < KH ||
          sp.n_split < 1 || sp.n_split > 65535 || sp.s_len <= 0 ||
          sp.s_len % kTile != 0 || (long long)sp.n_split * sp.s_len < L ||
          (long long)(sp.n_split - 1) * sp.s_len >= L ||
@@ -580,23 +591,29 @@ bool bad_shape(int B, int L, int H, int KH, const Split& sp) {
 template <typename KV32, typename KV16>
 int dispatch(int dtype, int D, const void* q, const KV32& kv32, const KV16& kv16,
              const void* kv_len, const void* q_off, void* out, Split sp, int B, int L,
-             int H, int KH, int window, float scale, void* stream) {
-  if (bad_shape(B, L, H, KH, sp)) return (int)cudaErrorInvalidValue;
+             int H, int KH, int HR, int KHR, int window, float scale, void* stream) {
+  if (bad_shape(B, L, H, KH, HR, KHR, sp)) return (int)cudaErrorInvalidValue;
   const int* kl = static_cast<const int*>(kv_len);
   const int* qo = static_cast<const int*>(q_off);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_d<float>(D, q, kv32, kl, qo, out, sp, B, L, H, KH, window, scale, s);
+    return (int)launch_d<float>(D, q, kv32, kl, qo, out, sp, B, L, H, KH, HR, KHR, window,
+                                scale, s);
   if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(D, q, kv16, kl, qo, out, sp, B, L, H, KH, window,
-                                        scale, s);
+    return (int)launch_d<__nv_bfloat16>(D, q, kv16, kl, qo, out, sp, B, L, H, KH, HR, KHR,
+                                        window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (B,1,H,D), k/v (B,L,KH,D), out (B,1,H,D), all contiguous, k and v
-// 16-byte aligned; kv_len and q_off are int32 (B,) on the device.  dtype: 0 =
+// q (B,1,H,D), k/v (B,L,KH,D), out (B,1,H,D), k and v 16-byte aligned;
+// kv_len and q_off are int32 (B,) on the device.  A slot's heads are HR
+// (q and out) and a key's KHR (k and v) apart, HR >= H and KHR >= KH: the
+// H heads and KH KV heads are then a contiguous range of wider rows, as
+// one uniform GQA segment of a tensor-parallel rank whose heads cut a
+// group (kernels/ops.py::head_segments); HR = H and KHR = KH for whole
+// contiguous tensors.  dtype: 0 =
 // float32, 1 = bfloat16.  window <= 0 means no sliding window.  The key axis
 // is cut into n_split splits of s_len rows (a multiple of 32, covering
 // [0, L) with none wholly past L); with n_split > 1, part is fp32 scratch of
@@ -604,28 +621,29 @@ int dispatch(int dtype, int D, const void* q, const KV32& kv32, const KV16& kv16
 // (0 = launched).
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const void* kv_len, const void* q_off, void* out,
-                                   void* part, int B, int L, int H, int KH, int D,
-                                   int dtype, int window, float scale, int n_split,
-                                   int s_len, void* stream) {
+                                   void* part, int B, int L, int H, int KH, int HR,
+                                   int KHR, int D, int dtype, int window, float scale,
+                                   int n_split, int s_len, void* stream) {
   const Split sp{static_cast<float*>(part), n_split, s_len};
   return dispatch(dtype, D, q,
                   PlainKV<float>{static_cast<const float*>(k), static_cast<const float*>(v)},
                   PlainKV<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(k),
                                          static_cast<const __nv_bfloat16*>(v)},
-                  kv_len, q_off, out, sp, B, L, H, KH, window, scale, stream);
+                  kv_len, q_off, out, sp, B, L, H, KH, HR, KHR, window, scale, stream);
 }
 
-// As flash_decode_launch, over an int8 cache: k/v (B,L,KH,D) int8 codes,
-// k_scale/v_scale (B,L) fp32, contiguous; q and out in `dtype`.
+// As flash_decode_launch, over an int8 cache: k/v (B,L,KH,D) int8 codes (KHR
+// heads a key apart), k_scale/v_scale (B,L) fp32, contiguous; q and out in
+// `dtype`.
 extern "C" int flash_decode_int8_launch(const void* q, const void* k, const void* v,
                                         const void* k_scale, const void* v_scale,
                                         const void* kv_len, const void* q_off, void* out,
-                                        void* part, int B, int L, int H, int KH, int D,
-                                        int dtype, int window, float scale, int n_split,
-                                        int s_len, void* stream) {
+                                        void* part, int B, int L, int H, int KH, int HR,
+                                        int KHR, int D, int dtype, int window, float scale,
+                                        int n_split, int s_len, void* stream) {
   const Split sp{static_cast<float*>(part), n_split, s_len};
   const Int8KV kv{static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
                   static_cast<const float*>(k_scale), static_cast<const float*>(v_scale)};
-  return dispatch(dtype, D, q, kv, kv, kv_len, q_off, out, sp, B, L, H, KH, window, scale,
-                  stream);
+  return dispatch(dtype, D, q, kv, kv, kv_len, q_off, out, sp, B, L, H, KH, HR, KHR, window,
+                  scale, stream);
 }

@@ -1,6 +1,8 @@
 // Causal flash attention for Hopper (sm_90a): the engine's one-shot prefill
 // over right-padded prompt buckets, GQA, static query offset, optional
-// sliding window.
+// sliding window.  A tensor-parallel rank whose query heads cut a GQA group
+// is launched once per uniform segment of its heads, over strided views of
+// its q, k, v and output (the entry's row strides HR and KHR).
 //
 // Replaces: src/repro/kernels/flash_attention.py::_attn_kernel (entry
 // flash_attention), the Pallas TPU kernel of the served path's prefill and
@@ -111,8 +113,8 @@ constexpr int kBlockQ = kWarps * kRows;
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            T* __restrict__ out, int Sq, int Skv, int H, int KH, int q_offset,
-            int window, float scale) {
+            T* __restrict__ out, int Sq, int Skv, int H, int KH, int HR, int KHR,
+            int q_offset, int window, float scale) {
   constexpr int DP = D + 1;
   constexpr int PER = (D + 31) / 32;  // output dims a lane owns, the last maybe not
   constexpr bool kRagged = D % 32 != 0;
@@ -126,7 +128,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nq = min(kBlockQ, Sq - q0);
 
-  const size_t qrow = (size_t)H * D, krow = (size_t)KH * D;
+  const size_t qrow = (size_t)HR * D, krow = (size_t)KHR * D;
   const T* qb = q + ((size_t)b * Sq + q0) * qrow + (size_t)h * D;
   const T* kb = k + (size_t)b * Skv * krow + (size_t)kh * D;
   const T* vb = v + (size_t)b * Skv * krow + (size_t)kh * D;
@@ -330,7 +332,7 @@ template <int D, int MT>
 __global__ void __launch_bounds__(kTcWarps * 32)
 attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ out, int B, int Sq, int Skv,
-               int H, int KH, int q_offset, int window, float scale_log2) {
+               int H, int KH, int HR, int KHR, int q_offset, int window, float scale_log2) {
   static_assert(D % 16 == 0, "the head dim is tiled in steps of 16");
   constexpr int RS = D + 8;  // shared-memory row stride, elements
   constexpr int kTcRows = tc_rows<MT>();
@@ -350,7 +352,7 @@ attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, tq = lane & 3;  // the m16n8 C layout: rows g, g + 8; cols 2tq
   const int nq = min(kTcRows, Sq - q0);
 
-  const size_t qrow = (size_t)H * D, krow = (size_t)KH * D;
+  const size_t qrow = (size_t)HR * D, krow = (size_t)KHR * D;
   const bf16* qb = q + ((size_t)b * Sq + q0) * qrow + (size_t)h * D;
   const bf16* kb = k + (size_t)b * Skv * krow + (size_t)kh * D;
   const bf16* vb = v + (size_t)b * Skv * krow + (size_t)kh * D;
@@ -491,21 +493,21 @@ int forced_row_tiles = 0;
 
 template <int D>
 cudaError_t launch_cuda_core(const void* q, const void* k, const void* v, void* out, int B,
-                             int Sq, int Skv, int H, int KH, int q_offset, int window,
-                             float scale, cudaStream_t stream) {
+                             int Sq, int Skv, int H, int KH, int HR, int KHR, int q_offset,
+                             int window, float scale, cudaStream_t stream) {
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
   last_body = 0;
   attn_kernel<float, D><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, KH, q_offset,
-      window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, KH, HR, KHR,
+      q_offset, window, scale);
   return cudaGetLastError();
 }
 
 template <int D, int MT>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                      int Skv, int H, int KH, int q_offset, int window, float scale,
-                      cudaStream_t stream, int dev) {
+                      int Skv, int H, int KH, int HR, int KHR, int q_offset, int window,
+                      float scale, cudaStream_t stream, int dev) {
   constexpr size_t smem = tc_smem_bytes<D, MT>();
   last_body = MT;
   // the shared memory above 48 KB is granted per kernel and device, once
@@ -520,7 +522,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, in
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   attn_tc_kernel<D, MT><<<(unsigned)blocks, kTcWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), B, Sq, Skv, H, KH, q_offset, window,
+      static_cast<bf16*>(out), B, Sq, Skv, H, KH, HR, KHR, q_offset, window,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -532,8 +534,8 @@ constexpr int kMinWaves = 2;
 
 template <int D>
 cudaError_t launch_tensor_core(const void* q, const void* k, const void* v, void* out, int B,
-                               int Sq, int Skv, int H, int KH, int q_offset, int window,
-                               float scale, cudaStream_t stream) {
+                               int Sq, int Skv, int H, int KH, int HR, int KHR,
+                               int q_offset, int window, float scale, cudaStream_t stream) {
   static int sms[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -547,57 +549,66 @@ cudaError_t launch_tensor_core(const void* q, const void* k, const void* v, void
   const bool two = forced_row_tiles ? forced_row_tiles == 2
                                     : blocks2 >= (long long)kMinWaves * 2 * sms[dev];
   if (two)
-    return launch_tc<D, 2>(q, k, v, out, B, Sq, Skv, H, KH, q_offset, window, scale, stream,
-                           dev);
-  return launch_tc<D, 1>(q, k, v, out, B, Sq, Skv, H, KH, q_offset, window, scale, stream,
-                         dev);
+    return launch_tc<D, 2>(q, k, v, out, B, Sq, Skv, H, KH, HR, KHR, q_offset, window, scale,
+                           stream, dev);
+  return launch_tc<D, 1>(q, k, v, out, B, Sq, Skv, H, KH, HR, KHR, q_offset, window, scale,
+                         stream, dev);
 }
 
 // dtype 0 (fp32): the CUDA-core body; dtype 1 (bf16): the tensor-core body
 template <int D>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* out, int B,
-                   int Sq, int Skv, int H, int KH, int q_offset, int window, float scale,
-                   cudaStream_t stream) {
+                   int Sq, int Skv, int H, int KH, int HR, int KHR, int q_offset, int window,
+                   float scale, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_cuda_core<D>(q, k, v, out, B, Sq, Skv, H, KH, q_offset, window, scale, stream);
+    return launch_cuda_core<D>(q, k, v, out, B, Sq, Skv, H, KH, HR, KHR, q_offset, window,
+                               scale, stream);
   if (dtype == 1)
-    return launch_tensor_core<D>(q, k, v, out, B, Sq, Skv, H, KH, q_offset, window, scale,
-                                 stream);
+    return launch_tensor_core<D>(q, k, v, out, B, Sq, Skv, H, KH, HR, KHR, q_offset, window,
+                                 scale, stream);
   return cudaErrorInvalidValue;
 }
 
 cudaError_t launch_d(int D, int dtype, const void* q, const void* k, const void* v, void* out,
-                     int B, int Sq, int Skv, int H, int KH, int q_offset, int window,
-                     float scale, cudaStream_t stream) {
+                     int B, int Sq, int Skv, int H, int KH, int HR, int KHR, int q_offset,
+                     int window, float scale, cudaStream_t stream) {
+#define PREFILL_D(DD) \
+  launch<DD>(dtype, q, k, v, out, B, Sq, Skv, H, KH, HR, KHR, q_offset, window, scale, stream)
   switch (D) {
     case 32:
-      return launch<32>(dtype, q, k, v, out, B, Sq, Skv, H, KH, q_offset, window, scale, stream);
+      return PREFILL_D(32);
     case 64:
-      return launch<64>(dtype, q, k, v, out, B, Sq, Skv, H, KH, q_offset, window, scale, stream);
+      return PREFILL_D(64);
     case 112:
-      return launch<112>(dtype, q, k, v, out, B, Sq, Skv, H, KH, q_offset, window, scale, stream);
+      return PREFILL_D(112);
     case 128:
-      return launch<128>(dtype, q, k, v, out, B, Sq, Skv, H, KH, q_offset, window, scale, stream);
+      return PREFILL_D(128);
     default:
       return cudaErrorInvalidValue;
   }
+#undef PREFILL_D
 }
 
 }  // namespace
 
-// q/out (B,Sq,H,D), k/v (B,Skv,KH,D), all contiguous, q, k and v 16-byte
-// aligned, out 16-byte aligned for bf16.  dtype: 0 = float32, 1 =
-// bfloat16.  window <= 0 means no sliding window.  Returns
+// q/out (B,Sq,H,D), k/v (B,Skv,KH,D), q, k and v 16-byte aligned, out
+// 16-byte aligned for bf16.  A token's heads are HR (q and out) and KHR (k
+// and v) apart, HR >= H and KHR >= KH: the H and KH heads are then a
+// contiguous range of wider rows, as one uniform GQA segment of a
+// tensor-parallel rank whose heads cut a group (kernels/ops.py::
+// head_segments); HR = H and KHR = KH for whole contiguous tensors.  dtype:
+// 0 = float32, 1 = bfloat16.  window <= 0 means no sliding window.  Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int B, int Sq, int Skv, int H, int KH,
-                                      int D, int dtype, int q_offset, int window,
-                                      float scale, void* stream) {
+                                      int HR, int KHR, int D, int dtype, int q_offset,
+                                      int window, float scale, void* stream) {
   last_body = -1;
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || KH <= 0 || H % KH != 0 || H > 65535)
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || KH <= 0 || H % KH != 0 || H > 65535 || HR < H ||
+      KHR < KH)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_d(D, dtype, q, k, v, out, B, Sq, Skv, H, KH, q_offset, window, scale,
-                       static_cast<cudaStream_t>(stream));
+  return (int)launch_d(D, dtype, q, k, v, out, B, Sq, Skv, H, KH, HR, KHR, q_offset, window,
+                       scale, static_cast<cudaStream_t>(stream));
 }
 
 // Which body the last flash_attention_launch of this process ran (see

@@ -177,11 +177,12 @@ class InferenceEngine:
     With ``mesh`` (a single-axis ``("model",)`` mesh: one TP pod of any
     family) ``params`` is the full tree, which the engine splits by
     ``launch.partition.shard_params``; ``device`` is then rank 0's
-    device.  Every rank runs the kernels of ``attn_impl``; a layout that
-    does not
-    split into ranks of one GQA ratio (the ``layout:`` reason of
-    ``launch.partition.kernel_decode_support``) raises ``ValueError``
-    here."""
+    device.  Every rank runs the kernels of ``attn_impl``, over its own
+    share of the heads and widths, equal or not (a rank whose heads cut a
+    GQA group in uniform segments); every width the engine moves (chunk
+    views, swap stashes) is the rank cache's own.  A layout the port has
+    none for (``launch.partition.layout_reason``: several SSM groups that
+    do not divide over the ranks) raises ``ValueError`` here."""
 
     def __init__(self, model_cfg, params, cfg: Optional[EngineConfig] = None,
                  *, mesh=None, device="cuda", seed: int = 0):

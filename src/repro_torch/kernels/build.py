@@ -32,13 +32,13 @@ _I = ctypes.c_int
 #: signature
 ENTRIES = {
     "flash_decode_launch": ("decode_attention",
-                            [_P] * 7 + [_I] * 7 + [ctypes.c_float]
+                            [_P] * 7 + [_I] * 9 + [ctypes.c_float]
                             + [_I] * 2 + [_P]),
     "flash_decode_int8_launch": ("decode_attention",
-                                 [_P] * 9 + [_I] * 7 + [ctypes.c_float]
+                                 [_P] * 9 + [_I] * 9 + [ctypes.c_float]
                                  + [_I] * 2 + [_P]),
     "flash_attention_launch": ("flash_attention",
-                               [_P] * 4 + [_I] * 9 + [ctypes.c_float, _P]),
+                               [_P] * 4 + [_I] * 11 + [ctypes.c_float, _P]),
     "flash_attention_last_body": ("flash_attention", []),
     "flash_attention_row_tiles": ("flash_attention", [_I]),
     "ssd_scan_launch": ("ssd_scan", [_P] * 7 + [_I] * 7 + [_P]),

@@ -87,11 +87,13 @@ def decode_plan(b: int, L: int, device: torch.device):
     return decode_splits(b, L, _sm_count(index))
 
 
-def _split_scratch(q: torch.Tensor, L: int):
-    """(n_split, s_len) of q's decode launch over L rows, and its fp32
-    partials (None when one split writes the output).  The caller holds
-    the partials until the launch is queued."""
-    b, _, h, d = q.shape
+def _split_scratch(q: torch.Tensor, L: int, h: Optional[int] = None):
+    """(n_split, s_len) of a decode launch of ``h`` of q's heads (default
+    all) over L rows, and its fp32 partials (None when one split writes
+    the output).  The caller holds the partials until the launch is
+    queued."""
+    b, _, hq, d = q.shape
+    h = hq if h is None else h
     n_split, s_len = decode_plan(b, L, q.device)
     part = (None if n_split == 1 else
             torch.empty((b * h * n_split * (d + 2),), dtype=torch.float32,
@@ -116,9 +118,10 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           kv_dtype: Optional[torch.dtype] = None):
+           kv_dtype: Optional[torch.dtype] = None, segments=None):
     """CUDA tensors the attention kernels take: k and v of ``kv_dtype``
-    (by default q's dtype)."""
+    (by default q's dtype); q's heads over k's in uniform GQA
+    ``segments`` (default: one segment of them all)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on cuda or cpu, got {q.device}")
     for t in (k, v):
@@ -133,7 +136,9 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, _, h, d = q.shape
-    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
+    segments = segments or [(0, h, 0, k.shape[2])]
+    if k.shape[0] != b or k.shape[3] != d or any(
+            (qb - qa) % (kb - ka) for qa, qb, ka, kb in segments):
         raise ValueError(f"{name}: shapes {tuple(q.shape)} and "
                          f"{tuple(k.shape)} do not match for GQA")
     if d not in HEAD_DIMS:
@@ -146,17 +151,18 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_decode(name: str, q: torch.Tensor, k: torch.Tensor,
-                  v: torch.Tensor, kv_dtype: Optional[torch.dtype] = None):
+                  v: torch.Tensor, kv_dtype: Optional[torch.dtype] = None,
+                  segments=None):
     """:func:`_check`, and one query token per slot with at most
     ``MAX_GROUP`` query heads per KV head."""
-    _check(name, q, k, v, kv_dtype)
-    h, kh = q.shape[2], k.shape[2]
+    _check(name, q, k, v, kv_dtype, segments)
     if q.shape[1] != 1:
         raise ValueError(f"{name}: one query token per slot, got "
                          f"{q.shape[1]}")
-    if h // kh > MAX_GROUP:
-        raise ValueError(f"{name}: {h // kh} query heads per kv head exceed "
-                         f"{MAX_GROUP}")
+    for qa, qb, ka, kb in segments or [(0, q.shape[2], 0, k.shape[2])]:
+        if (qb - qa) // (kb - ka) > MAX_GROUP:
+            raise ValueError(f"{name}: {(qb - qa) // (kb - ka)} query heads "
+                             f"per kv head exceed {MAX_GROUP}")
 
 
 def _slot_vector(x, b: int, device: torch.device) -> torch.Tensor:
@@ -182,36 +188,102 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def head_segments(q0: int, h: int, group: int,
+                  kh: Optional[int] = None) -> List[Tuple[int, int, int, int]]:
+    """A tensor-parallel rank's query heads as uniform GQA segments: the
+    rank holds ``h`` query heads from global head ``q0`` on and the KV
+    heads they read, ``[q0 // G, (q1 - 1) // G + 1)`` with ``G = group``
+    (``launch.partition.kv_head_range``).  Returns ``(q_lo, q_hi, kv_lo,
+    kv_hi)`` ranges local to the rank, in order: the trailing part of a
+    group cut at ``q0`` (one KV head), the whole groups, and the leading
+    part of a group cut at ``q1`` (one KV head); each segment reads its KV
+    heads at one ratio, which the kernels take.  A rank inside one group,
+    or whose range meets the group boundaries, is one segment; a rank
+    with no heads has none.  ``group`` 0 means one segment of ``h`` query
+    heads over ``kh`` KV heads (the shard is uniform as it is)."""
+    if h == 0:
+        return []
+    if group == 0:
+        return [(0, h, 0, kh)]
+    segs, a, kv = [], 0, 0
+    lead = (-q0) % group
+    if lead:
+        a = min(lead, h)
+        segs.append((0, a, 0, 1))
+        kv = 1
+    whole = (h - a) // group
+    if whole:
+        segs.append((a, a + whole * group, kv, kv + whole))
+        a, kv = a + whole * group, kv + whole
+    if a < h:
+        segs.append((a, h, kv, kv + 1))
+    return segs
+
+
+def _segments(name: str, q: torch.Tensor, k: torch.Tensor, q0: int,
+              group: int) -> List[Tuple[int, int, int, int]]:
+    """:func:`head_segments` of a shard q (B,S,H,D) over k (B,L,KH,D),
+    checked against k's heads."""
+    h, kh = q.shape[2], k.shape[2]
+    segs = head_segments(q0, h, group, kh)
+    if (segs[-1][3] if segs else 0) != kh or any(
+            (b - a) % (d - c) for a, b, c, d in segs):
+        raise ValueError(f"{name}: {h} query heads from head {q0} at group "
+                         f"size {group} do not read {kh} KV heads in "
+                         "uniform GQA segments")
+    return segs
+
+
+def _offset(t: torch.Tensor, heads: int) -> int:
+    """The address of head ``heads`` of row 0 of a contiguous (..., H, D)
+    tensor."""
+    return t.data_ptr() + heads * t.shape[-1] * t.element_size()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: Optional[int] = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    window: Optional[int] = None, q_offset: int = 0,
+                    head_start: int = 0, group: int = 0) -> torch.Tensor:
     """Causal GQA attention: q (B,Sq,H,D) over k/v (B,Skv,KH,D); query row
     i sits at position ``q_offset + i``; ``window`` masks keys older than
     ``pos - window + 1``.  Returns (B,Sq,H,D) in q's dtype.  On the card a
     bf16 call runs the tensor-core body of the kernel and an fp32 call its
-    CUDA-core body (``csrc/flash_attention.cu``)."""
+    CUDA-core body (``csrc/flash_attention.cu``).
+
+    A tensor-parallel rank's heads: ``head_start`` is its first global
+    query head and ``group`` the global group size ``G``; where its heads
+    cut a group the kernel runs once per uniform segment
+    (:func:`head_segments`) over strided views of q, k and v, each launch
+    counted.  A shard with no heads launches nothing."""
     refuse_autograd("flash_attention", q, k, v)
+    if q.shape[2] == 0:
+        return torch.empty_like(q)
     if _costed(q):
-        return torch.ops.repro_torch.flash_attention(q, k, v, int(window or 0),
-                                                     int(q_offset))
-    return _flash_attention(q, k, v, window, q_offset)
+        return torch.ops.repro_torch.flash_attention(
+            q, k, v, int(window or 0), int(q_offset), int(head_start),
+            int(group))
+    return _flash_attention(q, k, v, window, q_offset, head_start, group)
 
 
-def _flash_attention(q, k, v, window, q_offset):
+def _flash_attention(q, k, v, window, q_offset, head_start=0, group=0):
+    segs = _segments("flash_attention", q, k, head_start, group)
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, window=window, q_offset=q_offset)
-    _check("flash_attention", q, k, v)
+        return ref.over_segments(ref.flash_attention, q, k, v, segs,
+                                 window=window, q_offset=q_offset)
+    _check("flash_attention", q, k, v, segments=segs)
     if q.data_ptr() % 16:
         raise ValueError("flash_attention: q must start on a 16-byte "
                          "boundary (the kernel copies it in 16-byte vectors)")
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    _launch("flash_attention", q.device, build.load("flash_attention_launch"),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, sq, skv, h, kh, d, DTYPE_CODES[q.dtype], int(q_offset),
-            int(window or 0), 1.0 / math.sqrt(d), _stream(q.device))
-    flash_attention.launches += 1
+    for qa, qb, ka, kb in segs:
+        _launch("flash_attention", q.device,
+                build.load("flash_attention_launch"),
+                _offset(q, qa), _offset(k, ka), _offset(v, ka),
+                _offset(out, qa), b, sq, skv, qb - qa, kb - ka, h, kh, d,
+                DTYPE_CODES[q.dtype], int(q_offset), int(window or 0),
+                1.0 / math.sqrt(d), _stream(q.device))
+        flash_attention.launches += 1
     return out
 
 
@@ -219,21 +291,27 @@ flash_attention.launches = 0
 
 
 def _decode_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   kv_len, q_offset, window: Optional[int]) -> torch.Tensor:
-    """Check the CUDA tensors and launch the decode kernel (uncounted)."""
-    _check_decode("flash_decode", q, k, v)
+                   kv_len, q_offset, window: Optional[int],
+                   segments=None) -> Tuple[torch.Tensor, int]:
+    """Check the CUDA tensors and launch the decode kernel once per
+    uniform GQA segment (default one: all heads); returns (the output,
+    the launches), uncounted."""
+    segments = segments or [(0, q.shape[2], 0, k.shape[2])]
+    _check_decode("flash_decode", q, k, v, segments=segments)
     b, _, h, d = q.shape
     L, kh = k.shape[1], k.shape[2]
     kv_len, q_offset = (_slot_vector(x, b, q.device)
                         for x in (kv_len, q_offset))
     out = torch.empty_like(q)
-    n_split, s_len, part = _split_scratch(q, L)
-    _launch("flash_decode", q.device, build.load("flash_decode_launch"),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-            q_offset.data_ptr(), out.data_ptr(), _ptr(part), b, L, h, kh, d,
-            DTYPE_CODES[q.dtype], int(window or 0), 1.0 / math.sqrt(d),
-            n_split, s_len, _stream(q.device))
-    return out
+    for qa, qb, ka, kb in segments:
+        n_split, s_len, part = _split_scratch(q, L, qb - qa)
+        _launch("flash_decode", q.device, build.load("flash_decode_launch"),
+                _offset(q, qa), _offset(k, ka), _offset(v, ka),
+                kv_len.data_ptr(), q_offset.data_ptr(), _offset(out, qa),
+                _ptr(part), b, L, qb - qa, kb - ka, h, kh, d,
+                DTYPE_CODES[q.dtype], int(window or 0), 1.0 / math.sqrt(d),
+                n_split, s_len, _stream(q.device))
+    return out, len(segments)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -255,7 +333,7 @@ def _flash_decode(q, k, v, kv_len, q_offset, window):
     if q.device.type == "cpu":
         return ref.flash_decode(q, k, v, kv_len=kv_len, q_offset=q_offset,
                                 window=window)
-    out = _decode_launch(q, k, v, kv_len, q_offset, window)
+    out, _ = _decode_launch(q, k, v, kv_len, q_offset, window)
     flash_decode.launches += 1
     return out
 
@@ -266,59 +344,82 @@ flash_decode.launches = 0
 def flash_decode_sharded(qs: Sequence[torch.Tensor],
                          ks: Sequence[torch.Tensor],
                          vs: Sequence[torch.Tensor], *, kv_len, q_offset,
-                         window: Optional[int] = None) -> List[torch.Tensor]:
-    """:func:`flash_decode` under tensor parallelism: ``qs[r]`` (B,1,H/tp,D)
-    and ``ks[r]``/``vs[r]`` (B,L,KHr,D) are rank r's contiguous ranges of
+                         window: Optional[int] = None,
+                         head_starts: Optional[Sequence[int]] = None,
+                         group: int = 0) -> List[torch.Tensor]:
+    """:func:`flash_decode` under tensor parallelism: ``qs[r]`` (B,1,Hr,D)
+    and ``ks[r]``/``vs[r]`` (B,L,KHr,D) are rank r's contiguous range of
     whole query heads and of the KV heads they read, on rank r's device
     (ranks may share one); ``kv_len`` and ``q_offset`` are the per-slot
-    vectors (or ints) every rank shares.
+    vectors (or ints) every rank shares.  The shards may be unequal, and
+    empty (a rank with no heads).  ``head_starts[r]`` is rank r's first
+    global query head and ``group`` the global group size ``G``; without
+    them each shard must read its KV heads at one ratio.
 
-    The decode kernel runs once per shard on that shard's device, over its
-    local heads only, and each launch adds one to this wrapper's count
-    (not to :func:`flash_decode`'s).  The kernel's blocks, one per (slot,
-    KV head, key split), are independent, each query head's arithmetic is
-    the same whatever the group size, and every shard cuts its keys as
-    the single-device launch does (:func:`decode_splits` reads neither
-    heads nor lengths), so no collective runs and the shards' outputs,
-    side by side, are bit for bit the single-device kernel's.
-    Returns the per-rank outputs (B,1,H/tp,D).  Raises ``ValueError`` when
-    the shards are not equal numbers of whole heads."""
+    The decode kernel runs on each shard's device over its local heads
+    only: once per uniform GQA segment of the shard (:func:`head_segments`:
+    one where the shard's heads meet the group boundaries, up to three
+    where they cut a group; none for an empty shard), over strided views,
+    each launch adding one to this wrapper's count (not to
+    :func:`flash_decode`'s).  The kernel's blocks, one per (slot, KV head,
+    key split), are independent, each query head's arithmetic is the same
+    whatever the group size, and every launch cuts its keys as the
+    single-device launch does (:func:`decode_splits` reads neither heads
+    nor lengths), so no collective runs and the shards' outputs, side by
+    side, are bit for bit the single-device kernel's.  Returns the
+    per-rank outputs (B,1,Hr,D).  Raises ``ValueError`` when a shard's
+    heads do not read its KV heads in uniform segments."""
     refuse_autograd("flash_decode_sharded", *qs, *ks, *vs)
-    _check_shards("flash_decode_sharded", qs, ks, vs)
+    starts = _check_shards("flash_decode_sharded", qs, head_starts, ks, vs)
     if _costed(qs[0]):
         b = qs[0].shape[0]
         return torch.ops.repro_torch.flash_decode_sharded(
             list(qs), list(ks), list(vs), _slot_vector(kv_len, b, qs[0].device),
-            _slot_vector(q_offset, b, qs[0].device), int(window or 0))
-    return _flash_decode_sharded(qs, ks, vs, kv_len, q_offset, window)
+            _slot_vector(q_offset, b, qs[0].device), int(window or 0),
+            starts, int(group))
+    return _flash_decode_sharded(qs, ks, vs, kv_len, q_offset, window,
+                                 starts, group)
 
 
-def _check_shards(name: str, qs, *rest) -> None:
-    """One q and one of each of ``rest`` per rank, and equal shards of
-    whole heads."""
+def _check_shards(name: str, qs, head_starts, *rest) -> List[int]:
+    """One q and one of each of ``rest`` per rank, and one first head per
+    rank (default 0); returns the first heads."""
     tp = len(qs)
     if tp == 0 or any(len(r) != tp for r in rest):
         raise ValueError(f"{name}: want one q, k and v per rank, got "
                          f"{[len(qs)] + [len(r) for r in rest]}")
-    hs = {q.shape[2] for q in qs}
-    khs = {k.shape[2] for k in rest[0]}
-    if len(hs) != 1 or len(khs) != 1:
-        raise ValueError(
-            f"{name}: heads ({sorted(hs)} q / {sorted(khs)} kv per rank) "
-            f"must divide the {tp} ranks into equal shards of whole heads")
+    starts = [0] * tp if head_starts is None else [int(x) for x in
+                                                   head_starts]
+    if len(starts) != tp:
+        raise ValueError(f"{name}: want one first head per rank, got "
+                         f"{len(starts)} for {tp} ranks")
+    return starts
 
 
-def _flash_decode_sharded(qs, ks, vs, kv_len, q_offset, window):
+def _shard_segments(name, qs, ks, starts, group):
+    return [_segments(name, q, k, q0, group)
+            for q, k, q0 in zip(qs, ks, starts)]
+
+
+def _flash_decode_sharded(qs, ks, vs, kv_len, q_offset, window,
+                          head_starts=(), group=0):
+    starts = list(head_starts) or [0] * len(qs)
+    segs = _shard_segments("flash_decode_sharded", qs, ks, starts, group)
     if all(q.device.type == "cpu" for q in qs):
         return ref.flash_decode_sharded(qs, ks, vs, kv_len=kv_len,
-                                        q_offset=q_offset, window=window)
+                                        q_offset=q_offset, window=window,
+                                        segments=segs)
     outs = []
-    for q, k, v in zip(qs, ks, vs):
+    for q, k, v, sg in zip(qs, ks, vs, segs):
         if q.device.type != "cuda":
             raise ValueError("flash_decode_sharded: shards must all lie on "
                              f"cuda or all on cpu, got {q.device}")
-        outs.append(_decode_launch(q, k, v, kv_len, q_offset, window))
-        flash_decode_sharded.launches += 1
+        if not sg:
+            outs.append(torch.empty_like(q))
+            continue
+        out, n = _decode_launch(q, k, v, kv_len, q_offset, window, sg)
+        outs.append(out)
+        flash_decode_sharded.launches += n
     return outs
 
 
@@ -359,16 +460,19 @@ def _flash_decode_int8(q, k, v, k_scale, v_scale, kv_len, q_offset, window):
     if q.device.type == "cpu":
         return ref.flash_decode_int8(q, k, v, k_scale, v_scale, kv_len=kv_len,
                                      q_offset=q_offset, window=window)
-    out = _int8_launch(q, k, v, k_scale, v_scale, kv_len, q_offset, window)
+    out, _ = _int8_launch(q, k, v, k_scale, v_scale, kv_len, q_offset,
+                          window)
     flash_decode_int8.launches += 1
     return out
 
 
-def _int8_launch(q, k, v, k_scale, v_scale, kv_len, q_offset,
-                 window) -> torch.Tensor:
-    """Check the CUDA tensors and launch the int8 decode kernel
-    (uncounted)."""
-    _check_decode("flash_decode_int8", q, k, v, torch.int8)
+def _int8_launch(q, k, v, k_scale, v_scale, kv_len, q_offset, window,
+                 segments=None) -> Tuple[torch.Tensor, int]:
+    """Check the CUDA tensors and launch the int8 decode kernel once per
+    uniform GQA segment (default one: all heads); returns (the output,
+    the launches), uncounted."""
+    segments = segments or [(0, q.shape[2], 0, k.shape[2])]
+    _check_decode("flash_decode_int8", q, k, v, torch.int8, segments)
     if any(s.device != q.device or not s.is_contiguous()
            for s in (k_scale, v_scale)):
         raise ValueError("flash_decode_int8: the scales must be contiguous, "
@@ -378,15 +482,17 @@ def _int8_launch(q, k, v, k_scale, v_scale, kv_len, q_offset,
     kv_len, q_offset = (_slot_vector(x, b, q.device)
                         for x in (kv_len, q_offset))
     out = torch.empty_like(q)
-    n_split, s_len, part = _split_scratch(q, L)
-    _launch("flash_decode_int8", q.device,
-            build.load("flash_decode_int8_launch"),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), kv_len.data_ptr(), q_offset.data_ptr(),
-            out.data_ptr(), _ptr(part), b, L, h, kh, d, DTYPE_CODES[q.dtype],
-            int(window or 0), 1.0 / math.sqrt(d), n_split, s_len,
-            _stream(q.device))
-    return out
+    for qa, qb, ka, kb in segments:
+        n_split, s_len, part = _split_scratch(q, L, qb - qa)
+        _launch("flash_decode_int8", q.device,
+                build.load("flash_decode_int8_launch"),
+                _offset(q, qa), _offset(k, ka), _offset(v, ka),
+                k_scale.data_ptr(), v_scale.data_ptr(), kv_len.data_ptr(),
+                q_offset.data_ptr(), _offset(out, qa), _ptr(part), b, L,
+                qb - qa, kb - ka, h, kh, d, DTYPE_CODES[q.dtype],
+                int(window or 0), 1.0 / math.sqrt(d), n_split, s_len,
+                _stream(q.device))
+    return out, len(segments)
 
 
 flash_decode_int8.launches = 0
@@ -397,39 +503,46 @@ def flash_decode_int8_sharded(qs: Sequence[torch.Tensor],
                               vs: Sequence[torch.Tensor],
                               k_scales: Sequence[torch.Tensor],
                               v_scales: Sequence[torch.Tensor], *, kv_len,
-                              q_offset, window: Optional[int] = None
-                              ) -> List[torch.Tensor]:
+                              q_offset, window: Optional[int] = None,
+                              head_starts: Optional[Sequence[int]] = None,
+                              group: int = 0) -> List[torch.Tensor]:
     """:func:`flash_decode_int8` under tensor parallelism, as
     :func:`flash_decode_sharded` is :func:`flash_decode`'s: ``qs[r]``
-    (B,1,H/tp,D) and the int8 codes ``ks[r]``/``vs[r]`` (B,L,KHr,D) of
+    (B,1,Hr,D) and the int8 codes ``ks[r]``/``vs[r]`` (B,L,KHr,D) of
     rank r's heads, with ``k_scales[r]``/``v_scales[r]`` (B,L) its copy
     of the per-token scales, which every rank shares (the cache's writes
     take one cross-rank max, ``models.layers.quantize_kv_shared``).  The
-    int8 kernel runs once per shard over its local heads, each launch
-    adding one to this wrapper's count (not to :func:`flash_decode_int8`'s);
-    its outputs side by side are the single-device kernel's, bit for bit.
-    Returns the per-rank outputs (B,1,H/tp,D)."""
+    int8 kernel runs on each shard once per uniform GQA segment of its
+    heads (``head_starts``, ``group``: :func:`flash_decode_sharded`), each
+    launch adding one to this wrapper's count (not to
+    :func:`flash_decode_int8`'s); its outputs side by side are the
+    single-device kernel's, bit for bit.  Returns the per-rank outputs
+    (B,1,Hr,D)."""
     refuse_autograd("flash_decode_int8_sharded", *qs, *k_scales, *v_scales)
-    _check_shards("flash_decode_int8_sharded", qs, ks, vs, k_scales,
-                  v_scales)
+    starts = _check_shards("flash_decode_int8_sharded", qs, head_starts, ks,
+                           vs, k_scales, v_scales)
     if _costed(qs[0]):
         b = qs[0].shape[0]
         return torch.ops.repro_torch.flash_decode_int8_sharded(
             list(qs), list(ks), list(vs), list(k_scales), list(v_scales),
             _slot_vector(kv_len, b, qs[0].device),
-            _slot_vector(q_offset, b, qs[0].device), int(window or 0))
+            _slot_vector(q_offset, b, qs[0].device), int(window or 0),
+            starts, int(group))
     return _flash_decode_int8_sharded(qs, ks, vs, k_scales, v_scales, kv_len,
-                                      q_offset, window)
+                                      q_offset, window, starts, group)
 
 
 def _flash_decode_int8_sharded(qs, ks, vs, k_scales, v_scales, kv_len,
-                               q_offset, window):
+                               q_offset, window, head_starts=(), group=0):
+    starts = list(head_starts) or [0] * len(qs)
+    segs = _shard_segments("flash_decode_int8_sharded", qs, ks, starts,
+                           group)
     if all(q.device.type == "cpu" for q in qs):
         return ref.flash_decode_int8_sharded(
             qs, ks, vs, k_scales, v_scales, kv_len=kv_len, q_offset=q_offset,
-            window=window)
+            window=window, segments=segs)
     outs = []
-    for q, k, v, ksc, vsc in zip(qs, ks, vs, k_scales, v_scales):
+    for q, k, v, ksc, vsc, sg in zip(qs, ks, vs, k_scales, v_scales, segs):
         if q.device.type != "cuda":
             raise ValueError("flash_decode_int8_sharded: shards must all lie "
                              f"on cuda or all on cpu, got {q.device}")
@@ -437,9 +550,13 @@ def _flash_decode_int8_sharded(qs, ks, vs, k_scales, v_scales, kv_len,
             if t.dtype != torch.int8:
                 raise ValueError("flash_decode_int8_sharded: k and v must be "
                                  f"int8, got {t.dtype}")
-        outs.append(_int8_launch(q, k, v, ksc, vsc, kv_len, q_offset,
-                                 window))
-        flash_decode_int8_sharded.launches += 1
+        if not sg:
+            outs.append(torch.empty_like(q))
+            continue
+        out, n = _int8_launch(q, k, v, ksc, vsc, kv_len, q_offset, window,
+                              sg)
+        outs.append(out)
+        flash_decode_int8_sharded.launches += n
     return outs
 
 
@@ -471,6 +588,9 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     kernels, over an fp32 workspace of :func:`ssd_workspace_floats`) and
     an fp32 call its CUDA-core body; either counts one launch."""
     refuse_autograd("ssd_scan", x, a, Bm, Cm)
+    if x.shape[2] == 0:  # a tensor-parallel rank with no SSM heads
+        return (torch.empty_like(x),
+                x.new_empty((x.shape[0], 0, x.shape[3], Bm.shape[-1])))
     if _costed(x):
         return torch.ops.repro_torch.ssd_scan(x, a, Bm, Cm, int(chunk))
     return _ssd_scan(x, a, Bm, Cm, chunk)
@@ -550,12 +670,14 @@ def _win(window: int) -> Optional[int]:
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        window: int, q_offset: int) -> torch.Tensor:
-    return _flash_attention(q, k, v, _win(window), q_offset)
+                        window: int, q_offset: int, head_start: int,
+                        group: int) -> torch.Tensor:
+    return _flash_attention(q, k, v, _win(window), q_offset, head_start,
+                            group)
 
 
 @_flash_attention_op.register_fake
-def _(q, k, v, window, q_offset):
+def _(q, k, v, window, q_offset, head_start, group):
     return torch.empty_like(q)
 
 
@@ -574,13 +696,15 @@ def _(q, k, v, kv_len, q_offset, window):
 @torch.library.custom_op("repro_torch::flash_decode_sharded", mutates_args=())
 def _flash_decode_sharded_op(qs: List[torch.Tensor], ks: List[torch.Tensor],
                              vs: List[torch.Tensor], kv_len: torch.Tensor,
-                             q_offset: torch.Tensor,
-                             window: int) -> List[torch.Tensor]:
-    return _flash_decode_sharded(qs, ks, vs, kv_len, q_offset, _win(window))
+                             q_offset: torch.Tensor, window: int,
+                             head_starts: List[int],
+                             group: int) -> List[torch.Tensor]:
+    return _flash_decode_sharded(qs, ks, vs, kv_len, q_offset, _win(window),
+                                 head_starts, group)
 
 
 @_flash_decode_sharded_op.register_fake
-def _(qs, ks, vs, kv_len, q_offset, window):
+def _(qs, ks, vs, kv_len, q_offset, window, head_starts, group):
     return [torch.empty_like(q) for q in qs]
 
 
@@ -604,13 +728,16 @@ def _flash_decode_int8_sharded_op(
         qs: List[torch.Tensor], ks: List[torch.Tensor],
         vs: List[torch.Tensor], k_scales: List[torch.Tensor],
         v_scales: List[torch.Tensor], kv_len: torch.Tensor,
-        q_offset: torch.Tensor, window: int) -> List[torch.Tensor]:
+        q_offset: torch.Tensor, window: int, head_starts: List[int],
+        group: int) -> List[torch.Tensor]:
     return _flash_decode_int8_sharded(qs, ks, vs, k_scales, v_scales, kv_len,
-                                      q_offset, _win(window))
+                                      q_offset, _win(window), head_starts,
+                                      group)
 
 
 @_flash_decode_int8_sharded_op.register_fake
-def _(qs, ks, vs, k_scales, v_scales, kv_len, q_offset, window):
+def _(qs, ks, vs, k_scales, v_scales, kv_len, q_offset, window, head_starts,
+      group):
     return [torch.empty_like(q) for q in qs]
 
 
@@ -645,6 +772,7 @@ def _decode_rows(L: int, window: int) -> int:
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
 def _flash_attention_flops(q, k, v, window, q_offset, *args, out_shape=None,
                            **kwargs) -> int:
+    # every query head once, however its shard's segments cut it
     b, sq, h, d = q
     return 4 * b * h * d * attention_pairs(sq, k[1], q_offset, window)
 
@@ -666,6 +794,7 @@ def _flash_decode_int8_flops(q, k, v, k_scale, v_scale, kv_len, q_offset,
 @register_flop_formula(torch.ops.repro_torch.flash_decode_sharded)
 def _flash_decode_sharded_flops(qs, ks, vs, kv_len, q_offset, window, *args,
                                 out_shape=None, **kwargs) -> int:
+    # every rank's query heads once, however its segments cut them
     return sum(4 * q[0] * q[2] * q[3] * _decode_rows(k[1], window)
                for q, k in zip(qs, ks))
 

@@ -146,23 +146,48 @@ def flash_decode_split(q, k, v, *, kv_len, q_offset,
     return (o / l.clamp(min=1e-30)[..., None])[:, None].to(q.dtype)
 
 
+def over_segments(fn, q, k, v, segments, *scales, **kw) -> torch.Tensor:
+    """``fn`` over each uniform GQA segment ``(q_lo, q_hi, kv_lo, kv_hi)``
+    of a tensor-parallel rank's heads (``kernels.ops.head_segments``):
+    q's heads ``[q_lo, q_hi)`` over k's and v's ``[kv_lo, kv_hi)`` (with
+    ``scales``, an int8 cache's (B, L) scales, passed whole), the outputs
+    side by side along the heads.  No segments (a rank with no heads)
+    give an empty output of q's shape."""
+    if not segments:
+        return torch.empty_like(q)
+    outs = [fn(q[:, :, a:b], k[:, :, c:d], v[:, :, c:d], *scales, **kw)
+            for a, b, c, d in segments]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
+def _whole(q, k):
+    return [(0, q.shape[2], 0, k.shape[2])] if q.shape[2] else []
+
+
 def flash_decode_sharded(qs, ks, vs, *, kv_len, q_offset,
-                         window: Optional[int] = None):
+                         window: Optional[int] = None, segments=None):
     """Plain version of the sharded decode: :func:`flash_decode` on each
-    rank's shard of whole heads (q (B,1,H/tp,D), k/v (B,L,KHr,D));
-    returns the per-rank outputs."""
-    return [flash_decode(q, k, v, kv_len=kv_len, q_offset=q_offset,
-                         window=window) for q, k, v in zip(qs, ks, vs)]
+    rank's shard of whole heads (q (B,1,Hr,D), k/v (B,L,KHr,D)), over
+    each of its uniform GQA ``segments[r]`` (default: one of the whole
+    shard); returns the per-rank outputs."""
+    segments = segments or [_whole(q, k) for q, k in zip(qs, ks)]
+    return [over_segments(flash_decode, q, k, v, sg, kv_len=kv_len,
+                          q_offset=q_offset, window=window)
+            for q, k, v, sg in zip(qs, ks, vs, segments)]
 
 
 def flash_decode_int8_sharded(qs, ks, vs, k_scales, v_scales, *, kv_len,
-                              q_offset, window: Optional[int] = None):
+                              q_offset, window: Optional[int] = None,
+                              segments=None):
     """Plain version of the sharded int8 decode: :func:`flash_decode_int8`
-    on each rank's int8 KV heads and its copy of the shared scales;
+    on each rank's int8 KV heads and its copy of the shared scales, over
+    its uniform GQA ``segments[r]`` as :func:`flash_decode_sharded`;
     returns the per-rank outputs."""
-    return [flash_decode_int8(q, k, v, ks, vs, kv_len=kv_len,
-                              q_offset=q_offset, window=window)
-            for q, k, v, ks, vs in zip(qs, ks, vs, k_scales, v_scales)]
+    segments = segments or [_whole(q, k) for q, k in zip(qs, ks)]
+    return [over_segments(flash_decode_int8, q, k, v, sg, ksc, vsc,
+                          kv_len=kv_len, q_offset=q_offset, window=window)
+            for q, k, v, ksc, vsc, sg in zip(qs, ks, vs, k_scales, v_scales,
+                                             segments)]
 
 
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,

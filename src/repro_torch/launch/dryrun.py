@@ -37,19 +37,26 @@ dtypes and allocate nothing.  It records per device:
 One process runs every rank of the pod, so the pod's totals become
 per-device figures by dividing them by the pod's ranks (the ranks' work
 is equal but for rank 0's gathers); collectives are counted once per
-operation, which is each device's count already.  ``lower_s`` is the
+operation, which is each device's count already.  Where the ranks do
+not divide a split axis their work differs: the ranks' ops interleave
+in one trace on one device, which cannot tell them apart, so the record
+reports the mean rank, not the busiest one that sets the step (the
+reference's padded GSPMD shards are the largest shard's).  The busiest
+rank's share of a split axis is ``ceil(n / tp) / (n / tp)`` of the mean
+(qwen2-1.5b's attention at 16 ranks: 1 head of 12 against 0.75).  ``lower_s`` is the
 trace's time; ``compile_s`` is 0.0: nothing is compiled, the port's
 kernels being built once by nvcc (``kernels.build``) and its model run
 eagerly.  The cost analysis's ``optimal_seconds`` is the card's roofline
 of the record: the largest of its flops, bytes and collective bytes over
 ``launch.mesh``'s H100 rates (NVLink for the collectives).
 
-Where the port has no layout for a combination the record is skipped
-with a reason naming its queue item (ROADMAP.md, queue 1): heads or
-widths the model axis does not divide (item 8.4), ``kv_shard="seq"`` or
-``"head_dim"``, a context-parallel cache (decode with a global batch
-under 16: long_500k) and ``params_data_sharded`` (ZeRO-3), which are
-item 8.5.  ``kv_shard="auto"`` takes the port's head layout, and the
+Heads and widths the model axis does not divide are laid out as whole
+units, the first ranks one more (``partition.split_range``; qwen2-1.5b's
+12 heads over 16 ranks leave four ranks none).  Where the port has no
+layout for a combination the record is skipped with a reason naming its
+queue item (ROADMAP.md, queue 1): ``kv_shard="seq"`` or ``"head_dim"``,
+a context-parallel cache (decode with a global batch under 16:
+long_500k) and ``params_data_sharded`` (ZeRO-3), which are item 8.5.  ``kv_shard="auto"`` takes the port's head layout, and the
 record says ``"heads"``.  The reference's ``moe_scheme="expert"`` is not
 ported (``launch.partition``).  :func:`lower_one` keeps two of the
 reference's arguments only for signature parity, so that its calls run

@@ -6,9 +6,16 @@ inserts the collectives.  The port splits the parameter tree itself into
 one tree per rank (:func:`shard_params`), and the model sums the
 row-parallel partials itself (:mod:`repro_torch.models.transformer`).
 The rules are the reference's: vocab, heads and the FFN hidden axis on
-"model", norms replicated.  Shards are contiguous ranges of whole heads,
-so each rank's K/V slice is a contiguous tensor that the decode kernel
-takes as it is.
+"model", norms replicated.  Every split axis is cut the same way, for any
+rank count (:func:`split_range`): rank ``r`` holds a contiguous range of
+whole units (query heads, SSM heads, FFN or expert columns, vocab rows),
+the first ``n % tp`` ranks one unit more than the others, so where the
+ranks divide the axis every rank holds ``n / tp`` and where they do not
+the pieces differ by one unit, or a rank holds none (qwen2-1.5b's 12
+heads over 16 ranks).  GSPMD instead replicates a leaf whose width the
+axis does not divide (``sanitize_specs``), or splits its columns
+mid-head; the port keeps whole heads, so each rank's K/V slice is a
+contiguous tensor that the decode kernel takes as it is.
 
 The MoE family follows the reference's baseline "tensor" scheme
 (``_MOE_RULES``, which its ``engine_shardings`` uses): each routed
@@ -49,15 +56,18 @@ cross K/V are its own query heads'), and ``wo`` by rows; the KV-head
 split of the self-attention's ``wk`` / ``wv`` would be wrong there
 wherever KH != H, with shapes that still fit.
 
-Each rank holds the KV heads its own query heads read, a contiguous range:
-its share of them when the rank count divides ``n_kv_heads``, or the one
-KV head of its query heads when ``n_kv_heads`` divides the rank count
-(qwen2-1.5b's 2 KV heads over 4 ranks: ranks 0-1 hold KV head 0, ranks 2-3
-KV head 1).  Either way a rank's query heads read its KV heads at one
-ratio, so the decode and prefill kernels serve every rank as they are.
-The reference replicates KV in the second layout (``sanitize_specs``) and
-falls back to XLA; the port serves it through the kernels.  A layout where
-neither count divides the other is refused.
+Each rank holds the KV heads its own query heads read, a contiguous range
+(:func:`kv_head_range`): its query heads ``[q0, q1)`` read KV heads
+``[q0 // G, (q1 - 1) // G + 1)``, ``G = H / KH``.  Ranks share a KV head
+where a GQA group crosses their boundary (qwen2-1.5b's 2 KV heads over 4
+ranks; llama3.2-3b's 24 / 8 heads over 3 ranks: KV ``[0, 3)``, ``[2, 6)``,
+``[5, 8)``).  A rank whose query heads cut a group reads its KV heads at
+two or three ratios, so the attention kernels launch it as uniform
+segments (``kernels.ops.head_segments``, each rank's first head and ``G``
+from :func:`rank_heads`).  The reference replicates KV where the heads do
+not divide (``sanitize_specs``) and falls back to XLA; the port serves
+every such layout through the kernels.  The one layout refused is several
+SSM groups that do not divide over the ranks (no arch has it).
 
 The reference's spec functions are here too (:class:`P`,
 :func:`param_pspecs`, :func:`cache_pspecs`, :func:`batch_pspecs`,
@@ -338,38 +348,53 @@ def check_family(cfg) -> None:
 
 
 def layout_reason(cfg, tp: int) -> Optional[str]:
-    """Why the port has no per-rank layout of ``cfg`` over ``tp`` ranks
-    (heads, KV heads, SSM heads or widths that do not divide), naming
-    ROADMAP.md's item 8.4, or None."""
+    """Why the port has no per-rank layout of ``cfg`` over ``tp`` ranks,
+    or None.  Every head count and width now splits over any rank count
+    (:func:`split_range`); what is left is several SSM groups that do not
+    divide over the ranks, which no served arch has."""
     try:
-        local_config(cfg, tp)
+        for rank in range(tp):
+            local_config(cfg, tp, rank)
     except (ValueError, NotImplementedError) as e:
-        item = "ROADMAP.md, queue 1, item 8.4"
-        return str(e) if item in str(e) else f"{e} ({item})"
+        return str(e)
     return None
 
 
-def _layout_reason(cfg, tp: int) -> Optional[str]:
-    """Why the query and KV heads of ``cfg`` cannot be laid out over ``tp``
-    ranks, or ``None``."""
-    h, kh = cfg.n_heads, cfg.n_kv_heads
-    if h % tp or (kh % tp and tp % kh):
-        return (f"layout: heads ({h} q / {kh} kv) do not divide the 'model' "
-                f"axis (size {tp}) — and the axis size is no multiple of the "
-                "KV heads, so a rank's query heads cannot read one range of "
-                "KV heads at one ratio; the port serves no such layout")
-    return None
+def split_range(n: int, tp: int, rank: int) -> Tuple[int, int]:
+    """The units ``[lo, hi)`` rank ``rank`` of ``tp`` holds of an axis of
+    ``n`` whole units (heads, FFN columns, vocab rows): a contiguous range,
+    the first ``n % tp`` ranks one unit more than the others.  Where ``tp``
+    divides ``n`` every rank holds ``n / tp``; a rank may hold none."""
+    base, extra = divmod(n, tp)
+    lo = rank * base + min(rank, extra)
+    return lo, lo + base + (rank < extra)
+
+
+def head_range(cfg, tp: int, rank: int) -> Tuple[int, int]:
+    """The query heads ``[q0, q1)`` of rank ``rank`` (:func:`split_range`)."""
+    return split_range(cfg.n_heads, tp, rank)
 
 
 def kv_head_range(cfg, tp: int, rank: int) -> Tuple[int, int]:
-    """The KV heads ``[lo, hi)`` that rank ``rank``'s query heads read (on
-    one device, global query head ``j`` reads KV head ``j // (H / KH)``)."""
-    kh = cfg.n_kv_heads
-    if kh % tp == 0:
-        n = kh // tp
-        return rank * n, (rank + 1) * n
-    g = rank // (tp // kh)
-    return g, g + 1
+    """The KV heads ``[lo, hi)`` that rank ``rank``'s query heads read: on
+    one device query head ``j`` reads KV head ``j // G``, ``G = H / KH``,
+    so ranks ``[q0, q1)`` read ``[q0 // G, (q1 - 1) // G + 1)``.  Two ranks
+    share a KV head where a group crosses their boundary; a rank with no
+    query heads reads none (an empty range)."""
+    q0, q1 = head_range(cfg, tp, rank)
+    g = cfg.n_heads // cfg.n_kv_heads
+    if q0 == q1:
+        lo = min(q0 // g, cfg.n_kv_heads)
+        return lo, lo
+    return q0 // g, (q1 - 1) // g + 1
+
+
+def rank_heads(cfg, tp: int) -> List[Tuple[int, int]]:
+    """Each rank's (first query head, group size ``G``): what the attention
+    kernels take to launch a rank whose heads cut a GQA group as uniform
+    segments (``kernels.ops.head_segments``)."""
+    g = cfg.n_heads // cfg.n_kv_heads if cfg.n_kv_heads else 1
+    return [(head_range(cfg, tp, r)[0], g) for r in range(tp)]
 
 
 class SSMWidths(NamedTuple):
@@ -383,24 +408,30 @@ class SSMWidths(NamedTuple):
     n_groups: int
 
 
-def ssm_widths(cfg, tp: int = 1) -> SSMWidths:
-    """The SSM widths one of ``tp`` ranks computes with (``tp=1``: the whole
-    block).  ``ssm_d_inner`` and ``ssm_n_heads`` are properties of
-    ``d_model``, which stays whole on every rank, so a rank's config keeps
-    the full ones, and every SSM function takes the rank's from here.
-    Raises ``ValueError`` naming the layout when the heads do not divide
-    over the ranks, or there are several groups that do not."""
-    nh, g = cfg.ssm_n_heads, cfg.ssm.n_groups
-    if nh % tp:
-        raise ValueError(f"layout: {nh} SSM heads do not divide over the "
-                         f"'model' axis (size {tp})")
+def ssm_head_range(cfg, tp: int, rank: int) -> Tuple[int, int]:
+    """The SSM heads ``[h0, h1)`` of rank ``rank`` (:func:`split_range`);
+    raises ``ValueError`` naming the layout where there are several B/C
+    groups that do not divide over the ranks."""
+    g = cfg.ssm.n_groups
     if g > 1 and g % tp:
         raise ValueError(
             f"layout: {g} SSM groups over the 'model' axis (size {tp}) — B "
             "and C are replicated only with one group and split only when "
             "the groups divide over the ranks; the port serves no other "
             "layout")
-    h = nh // tp
+    return split_range(cfg.ssm_n_heads, tp, rank)
+
+
+def ssm_widths(cfg, tp: int = 1, rank: int = 0) -> SSMWidths:
+    """The SSM widths rank ``rank`` of ``tp`` computes with (``tp=1``: the
+    whole block).  ``ssm_d_inner`` and ``ssm_n_heads`` are properties of
+    ``d_model``, which stays whole on every rank, so a rank's config keeps
+    the full ones, and every SSM function takes the rank's from here.
+    Raises ``ValueError`` naming the layout where there are several
+    groups that do not divide over the ranks."""
+    h0, h1 = ssm_head_range(cfg, tp, rank)
+    g = cfg.ssm.n_groups
+    h = h1 - h0
     return SSMWidths(h, h * cfg.ssm.head_dim, 1 if g == 1 else g // tp)
 
 
@@ -409,16 +440,17 @@ def ssm_columns(cfg, tp: int, rank: int, conv: bool = False) -> torch.Tensor:
     with ``conv`` of the conv channels (``[x | B | C]``), that rank
     ``rank`` of ``tp`` holds, in the order of its piece: its heads' z, x
     and dt columns, and B and C whole (one group) or its own groups."""
-    w = ssm_widths(cfg, tp)
+    w = ssm_widths(cfg, tp, rank)
+    h0, _ = ssm_head_range(cfg, tp, rank)
     di, n = cfg.ssm_d_inner, cfg.ssm.d_state
     gn, gw = cfg.ssm.n_groups * n, w.n_groups * n
     g0 = 0 if cfg.ssm.n_groups == 1 else rank * gw
-    heads = (rank * w.d_inner, w.d_inner)
+    heads = (h0 * cfg.ssm.head_dim, w.d_inner)
     # each block's width, and the (start, size) of the rank's piece of it
     blocks = [(di, heads), (gn, (g0, gw)), (gn, (g0, gw))]  # x, B, C
     if not conv:
         blocks = ([(di, heads)] + blocks
-                  + [(cfg.ssm_n_heads, (rank * w.n_heads, w.n_heads))])
+                  + [(cfg.ssm_n_heads, (h0, w.n_heads))])
     cols, off = [], 0
     for width, (start, size) in blocks:
         cols.append(torch.arange(off + start, off + start + size))
@@ -426,36 +458,44 @@ def ssm_columns(cfg, tp: int, rank: int, conv: bool = False) -> torch.Tensor:
     return torch.cat(cols)
 
 
-def local_config(cfg, tp: int):
-    """The config one rank computes with: its share of the query heads, of
-    the FFN hidden axis and of the MoE experts' and shared path's hidden
-    axes, and the KV heads it reads (:func:`kv_head_range`).
-    ``head_dim`` is a stored field, so it is unchanged; so are the SSM
-    widths, which :func:`ssm_widths` gives per rank (checked here).
-    Raises ``ValueError`` for a layout the port does not serve, or a width
-    that does not divide over ``tp`` ranks."""
+def local_config(cfg, tp: int, rank: int = 0):
+    """The config rank ``rank`` of ``tp`` computes with: its query heads,
+    the KV heads they read (:func:`kv_head_range`), and its columns of the
+    FFN hidden axis and of the MoE experts' and shared path's hidden axes,
+    each a :func:`split_range` (equal shares where ``tp`` divides, else the
+    first ranks one more).  ``head_dim`` is a stored field, so it is
+    unchanged; so are ``vocab_size`` (the ids a rank clamps; its rows are
+    :func:`vocab_range`) and the SSM widths, which :func:`ssm_widths` gives
+    per rank (checked here).  Raises ``ValueError`` for a layout the port
+    does not serve (several SSM groups that do not divide)."""
     check_family(cfg)
-    # the SSM family has no attention heads to lay out
-    reason = None if cfg.attn_free else _layout_reason(cfg, tp)
-    if reason is not None:
-        raise ValueError(reason)
     if cfg.ssm.enabled:
-        ssm_widths(cfg, tp)
+        ssm_widths(cfg, tp, rank)
+
+    def share(n):
+        lo, hi = split_range(n, tp, rank)
+        return hi - lo
+
     m = cfg.moe  # widths 0 outside the MoE family
-    for what, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size),
-                    ("moe.expert_d_ff", m.expert_d_ff),
-                    ("moe.shared_d_ff", m.shared_d_ff)):
-        if n % tp:
-            raise ValueError(
-                f"{what}={n} does not divide over {tp} ranks"
-                + (" (ROADMAP.md, queue 1, item 8.4: the reference "
-                   "replicates such a leaf)" if what == "vocab_size" else ""))
-    lo, hi = kv_head_range(cfg, tp, 0)
-    moe = dataclasses.replace(m, expert_d_ff=m.expert_d_ff // tp,
-                              shared_d_ff=m.shared_d_ff // tp)
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
-                               n_kv_heads=hi - lo, d_ff=cfg.d_ff // tp,
-                               moe=moe)
+    moe = dataclasses.replace(m, expert_d_ff=share(m.expert_d_ff),
+                              shared_d_ff=share(m.shared_d_ff))
+    heads = {}
+    if not cfg.attn_free:  # the SSM family has no attention heads
+        q0, q1 = head_range(cfg, tp, rank)
+        k0, k1 = kv_head_range(cfg, tp, rank)
+        heads = dict(n_heads=q1 - q0, n_kv_heads=k1 - k0)
+    return dataclasses.replace(cfg, d_ff=share(cfg.d_ff), moe=moe, **heads)
+
+
+def local_configs(cfg, tp: int) -> List[Any]:
+    """Every rank's :func:`local_config`, in rank order."""
+    return [local_config(cfg, tp, r) for r in range(tp)]
+
+
+def vocab_range(cfg, tp: int, rank: int) -> Tuple[int, int]:
+    """The vocab rows ``[lo, hi)`` of the embedding (and columns of
+    ``lm_head``) that rank ``rank`` holds (:func:`split_range`)."""
+    return split_range(cfg.vocab_size, tp, rank)
 
 
 def split_axis(names: Tuple[str, ...], leaf: torch.Tensor) -> Optional[int]:
@@ -475,12 +515,44 @@ def split_axis(names: Tuple[str, ...], leaf: torch.Tensor) -> Optional[int]:
     return leaf.ndim - ndim + tail.index("model")
 
 
+def _axis_ranges(names: Tuple[str, ...], cfg, tp: int):
+    """(the unsplit width of a split leaf's axis, each rank's ``[lo, hi)``
+    of it): its units' :func:`split_range` (query heads, KV heads by
+    :func:`kv_head_range`, FFN or expert columns, vocab rows, SSM heads)
+    times the width of a unit (``head_dim`` for attention heads, the SSM
+    ``head_dim`` for ``norm`` and ``out_proj``, else 1)."""
+    name = names[-1]
+    if name in _KV_LEAVES and "cross" not in names:
+        n, unit = cfg.n_kv_heads, cfg.head_dim
+        ranges = [kv_head_range(cfg, tp, r) for r in range(tp)]
+        return n * unit, [(lo * unit, hi * unit) for lo, hi in ranges]
+    if name in ("wq", "wk", "wv", "wo", "bq"):
+        n, unit = cfg.n_heads, cfg.head_dim
+    elif name in ("w_gate", "w_up", "w_down"):
+        m = cfg.moe
+        n = (m.shared_d_ff if "shared" in names else m.expert_d_ff
+             if "moe" in names else cfg.d_ff)
+        unit = 1
+    elif name in ("embed", "lm_head"):
+        n, unit = cfg.vocab_size, 1
+    elif name in ("A_log", "dt_bias", "D", "norm", "out_proj"):
+        n = cfg.ssm_n_heads
+        unit = 1 if name in ("A_log", "dt_bias", "D") else cfg.ssm.head_dim
+        ranges = [ssm_head_range(cfg, tp, r) for r in range(tp)]
+        return n * unit, [(lo * unit, hi * unit) for lo, hi in ranges]
+    else:
+        raise KeyError(f"no split rule for param path {names}")
+    return n * unit, [tuple(x * unit for x in split_range(n, tp, r))
+                      for r in range(tp)]
+
+
 def _pieces(names: Tuple[str, ...], leaf: torch.Tensor, cfg,
             tp: int) -> Optional[Tuple[int, List[torch.Tensor]]]:
     """(axis, each rank's indices along it) of a split leaf, or None for
-    a replicated one: ``tp`` contiguous equal pieces, a packed SSM leaf's
-    :func:`ssm_columns`, a KV leaf's :func:`kv_head_range` columns (two
-    ranks may hold the same ones)."""
+    a replicated one: each rank's contiguous range of whole units
+    (:func:`_axis_ranges`; ranks may hold unequal pieces, or none), a
+    packed SSM leaf's :func:`ssm_columns`, a KV leaf's
+    :func:`kv_head_range` columns (two ranks may hold the same ones)."""
     if names[-1] in _PACKED_RULES:
         conv = names[-1] != "in_proj"
         return (leaf.ndim + _PACKED_RULES[names[-1]],
@@ -488,13 +560,8 @@ def _pieces(names: Tuple[str, ...], leaf: torch.Tensor, cfg,
     axis = split_axis(names, leaf)
     if axis is None:
         return None
-    n = leaf.shape[axis] // tp
-    spans = [(r * n, n) for r in range(tp)]
-    if names[-1] in _KV_LEAVES and "cross" not in names:
-        hd = leaf.shape[axis] // cfg.n_kv_heads
-        spans = [(lo * hd, (hi - lo) * hd) for lo, hi in
-                 (kv_head_range(cfg, tp, r) for r in range(tp))]
-    return axis, [torch.arange(a, a + size) for a, size in spans]
+    _, ranges = _axis_ranges(names, cfg, tp)
+    return axis, [torch.arange(lo, hi) for lo, hi in ranges]
 
 
 def replicated(names: Tuple[str, ...], leaf: torch.Tensor) -> bool:
@@ -505,14 +572,17 @@ def replicated(names: Tuple[str, ...], leaf: torch.Tensor) -> bool:
 def shard_params(params: Dict[str, Any], cfg, mesh) -> List[Dict[str, Any]]:
     """The port's parameter tree (from ``init_params`` or the bridge, on
     any device) -> one tree per rank of the ``("model",)`` mesh, on that
-    rank's device.  A split leaf becomes ``tp`` contiguous equal pieces
-    (a packed SSM leaf the columns of :func:`ssm_columns`, in the JAX
-    layout still); a replicated leaf is copied to each rank's device
+    rank's device.  A split leaf becomes each rank's contiguous range of
+    whole units (:func:`_axis_ranges`: equal pieces where the ranks divide
+    the axis; a packed SSM leaf the columns of :func:`ssm_columns`, in the
+    JAX layout still); a replicated leaf is copied to each rank's device
     (ranks on one device share it).  Raises ``KeyError`` for a leaf with
     no rule."""
     ranks = tp_ranks(mesh)
     tp = len(ranks)
-    local_config(cfg, tp)  # family and divisibility checks
+    reason = layout_reason(cfg, tp)  # family and layout checks
+    if reason is not None:
+        raise ValueError(reason)
 
     def split(tree, names):
         if isinstance(tree, dict):
@@ -523,7 +593,12 @@ def shard_params(params: Dict[str, Any], cfg, mesh) -> List[Dict[str, Any]]:
             return [tree.to(d) for d in ranks]
         axis, idx = pieces
         if names[-1] not in _PACKED_RULES:  # contiguous: narrow, no gather
+            # an empty piece gets a storage of its own, so that it keeps
+            # no view of the whole leaf alive
             return [tree.narrow(axis, int(i[0]), len(i)).contiguous().to(d)
+                    if len(i) else tree.new_empty(
+                        tree.shape[:axis] + (0,) + tree.shape[axis + 1:],
+                        device=d)
                     for i, d in zip(idx, ranks)]
         return [tree.index_select(axis, i.to(tree.device)).to(d)
                 for i, d in zip(idx, ranks)]
@@ -577,9 +652,7 @@ def _global_width(names, piece: torch.Tensor, cfg, tp: int, axis: int) -> int:
         conv = cfg.ssm_d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
         return conv + (cfg.ssm_d_inner + cfg.ssm_n_heads
                        if names[-1] == "in_proj" else 0)
-    if names[-1] in _KV_LEAVES and "cross" not in names:
-        return cfg.n_kv_heads * cfg.head_dim
-    return piece.shape[axis] * tp
+    return _axis_ranges(names, cfg, tp)[0]
 
 
 def kernel_decode_support(cfg, mesh) -> Optional[str]:
@@ -590,23 +663,22 @@ def kernel_decode_support(cfg, mesh) -> Optional[str]:
 
     * ``mesh:`` — not a single ``("model",)`` axis;
     * ``family:`` — the SSM decode is a recurrent step with no attention
-      read, or the config has no KV heads;
-    * ``layout:`` — neither head count divides the other's share of the
-      "model" axis (:func:`local_config` refuses the layout).
+      read, or the config has no KV heads.
 
-    It differs from the reference in one case: where the rank count is a
-    multiple of ``n_kv_heads`` (qwen2-1.5b at TP=4), each rank holds the
-    one KV head its query heads read and the kernel serves it, where the
-    reference replicates KV and falls back to XLA.
+    It has no ``layout:`` reason: every head layout splits into ranks of
+    whole query heads, each holding the KV heads they read
+    (:func:`kv_head_range`), and a rank whose heads cut a GQA group is
+    launched as uniform segments (``kernels.ops.head_segments``).  Where
+    the reference replicates KV or the heads do not divide, and falls back
+    to XLA, the port serves the layout through the kernels.
     """
     axes = tuple(mesh.axis_names)
     if axes != ("model",):
         return (f"mesh: axes {axes} — the sharded decode wrapper supports "
                 "single-axis ('model',) TP meshes only")
-    tp = int(np.shape(mesh.devices)[0])
     if cfg.family == "ssm":
         return ("family: ssm decode is a recurrent step with no attention "
                 "read — there is no decode kernel to shard")
     if cfg.n_kv_heads <= 0:
         return "family: config has no KV attention heads"
-    return _layout_reason(cfg, tp)
+    return None

@@ -237,11 +237,15 @@ def _named_leaves(tree, names=()):
 
 def _zero1_dims(cfg, mesh, whole) -> List[Optional[int]]:
     """Each leaf's ZeRO-1 dimension (``partition.data_dim`` of
-    ``opt_pspecs`` over the sanitized ``param_pspecs``), in
-    :func:`leaves`' order."""
+    ``opt_pspecs`` over ``param_pspecs``), in :func:`leaves`' order.  The
+    reference sanitizes the specs first, which frees a "model" dimension
+    the axis does not divide for the data axes; the port splits every
+    "model" dimension, unevenly where the axis does not divide it, so such
+    a dimension stays the rank's and the moments take the next free one.
+    Where the axis divides every width the two agree."""
     abstract = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                               device="meta"), whole)
-    pspec = PT.sanitize_specs(mesh, PT.param_pspecs(cfg, abstract), abstract)
+    pspec = PT.param_pspecs(cfg, abstract)
     mspec = PT.opt_pspecs(mesh, pspec, abstract)
     return [PT.data_dim(sp) for _, sp in _named_leaves(mspec)]
 

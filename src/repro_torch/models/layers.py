@@ -81,11 +81,12 @@ def quantize_kv_shared(xs: Sequence[torch.Tensor]):
     cross-rank all-reduce), and every rank quantizes with that shared
     amax.  The max is exact, so every rank's codes and its copy of the
     scales are the single-device cache's; a KV head that two ranks hold
-    (replicated by need) changes no max.  Returns ``[(codes, scales)]``
-    a rank; one rank is :func:`quantize_kv`."""
+    (replicated by need) changes no max, and a rank with no KV heads
+    adds no amax.  Returns ``[(codes, scales)]`` a rank; one rank is
+    :func:`quantize_kv`."""
     if len(xs) == 1:
         return [quantize_kv(xs[0])]
-    amax = [x.float().abs().amax(dim=(-1, -2)) for x in xs]
+    amax = [x.float().abs().amax(dim=(-1, -2)) for x in xs if x.shape[-2]]
     top = amax[0]
     for a in amax[1:]:
         top = torch.maximum(top, a.to(top.device))
@@ -333,20 +334,37 @@ def project_qkv(p: Params, cfg, x: torch.Tensor, cos_sin):
     return q, k, v
 
 
+def head_segments(cfg, heads=None):
+    """The uniform GQA segments of one rank's heads
+    (``kernels.ops.head_segments``): ``heads`` is the rank's (first query
+    head, global group size), from ``launch.partition.rank_heads``; None
+    (one device, or a rank whose shard is uniform) is one segment of all
+    of ``cfg``'s heads."""
+    if heads is None:
+        return ops.head_segments(0, cfg.n_heads, 0, cfg.n_kv_heads)
+    return ops.head_segments(heads[0], cfg.n_heads, heads[1])
+
+
 def attention_block(p: Params, cfg, x: torch.Tensor, cos_sin, *,
-                    attn_impl: str = "kernel"):
+                    attn_impl: str = "kernel", heads=None):
     """Prefill attention: proj -> rope -> full-sequence causal attention ->
-    out proj.  Returns (out, (k, v)) for cache seeding.  The one-token
-    decode step and the chunk of a chunked prefill, which attend over a
-    cache, are :func:`attention_decode`."""
+    out proj.  Returns (out, (k, v)) for cache seeding.  ``cfg`` may be a
+    tensor-parallel rank's, with ``heads`` its (first query head, group
+    size): a rank whose heads cut a GQA group attends segment by segment
+    (:func:`head_segments`), and a rank with no heads gives a zero
+    partial.  The one-token decode step and the chunk of a chunked
+    prefill, which attend over a cache, are :func:`attention_decode`."""
     _check_impl(attn_impl)
     b, s, _ = x.shape
     q, k, v = project_qkv(p, cfg, x, cos_sin)
     window = cfg.swa_window if cfg.attention_type == "swa" else None
     if attn_impl == "kernel":
-        out = ops.flash_attention(q, k, v, window=window)
+        tp_heads = {} if heads is None else dict(head_start=heads[0],
+                                                 group=heads[1])
+        out = ops.flash_attention(q, k, v, window=window, **tp_heads)
     else:
-        out = sdpa(q, k, v, causal=True, window=window)
+        out = ref.over_segments(sdpa, q, k, v, head_segments(cfg, heads),
+                                causal=True, window=window)
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"], (k, v)
 
 
@@ -355,14 +373,20 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
                      curs: Sequence[torch.Tensor], *,
                      attn_impl: str = "kernel",
                      actives: Optional[Sequence] = None,
-                     valid_lens: Optional[Sequence] = None
+                     valid_lens: Optional[Sequence] = None,
+                     heads: Optional[Sequence] = None
                      ) -> List[torch.Tensor]:
     """One-token decode attention of every tensor-parallel rank of a layer
     (a single device is one rank): for rank r, proj -> rope -> write the
     new K/V row into ``caches[r]`` (buffers (B, L, KHr, D)) in place at the
     per-slot position ``curs[r]`` (B,) (``curs[r] % L`` in a ring) ->
-    attention over the cache -> out proj, with ``cfg`` the rank's config;
-    x is (B, 1, d_model).  Rows whose ``actives[r]`` entry is False write
+    attention over the cache -> out proj; x is (B, 1, d_model).  ``cfg``
+    is the ranks' configs, one a rank (``launch.partition.local_configs``;
+    one config serves every rank), and ``heads`` each rank's (first query
+    head, group size) (``launch.partition.rank_heads``; None: every
+    shard is uniform): a rank whose heads cut a GQA group reads segment by
+    segment, and a rank with no heads writes and reads nothing and gives
+    a zero partial.  Rows whose ``actives[r]`` entry is False write
     nothing, so their cache stays bit for bit.  An int8 cache stores the
     row's codes and scales, the scale shared by the ranks
     (:func:`quantize_kv_shared`).
@@ -388,11 +412,15 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
     Returns each rank's (B, S, d_model) output (a partial sum when there
     are several ranks)."""
     _check_impl(attn_impl)
+    cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg] * len(ps)
+    heads = list(heads) if heads is not None else [None] * len(ps)
+    segs = [head_segments(c, h) for c, h in zip(cfgs, heads)]
     if xs[0].shape[1] > 1:
-        return _attention_chunk(ps, cfg, xs, cos_sins, caches, curs,
-                                valid_lens)
+        return _attention_chunk(ps, cfgs, xs, cos_sins, caches, curs,
+                                valid_lens, segs)
     actives = actives or [None] * len(ps)
-    qkvs = [project_qkv(p, cfg, x, cs) for p, x, cs in zip(ps, xs, cos_sins)]
+    qkvs = [project_qkv(p, c, x, cs)
+            for p, c, x, cs in zip(ps, cfgs, xs, cos_sins)]
     c0 = caches[0]
     if c0.quantized:
         kqs = quantize_kv_shared([k for _, k, _ in qkvs])
@@ -408,10 +436,12 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
         for buf, val in rows:
             masked_row_write(buf, slot, val[:, 0], act)
         qs.append(q)
-    window = cfg.swa_window if cfg.attention_type == "swa" else None
+    window = cfgs[0].swa_window if cfgs[0].attention_type == "swa" else None
+    tp_heads = {} if heads[0] is None else dict(
+        head_starts=[h[0] for h in heads], group=heads[0][1])
     if c0.ring or attn_impl == "torch":
-        outs = [_plain_read(q, c, cur, window)
-                for q, c, cur in zip(qs, caches, curs)]
+        outs = [_plain_read(q, c, cur, window, sg)
+                for q, c, cur, sg in zip(qs, caches, curs, segs)]
     elif c0.quantized and len(qs) == 1:
         outs = [ops.flash_decode_int8(qs[0], c0.k, c0.v, c0.k_scale,
                                       c0.v_scale, kv_len=curs[0] + 1,
@@ -420,59 +450,65 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
         outs = ops.flash_decode_int8_sharded(
             qs, [c.k for c in caches], [c.v for c in caches],
             [c.k_scale for c in caches], [c.v_scale for c in caches],
-            kv_len=curs[0] + 1, q_offset=curs[0], window=window)
+            kv_len=curs[0] + 1, q_offset=curs[0], window=window, **tp_heads)
     elif len(qs) == 1:
         outs = [ops.flash_decode(qs[0], c0.k, c0.v, kv_len=curs[0] + 1,
                                  q_offset=curs[0], window=window)]
     else:
         outs = ops.flash_decode_sharded(
             qs, [c.k for c in caches], [c.v for c in caches],
-            kv_len=curs[0] + 1, q_offset=curs[0], window=window)
+            kv_len=curs[0] + 1, q_offset=curs[0], window=window, **tp_heads)
     b = xs[0].shape[0]
-    return [o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
-            for o, p in zip(outs, ps)]
+    return [o.reshape(b, 1, c.n_heads * c.head_dim) @ p["wo"]
+            for o, c, p in zip(outs, cfgs, ps)]
 
 
-def _attention_chunk(ps, cfg, xs, cos_sins, caches, curs, valid_lens):
+def _attention_chunk(ps, cfgs, xs, cos_sins, caches, curs, valid_lens, segs):
     """The chunked-prefill branch of :func:`attention_decode`."""
     if caches[0].ring or caches[0].quantized:
         raise ValueError(
             "chunked prefill requires a dense unquantized KV cache "
             "(ring/SWA and int8 caches fall back to one-shot prefill)")
     b, s, _ = xs[0].shape
-    window = cfg.swa_window if cfg.attention_type == "swa" else None
+    window = cfgs[0].swa_window if cfgs[0].attention_type == "swa" else None
     outs = []
-    for p, x, cs, c, cur, valid in zip(ps, xs, cos_sins, caches, curs,
-                                       valid_lens):
+    for p, cfg, x, cs, c, cur, valid, sg in zip(ps, cfgs, xs, cos_sins,
+                                                caches, curs, valid_lens,
+                                                segs):
         q, k, v = project_qkv(p, cfg, x, cs)
         masked_span_write(c.k, cur, k, valid)
         masked_span_write(c.v, cur, v, valid)
-        out = sdpa(q, c.k, c.v, causal=True, q_offset=cur,
-                   kv_len=cur + valid, window=window)
+        out = ref.over_segments(sdpa, q, c.k, c.v, sg, causal=True,
+                                q_offset=cur, kv_len=cur + valid,
+                                window=window)
         outs.append(out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"])
     return outs
 
 
-def _plain_read(q: torch.Tensor, c: KVCache, cur: torch.Tensor, window):
-    """The reference's XLA read of one rank's cache after the write: an
-    int8 cache dequantized to q's dtype; a ring attends with each row's
+def _plain_read(q: torch.Tensor, c: KVCache, cur: torch.Tensor, window,
+                segs=None):
+    """The reference's XLA read of one rank's cache after the write, over
+    each uniform GQA segment ``segs`` of its heads (default one): an int8
+    cache dequantized to q's dtype; a ring attends with each row's
     absolute position, the largest p <= cur with p % L == row (rows not
     yet written get -1e9, which only a window masks, as in the
     reference)."""
+    if segs is None:
+        segs = [(0, q.shape[2], 0, c.k.shape[2])]
     kread, vread = c.k, c.v
     if c.quantized:
         kread = dequantize_kv(c.k, c.k_scale, q.dtype)
         vread = dequantize_kv(c.v, c.v_scale, q.dtype)
     if not c.ring:
-        return sdpa(q, kread, vread, causal=True, q_offset=cur,
-                    kv_len=cur + 1, window=window)
+        return ref.over_segments(sdpa, q, kread, vread, segs, causal=True,
+                                 q_offset=cur, kv_len=cur + 1, window=window)
     L = c.k.shape[1]
     idx = torch.arange(L, device=cur.device)[None, :]
     k_pos = idx + torch.div(cur.long()[:, None] - idx, L,
                             rounding_mode="floor") * L
     k_pos = torch.where(k_pos < 0, -1_000_000_000, k_pos)
-    return sdpa(q, kread, vread, causal=True, q_offset=cur, window=window,
-                ring_offset=k_pos)
+    return ref.over_segments(sdpa, q, kread, vread, segs, causal=True,
+                             q_offset=cur, window=window, ring_offset=k_pos)
 
 
 def init_cross_attention(gen: torch.Generator, cfg, n_layers: int,

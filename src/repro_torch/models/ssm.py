@@ -20,7 +20,8 @@ State for decode:
     ssm:  (B, n_heads, head_dim, d_state)
 
 Tensor parallelism (:func:`ssm_partials`, :func:`ssm_decode_partials`):
-each rank holds the leaves of a contiguous range of whole SSM heads
+each rank holds the leaves of a contiguous range of whole SSM heads, the
+first ranks one head more where the ranks do not divide the heads
 (``launch.partition``: its z, x and dt columns of ``in_proj``, B and C
 whole with one group, its heads' ``A_log`` / ``dt_bias`` / ``D`` /
 ``norm`` rows and ``out_proj``'s rows) and its heads' state, and scans
@@ -46,9 +47,9 @@ from repro_torch.models.layers import ATTN_IMPLS, dense_init, rng
 Params = Dict[str, torch.Tensor]
 
 
-def conv_channels(cfg, tp: int = 1) -> int:
-    """Conv channels ``[x | B | C]`` of one of ``tp`` ranks."""
-    w = ssm_widths(cfg, tp)
+def conv_channels(cfg, tp: int = 1, rank: int = 0) -> int:
+    """Conv channels ``[x | B | C]`` of rank ``rank`` of ``tp``."""
+    w = ssm_widths(cfg, tp, rank)
     return w.d_inner + 2 * w.n_groups * cfg.ssm.d_state
 
 
@@ -147,6 +148,12 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # Block forward / decode
 # --------------------------------------------------------------------------- #
+
+
+def _rank_widths(cfg, tp: int) -> List[SSMWidths]:
+    """Every rank's :func:`ssm_widths` (unequal where the ranks do not
+    divide the heads)."""
+    return [ssm_widths(cfg, tp, r) for r in range(tp)]
 
 
 def _split_proj(cfg, w: SSMWidths, proj: torch.Tensor):
@@ -260,8 +267,8 @@ def ssm_partials(ps: List[Params], cfg, xs: List[torch.Tensor], *,
     decode state ``{"conv", "ssm"}``)."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"impl must be one of {ATTN_IMPLS}, got {impl!r}")
-    w = ssm_widths(cfg, len(ps))
-    heads = [_forward_heads(p, cfg, w, x, impl) for p, x in zip(ps, xs)]
+    heads = [_forward_heads(p, cfg, w, x, impl)
+             for p, w, x in zip(ps, _rank_widths(cfg, len(ps)), xs)]
     outs = gated_partials(ps, cfg, [h[0] for h in heads],
                           [h[1] for h in heads])
     return outs, [h[2] for h in heads]
@@ -280,13 +287,14 @@ def ssm_forward(p: Params, cfg, x: torch.Tensor, *, impl: str = "kernel",
     return out, state if return_state else state["ssm"]
 
 
-def init_ssm_state(cfg, batch: int, dtype, device,
-                   tp: int = 1) -> Dict[str, torch.Tensor]:
-    """Zero decode state of one of ``tp`` ranks: ``conv`` (B, CH_r, d_conv
-    - 1) over its conv channels, ``ssm`` (B, H_r, P, N) over its heads."""
-    w = ssm_widths(cfg, tp)
+def init_ssm_state(cfg, batch: int, dtype, device, tp: int = 1,
+                   rank: int = 0) -> Dict[str, torch.Tensor]:
+    """Zero decode state of rank ``rank`` of ``tp``: ``conv`` (B, CH_r,
+    d_conv - 1) over its conv channels, ``ssm`` (B, H_r, P, N) over its
+    heads."""
+    w = ssm_widths(cfg, tp, rank)
     return {
-        "conv": torch.zeros((batch, conv_channels(cfg, tp),
+        "conv": torch.zeros((batch, conv_channels(cfg, tp, rank),
                              cfg.ssm.d_conv - 1), dtype=dtype, device=device),
         "ssm": torch.zeros((batch, w.n_heads, cfg.ssm.head_dim,
                             cfg.ssm.d_state), dtype=dtype, device=device),
@@ -329,9 +337,9 @@ def ssm_decode_partials(ps: List[Params], cfg, xs: List[torch.Tensor],
     :func:`ssm_partials`): x (B, 1, d_model) and each rank's state.
     Returns (the ranks' output partials, each rank's new state) and leaves
     ``states`` as they were."""
-    w = ssm_widths(cfg, len(ps))
     heads = [_decode_heads(p, cfg, w, x, st)
-             for p, x, st in zip(ps, xs, states)]
+             for p, w, x, st in zip(ps, _rank_widths(cfg, len(ps)), xs,
+                                    states)]
     outs = gated_partials(ps, cfg, [h[0] for h in heads],
                           [h[1] for h in heads])
     return outs, [h[2] for h in heads]

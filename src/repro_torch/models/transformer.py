@@ -64,8 +64,10 @@ caches from ``init_cache(..., mesh=mesh)``.  The forward is one body
 over a list of ranks, a single device being one rank.  One process
 drives every rank, layer by layer, each rank with its share of the heads
 and of the FFN or the experts' hidden axes
-(``launch.partition.local_config``), or of the SSM heads
-(``launch.partition.ssm_widths``); the row-parallel partials (after
+(``launch.partition.local_config``, one config a rank: the shares differ
+by a unit where the ranks do not divide an axis, and a rank may hold no
+heads), or of the SSM heads (``launch.partition.ssm_widths``); the
+row-parallel partials (after
 ``wo``, after ``w_down``, the MoE block or the Mamba2 block's
 ``out_proj``, the audio family's cross-attention ``wo`` and its
 encoder's ``wo`` and ``w_down``, the vocab-parallel embedding) are
@@ -76,7 +78,10 @@ Mamba2 block's gated norm sums the ranks' sums of squares the same way
 before any rank normalises (``models.ssm.gated_partials``).  The MoE
 router runs once a layer, on rank 0, and every rank gets its routing.
 The decode read of all ranks is one ``ops.flash_decode_sharded`` call
-(the hybrid's shared block included); the SSM decode step stays plain
+(the hybrid's shared block included), given each rank's first query
+head and the group size so that a rank whose heads cut a GQA group runs
+as uniform segments (``launch.partition.rank_heads``); the SSM decode
+step stays plain
 on every rank.  Prefill launches ``flash_attention`` and ``ssd_scan`` on
 each rank's local heads: the reference downgrades prefill under a mesh
 to XLA only because its Pallas kernels have no ``shard_map`` wrapper,
@@ -262,17 +267,17 @@ def encode_audio(params: Params, cfg, frames: torch.Tensor, *, mesh=None):
     FFN columns, the ranks' partials after ``wo`` and ``w_down`` are
     summed (module docstring), and the result is the list of each rank's
     copy of the output."""
-    shards, _, _, lcfg = _ranks(params, cfg, None, mesh)
-    outs = _encode(shards, cfg, lcfg, frames)
+    shards, _, _, lcfgs = _ranks(params, cfg, None, mesh)
+    outs = _encode(shards, cfg, lcfgs, frames)
     return outs if mesh is not None else outs[0]
 
 
-def _encode(shards: List[Params], cfg, lcfg, frames: torch.Tensor):
-    """:func:`encode_audio` on every rank (``lcfg`` the rank config)."""
+def _encode(shards: List[Params], cfg, lcfgs, frames: torch.Tensor):
+    """:func:`encode_audio` on every rank (``lcfgs`` the rank configs)."""
     hs = [_frames_in(p, cfg, frames) for p in shards]
     layers = [_unstack(p["enc_layers"], cfg.encoder.n_layers) for p in shards]
     for lps in zip(*layers):
-        hs = _enc_layer(cfg, lcfg, list(lps), hs)
+        hs = _enc_layer(cfg, lcfgs, list(lps), hs)
     return [L.apply_norm(cfg, p["enc_final_norm"], h)
             for p, h in zip(shards, hs)]
 
@@ -284,20 +289,24 @@ def _frames_in(p: Params, cfg, frames: torch.Tensor) -> torch.Tensor:
             + p["enc_pos"][None, :frames.shape[1]])
 
 
-def _enc_layer(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor]):
-    """One encoder layer on every rank: plain bidirectional attention, the
-    ranks' ``wo`` partials summed, then the MLP."""
+def _enc_layer(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor]):
+    """One encoder layer on every rank: plain bidirectional attention over
+    each rank's uniform GQA segments, the ranks' ``wo`` partials summed,
+    then the MLP."""
     b, s, _ = hs[0].shape
-    nh, kh, hd = lcfg.n_heads, lcfg.n_kv_heads, lcfg.head_dim
     parts = []
-    for lp, h in zip(lps, hs):
+    heads = _heads(cfg, lcfgs) or [None]
+    for lp, h, lc, hd0 in zip(lps, hs, lcfgs, heads):
         a = lp["attn"]
+        nh, kh, hd = lc.n_heads, lc.n_kv_heads, lc.head_dim
         x = L.apply_norm(cfg, lp["attn_norm"], h)
-        out = L.sdpa((x @ a["wq"]).reshape(b, s, nh, hd),
-                     (x @ a["wk"]).reshape(b, s, kh, hd),
-                     (x @ a["wv"]).reshape(b, s, kh, hd), causal=False)
+        out = L.ref.over_segments(
+            L.sdpa, (x @ a["wq"]).reshape(b, s, nh, hd),
+            (x @ a["wk"]).reshape(b, s, kh, hd),
+            (x @ a["wv"]).reshape(b, s, kh, hd), L.head_segments(lc, hd0),
+            causal=False)
         parts.append(out.reshape(b, s, nh * hd) @ a["wo"])
-    return _mlp(cfg, lcfg, lps, _add_sum(hs, parts), "dense")
+    return _mlp(cfg, lcfgs, lps, _add_sum(hs, parts), "dense")
 
 
 def unembed(params: Params, cfg, h: torch.Tensor) -> torch.Tensor:
@@ -382,7 +391,7 @@ def forward(params: Params, cfg, batch: Dict, *, attn_impl: str = "torch",
     elif cfg.family == "audio":
         enc = _frames_in(params, cfg, batch["frames"])
         for lp in _unstack(params["enc_layers"], cfg.encoder.n_layers):
-            enc = run(lambda x, lp: _enc_layer(cfg, cfg, [lp], [x])[0],
+            enc = run(lambda x, lp: _enc_layer(cfg, [cfg], [lp], [x])[0],
                       enc, lp)
         enc = L.apply_norm(cfg, params["enc_final_norm"], enc)
         for lp in _unstack(params["layers"], cfg.n_layers):
@@ -399,7 +408,7 @@ def _forward_ranks(params, cfg, batch: Dict, attn_impl: str, moe_impl: str,
                    remat: bool, mesh):
     """:func:`forward` over the ranks of ``mesh``: the prefill's rank
     bodies with no cache."""
-    shards, _, ranks, lcfg = _ranks(params, cfg, None, mesh)
+    shards, _, ranks, lcfgs = _ranks(params, cfg, None, mesh)
     run = _checkpointed if remat else (lambda fn, *args: fn(*args))
     hs, pos = _embed_batch(shards, cfg, batch, ranks)
     cos_sins = None if cfg.family == "ssm" else _rank_cos_sins(cfg, pos,
@@ -412,7 +421,7 @@ def _forward_ranks(params, cfg, batch: Dict, attn_impl: str, moe_impl: str,
 
     def attn_layer(*hs, lps, mlp=True):
         aux = []
-        out = _attn_prefill(cfg, lcfg, list(lps), list(hs), cos_sins, None,
+        out = _attn_prefill(cfg, lcfgs, list(lps), list(hs), cos_sins, None,
                             0, attn_impl, moe_impl, mlp=mlp, aux=aux)
         return (*out, sum(aux) if aux else zero)
 
@@ -437,7 +446,7 @@ def _forward_ranks(params, cfg, batch: Dict, attn_impl: str, moe_impl: str,
         for lps in zip(*[_unstack(p["enc_layers"], cfg.encoder.n_layers)
                          for p in shards]):
             enc = run(lambda *e, lps=lps: tuple(
-                _enc_layer(cfg, lcfg, list(lps), list(e))), *enc)
+                _enc_layer(cfg, lcfgs, list(lps), list(e))), *enc)
         enc = [L.apply_norm(cfg, p["enc_final_norm"], e)
                for p, e in zip(shards, enc)]
         n = len(shards)
@@ -445,9 +454,9 @@ def _forward_ranks(params, cfg, batch: Dict, attn_impl: str, moe_impl: str,
         def dec_layer(*args, lps):
             hs, encs = list(args[:n]), args[n:]
             hs = attn_layer(*hs, lps=lps, mlp=False)[:-1]
-            crosses = [L.encode_cross_kv(lp["cross"], lcfg, e)
-                       for lp, e in zip(lps, encs)]
-            return tuple(_cross_mlp(cfg, lcfg, list(lps), list(hs), crosses,
+            crosses = [L.encode_cross_kv(lp["cross"], lc, e)
+                       for lp, lc, e in zip(lps, lcfgs, encs)]
+            return tuple(_cross_mlp(cfg, lcfgs, list(lps), list(hs), crosses,
                                     moe_impl))
 
         for lps in zip(*[_unstack(p["layers"], cfg.n_layers)
@@ -605,25 +614,26 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
                          f"{kv_dtype!r}")
     if mesh is not None:
         ranks = P.tp_ranks(mesh)
-        lcfg = P.local_config(cfg, len(ranks))
-        return [_rank_cache(lcfg, batch, max_len, d, dtype, kv_dtype,
-                            sliding_window, len(ranks)) for d in ranks]
+        tp = len(ranks)
+        return [_rank_cache(P.local_config(cfg, tp, r), batch, max_len, d,
+                            dtype, kv_dtype, sliding_window, tp, r)
+                for r, d in enumerate(ranks)]
     _check_family(cfg)
     return _rank_cache(cfg, batch, max_len, device, dtype, kv_dtype,
                        sliding_window, 1)
 
 
 def _rank_cache(cfg, batch, max_len, device, dtype, kv_dtype, sliding_window,
-                tp: int) -> Cache:
-    """The cache of one of ``tp`` ranks (:func:`init_cache`); ``cfg`` is
-    the rank's config, its SSM states over the rank's conv channels and
+                tp: int, rank: int = 0) -> Cache:
+    """The cache of rank ``rank`` of ``tp`` (:func:`init_cache`); ``cfg``
+    is the rank's config, its SSM states over the rank's conv channels and
     heads."""
     dtype = dtype or _dtype(cfg)
     cache: Cache = {"len": torch.zeros((batch,), dtype=torch.int32,
                                        device=device)}
     n_sites = cfg.n_layers
     if cfg.family in ("ssm", "hybrid"):
-        state = S.init_ssm_state(cfg, batch, dtype, device, tp)
+        state = S.init_ssm_state(cfg, batch, dtype, device, tp, rank)
 
         def stacked(lead):
             return {k: v.new_zeros(lead + v.shape) for k, v in state.items()}
@@ -712,7 +722,7 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
     the audio family ``batch["frames"]`` (module docstring).  With
     ``mesh``, see the module docstring; the logits lie on rank 0's
     device."""
-    shards, caches, ranks, lcfg = _ranks(params, cfg, cache, mesh)
+    shards, caches, ranks, lcfgs = _ranks(params, cfg, cache, mesh)
     hs, pos = _embed_batch(shards, cfg, batch, ranks)
     b, s = hs[0].shape[:2]
     if cfg.family != "ssm":
@@ -726,29 +736,29 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
         for g in range(len(per[0][0])):
             hs = _ssm_layers(cfg, attn_impl, [q[0][g] for q in per], hs,
                              _group_states(caches, g))
-            hs = _attn_prefill(cfg, lcfg, [q[2] for q in per], hs, cos_sins,
+            hs = _attn_prefill(cfg, lcfgs, [q[2] for q in per], hs, cos_sins,
                                caches, g, attn_impl, moe_impl)
         if per[0][1]:
             hs = _ssm_layers(cfg, attn_impl, [q[1] for q in per], hs,
                              [c["tail_ssm"] for c in caches])
     elif cfg.family == "audio":
-        enc_outs = _encode(shards, cfg, lcfg, batch["frames"])
+        enc_outs = _encode(shards, cfg, lcfgs, batch["frames"])
         layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
         for i in range(cfg.n_layers):
             lps = [per[i] for per in layers]
-            hs = _attn_prefill(cfg, lcfg, lps, hs, cos_sins, caches, i,
+            hs = _attn_prefill(cfg, lcfgs, lps, hs, cos_sins, caches, i,
                                attn_impl, moe_impl, mlp=False)
             crosses = []
-            for lp, c, enc_out in zip(lps, caches, enc_outs):
-                ck, cv = L.encode_cross_kv(lp["cross"], lcfg, enc_out)
+            for lp, lc, c, enc_out in zip(lps, lcfgs, caches, enc_outs):
+                ck, cv = L.encode_cross_kv(lp["cross"], lc, enc_out)
                 c["cross_kv"].k[i].copy_(ck)
                 c["cross_kv"].v[i].copy_(cv)
                 crosses.append((ck, cv))
-            hs = _cross_mlp(cfg, lcfg, lps, hs, crosses, moe_impl)
+            hs = _cross_mlp(cfg, lcfgs, lps, hs, crosses, moe_impl)
     else:
         layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
         for i in range(cfg.n_layers):
-            hs = _attn_prefill(cfg, lcfg, [per[i] for per in layers], hs,
+            hs = _attn_prefill(cfg, lcfgs, [per[i] for per in layers], hs,
                                cos_sins, caches, i, attn_impl, moe_impl)
     for c, d in zip(caches, ranks):
         c["len"] = torch.full((b,), s, dtype=torch.int32, device=d)
@@ -792,7 +802,7 @@ def prefill_chunk(params: Params, cfg, batch: Dict, cache: Cache, *,
         raise ValueError(
             f"prefill_chunk supports families {CHUNKABLE_FAMILIES}, "
             f"got {cfg.family!r} — use one-shot prefill")
-    shards, caches, ranks, lcfg = _ranks(params, cfg, cache, mesh)
+    shards, caches, ranks, lcfgs = _ranks(params, cfg, cache, mesh)
     tokens = batch["tokens"]
     b, c = tokens.shape
     starts = [torch.as_tensor(start, dtype=torch.int32, device=d).expand(b)
@@ -805,7 +815,7 @@ def prefill_chunk(params: Params, cfg, batch: Dict, cache: Cache, *,
         for st, d in zip(starts, ranks)]
     layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
     for i in range(cfg.n_layers):
-        hs = _attn_decode(cfg, lcfg, [per[i] for per in layers], hs,
+        hs = _attn_decode(cfg, lcfgs, [per[i] for per in layers], hs,
                           cos_sins, caches, i, starts, None, attn_impl,
                           moe_impl, valid_lens=valids)
     for cc, st, v in zip(caches, starts, valids):
@@ -835,7 +845,7 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
     whose cross-attention reads the ``cross_kv`` its prefill wrote, with
     plain attention).  With ``mesh``, see the module docstring; the logits
     lie on rank 0's device."""
-    shards, caches, ranks, lcfg = _ranks(params, cfg, cache, mesh)
+    shards, caches, ranks, lcfgs = _ranks(params, cfg, cache, mesh)
     curs = [c["len"] for c in caches]
     acts = [None if active is None else active.to(d) for d in ranks]
     hs = _embed(shards, cfg, tokens, ranks)
@@ -854,7 +864,7 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
         for g in range(len(per[0][0])):
             hs = _ssm_layers(cfg, attn_impl, [q[0][g] for q in per], hs,
                              _group_states(caches, g), True, acts)
-            hs = _attn_decode(cfg, lcfg, [q[2] for q in per], hs, cos_sins,
+            hs = _attn_decode(cfg, lcfgs, [q[2] for q in per], hs, cos_sins,
                               caches, g, curs, acts, attn_impl, moe_impl)
         if per[0][1]:
             hs = _ssm_layers(cfg, attn_impl, [q[1] for q in per], hs,
@@ -863,15 +873,15 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
         layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
         for i in range(cfg.n_layers):
             lps = [per[i] for per in layers]
-            hs = _attn_decode(cfg, lcfg, lps, hs, cos_sins, caches, i, curs,
+            hs = _attn_decode(cfg, lcfgs, lps, hs, cos_sins, caches, i, curs,
                               acts, attn_impl, moe_impl, mlp=False)
-            hs = _cross_mlp(cfg, lcfg, lps, hs,
+            hs = _cross_mlp(cfg, lcfgs, lps, hs,
                             [(c["cross_kv"].k[i], c["cross_kv"].v[i])
                              for c in caches], moe_impl)
     else:
         layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
         for i in range(cfg.n_layers):
-            hs = _attn_decode(cfg, lcfg, [per[i] for per in layers], hs,
+            hs = _attn_decode(cfg, lcfgs, [per[i] for per in layers], hs,
                               cos_sins, caches, i, curs, acts, attn_impl,
                               moe_impl)
     for c, cur, act in zip(caches, curs, acts):
@@ -885,13 +895,20 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
 
 
 def _ranks(params, cfg, cache, mesh):
-    """(per-rank params, per-rank caches, rank devices, rank config): one
+    """(per-rank params, per-rank caches, rank devices, rank configs): one
     rank on the params' device without ``mesh``."""
     _check_family(cfg)
     if mesh is None:
-        return [params], [cache], [params["embed"].device], cfg
+        return [params], [cache], [params["embed"].device], [cfg]
     ranks = P.tp_ranks(mesh)
-    return params, cache, ranks, P.local_config(cfg, len(ranks))
+    return params, cache, ranks, P.local_configs(cfg, len(ranks))
+
+
+def _heads(cfg, lcfgs):
+    """Each rank's (first query head, group size) for the attention
+    kernels' segments (``launch.partition.rank_heads``), None on one
+    device."""
+    return None if len(lcfgs) == 1 else P.rank_heads(cfg, len(lcfgs))
 
 
 def _all_reduce(parts: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -947,23 +964,25 @@ def _embed_batch(shards: List[Params], cfg, batch: Dict, ranks):
 def _embed(shards: List[Params], cfg, tokens: torch.Tensor, ranks):
     """The embedded tokens on every rank, ids clamped to [0, vocab - 1] as
     :func:`embed_tokens` does.  Over several ranks the lookup is
-    vocab-parallel: each rank looks up the ids in its vocab range (zeros
-    elsewhere), and the ranks sum."""
+    vocab-parallel: each rank looks up the ids in its vocab range
+    (``launch.partition.vocab_range``, unequal where the ranks do not
+    divide the vocab; zeros elsewhere), and the ranks sum."""
     if len(shards) == 1:
         return [embed_tokens(shards[0], cfg, tokens.to(ranks[0]))]
-    vl = cfg.vocab_size // len(shards)
     parts = []
     for r, (p, d) in enumerate(zip(shards, ranks)):
-        ids = tokens.to(d).long().clamp(0, cfg.vocab_size - 1) - r * vl
-        own = (ids >= 0) & (ids < vl)
-        e = p["embed"][ids.clamp(0, vl - 1)]
+        lo, hi = P.vocab_range(cfg, len(shards), r)
+        ids = tokens.to(d).long().clamp(0, cfg.vocab_size - 1) - lo
+        own = (ids >= 0) & (ids < hi - lo)
+        e = p["embed"][ids.clamp(0, hi - lo - 1)]
         parts.append(torch.where(own[..., None], e, torch.zeros_like(e)))
     return _all_reduce(parts)
 
 
 def _unembed(shards: List[Params], cfg, hs: List[torch.Tensor]):
-    """Final norm and logits; over several ranks each rank's vocab range,
-    concatenated in rank order on rank 0's device."""
+    """Final norm and logits; over several ranks each rank's vocab range
+    (unequal where the ranks do not divide the vocab), concatenated in
+    rank order on rank 0's device."""
     outs = [unembed(p, cfg, h) for p, h in zip(shards, hs)]
     if len(outs) == 1:
         return outs[0]
@@ -972,7 +991,7 @@ def _unembed(shards: List[Params], cfg, hs: List[torch.Tensor]):
     return logits
 
 
-def _attn_prefill(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
+def _attn_prefill(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
                   cos_sins, caches, site: int, attn_impl: str,
                   moe_impl: str, mlp: bool = True,
                   aux: Optional[List] = None) -> List[torch.Tensor]:
@@ -981,20 +1000,21 @@ def _attn_prefill(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
     (none when ``caches`` is None), then the MLP unless ``mlp`` is False
     (``aux``: :func:`_mlp`'s).  Returns the residual stream."""
     parts, ks, vs = [], [], []
-    for lp, h, cs in zip(lps, hs, cos_sins):
+    heads = _heads(cfg, lcfgs) or [None]
+    for lp, lc, h, cs, hd in zip(lps, lcfgs, hs, cos_sins, heads):
         out, (k, v) = L.attention_block(
-            lp["attn"], lcfg, L.apply_norm(cfg, lp["attn_norm"], h), cs,
-            attn_impl=attn_impl)
+            lp["attn"], lc, L.apply_norm(cfg, lp["attn_norm"], h), cs,
+            attn_impl=attn_impl, heads=hd)
         parts.append(out)
         ks.append(k)
         vs.append(v)
     if caches is not None:
         _write_prompts([c["kv"] for c in caches], site, ks, vs)
     hs = _add_sum(hs, parts)
-    return _mlp(cfg, lcfg, lps, hs, moe_impl, aux) if mlp else hs
+    return _mlp(cfg, lcfgs, lps, hs, moe_impl, aux) if mlp else hs
 
 
-def _attn_decode(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
+def _attn_decode(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
                  cos_sins, caches, site: int, curs, acts, attn_impl: str,
                  moe_impl: str, mlp: bool = True,
                  valid_lens=None) -> List[torch.Tensor]:
@@ -1002,28 +1022,29 @@ def _attn_decode(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
     prefill chunk) on every rank over site ``site`` of the caches, then
     the MLP unless ``mlp`` is False.  Returns the residual stream."""
     parts = L.attention_decode(
-        [lp["attn"] for lp in lps], lcfg,
+        [lp["attn"] for lp in lps], lcfgs,
         [L.apply_norm(cfg, lp["attn_norm"], h) for lp, h in zip(lps, hs)],
         cos_sins, [c["kv"].layer(site) for c in caches], curs,
-        attn_impl=attn_impl, actives=acts, valid_lens=valid_lens)
+        attn_impl=attn_impl, actives=acts, valid_lens=valid_lens,
+        heads=_heads(cfg, lcfgs))
     hs = _add_sum(hs, parts)
-    return _mlp(cfg, lcfg, lps, hs, moe_impl) if mlp else hs
+    return _mlp(cfg, lcfgs, lps, hs, moe_impl) if mlp else hs
 
 
-def _cross_mlp(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
+def _cross_mlp(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
                crosses, moe_impl: str) -> List[torch.Tensor]:
     """An audio decoder layer after its self-attention, on every rank:
     cross-attention of each rank's query heads over its encoder K/V
     ``crosses[r]`` (``ck``, ``cv``), the ranks' ``wo`` partials summed
     before the MLP, then the MLP.  Returns the residual streams."""
     hs = _add_sum(hs, [
-        L.cross_attention_block(lp["cross"], lcfg,
+        L.cross_attention_block(lp["cross"], lc,
                                 L.apply_norm(cfg, lp["cross_norm"], h), kv)
-        for lp, h, kv in zip(lps, hs, crosses)])
-    return _mlp(cfg, lcfg, lps, hs, moe_impl)
+        for lp, lc, h, kv in zip(lps, lcfgs, hs, crosses)])
+    return _mlp(cfg, lcfgs, lps, hs, moe_impl)
 
 
-def _mlp(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
+def _mlp(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
          moe_impl: str, aux: Optional[List] = None):
     """The residual stream after each rank's (column/row-parallel) MLP,
     or after each rank's MoE block, whose aux loss is appended to ``aux``
@@ -1031,9 +1052,9 @@ def _mlp(cfg, lcfg, lps: List[Params], hs: List[torch.Tensor],
     if cfg.moe.enabled:
         kw = {} if aux is None else {"aux_out": aux}
         return _add_sum(hs, M.moe_partials(
-            [lp["moe"] for lp in lps], lcfg,
+            [lp["moe"] for lp in lps], lcfgs[0],
             [L.apply_norm(cfg, lp["mlp_norm"], h) for lp, h in zip(lps, hs)],
             impl=moe_impl, **kw))
     return _add_sum(hs, [
-        L.mlp_block(lp["mlp"], lcfg, L.apply_norm(cfg, lp["mlp_norm"], h))
-        for lp, h in zip(lps, hs)])
+        L.mlp_block(lp["mlp"], lc, L.apply_norm(cfg, lp["mlp_norm"], h))
+        for lp, lc, h in zip(lps, lcfgs, hs)])

@@ -231,10 +231,12 @@ def test_tp_refusal_names_queue_item_8(arch):
     """The vlm and audio families build TP=2 pods (ROADMAP.md queue 1,
     item 8.2, landed), over int8 caches too (item 8.3, landed: each rank
     its KV heads' codes and a copy of the per-token scales); the refusal
-    left names its item: a vocab the ranks do not divide (full whisper's
-    51866 over 4 ranks) item 8.4, with ``vocab_size`` named.
-    (``tests/test_torch_tp_vlm_audio.py`` and ``tests/test_torch_dryrun
-    .py`` hold the pods against the JAX package.)"""
+    once named item 8.4, a vocab the ranks do not divide, and is served
+    now (item 8.4, landed): full whisper's 51866 rows over 4 ranks split
+    12967 / 12967 / 12966 / 12966, and qwen2-vl-7b's 28 query heads 7
+    a rank.  (``tests/test_torch_tp_vlm_audio.py``,
+    ``tests/test_torch_uneven_tp.py`` and ``tests/test_torch_dryrun.py``
+    hold the pods against the JAX package.)"""
     cfg = get_config(arch).reduced()
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
     mesh = make_mesh((2,), ("model",), devices=["cpu"] * 2)
@@ -246,12 +248,14 @@ def test_tp_refusal_names_queue_item_8(arch):
         assert c["kv"].k.dtype == torch.int8 and c["kv"].k.shape[3] == 1
         assert c["kv"].k_scale.shape == c["kv"].k.shape[:3]
     full = get_config(arch)
+    assert P.layout_reason(full, 4) is None
+    assert [P.local_config(full, 4, r).n_heads for r in range(4)] == [
+        full.n_heads // 4] * 4
+    rows = [hi - lo for lo, hi in (P.vocab_range(full, 4, r)
+                                   for r in range(4))]
+    assert sum(rows) == full.vocab_size and max(rows) - min(rows) <= 1
     if full.vocab_size % 4:
-        with pytest.raises(ValueError,
-                           match="vocab_size=51866 .*queue 1, item 8.4"):
-            P.local_config(full, 4)
-    else:
-        assert P.local_config(full, 4).n_heads == full.n_heads // 4
+        assert rows == [12967, 12967, 12966, 12966]
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-7b"])

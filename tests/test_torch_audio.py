@@ -53,7 +53,7 @@ from repro_torch.engine import EngineConfig, InferenceEngine  # noqa: E402
 from repro_torch.launch import make_mesh, serve, steps  # noqa: E402
 from repro_torch.launch import shapes as S  # noqa: E402
 from repro_torch.launch.partition import (check_family,  # noqa: E402
-                                          local_config)
+                                          local_config, vocab_range)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
@@ -345,17 +345,20 @@ def test_tensor_parallelism_and_cli_are_refused(capsys):
     """An audio pod runs the model (ROADMAP.md queue 1, item 8.2, landed;
     ``tests/test_torch_tp_vlm_audio.py`` holds it against the JAX
     package): ``check_family`` passes and each rank's cache holds its
-    query heads' cross K/V.  Refused: full whisper over 4 ranks, whose
-    vocab (51866) does not divide (item 8.4, ``vocab_size`` named), and
-    the CLI, with or without ``--mesh``: a request carries no frames."""
+    query heads' cross K/V.  Full whisper over 4 ranks, whose vocab
+    (51866) does not divide, is laid out now (item 8.4, landed: the
+    first two ranks hold 12967 rows, the last two 12966).  Refused: the
+    CLI, with or without ``--mesh``: a request carries no frames."""
     cfg = get_config(ARCH).reduced()
     check_family(cfg)
     caches = T.init_cache(cfg, 1, 32, mesh=make_mesh((2,), ("model",),
                                                      devices=["cpu"] * 2))
     assert [tuple(c["cross_kv"].k.shape) for c in caches] == [
         (2, 1, cfg.encoder.n_frames, 2, cfg.head_dim)] * 2
-    with pytest.raises(ValueError, match="vocab_size=51866 .*item 8.4"):
-        local_config(get_config(ARCH), 4)
+    full = get_config(ARCH)
+    assert [local_config(full, 4, r).n_heads for r in range(4)] == [5] * 4
+    assert [vocab_range(full, 4, r) for r in range(4)] == [
+        (0, 12967), (12967, 25934), (25934, 38900), (38900, 51866)]
     for mesh in ([], ["--mesh", "1x2"]):
         with pytest.raises(SystemExit) as e:
             serve.main(["--arch", ARCH, "--n", "2", "--device", "cpu"]

@@ -304,9 +304,18 @@ def test_tp2_record_counts_the_pods_cross_rank_sums(tiny_shapes):
 
 
 def test_skip_reasons_name_their_items():
+    """The skips left name item 8.5 (a sequence- or head-dim-sharded
+    cache, ZeRO-3, a context-parallel cache) or long_500k; the layouts
+    the ranks do not divide are laid out (item 8.4, landed): no arch x
+    shape x production mesh names it."""
     mesh = make_production_mesh()
-    r = dryrun.lower_one("qwen2-1.5b", "decode_32k", False)
-    assert r["status"] == "skipped" and "item 8.4" in r["reason"]
+    for multi in (False, True):
+        m = make_production_mesh(multi_pod=multi)
+        for arch in list_archs():
+            for shape in S.SHAPES.values():
+                why = dryrun.skip_reason(get_config(arch), shape, m)
+                assert why is None or "item 8.5" in why or why.startswith(
+                    "long_500k"), (arch, shape.name, why)
     for kw, words in (({"kv_shard": "seq"}, "kv_shard='seq'"),
                       ({"kv_shard": "head_dim"}, "kv_shard='head_dim'"),
                       ({"params_data_sharded": True}, "ZeRO-3")):

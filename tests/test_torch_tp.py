@@ -249,17 +249,17 @@ def test_tp4_layout_gives_each_rank_its_kv_head(setup):
 def test_kernel_decode_support_matches_reference(arch, axes, tp):
     """The same reason-or-None as ``pallas_decode_support``, with the same
     category prefix and the same facts before the dash (the tails name
-    each package's own handling), but where the rank count is a multiple
-    of the KV heads: the port serves that layout through the kernels (each
-    rank holds the KV head its query heads read), the reference falls
-    back to XLA."""
+    each package's own handling), but for the reference's ``layout:``
+    cases: the port serves every one of them through the kernels (each
+    rank holds the KV heads its query heads read, a rank that cuts a GQA
+    group launches uniform segments), where the reference replicates KV
+    and falls back to XLA."""
     shape = (tp,) if len(axes) == 1 else (2, tp)
     cfg = get_config(arch).reduced()
     got = kernel_decode_support(cfg, fake_mesh(shape, axes))
     want = pallas_decode_support(jax_get_config(arch).reduced(),
                                  fake_mesh(shape, axes))
-    if (want is not None and want.startswith("layout:")
-            and tp % cfg.n_kv_heads == 0):
+    if want is not None and want.startswith("layout:"):
         assert got is None
         return
     assert (got is None) == (want is None)
@@ -269,8 +269,11 @@ def test_kernel_decode_support_matches_reference(arch, axes, tp):
 
 @pytest.mark.parametrize("heads,tp", [((6, 3), 2), ((4, 2), 3)])
 def test_kernel_decode_support_refuses_uneven_layouts(heads, tp):
-    """Where neither head count divides the other's share of the axis, the
-    port gives the reference's ``layout:`` reason and builds no shards."""
+    """Where neither head count divides the other's share of the axis the
+    reference gives its ``layout:`` reason and falls back to XLA; the port
+    serves the layout (no reason): each rank's config holds its
+    ``split_range`` of the query heads and the KV heads they read, and its
+    shards of the KV leaves are those heads' columns."""
     h, kh = heads
     cfg = dataclasses.replace(get_config(ARCH).reduced(), n_heads=h,
                               n_kv_heads=kh)
@@ -278,10 +281,21 @@ def test_kernel_decode_support_refuses_uneven_layouts(heads, tp):
                                n_kv_heads=kh)
     got = kernel_decode_support(cfg, fake_mesh((tp,), ("model",)))
     want = pallas_decode_support(jcfg, fake_mesh((tp,), ("model",)))
-    assert got.startswith("layout:")
-    assert got.split(" — ")[0] == want.split(" — ")[0]
-    with pytest.raises(ValueError, match="layout:"):
-        P.local_config(cfg, tp)
+    assert want.startswith("layout:") and got is None
+    g = h // kh
+    for r in range(tp):
+        lcfg = P.local_config(cfg, tp, r)
+        q0, q1 = P.split_range(h, tp, r)
+        assert lcfg.n_heads == q1 - q0
+        assert P.kv_head_range(cfg, tp, r) == (q0 // g, (q1 - 1) // g + 1)
+        assert lcfg.n_kv_heads == (q1 - 1) // g + 1 - q0 // g
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    shards = shard_params(params, cfg, cpu_mesh(tp))
+    hd = cfg.head_dim
+    for r, s in enumerate(shards):
+        lo, hi = P.kv_head_range(cfg, tp, r)
+        assert torch.equal(s["layers"]["attn"]["wk"],
+                           params["layers"]["attn"]["wk"][..., lo * hd:hi * hd])
 
 
 # --------------------------------------------------------------------------- #
@@ -321,15 +335,27 @@ def test_flash_decode_sharded_plain_matches_single_device(case):
 
 
 def test_flash_decode_sharded_refuses_indivisible_heads():
+    """Unequal shards are taken (a rank's heads its own ratio), but a shard
+    whose query heads do not read its KV heads in uniform GQA segments is
+    refused: 3 query heads over 2 KV heads with no first heads, or first
+    heads and a group size that give a shard other KV heads than it
+    holds."""
     b, L, d = 4, 128, 16
-    q = torch.zeros((b, 1, 4, d))
-    k3 = torch.zeros((b, L, 3, d))
-    with pytest.raises(ValueError, match="divide"):
+    lens = dict(kv_len=torch.ones(b, dtype=torch.int32),
+                q_offset=torch.zeros(b, dtype=torch.int32))
+    q = torch.zeros((b, 1, 6, d))
+    k4 = torch.zeros((b, L, 4, d))
+    with pytest.raises(ValueError, match="uniform GQA segments"):
         ops.flash_decode_sharded(list(q.chunk(2, dim=2)),
+                                 list(k4.chunk(2, dim=2)),
+                                 list(k4.chunk(2, dim=2)), **lens)
+    k3 = torch.zeros((b, L, 3, d))
+    q4 = torch.zeros((b, 1, 4, d))
+    with pytest.raises(ValueError, match="uniform GQA segments"):
+        ops.flash_decode_sharded(list(q4.chunk(2, dim=2)),
                                  list(k3.tensor_split(2, dim=2)),
                                  list(k3.tensor_split(2, dim=2)),
-                                 kv_len=torch.ones(b, dtype=torch.int32),
-                                 q_offset=torch.zeros(b, dtype=torch.int32))
+                                 head_starts=[0, 2], group=2, **lens)
 
 
 def test_ref_flash_decode_sharded_is_per_shard():
@@ -405,21 +431,25 @@ def test_tp_prefill_logits_match_jax(setup, tp):
 
 
 def test_tp_refuses_an_uneven_layout(setup):
-    """6 query / 3 KV heads over 2 ranks: the shards, the caches and the
-    engine all refuse the layout, with its ``layout:`` reason; no path
-    serves it on the plain version instead."""
-    _, cfg, _, tp_params = setup
+    """6 query / 3 KV heads over 2 ranks, a layout the reference sends to
+    XLA: the port serves it.  Each rank caches the KV heads its 3 query
+    heads read (``[0, 2)`` and ``[1, 3)``: the group of KV head 1 crosses
+    the ranks' boundary), and the pod's engine gives the single-device
+    engine's tokens on both paths."""
+    _, cfg, _, _ = setup
     cfg6 = dataclasses.replace(cfg, n_heads=6, n_kv_heads=3)
+    params = T.init_params(cfg6, torch.Generator().manual_seed(0))
     mesh = cpu_mesh(2)
-    with pytest.raises(ValueError, match="layout:"):
-        T.init_cache(cfg6, 1, 16, mesh=mesh)
-    with pytest.raises(ValueError, match="layout:"):
-        shard_params(tp_params, cfg6, mesh)
+    caches = T.init_cache(cfg6, 1, 16, mesh=mesh)
+    assert [c["kv"].k.shape[3] for c in caches] == [2, 2]
+    assert [P.kv_head_range(cfg6, 2, r) for r in range(2)] == [(0, 2), (1, 3)]
     for impl in ("kernel", "torch"):
-        with pytest.raises(ValueError, match="layout:"):
-            InferenceEngine(cfg6, tp_params,
-                            EngineConfig(max_slots=1, max_len=32,
-                                         attn_impl=impl), mesh=mesh)
+        ecfg = EngineConfig(max_slots=3, max_len=32, attn_impl=impl)
+        got = _two_windows(InferenceEngine(cfg6, params, ecfg, mesh=mesh),
+                           Job)[0]
+        want = _two_windows(InferenceEngine(cfg6, params, ecfg,
+                                            device="cpu"), Job)[0]
+        assert got == want
 
 
 def test_ssm_family_under_a_mesh_is_not_ported():

@@ -200,8 +200,10 @@ def test_moe_leaf_with_no_rule_raises():
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_local_config_divides_the_moe_widths(arch):
     """Each rank computes with 1/tp of the experts' and the shared path's
-    hidden axes (mixtral's shared width 0 stays 0); a width that does not
-    divide raises ``ValueError`` and builds no shards."""
+    hidden axes where tp divides them (mixtral's shared width 0 stays 0);
+    a width that does not divide is split as whole columns, the first
+    ranks one more (``partition.split_range``), and the engine builds
+    ranks of those widths."""
     _, cfg, _, params = _setup(arch)
     m = cfg.moe
     for tp in (2, 4):
@@ -215,11 +217,17 @@ def test_local_config_divides_the_moe_widths(arch):
     for field, width in bad:
         odd = dataclasses.replace(cfg, moe=dataclasses.replace(
             m, **{field: width}))
-        with pytest.raises(ValueError, match=f"moe.{field}={width}"):
-            P.local_config(odd, 4)
-        with pytest.raises(ValueError, match=field):
-            InferenceEngine(odd, params, EngineConfig(**ECFG),
-                            mesh=cpu_mesh(4))
+        got = [getattr(P.local_config(odd, 4, r).moe, field)
+               for r in range(4)]
+        assert got == [-(-width // 4)] * (width % 4) + [width // 4] * (
+            4 - width % 4)
+        oparams = T.init_params(odd, torch.Generator().manual_seed(0))
+        eng = InferenceEngine(odd, oparams, EngineConfig(**ECFG),
+                              mesh=cpu_mesh(4))
+        leaf = "shared" if field == "shared_d_ff" else None
+        widths = [(r["layers"]["moe"][leaf] if leaf else r["layers"]["moe"])
+                  ["w_up"].shape[-1] for r in eng.params]
+        assert widths == got
 
 
 # --------------------------------------------------------------------------- #

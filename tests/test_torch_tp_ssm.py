@@ -231,9 +231,11 @@ def test_ssm_columns_pin_the_packed_order():
 
 def test_ssm_widths_and_the_layouts_the_port_refuses():
     """A rank's widths: its share of the heads, B and C whole with one
-    group and split with groups that divide; heads or groups that do not
-    divide raise ``ValueError`` naming the layout, from ``local_config``
-    and the engine too, before any shard is built."""
+    group and split with groups that divide.  Heads the ranks do not
+    divide are served now (8 heads over 3 ranks: 3, 3 and 2, the first
+    ranks one more), the engine too; several groups that do not divide
+    still raise ``ValueError`` naming the layout, from ``local_config``,
+    before any shard is built."""
     _, cfg, _, params = _setup(SSM)
     assert P.ssm_widths(cfg, 4) == P.SSMWidths(2, 64, 1)
     assert S.conv_channels(cfg, 4) == 64 + 2 * cfg.ssm.d_state
@@ -242,12 +244,13 @@ def test_ssm_widths_and_the_layouts_the_port_refuses():
     assert P.ssm_widths(two, 2) == P.SSMWidths(4, 128, 1)
     with pytest.raises(ValueError, match="layout: 2 SSM groups"):
         P.local_config(two, 4)
-    with pytest.raises(ValueError, match="layout: 8 SSM heads"):
-        P.local_config(cfg, 3)
-    with pytest.raises(ValueError, match="layout: 8 SSM heads"):
-        InferenceEngine(cfg, params, EngineConfig(**ECFG),
-                        mesh=make_mesh((3,), ("model",),
-                                       devices=["cpu"] * 3))
+    assert [P.ssm_widths(cfg, 3, r) for r in range(3)] == [
+        P.SSMWidths(3, 96, 1), P.SSMWidths(3, 96, 1), P.SSMWidths(2, 64, 1)]
+    assert P.layout_reason(cfg, 3) is None
+    eng = InferenceEngine(cfg, params, EngineConfig(**ECFG),
+                          mesh=make_mesh((3,), ("model",),
+                                         devices=["cpu"] * 3))
+    assert [c["ssm"]["ssm"].shape[2] for c in eng.cache] == [3, 3, 2]
 
 
 def test_tp_serves_the_ssm_and_hybrid_families_only_vlm_audio_refused():

@@ -441,14 +441,16 @@ def test_main_mesh_vlm_matches_jax_cli(capsys, monkeypatch):
 
 def test_refusals_left_name_their_queue_items():
     """Full whisper over 4 ranks: its vocab (51866) does not divide, which
-    the reference replicates (ROADMAP.md queue 1, item 8.4), and the dry
-    run skips such a layout naming that item.  An int8 cache under a mesh
-    is built now (item 8.3, landed): each rank's self-attention codes of
+    the reference replicates; the port splits it as whole rows, the first
+    ranks one more (ROADMAP.md queue 1, item 8.4, landed), and the dry
+    run names no item for the layout.  An int8 cache under a mesh is
+    built now (item 8.3, landed): each rank's self-attention codes of
     its heads with its copy of the scales, and the cross K/V in the
     model's dtype, as the reference's ``init_cache`` leaves them."""
-    with pytest.raises(ValueError, match="vocab_size=51866 .*item 8.4"):
-        P.local_config(get_config(AUDIO), 4)
-    assert "item 8.4" in P.layout_reason(get_config(AUDIO), 4)
+    full = get_config(AUDIO)
+    assert P.layout_reason(full, 4) is None
+    assert [P.vocab_range(full, 4, r)[1] - P.vocab_range(full, 4, r)[0]
+            for r in range(4)] == [12967, 12967, 12966, 12966]
     cfg = _setup(AUDIO)[1]
     caches = T.init_cache(cfg, 1, 32, mesh=cpu_mesh(2), kv_dtype="int8")
     for c in caches:

@@ -143,22 +143,38 @@ def test_checkpoint_crosses_to_reference_and_back(tmp_path):
         assert torch.equal(a, b)
 
 
-def test_train_cli_refuses_dry_run_and_mesh_multi(capfd, tmp_path):
+def test_train_cli_refuses_dry_run_and_mesh_multi(capfd, tmp_path,
+                                                   monkeypatch):
     """``--dry-run`` and ``--mesh multi`` ran nothing before the dry run
     was ported (ROADMAP.md queue 1, item 10, landed); now they run it on
     the full config's train_4k step in a subprocess, as the reference's
-    CLI does, and its record lands where ``--dry-run-out`` puts it:
+    CLI does, and its record lands where ``--dry-run-out`` puts it.
     qwen2-1.5b's 12 query heads over the production mesh's 16-way model
-    axis are skipped naming item 8.4, the layout the port lacks."""
+    axis, once skipped naming item 8.4, are laid out now (four ranks hold
+    none; item 8.4, landed), so the record is traced: here the CLI's
+    command runs in this process, on the config cut to 2 layers for the
+    trace's time (the full 28 take over a minute a mesh)."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun
+
+    def in_process(cmd):
+        assert cmd[:3] == [sys.executable, "-m", "repro_torch.launch.dryrun"]
+        return dryrun.main(cmd[3:])
+
+    monkeypatch.setattr(train.subprocess, "call", in_process)
+    monkeypatch.setattr(dryrun, "get_config", lambda a: dataclasses.replace(
+        get_config(a), n_layers=2))
     for extra, mesh in ((["--dry-run"], "single"), (["--mesh", "multi"],
                                                     "multi")):
         assert train.main(["--arch", "qwen2-1.5b", "--dry-run-out",
                            str(tmp_path)] + extra) == {"dry_run": 0}
         out = capfd.readouterr().out
-        assert f"SKIP qwen2-1.5b x train_4k x {mesh}" in out
+        assert f"OK   qwen2-1.5b x train_4k x {mesh}" in out
         path = tmp_path / f"qwen2-1.5b_train_4k_{mesh}.json"
         rec = json.loads(path.read_text())
-        assert rec["status"] == "skipped" and "item 8.4" in rec["reason"]
+        assert rec["status"] == "ok" and rec["n_devices"] == (
+            256 if mesh == "single" else 512)
 
 
 @pytest.mark.parametrize("seed", [0, 3])
