@@ -318,6 +318,18 @@ Phases (any failure raises and exits non-zero):
      and every rank's prefill over the cut shards, the decodes bit for
      bit the single-device kernel) and ``whisper-large-v3 TP=4`` hold the
      kernels at those shards.
+ 18. caches a pod splits other than by head (:func:`seq_phase`,
+     :func:`seq_kernel_rows`): the partials and combine kernels against
+     their plain versions and timed; qwen2-1.5b's sequence-sharded pod
+     at (1, 2) in fp32 at 2 layers against one device (dense and int8),
+     which the planted ``row0`` must fail; at full width and 28 layers
+     over 4 x 32768 rows one device, the sequence-sharded, head-layout
+     and planted pods fed one device's tokens, the first two within
+     ``SEQ_BF16_TOL`` slot by slot and the planted one outside it, each
+     beside a plain fp32 run of the same weights, with launch counts
+     (bf16 and int8); the context-parallel decode at (2, 1) over a linear
+     cache and long_500k's ring in fp32 against one device; the dry run
+     of the sequence-sharded serve step against the card.
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -602,8 +614,9 @@ PLANTED_FAULTS = {
     # rescaling each by exp(m_s - M)
     "combine_no_rescale": [
         ("decode_attention.cu",
-         r"const float e_s = expf\(ml\[2 \* s\] - M\);",
-         "const float e_s = 1.f;")],
+         r"const float e_s = ml\[2 \* s \+ 1\] > 0\.f \? "
+         r"expf\(ml\[2 \* s\] - M\) : 0\.f;",
+         "const float e_s = ml[2 * s + 1] > 0.f ? 1.f : 0.f;")],
     # drop the carried-state term exp(a_cum) C h_in of every query row, in
     # the fp32 body and in the bf16 output pass; it changes nothing when S
     # <= chunk (the state carried in is zero)
@@ -5884,16 +5897,18 @@ def round_block(nbytes: int) -> int:
     return max(-(-nbytes // 512) * 512, 512) if nbytes else 0
 
 
-def dry_vs_card(cfg, shape, mesh_shape, kv_dtype) -> list:
-    """Phase 16 (b), one case: the dry run's record on the meta device
-    against the same rank program on the card (``dryrun.rank_program``):
-    its ``flops`` times the pod's ranks against ``FlopCounterMode`` over
-    the card's step (exact); its argument bytes against the card inputs'
-    (exact), and ``memory_allocated`` of those inputs against their
-    512-byte blocks within ``ALLOC_MARGIN``; its peak at most
-    ``DRY_PEAK_MARGIN`` under ``max_memory_allocated`` over the step and
-    never over it, and a planted miss outside that;
-    its roofline beside the step's time.  Returns failures."""
+def dry_vs_card(cfg, shape, mesh_shape, kv_dtype, kv_shard="auto") -> list:
+    """Phase 16 (b), one case (phase 18 (c) with ``kv_shard="seq"``): the
+    dry run's record on the meta device against the same rank program on
+    the card (``dryrun.rank_program``): the pod's flops (``pod flops``)
+    against ``FlopCounterMode`` over the card's step (exact), and the
+    busiest rank's (the record's ``flops``) against ``dryrun.measure``
+    over the card's step (exact); the pod's argument bytes against the
+    card inputs' (exact), and ``memory_allocated`` of those inputs
+    against their 512-byte blocks within ``ALLOC_MARGIN``; the pod's
+    peak at most ``DRY_PEAK_MARGIN`` under ``max_memory_allocated`` over
+    the step and never over it, and a planted miss outside that; its
+    roofline beside the step's time.  Returns failures."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -5903,9 +5918,10 @@ def dry_vs_card(cfg, shape, mesh_shape, kv_dtype) -> list:
     tag = f"{shape.name} {shape.global_batch}x{shape.seq_len} {mesh_shape}"
     rec = dryrun.lower_one(cfg.arch_id, shape.name, False, input_shape=shape,
                            cfg_override=cfg, mesh_shape=mesh_shape,
-                           kv_dtype=kv_dtype)
+                           kv_dtype=kv_dtype, kv_shard=kv_shard)
     if rec["status"] != "ok":
         return [f"dry run {tag}: {rec}"]
+    tag += f" kv_shard={rec['kv_shard']}"
     mesh = make_mesh(mesh_shape, ("data", "model"),
                      devices=[DEVICE] * mesh_shape[0] * mesh_shape[1])
     gc.collect()
@@ -5913,7 +5929,8 @@ def dry_vs_card(cfg, shape, mesh_shape, kv_dtype) -> list:
     synchronize_all()
     base = torch.cuda.memory_allocated()
     step, inputs, tp = dryrun.rank_program(cfg, shape, mesh,
-                                           kv_dtype=kv_dtype)
+                                           kv_dtype=kv_dtype,
+                                           kv_shard=kv_shard)
     synchronize_all()
     held = torch.cuda.memory_allocated() - base
     sizes = dryrun._storages(inputs).values()
@@ -5927,12 +5944,16 @@ def dry_vs_card(cfg, shape, mesh_shape, kv_dtype) -> list:
     synchronize_all()
     peak = torch.cuda.max_memory_allocated() - base
     del out
+    with grad:
+        busiest = dryrun.measure(step, *inputs, owners=dryrun.rank_owners(
+            inputs, shape.kind))["flops"]
     ms = []
     for _ in range(3):
         with grad:
             ms.append(event_ms(lambda: step(*inputs), reps=1, warmup=0))
     t = sorted(ms)[1]
-    flops, dry_peak = fc.get_total_flops(), ma["peak_memory_in_bytes"] * tp
+    flops, dry_peak = fc.get_total_flops(), ma["pod_peak_memory_in_bytes"]
+    pod_flops = rec["cost_analysis"]["pod flops"]
     # the planted miss: a dry run that left out the serve step's cache, or
     # the train step's largest leaf's two moments
     if shape.kind == "train":
@@ -5947,11 +5968,12 @@ def dry_vs_card(cfg, shape, mesh_shape, kv_dtype) -> list:
 
     missed = (dry_peak - miss - peak) / peak
     dt = "bfloat16" if cfg.dtype == "bfloat16" else "float32"
-    t_f = rec["flops"] * tp / PEAK_FLOPS[dt] * 1e3
-    t_b = rec["bytes_accessed"] * tp / HBM_BYTES_S * 1e3
-    log(f"[dryrun] {cfg.arch_id} {tag}, {tp} rank(s) on one card: flops "
-        f"dry {rec['flops'] * tp:.6e} vs card {flops:.6e}; argument bytes "
-        f"dry {ma['argument_size_in_bytes'] * tp:.0f} vs card inputs {raw} "
+    t_f = rec["flops"] / PEAK_FLOPS[dt] * 1e3
+    t_b = rec["bytes_accessed"] / HBM_BYTES_S * 1e3
+    log(f"[dryrun] {cfg.arch_id} {tag}, {tp} rank(s) on one card: pod "
+        f"flops dry {pod_flops:.6e} vs card {flops:.6e}, busiest rank's dry "
+        f"{rec['flops']:.6e} vs card {busiest:.6e}; pod argument bytes "
+        f"dry {ma['pod_argument_size_in_bytes']:.0f} vs card inputs {raw} "
         f"(memory_allocated {held} vs their 512-byte blocks {blocks}); peak "
         f"dry {dry_peak / 1e9:.4f} GB vs max_memory_allocated "
         f"{peak / 1e9:.4f} GB ({(dry_peak - peak) / peak:+.2%}, gate 0 to "
@@ -5959,12 +5981,12 @@ def dry_vs_card(cfg, shape, mesh_shape, kv_dtype) -> list:
         f"{'MISSED' if peak_ok(dry_peak - miss) else 'caught'}); "
         f"collectives {rec['collectives']['count']}"
         f" ({rec['collectives']['total']:.4e} B a device); roofline of the "
-        f"pod at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s and "
+        f"busiest rank at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s and "
         f"{HBM_BYTES_S / 1e12:.2f} TB/s: flops {t_f:.3f} ms, bytes "
         f"{t_b:.3f} ms; the step on the card {t:.3f} ms (median of 3)")
-    if flops != rec["flops"] * tp:
+    if flops != pod_flops or busiest != rec["flops"]:
         failures.append(f"dry run {tag}: flops differ from the card's")
-    if raw != ma["argument_size_in_bytes"] * tp:
+    if raw != ma["pod_argument_size_in_bytes"]:
         failures.append(f"dry run {tag}: argument bytes differ")
     if not 0 <= held - blocks <= ALLOC_MARGIN * blocks:
         failures.append(f"dry run {tag}: memory_allocated {held} vs "
@@ -6122,8 +6144,10 @@ def dryrun_phase() -> dict:
         for mesh_shape in ((1, 1), (1, TP)):
             failures += dry_vs_card(cfg, shape, mesh_shape, kv)
     # the production mesh's model axis: 12 query heads over 16 ranks, four
-    # of which hold none
-    failures += dry_vs_card(cfg, serve, (1, DRY_WIDE_TP), "int8")
+    # of which hold none, in the head layout ("auto" is phase 18's
+    # sequence-sharded one there)
+    failures += dry_vs_card(cfg, serve, (1, DRY_WIDE_TP), "int8",
+                            kv_shard="heads")
     dry_roofline(cfg, "decode_32k", kv_dtype="int8")
     dry_roofline(cfg, "train_8x512", trainer)
     t_b = time.perf_counter() - t0 - t_a
@@ -6276,6 +6300,534 @@ def uneven_phase() -> dict:
     if failures:
         raise AssertionError("phase 17: " + "; ".join(failures))
     return launches
+
+
+# --------------------------------------------------------------------------- #
+# Phase 18: caches a pod splits other than by head, read as split-KV
+# --------------------------------------------------------------------------- #
+
+#: phase 18 (a): qwen2-1.5b's sequence-sharded pod at (1, TP), 4 slots
+#: over 32768 rows (16384 a rank: 3.76 GB of bf16 K/V at 28 layers),
+#: prompts of ``SEQ_PROMPT`` tokens, then ``SEQ_STEPS`` decode steps.  The
+#: prompts lie on rank 0 alone (rank 1 holds no visible row: the
+#: empty-rank rule); slot 3 is filled with random rows up to
+#: ``SEQ_CROSS`` first, so that its rows lie on both ranks
+SEQ_SLOTS, SEQ_ROWS, SEQ_PROMPT, SEQ_STEPS = 4, 32768, 300, 8
+SEQ_CROSS = 16500
+#: (a) at full width in bf16: the sequence-sharded pod's logits against
+#: the head layout's pod's, both fed one device's tokens, every step, by
+#: slot.  Slots 0-2 lie on rank 0 alone, within the first key split of
+#: both layouts, so the two compute the same sums (the same bits on an
+#: H100; rank 0's rows read one position off move them 0.047-0.051);
+#: slot 3's rows lie on both ranks and merge in another order, so its gap
+#: is bf16's own: 0.1445 (int8 0.1367) on an H100, about as far as one
+#: device lies from a plain fp32 run of the same weights there (0.140)
+SEQ_BF16_TOL = {"rank 0 alone": 1e-2, "both ranks": 0.25}
+#: (a)'s parity pod: fp32 at ``SEQ_PARITY_DEPTH`` layers, against one
+#: device within ``POD_LOGIT_TOL`` fp32 (1e-3: the ranks' states merge in
+#: another order than one softmax sums), greedy tokens equal
+SEQ_PARITY_DEPTH = 2
+#: (b): the context-parallel decode at (2, 1), batch 1, fp32 at
+#: ``SEQ_PARITY_DEPTH`` layers, over a linear cache of 32768 rows (16384
+#: a data index, read by the partials kernel) and over long_500k's ring of
+#: 8192 rows (4096 a data index, read plain), each after a prompt that
+#: crosses the data indices' boundary, ``CP_STEPS`` steps
+CP_CASES = {"linear": (32768, None, 16400), "ring": (524288, 8192, 9000)}
+CP_STEPS = 4
+
+
+def seq_fill(cfg, one, pods, slot: int, lo: int, hi: int, gen) -> None:
+    """Write the same random K/V rows ``[lo, hi)`` of ``slot`` into the
+    one-device cache ``one`` and, row by owner and KV head by owner, into
+    each pod's rank list of ``pods`` (the sequence-sharded layout: every
+    KV head over the rank's rows from ``row0``; the head layout: the
+    rank's KV heads over every row), int8 codes and scales where the
+    caches are int8.  Dense rows are drawn in bf16, so that a bf16 and an
+    fp32 cache hold the same values."""
+    import torch
+
+    from repro_torch.launch.partition import kv_head_range
+
+    kv = one["kv"]
+    for name in ("k", "v", "k_scale", "v_scale"):
+        buf = getattr(kv, name)
+        if buf is None:
+            continue
+        shape = (buf.shape[0], hi - lo) + tuple(buf.shape[3:])
+        if buf.dtype == torch.int8:
+            rows = torch.empty(shape, dtype=torch.int8, device=buf.device
+                               ).random_(-127, 128, generator=gen)
+        elif name.endswith("scale"):
+            rows = torch.empty(shape, device=buf.device).uniform_(
+                0.005, 0.025, generator=gen)
+        else:
+            rows = torch.randn(shape, generator=gen, device=buf.device
+                               ).to(torch.bfloat16)
+        buf[:, slot, lo:hi] = rows.to(buf.dtype)
+        for pod in pods:
+            for r, c in enumerate(pod):
+                piece = c["kv"]
+                a = max(lo, piece.row0)
+                b = min(hi, piece.row0 + piece.k.shape[2])
+                part = rows[:, a - lo:b - lo]
+                if not name.endswith("scale") and (
+                        piece.k.shape[3] != cfg.n_kv_heads):
+                    h0, h1 = kv_head_range(cfg, len(pod), r)
+                    part = part[:, :, h0:h1]
+                if b > a:
+                    dst = getattr(piece, name)
+                    dst[:, slot, a - piece.row0:b - piece.row0] = part.to(
+                        device=dst.device, dtype=dst.dtype)
+
+
+def seq_run(cfg, params, cache, mesh, prompts, n_steps: int, fill=None,
+            forced=None, attn_impl: str = "kernel"):
+    """Prefill ``prompts`` into ``cache`` through ``make_prefill_step``,
+    ``fill()`` (random rows) if given, then ``n_steps`` decode steps
+    through ``transformer.decode_step``, each fed the last step's greedy
+    token, or with ``forced`` (B, n_steps) those tokens in turn: (greedy
+    tokens (B, n_steps), the steps' logits in fp32, the tokens fed (B,
+    n_steps))."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    logits, cache = make_prefill_step(cfg, mesh=mesh, attn_impl=attn_impl)(
+        params, {"tokens": prompts, "cache": cache})
+    if fill is not None:
+        fill()
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    toks, outs, fed = [], [], []
+    for i in range(n_steps):
+        if forced is not None:
+            tok = forced[:, i]
+        fed.append(tok)
+        lg, cache = T.decode_step(params, cfg, tok[:, None], cache,
+                                  mesh=mesh, attn_impl=attn_impl)
+        outs.append(lg[:, -1].float())
+        tok = outs[-1].argmax(-1).to(torch.int32)
+        toks.append(tok)
+    return torch.stack(toks, 1), torch.stack(outs, 1), torch.stack(fed, 1)
+
+
+def seq_prompts(cfg):
+    """(a)'s ``SEQ_SLOTS`` prompts of ``SEQ_PROMPT`` tokens (9 in the CPU
+    rehearsal), on ``DEVICE``."""
+    import torch
+
+    prompt = SEQ_PROMPT if DEVICE != "cpu" else 9
+    return torch.as_tensor(
+        [[t % cfg.vocab_size for t in (r.prompt_tokens * prompt)[:prompt]]
+         for r in make_requests(SEQ_SLOTS, SEED)], device=DEVICE)
+
+
+def seq_runs(cfg, params, kv_dtype, mesh, layouts=("seq",),
+             forced: bool = False, ref=None):
+    """(a)'s runs from the same prompts and random rows (slot 3 filled to
+    ``SEQ_CROSS``): one device's greedy run first, then a pod of each
+    ``kv_shard`` of ``layouts``, greedy or, with ``forced``, fed one
+    device's tokens (so that a token another run rounds differently does
+    not change the next step's input).  The layout "planted" is "seq"
+    with the fault the gates must catch: rank 0 reads its rows one
+    position off (its ``row0`` + 1).  ``ref``: (cfg, params) of one
+    device's plain fp32 run (an fp32 cache, ``attn_impl="torch"``) fed
+    one device's tokens too.  Returns {"one", each layout, "ref"}:
+    (greedy tokens, logits)."""
+    import torch
+
+    from repro_torch.launch import shard_params
+    from repro_torch.models import transformer as T
+
+    rows = SEQ_ROWS if DEVICE != "cpu" else 64
+    cross = SEQ_CROSS if DEVICE != "cpu" else 40
+    prompts = seq_prompts(cfg)
+    prompt = prompts.shape[1]
+    runs = [("one", cfg, params, None, "kernel",
+             T.init_cache(cfg, SEQ_SLOTS, rows, DEVICE, kv_dtype=kv_dtype))]
+    shards = shard_params(params, cfg, mesh)
+    runs += [(lay, cfg, shards, mesh, "kernel",
+              T.init_cache(cfg, SEQ_SLOTS, rows, mesh=mesh,
+                           kv_dtype=kv_dtype,
+                           kv_shard="seq" if lay == "planted" else lay))
+             for lay in layouts]
+    if ref is not None:
+        runs.append(("ref", *ref, None, "torch",
+                      T.init_cache(ref[0], SEQ_SLOTS, rows, DEVICE,
+                                   kv_dtype=kv_dtype)))
+    # rows no prompt writes: the prefills leave them, and set every len
+    for one, pods in ((runs[0][-1], [r[-1] for r in runs[1:]
+                                     if r[3] is not None]),
+                      (runs[-1][-1] if ref is not None else None, [])):
+        if one is not None:
+            seq_fill(cfg, one, pods, 3, prompt, cross,
+                     torch.Generator(device=DEVICE).manual_seed(SEED + 7))
+    out, fed = {}, None
+    while runs:
+        name, c, p, m, impl, cache = runs.pop(0)
+
+        def fill(cache=cache, m=m, name=name):
+            for x in (cache if m is not None else [cache]):
+                x["len"][3] = cross
+            if name == "planted":
+                cache[0]["kv"].row0 += 1
+
+        tok, lg, f = seq_run(c, p, cache, m, prompts, SEQ_STEPS, fill,
+                             forced=fed, attn_impl=impl)
+        if forced and name == "one":
+            fed = f
+        out[name] = (tok, lg)
+        del cache
+    del shards
+    return out
+
+
+def seq_phase() -> dict:
+    """Phase 18: caches a pod splits other than by head, every rank on
+    one card.  (a) qwen2-1.5b's sequence-sharded pod (``kv_shard="seq"``)
+    at (1, TP): in fp32 at ``SEQ_PARITY_DEPTH`` layers its decode tokens
+    and logits against one device's over the same prompts and random
+    rows, bf16 and int8, and the planted ``row0`` fault, which the fp32
+    gate must catch; at full width and depth (28 layers, bf16, 4 x 32768
+    rows) one device, the sequence-sharded pod, the head layout's pod and
+    the planted pod over the same prompts and rows, the pods fed one
+    device's tokens, with launch counts reset before and read after
+    (``flash_decode_partials`` and ``flash_decode_combine``): the
+    sequence-sharded pod's logits against the head layout's on every
+    slot and step within ``SEQ_BF16_TOL``, the planted pod's outside it,
+    finite logits, tokens in the vocabulary; each run's gap from a plain
+    fp32 run of the same weights reported (where bf16's own error lies);
+    the same over an int8 cache (``flash_decode_int8_partials``, the
+    scales split with the rows).  (b) the context-parallel decode at (2,
+    1) (``CP_CASES``), fp32, against one device.  (c) the dry run of the
+    serve step at (1, TP) with ``kv_shard="seq"`` against the card
+    (:func:`dry_vs_card`).  Returns the launch counts of (a)'s full-width
+    bf16 and int8 runs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_mesh
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import pod_meshes
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models import transformer as T
+    from repro_torch.training.tree import tree_map
+
+    t_phase = time.perf_counter()
+    failures, launches = [], {}
+    cfg = get_config("qwen2-1.5b")
+    if DEVICE == "cpu":
+        cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16")
+    mesh = tp_mesh(TP)
+    tol32 = POD_LOGIT_TOL["dense", "float32"]
+    # (a) fp32 parity, the planted fault
+    cfg32, params32 = fp32_model(cfg, SEQ_PARITY_DEPTH)
+    for kv_dtype in (None, "int8"):
+        r = seq_runs(cfg32, params32, kv_dtype, mesh)
+        (tp_tok, tp_lg), (one_tok, one_lg) = r["seq"], r["one"]
+        gap = float((tp_lg - one_lg).abs().max())
+        same = bool(torch.equal(tp_tok, one_tok))
+        log(f"[seq] {cfg.arch_id} fp32, {SEQ_PARITY_DEPTH} layers, "
+            f"kv_shard='seq' at (1, {TP}), {kv_dtype or 'dense'} cache of "
+            f"{SEQ_SLOTS} x {SEQ_ROWS} rows: {SEQ_STEPS} decode steps, "
+            f"tokens equal to one device's: {same}; max |logit gap| "
+            f"{gap:.4e} (tol {tol32}), max |logit| "
+            f"{float(one_lg.abs().max()):.3f}")
+        if not same or not gap <= tol32:
+            failures.append(f"seq pod fp32 {kv_dtype}: tokens equal {same},"
+                            f" logit gap {gap:.4e}")
+    r = seq_runs(cfg32, params32, None, mesh, layouts=("planted",))
+    gap_f = float((r["planted"][1] - r["one"][1]).abs().max())
+    caught = not gap_f <= tol32
+    log(f"[seq] planted row0 + 1 on rank 0: fp32 logit gap {gap_f:.4e}: "
+        + ("caught" if caught else "MISSED"))
+    if not caught:
+        failures.append("the planted row0 fault passed the fp32 gate")
+    del params32, r
+    gc.collect()
+    torch.cuda.empty_cache() if DEVICE != "cpu" else None
+    # (a) full width and depth, bf16 then int8: the main path's launches
+    params = random_params(cfg)
+    ref = (dataclasses.replace(cfg, dtype="float32"),
+           tree_map(lambda x: x.float(), params))
+    for kv_dtype, name in ((None, "flash_decode_partials"),
+                           ("int8", "flash_decode_int8_partials")):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        r = seq_runs(cfg, params, kv_dtype, mesh, forced=True,
+                     layouts=("seq", "heads", "planted"),
+                     ref=ref if kv_dtype is None else None)
+        counts = {n: fn.launches for n, fn in ops.KERNELS.items()}
+        n = cfg.n_layers
+        # the prefills (flash_attention: one device and each pod's ranks);
+        # the seq and planted pods' steps (partials a rank, one combine),
+        # the head layout's (one launch a rank) and one device's; the
+        # plain fp32 run launches nothing
+        one = "flash_decode" if kv_dtype is None else "flash_decode_int8"
+        check_launches(counts, {
+            "flash_attention": (n * (3 * TP + 1), f"{n} layers x (3 pods "
+                                                  f"x {TP} ranks + one "
+                                                  "device) x 1 prefill"),
+            name: (2 * n * TP * SEQ_STEPS, f"2 pods x {n} layers x {TP} "
+                                           f"ranks x {SEQ_STEPS} steps"),
+            "flash_decode_combine": (2 * n * SEQ_STEPS, f"2 pods x {n} "
+                                                        f"layers x "
+                                                        f"{SEQ_STEPS} steps"),
+            one + "_sharded": (n * TP * SEQ_STEPS, f"{n} layers x {TP} "
+                                                   f"ranks x {SEQ_STEPS} "
+                                                   "steps, head layout"),
+            one: (n * SEQ_STEPS, f"{n} layers x {SEQ_STEPS} steps, one "
+                                 "device")})
+        def by_slot(a, b):
+            return [float(f"{x:.4e}") for x in
+                    (r[a][1] - r[b][1]).abs().amax(dim=(1, 2))]
+
+        # the gate: the two pods hold the same rows in two layouts and are
+        # fed the same tokens
+        gaps = {k: by_slot(k, "heads") for k in ("seq", "planted")}
+        limits = [SEQ_BF16_TOL["rank 0 alone"]] * 3 + [
+            SEQ_BF16_TOL["both ranks"]]
+        ok = all(g <= t for g, t in zip(gaps["seq"], limits))
+        caught = any(g > t for g, t in zip(gaps["planted"], limits))
+        finite = bool(torch.isfinite(r["seq"][1]).all()) and bool(
+            ((r["seq"][0] >= 0) & (r["seq"][0] < cfg.vocab_size)).all())
+        vs_ref = ({k: by_slot(k, "ref") for k in ("one", "seq", "heads")}
+                  if "ref" in r else {})
+        agree = {k: int((r[k][0] == r["one"][0]).sum())
+                 for k in ("seq", "heads")}
+        log(f"[seq] {cfg.arch_id} bf16, {n} layers, (1, {TP}), "
+            f"{kv_dtype or 'bf16'} cache of {SEQ_SLOTS} x {SEQ_ROWS} rows, "
+            f"prompts of {SEQ_PROMPT}, slot 3 filled to {SEQ_CROSS}: "
+            f"{SEQ_STEPS} steps of one device, the seq, head and planted "
+            f"pods{' and a plain fp32 run' if vs_ref else ''} in "
+            f"{time.perf_counter() - t0:.1f} s, the pods fed one device's "
+            f"tokens; launches {name} {counts[name]}, flash_decode_combine "
+            f"{counts['flash_decode_combine']}; max |logit gap| by slot: "
+            f"seq vs heads {gaps['seq']} (gate {limits}: "
+            f"{'ok' if ok else 'FAILED'}), planted vs heads "
+            f"{gaps['planted']} ({'caught' if caught else 'MISSED'}); seq "
+            f"vs one device {by_slot('seq', 'one')}, heads vs one device "
+            f"{by_slot('heads', 'one')}"
+            + ("; vs the plain fp32 run: " + ", ".join(
+                f"{k} {v}" for k, v in vs_ref.items()) if vs_ref else "")
+            + f"; greedy tokens equal to one device's: seq {agree['seq']}, "
+            f"heads {agree['heads']} of {r['one'][0].numel()}; logits "
+            f"finite and tokens in the vocabulary: {finite}")
+        if not ok:
+            failures.append(f"seq pod bf16 {kv_dtype}: logits {gaps['seq']}"
+                            f" from the head layout's pod's (gate {limits})")
+        if not caught:
+            failures.append(f"seq pod bf16 {kv_dtype}: the planted row0 "
+                            f"passed the gate ({gaps['planted']})")
+        if not finite:
+            failures.append(f"seq pod bf16 {kv_dtype}: logits not finite "
+                            "or a token outside the vocabulary")
+        launches[kv_dtype or "bf16"] = counts
+        del r
+        gc.collect()
+    del params, ref
+    gc.collect()
+    torch.cuda.empty_cache() if DEVICE != "cpu" else None
+    # (b) context-parallel, fp32
+    cp = make_mesh((2, 1), ("data", "model"), devices=tp_devices(2))
+    pod = pod_meshes(cp)[0]
+    cfg32, params32 = fp32_model(cfg, SEQ_PARITY_DEPTH)
+    for kind, (max_len, window, plen) in CP_CASES.items():
+        if DEVICE == "cpu":
+            max_len, window, plen = (64, None, 40) if window is None else (
+                128, 16, 24)
+        prompt = torch.as_tensor([[8 + (97 * i) % 8000 for i in range(
+            plen)]], device=DEVICE) % cfg.vocab_size
+        ops.reset_launches()
+        runs = []
+        for m, p, c in (
+                (pod, ST.shard_pods(params32, cfg32, cp)[0],
+                 ST.init_pod_caches(cfg32, 1, max_len, cp,
+                                    context_parallel=True,
+                                    sliding_window=window)),
+                (None, params32, T.init_cache(cfg32, 1, max_len, DEVICE,
+                                              sliding_window=window))):
+            runs.append(seq_run(cfg32, p, c, m, prompt, CP_STEPS)[:2])
+            del c
+        (cp_tok, cp_lg), (one_tok, one_lg) = runs
+        gap = float((cp_lg - one_lg).abs().max())
+        same = bool(torch.equal(cp_tok, one_tok))
+        part = ops.flash_decode_partials.launches
+        log(f"[seq] context-parallel at (2, 1), fp32, {SEQ_PARITY_DEPTH} "
+            f"layers, {kind} cache of {window or max_len} rows, a prompt of "
+            f"{plen}: {CP_STEPS} steps, tokens equal {same}, max |logit "
+            f"gap| {gap:.4e} (tol {tol32}); flash_decode_partials "
+            f"{part} launches")
+        want_part = (SEQ_PARITY_DEPTH * 2 * CP_STEPS if window is None
+                     else 0)
+        if not same or not gap <= tol32 or (DEVICE != "cpu"
+                                            and part != want_part):
+            failures.append(f"context-parallel {kind}: tokens {same}, gap "
+                            f"{gap:.4e}, partials launches {part} (want "
+                            f"{want_part})")
+    del params32
+    gc.collect()
+    # (c) the dry run of the sequence-sharded serve step against the card
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+        serve = InputShape("serve_512", MAX_LEN, DRY_SERVE_B, "decode")
+        failures += dry_vs_card(cfg, serve, (1, TP), "int8", kv_shard="seq")
+    log(f"[seq] phase 18 in {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("phase 18: " + "; ".join(failures))
+    return launches
+
+
+def seq_kernel_rows() -> dict:
+    """Phase 18 (d): the partials and combine kernels at (a)'s shapes, B=4
+    slots of 12 / 2 heads of dim 128 over 32768 rows split at 16384 as
+    (1, TP) splits them, ``kv_len`` 300 (rank 1 empty), 16383, 16500 and
+    32768: each launch against its plain version on the same inputs
+    (``ref.flash_decode_partials`` with the launch's splits, on rank 0's
+    rows; ``ref.flash_decode_combine`` on the scratch both ranks wrote),
+    the two ranks' merged output against ``ref.flash_decode`` over the
+    unsharded cache, and the times of each launch, its plain version and
+    ``sdpa`` over the unsharded cache (GQA, masked by ``kv_len``), with
+    the bound.  Returns the rows by kernel name."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    B, L, h, kh, d = SEQ_SLOTS, SEQ_ROWS, HEADS, KV_HEADS, HEAD_DIM
+    cut = L // TP
+    dt = torch.bfloat16
+    q = torch.randn((B, 1, h, d), generator=gen, device="cuda", dtype=dt)
+    kv_len = torch.tensor([SEQ_PROMPT, cut - 1, SEQ_CROSS, L],
+                          dtype=torch.int32, device="cuda")
+    q_off = kv_len - 1
+    pos = torch.arange(L, device="cuda")
+    mask = ((pos[None] < kv_len[:, None]) & (pos[None] <= q_off[:, None])
+            )[:, None, None, :]
+    n = [ops.partial_splits(B, cut, q.device)[0]] * TP
+    rows, failures = {}, []
+    for name in ("flash_decode_partials", "flash_decode_int8_partials"):
+        if name == "flash_decode_partials":
+            k, v = (torch.randn((B, L, kh, d), generator=gen, device="cuda",
+                                dtype=dt) for _ in range(2))
+            scales = []
+            kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+            row_bytes = 2 * kh * d * 2
+        else:
+            k, v, ks, vs = int8_kv(B, L, kh, d, gen)
+            scales = [ks, vs]
+            kt, vt = (ref.dequantize(c, sc).to(dt).transpose(1, 2)
+                      .contiguous() for c, sc in ((k, ks), (v, vs)))
+            row_bytes = 2 * kh * d + 8
+        fn, plain = getattr(ops, name), getattr(ref, name)
+        shard = [[x[:, r * cut:(r + 1) * cut].contiguous() for r in
+                  range(TP)] for x in [k, v] + scales]
+        part = ops.Partials(B, h, sum(n), d, q.device)
+        kw = dict(kv_len=kv_len, q_offset=q_off)
+
+        def pod_partials():
+            for r in range(TP):
+                fn(q, *(x[r] for x in shard), out=part, row0=r * cut,
+                   split0=r * n[0], **kw)
+
+        def rank0():
+            return fn(q, *(x[0] for x in shard), **kw)
+
+        n_split, s_len = ops.partial_splits(B, cut, q.device)
+
+        def rank0_plain():
+            return plain(q, *(x[0] for x in shard), n_split=n_split,
+                         s_len=s_len, **kw)
+
+        pod_partials()
+        got = part.acc.clone(), part.ml.clone()
+        want = [torch.cat(t, dim=2) for t in zip(*(plain(
+            q, *(x[r] for x in shard), row0=r * cut, n_split=n_split,
+            s_len=s_len, **kw) for r in range(TP)))]
+        err, share = max_err(tuple(got), tuple(want), "float32")
+        merged = ops.flash_decode_combine(part.acc, part.ml, dtype=dt)
+        whole = (ref.flash_decode(q, k, v, **kw) if not scales else
+                 ref.flash_decode_int8(q, k, v, *scales, **kw))
+        e2e, e2e_share = max_err(merged, whole, "bfloat16")
+        vis = [min(int(x), cut) for x in kv_len.tolist()]
+        keys0 = sum(vis)
+        b_ms, b_by = bound(q.numel() * 2 + 8 * B + keys0 * row_bytes
+                           + B * h * n_split * (d + 2) * 4,
+                           4 * h * d * keys0, "bfloat16")
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q.transpose(1, 2), kt, vt, attn_mask=mask, enable_gqa=True)
+        rows[name] = dict(
+            dtype="bfloat16", B=B, L=cut, heads=f"{h}/{kh}", D=d,
+            kv_len=kv_len.tolist(), n_split=n_split, max_abs_err=err,
+            tol_share=share, merged_err=e2e, ms=cuda_ms(rank0, 50),
+            plain_ms=cuda_ms(rank0_plain, 5), library_ms=cuda_ms(lib, 50),
+            bound_ms=b_ms, bound_by=b_by)
+        if not share <= 1.0 or not e2e_share <= 1.0:
+            failures.append(f"{name}: partials err {err:.3e}, merged vs "
+                            f"one device's decode {e2e:.3e}")
+        if name == "flash_decode_partials":  # the combine on this scratch
+            c_out = ops.flash_decode_combine(part.acc, part.ml, dtype=dt)
+            c_err, c_share = max_err(c_out, ref.flash_decode_combine(
+                part.acc, part.ml, dtype=dt), "bfloat16")
+            cb_ms, cb_by = bound(part.buf.numel() * 4 + c_out.numel() * 2,
+                                 2 * B * h * sum(n) * (d + 1), "bfloat16")
+            rows["flash_decode_combine"] = dict(
+                dtype="bfloat16", B=B, L=L, heads=f"{h}/{kh}", D=d,
+                n_split=sum(n), max_abs_err=c_err, tol_share=c_share,
+                ms=cuda_ms(lambda: ops.flash_decode_combine(
+                    part.acc, part.ml, dtype=dt), 50),
+                plain_ms=cuda_ms(lambda: ref.flash_decode_combine(
+                    part.acc, part.ml, dtype=dt), 5),
+                library_ms=None, bound_ms=cb_ms,
+                bound_by=cb_by)
+            if not c_share <= 1.0:
+                failures.append(f"flash_decode_combine: err {c_err:.3e}")
+        r = rows[name]
+        log(f"[seq] {name} bf16 B={B}, rank 0's {cut} of {L} rows, heads "
+            f"{h}/{kh}, D={d}, kv_len {r['kv_len']}, {n_split} splits a "
+            f"rank: max |err| {err:.3e} vs its plain version, merged vs "
+            f"one device's decode {e2e:.3e}; {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f}, sdpa over the unsharded cache "
+            f"{r['library_ms']:.4f}, bound {b_ms:.4f} by {b_by})")
+        del k, v, kt, vt, shard, part
+        torch.cuda.empty_cache()
+    c = rows["flash_decode_combine"]
+    log(f"[seq] flash_decode_combine bf16 B={B}, {c['n_split']} splits of "
+        f"{TP} ranks, {h} heads of {d}: max |err| {c['max_abs_err']:.3e}; "
+        f"{c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, bound "
+        f"{c['bound_ms']:.4f} by {c['bound_by']}); the combine's share of "
+        f"the split pass: "
+        f"{c['ms'] / (TP * rows['flash_decode_partials']['ms']):.3f}")
+    if failures:
+        raise AssertionError("phase 18 (d): " + "; ".join(failures))
+    return rows
+
+
+def seq_kernel_json(rows: dict, launches: dict) -> list:
+    """The ``kernels`` line's rows of phase 18's launches: (d)'s
+    measurements (:func:`seq_kernel_rows`) beside the launch counts of
+    (a)'s full-width bf16 and int8 runs (:func:`seq_phase`)."""
+    out = []
+    for name, counts in (("flash_decode_partials", launches["bf16"]),
+                         ("flash_decode_int8_partials", launches["int8"]),
+                         ("flash_decode_combine", launches["bf16"])):
+        r = rows[name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": ("src/repro/kernels/decode_attention.py:81"
+                         if "int8" in name else
+                         "src/repro/kernels/decode_attention.py:35"),
+            "launches": counts[name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": f"qwen2-1.5b (1, {TP}) kv_shard=seq: {r['dtype']} "
+                     f"B={r['B']} L={r['L']} heads {r['heads']} D={r['D']}"
+                     f" n_split={r['n_split']}"})
+    return out
 
 
 def random_params(cfg):
@@ -6500,6 +7052,12 @@ def main(argv=None) -> None:
     # phase 17: pods whose ranks do not divide the heads, groups or widths
     uneven = uneven_phase()
     lap("17 uneven pods")
+
+    # phase 18: sequence-sharded and context-parallel caches, the partials
+    # and combine kernels
+    seq_rows = seq_kernel_rows()
+    seq = seq_phase()
+    lap("18 split caches")
     log("[time] each phase, s: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}) + f"; in all "
         f"{sum(phase_s.values()):.1f} s after the imports")
@@ -6595,6 +7153,7 @@ def main(argv=None) -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": f"{arch + ': ' if arch else ''}{r['dtype']} {shape}"})
+    kernels += seq_kernel_json(seq_rows, seq)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

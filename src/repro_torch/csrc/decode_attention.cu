@@ -16,6 +16,17 @@
 // key axis was a sequential grid axis carrying (m, l, acc) in scratch from
 // step to step; here blocks split it and a second pass merges them.
 //
+// Partials mode (flash_decode_partials_launch, flash_decode_int8_partials_
+// launch, flash_decode_combine_launch): where a pod splits the cache's rows
+// (the reference's sequence-sharded and context-parallel caches, which GSPMD
+// lowers through XLA there), each rank's launch reads its own rows [r0, r0 +
+// L), shifts the slots' global lengths and positions by r0, and writes its
+// splits' (acc, m, l) into its slice of one fp32 scratch that all ranks
+// share (a split offset, a head offset, a total split count); one combine
+// launch then merges every rank's splits, in rank order, as it merges one
+// launch's.  A rank with no visible row of a slot writes empty splits
+// (m = -1e30, l = 0), which the combine leaves out of its max and weighs 0.
+//
 // Bound on the card: bytes.  A step reads kv_len rows of K and V for each
 // slot and does 4*D flops per (query head, key): at GQA 6 in bf16 that is
 // about 6 flops per byte (12 over int8 codes), far under the ~295 flops per
@@ -289,14 +300,20 @@ size_t smem_bytes() {
 // results dropped).  Warp w walks tiles w, w + kWarps, ... of the split,
 // each lane scoring one key for every head, with its own online softmax
 // state (m, l, acc) per head; the warps' states are merged in the order of
-// w.  With n_split == 1 the block writes out; else its partial state to
-// `part`: acc (B*H, n_split, D), then (m, l) (B*H, n_split, 2), all fp32.
+// w.  With n_split == 1 and `out` given the block writes out; else its
+// partial state to `part`: acc (B*HP, n_total, D), then (m, l) (B*HP,
+// n_total, 2), all fp32, at row b*HP + hp0 + (the head) and split s_off + s.
+// A launch over a whole cache has HP = H, hp0 = s_off = 0, n_total =
+// n_split.  Partials mode (out == nullptr) writes its splits into a slice of
+// a scratch that other launches share: a rank of a pod whose cache holds
+// rows [r0, r0 + L) of the buffer, its row i at position r0 + i.
 template <typename T, int D, int KG, typename KV>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_len,
               const int* __restrict__ q_off, T* __restrict__ out,
               float* __restrict__ part, int L, int H, int KH, int HR, int KHR,
-              int window, float scale, int n_split, int s_len) {
+              int window, float scale, int n_split, int s_len, int r0, int HP,
+              int hp0, int s_off, int n_total) {
   using Raw = typename KV::Raw;
   using Ly = Layout<Raw, D>;
   constexpr int W = Ly::kWarps;
@@ -316,9 +333,10 @@ decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_l
   const int vlane = owner ? lane : kVLanes - 1;
   float* ps = qs + KG * D + warp * KG * kTile;  // this warp's p, KG x kTile
 
+  // the visible positions [lo, hi) less r0: the rows of this launch's range
   const int qpos = q_off[b];
-  const int hi = min(min(kv_len[b], qpos + 1), L);
-  const int lo = window > 0 ? max(qpos - window + 1, 0) : 0;
+  const int hi = min(min(kv_len[b], qpos + 1) - r0, L);
+  const int lo = window > 0 ? max(qpos - window + 1 - r0, 0) : 0;
   const int t_begin = max(lo, split * s_len);
   const int t_end = min(hi, (split + 1) * s_len);
   const int n_all = t_end > t_begin ? (t_end - t_begin + kTile - 1) / kTile : 0;
@@ -462,8 +480,7 @@ decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_l
 #pragma unroll
       for (int i = 0; i < PER; ++i) o[i] += r[vlane * PER + i] * e_w;
     }
-    const size_t bh = (size_t)b * H + kh * G + h;
-    if (n_split == 1) {
+    if (out != nullptr && n_split == 1) {
       if (!owner) continue;
       const float denom = fmaxf(lt, 1e-30f);
       T* dst = out + ((size_t)b * HR + kh * G + h) * D + lane * PER;
@@ -471,14 +488,14 @@ decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_l
       for (int i = 0; i < PER; ++i) dst[i] = from_f<T>(o[i] / denom);
       continue;
     }
-    const size_t ps_i = bh * n_split + split;
+    const size_t ps_i = ((size_t)b * HP + hp0 + kh * G + h) * n_total + s_off + split;
     float* pa = part + ps_i * D + lane * PER;
     if (owner) {
 #pragma unroll
       for (int i = 0; i < PER; ++i) pa[i] = o[i];
     }
     if (lane == 0) {
-      float* ml = part + (size_t)gridDim.x * H * n_split * D + 2 * ps_i;
+      float* ml = part + (size_t)gridDim.x * HP * n_total * D + 2 * ps_i;
       ml[0] = M;
       ml[1] = lt;
     }
@@ -489,7 +506,12 @@ decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_l
 // of s, into the output: one warp per row of BH = B*H, lane i owning dims
 // [i*PER, (i+1)*PER), PER = ceil(D/32) (lanes past D / PER own none).  Row
 // r is head r % H of slot r / H, which lies at row (r / H) * HR + r % H of
-// the output (HR heads a slot).
+// the output (HR heads a slot).  The splits may be those of several ranks
+// of a pod, each over its own rows, in rank order
+// (flash_decode_combine_launch).  A split that saw no key (l = 0: an empty
+// split, or a rank that holds none of the slot's visible rows) is left out
+// of the max and gets weight 0, whatever its m, so that no m = -inf or
+// garbage can make a NaN; where every split is empty the row is 0.
 template <typename T, int D>
 __global__ void combine_kernel(const float* __restrict__ part, T* __restrict__ out,
                                int BH, int H, int HR, int n_split) {
@@ -499,13 +521,14 @@ __global__ void combine_kernel(const float* __restrict__ part, T* __restrict__ o
   if (r >= BH || lane >= D / PER) return;
   const float* pa = part + (size_t)r * n_split * D + lane * PER;
   const float* ml = part + (size_t)BH * n_split * D + (size_t)r * n_split * 2;
-  float M = kNegInf;
-  for (int s = 0; s < n_split; ++s) M = fmaxf(M, ml[2 * s]);
+  float M = kNegInf;  // over the splits that saw a key
+  for (int s = 0; s < n_split; ++s)
+    if (ml[2 * s + 1] > 0.f) M = fmaxf(M, ml[2 * s]);
   float l = 0.f, o[PER];
 #pragma unroll
   for (int i = 0; i < PER; ++i) o[i] = 0.f;
   for (int s = 0; s < n_split; ++s) {
-    const float e_s = expf(ml[2 * s] - M);
+    const float e_s = ml[2 * s + 1] > 0.f ? expf(ml[2 * s] - M) : 0.f;
     l += ml[2 * s + 1] * e_s;
 #pragma unroll
     for (int i = 0; i < PER; ++i) o[i] += pa[(size_t)s * D + i] * e_s;
@@ -516,9 +539,11 @@ __global__ void combine_kernel(const float* __restrict__ part, T* __restrict__ o
   for (int i = 0; i < PER; ++i) dst[i] = from_f<T>(o[i] / denom);
 }
 
+// The key splits of a launch; HP > 0 is partials mode (decode_kernel).
 struct Split {
   float* part;
   int n_split, s_len;
+  int r0 = 0, HP = 0, hp0 = 0, s_off = 0, n_total = 0;
 };
 
 template <typename T, int D, int KG, typename KV>
@@ -531,11 +556,14 @@ cudaError_t launch(const void* q, const KV& kv, const int* kv_len, const int* q_
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  const bool partials = sp.HP > 0;
   kernel<<<dim3(B, KH, sp.n_split), 32 * Ly::kWarps, smem, stream>>>(
-      static_cast<const T*>(q), kv, kv_len, q_off, static_cast<T*>(out), sp.part, L,
-      H, KH, HR, KHR, window, scale, sp.n_split, sp.s_len);
+      static_cast<const T*>(q), kv, kv_len, q_off,
+      partials ? nullptr : static_cast<T*>(out), sp.part, L, H, KH, HR, KHR, window,
+      scale, sp.n_split, sp.s_len, sp.r0, partials ? sp.HP : H, sp.hp0, sp.s_off,
+      partials ? sp.n_total : sp.n_split);
   err = cudaGetLastError();
-  if (err != cudaSuccess || sp.n_split == 1) return err;
+  if (err != cudaSuccess || sp.n_split == 1 || partials) return err;
   const int BH = B * H;
   combine_kernel<T, D><<<(BH + 3) / 4, 128, 0, stream>>>(sp.part, static_cast<T*>(out),
                                                          BH, H, HR, sp.n_split);
@@ -585,7 +613,23 @@ bool bad_shape(int B, int L, int H, int KH, int HR, int KHR, const Split& sp) {
          sp.n_split < 1 || sp.n_split > 65535 || sp.s_len <= 0 ||
          sp.s_len % kTile != 0 || (long long)sp.n_split * sp.s_len < L ||
          (long long)(sp.n_split - 1) * sp.s_len >= L ||
-         (sp.n_split > 1 && sp.part == nullptr);
+         (sp.n_split > 1 && sp.part == nullptr) ||
+         (sp.HP > 0 && (sp.part == nullptr || sp.r0 < 0 || sp.hp0 < 0 ||
+                        sp.hp0 + H > sp.HP || sp.s_off < 0 ||
+                        sp.s_off + sp.n_split > sp.n_total));
+}
+
+template <int D>
+cudaError_t combine_d(int dtype, const float* part, void* out, int B, int HP, int HR,
+                      int n_total, cudaStream_t stream) {
+  const int BH = B * HP;
+  if (dtype == 0)
+    combine_kernel<float, D><<<(BH + 3) / 4, 128, 0, stream>>>(
+        part, static_cast<float*>(out), BH, HP, HR, n_total);
+  else
+    combine_kernel<__nv_bfloat16, D><<<(BH + 3) / 4, 128, 0, stream>>>(
+        part, static_cast<__nv_bfloat16*>(out), BH, HP, HR, n_total);
+  return cudaGetLastError();
 }
 
 template <typename KV32, typename KV16>
@@ -646,4 +690,63 @@ extern "C" int flash_decode_int8_launch(const void* q, const void* k, const void
                   static_cast<const float*>(k_scale), static_cast<const float*>(v_scale)};
   return dispatch(dtype, D, q, kv, kv, kv_len, q_off, out, sp, B, L, H, KH, HR, KHR, window,
                   scale, stream);
+}
+
+// Partials mode of flash_decode_launch over one rank's rows of a cache whose
+// key axis a pod splits (the sequence-sharded and context-parallel layouts):
+// k/v (B,L,KH,D) hold buffer rows [r0, r0 + L), and kv_len / q_off are the
+// slots' global lengths and positions, which the kernel shifts by r0.  The
+// launch writes its n_split splits into the fp32 scratch `part` at split
+// s_off of n_total and at head hp0 of HP a slot (decode_kernel); it writes no
+// output.  flash_decode_combine_launch merges the scratch once every rank's
+// launch is queued.
+extern "C" int flash_decode_partials_launch(const void* q, const void* k, const void* v,
+                                            const void* kv_len, const void* q_off,
+                                            void* part, int B, int L, int H, int KH,
+                                            int HR, int KHR, int D, int dtype, int window,
+                                            float scale, int n_split, int s_len, int r0,
+                                            int HP, int hp0, int s_off, int n_total,
+                                            void* stream) {
+  if (HP <= 0) return (int)cudaErrorInvalidValue;
+  const Split sp{static_cast<float*>(part), n_split, s_len, r0, HP, hp0, s_off, n_total};
+  return dispatch(dtype, D, q,
+                  PlainKV<float>{static_cast<const float*>(k), static_cast<const float*>(v)},
+                  PlainKV<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(k),
+                                         static_cast<const __nv_bfloat16*>(v)},
+                  kv_len, q_off, nullptr, sp, B, L, H, KH, HR, KHR, window, scale, stream);
+}
+
+// As flash_decode_partials_launch over an int8 cache: k/v codes and their
+// (B,L) fp32 scales hold the same rows [r0, r0 + L).
+extern "C" int flash_decode_int8_partials_launch(
+    const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
+    const void* kv_len, const void* q_off, void* part, int B, int L, int H, int KH, int HR,
+    int KHR, int D, int dtype, int window, float scale, int n_split, int s_len, int r0,
+    int HP, int hp0, int s_off, int n_total, void* stream) {
+  if (HP <= 0) return (int)cudaErrorInvalidValue;
+  const Split sp{static_cast<float*>(part), n_split, s_len, r0, HP, hp0, s_off, n_total};
+  const Int8KV kv{static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
+                  static_cast<const float*>(k_scale), static_cast<const float*>(v_scale)};
+  return dispatch(dtype, D, q, kv, kv, kv_len, q_off, nullptr, sp, B, L, H, KH, HR, KHR,
+                  window, scale, stream);
+}
+
+// Merge the n_total splits of every (slot, head) of the scratch `part` (B*HP
+// rows) in split order, which is the pod's rank order, into out (B,1,HR,D),
+// head h of slot b at row b*HR + h; an empty split weighs 0 (combine_kernel).
+extern "C" int flash_decode_combine_launch(const void* part, void* out, int B, int HP,
+                                           int HR, int n_total, int D, int dtype,
+                                           void* stream) {
+  if (B <= 0 || HP <= 0 || HR < HP || n_total < 1 || part == nullptr || out == nullptr ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const float* p = static_cast<const float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return (int)combine_d<32>(dtype, p, out, B, HP, HR, n_total, s);
+    case 64: return (int)combine_d<64>(dtype, p, out, B, HP, HR, n_total, s);
+    case 112: return (int)combine_d<112>(dtype, p, out, B, HP, HR, n_total, s);
+    case 128: return (int)combine_d<128>(dtype, p, out, B, HP, HR, n_total, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

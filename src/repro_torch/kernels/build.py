@@ -37,6 +37,15 @@ ENTRIES = {
     "flash_decode_int8_launch": ("decode_attention",
                                  [_P] * 9 + [_I] * 9 + [ctypes.c_float]
                                  + [_I] * 2 + [_P]),
+    "flash_decode_partials_launch": ("decode_attention",
+                                     [_P] * 6 + [_I] * 9 + [ctypes.c_float]
+                                     + [_I] * 7 + [_P]),
+    "flash_decode_int8_partials_launch": ("decode_attention",
+                                          [_P] * 8 + [_I] * 9
+                                          + [ctypes.c_float] + [_I] * 7
+                                          + [_P]),
+    "flash_decode_combine_launch": ("decode_attention",
+                                    [_P] * 2 + [_I] * 6 + [_P]),
     "flash_attention_launch": ("flash_attention",
                                [_P] * 4 + [_I] * 11 + [ctypes.c_float, _P]),
     "flash_attention_last_body": ("flash_attention", []),

@@ -39,6 +39,7 @@ from torch.utils._python_dispatch import _get_current_dispatch_mode
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
+from repro_torch.ranks import ranked
 
 #: head dims both attention kernels are built for (112: zamba2-7b)
 HEAD_DIMS = (32, 64, 112, 128)
@@ -371,12 +372,12 @@ def flash_decode_sharded(qs: Sequence[torch.Tensor],
     heads do not read its KV heads in uniform segments."""
     refuse_autograd("flash_decode_sharded", *qs, *ks, *vs)
     starts = _check_shards("flash_decode_sharded", qs, head_starts, ks, vs)
-    if _costed(qs[0]):
+    if _costed(qs[0]):  # one op a rank, each counted for its rank
         b = qs[0].shape[0]
-        return torch.ops.repro_torch.flash_decode_sharded(
-            list(qs), list(ks), list(vs), _slot_vector(kv_len, b, qs[0].device),
-            _slot_vector(q_offset, b, qs[0].device), int(window or 0),
-            starts, int(group))
+        kv, qo = (_slot_vector(x, b, qs[0].device) for x in (kv_len, q_offset))
+        return [torch.ops.repro_torch.flash_decode_sharded(
+            [q], [k], [v], kv, qo, int(window or 0), [q0], int(group))[0]
+            for q, k, v, q0 in ranked(zip(qs, ks, vs, starts))]
     return _flash_decode_sharded(qs, ks, vs, kv_len, q_offset, window,
                                  starts, group)
 
@@ -521,13 +522,14 @@ def flash_decode_int8_sharded(qs: Sequence[torch.Tensor],
     refuse_autograd("flash_decode_int8_sharded", *qs, *k_scales, *v_scales)
     starts = _check_shards("flash_decode_int8_sharded", qs, head_starts, ks,
                            vs, k_scales, v_scales)
-    if _costed(qs[0]):
+    if _costed(qs[0]):  # one op a rank, each counted for its rank
         b = qs[0].shape[0]
-        return torch.ops.repro_torch.flash_decode_int8_sharded(
-            list(qs), list(ks), list(vs), list(k_scales), list(v_scales),
-            _slot_vector(kv_len, b, qs[0].device),
-            _slot_vector(q_offset, b, qs[0].device), int(window or 0),
-            starts, int(group))
+        kv, qo = (_slot_vector(x, b, qs[0].device) for x in (kv_len, q_offset))
+        return [torch.ops.repro_torch.flash_decode_int8_sharded(
+            [q], [k], [v], [ksc], [vsc], kv, qo, int(window or 0), [q0],
+            int(group))[0]
+            for q, k, v, ksc, vsc, q0 in ranked(zip(qs, ks, vs, k_scales,
+                                                    v_scales, starts))]
     return _flash_decode_int8_sharded(qs, ks, vs, k_scales, v_scales, kv_len,
                                       q_offset, window, starts, group)
 
@@ -561,6 +563,229 @@ def _flash_decode_int8_sharded(qs, ks, vs, k_scales, v_scales, kv_len,
 
 
 flash_decode_int8_sharded.launches = 0
+
+# --------------------------------------------------------------------------- #
+# The decode over a cache whose key axis a pod splits: partials and combine
+# --------------------------------------------------------------------------- #
+
+#: SMs of the H100 the port targets: the split plan of a partials launch
+#: off the card (its plain version on the CPU, the dry run on ``meta``),
+#: so that those cut the keys as the card does
+H100_SMS = 132
+
+
+def partial_splits(b: int, rows: int, device) -> Tuple[int, int]:
+    """``(n_split, s_len)`` of a partials launch of ``b`` slots over
+    ``rows`` cache rows: :func:`decode_plan` on the card,
+    :func:`decode_splits` at :data:`H100_SMS` elsewhere; no splits for no
+    rows (a rank that holds none)."""
+    device = torch.device(device)
+    if rows == 0:
+        return 0, DECODE_TILE
+    if device.type == "cuda":
+        return decode_plan(b, rows, device)
+    return decode_splits(b, rows, H100_SMS)
+
+
+class Partials:
+    """An fp32 scratch of attention partials: ``acc`` (B, heads, n_total,
+    D) then ``ml`` (B, heads, n_total, 2) in one buffer, the layout of
+    the decode kernel's splits.  The ranks of a pod write their splits
+    into it side by side (:func:`flash_decode_partials`), and
+    :func:`flash_decode_combine` merges them."""
+
+    def __init__(self, b: int, heads: int, n_total: int, d: int, device):
+        self.b, self.heads, self.n_total, self.d = b, heads, n_total, d
+        self.buf = torch.empty((b * heads * n_total * (d + 2),),
+                               dtype=torch.float32, device=device)
+        n = b * heads * n_total * d
+        self.acc = self.buf[:n].view(b, heads, n_total, d)
+        self.ml = self.buf[n:].view(b, heads, n_total, 2)
+
+
+def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, kv_len, q_offset, window: Optional[int] = None,
+                          row0: int = 0, out: Optional[Partials] = None,
+                          head0: int = 0, split0: int = 0,
+                          head_start: int = 0, group: int = 0):
+    """The decode kernel's partials mode over one rank's rows of a cache
+    whose key axis a pod splits: q (B,1,H,D) over k/v (B,R,KH,D), which
+    hold buffer rows ``[row0, row0 + R)`` (row i at position ``row0 +
+    i``); ``kv_len`` and ``q_offset`` are the slots' global vectors (or
+    ints).  The launch writes its :func:`partial_splits` splits, each
+    split's fp32 (acc, m, l), into ``out`` (default a scratch of its own)
+    at heads ``[head0, head0 + H)`` and splits ``[split0, split0 + n)``,
+    and no output; a slot none of whose visible rows lie here gets empty
+    splits (``l = 0``).  ``head_start`` and ``group`` cut a rank's heads
+    into uniform GQA segments (:func:`flash_decode_sharded`), one launch
+    each.  Returns the (acc, ml) views of ``out`` it wrote.
+
+    Replaces the sequential key axis of
+    ``src/repro/kernels/decode_attention.py::_decode_kernel``: where
+    GSPMD splits the cache's sequence axis over "model" (``kv_shard=
+    "seq"``) or over "data" (the context-parallel cache), the reference
+    reads it under XLA; the port reads each rank's rows with this kernel.
+    Bound on the card: bytes, as :func:`flash_decode` (the rank's rows of
+    K and V once); the design is the decode kernel's, whose key splits
+    already write fp32 partials and merge them in a second pass: here
+    they go to a scratch that all ranks share, at their own offsets, so
+    one :func:`flash_decode_combine` merges every rank's splits."""
+    refuse_autograd("flash_decode_partials", q, k, v)
+    return _partials(flash_decode_partials, q, k, v, None, None, kv_len,
+                     q_offset, out, window, row0, head0, split0, head_start,
+                     group)
+
+
+def flash_decode_int8_partials(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, k_scale: torch.Tensor,
+                               v_scale: torch.Tensor, *, kv_len, q_offset,
+                               window: Optional[int] = None, row0: int = 0,
+                               out: Optional[Partials] = None,
+                               head0: int = 0, split0: int = 0,
+                               head_start: int = 0, group: int = 0):
+    """:func:`flash_decode_partials` over an int8 cache's rows: k/v
+    (B,R,KH,D) int8 codes and their per-token fp32 scales (B,R), which
+    the pod splits with the rows.  Replaces the sequential key axis of
+    ``_decode_kernel_int8``, as :func:`flash_decode_partials` does
+    ``_decode_kernel``'s; bound by bytes (D bytes a row and KV head, and
+    two 4-byte scales a row)."""
+    refuse_autograd("flash_decode_int8_partials", q, k_scale, v_scale)
+    for t in (k, v):
+        if t.dtype != torch.int8:
+            raise ValueError("flash_decode_int8_partials: k and v must be "
+                             f"int8, got {t.dtype}")
+    return _partials(flash_decode_int8_partials, q, k, v, k_scale, v_scale,
+                     kv_len, q_offset, out, window, row0, head0, split0,
+                     head_start, group)
+
+
+def _partials(fn, q, k, v, k_scale, v_scale, kv_len, q_offset, out, window,
+              row0, head0, split0, head_start, group):
+    b, _, h, d = q.shape
+    n_split, s_len = partial_splits(b, k.shape[1], q.device)
+    if out is None:
+        out = Partials(b, h, n_split, d, q.device)
+    dst = (slice(None), slice(head0, head0 + h),
+           slice(split0, split0 + n_split))
+    if n_split == 0 or h == 0:
+        return out.acc[dst], out.ml[dst]
+    if head0 + h > out.heads or split0 + n_split > out.n_total:
+        raise ValueError(f"{fn.__name__}: heads [{head0}, {head0 + h}) and "
+                         f"splits [{split0}, {split0 + n_split}) do not fit "
+                         f"the scratch ({out.heads} heads, {out.n_total} "
+                         "splits)")
+    scales = [] if k_scale is None else [k_scale, v_scale]
+    if _costed(q):
+        op = (torch.ops.repro_torch.flash_decode_partials if k_scale is None
+              else torch.ops.repro_torch.flash_decode_int8_partials)
+        acc, ml = op(q, k, v, *scales, _slot_vector(kv_len, b, q.device),
+                     _slot_vector(q_offset, b, q.device), int(window or 0),
+                     int(row0), int(head_start), int(group))
+        out.acc[dst].copy_(acc)
+        out.ml[dst].copy_(ml)
+        return out.acc[dst], out.ml[dst]
+    segs = _segments(fn.__name__, q, k, head_start, group)
+    if q.device.type == "cpu":
+        for qa, qb, ka, kb in segs:
+            acc, ml = ref.flash_decode_partials(
+                q[:, :, qa:qb], k[:, :, ka:kb], v[:, :, ka:kb],
+                kv_len=kv_len, q_offset=q_offset, window=window, row0=row0,
+                n_split=n_split, s_len=s_len, k_scale=k_scale,
+                v_scale=v_scale)
+            sl = (slice(None), slice(head0 + qa, head0 + qb), dst[2])
+            out.acc[sl] = acc
+            out.ml[sl] = ml
+        return out.acc[dst], out.ml[dst]
+    _check_decode(fn.__name__, q, k, v, None if k_scale is None
+                  else torch.int8, segs)
+    if out.buf.device != q.device:
+        raise ValueError(f"{fn.__name__}: the scratch must lie on q's "
+                         f"device, got {out.buf.device} and {q.device}")
+    if k_scale is not None and any(
+            s.device != q.device or not s.is_contiguous()
+            or s.dtype != torch.float32 or tuple(s.shape) != tuple(k.shape[:2])
+            for s in scales):
+        raise ValueError(f"{fn.__name__}: the scales must be contiguous "
+                         f"float32 (B,R) = {tuple(k.shape[:2])} on q's device")
+    kh = k.shape[2]
+    kv_len, q_offset = (_slot_vector(x, b, q.device)
+                        for x in (kv_len, q_offset))
+    entry = ("flash_decode_partials_launch" if k_scale is None
+             else "flash_decode_int8_partials_launch")
+    for qa, qb, ka, kb in segs:
+        _launch(fn.__name__, q.device, build.load(entry),
+                _offset(q, qa), _offset(k, ka), _offset(v, ka),
+                *[t.data_ptr() for t in scales], kv_len.data_ptr(),
+                q_offset.data_ptr(), out.buf.data_ptr(), b, k.shape[1],
+                qb - qa, kb - ka, h, kh, d, DTYPE_CODES[q.dtype],
+                int(window or 0), 1.0 / math.sqrt(d), n_split, s_len,
+                int(row0), out.heads, head0 + qa, split0, out.n_total,
+                _stream(q.device))
+        fn.launches += 1
+    return out.acc[dst], out.ml[dst]
+
+
+flash_decode_partials.launches = 0
+flash_decode_int8_partials.launches = 0
+
+
+def flash_decode_combine(acc: torch.Tensor, ml: torch.Tensor, *,
+                         dtype: torch.dtype = torch.float32,
+                         head_ranges: Optional[Sequence[Tuple[int, int]]]
+                         = None):
+    """Merge the splits of ``acc`` (B,H,N,D) and ``ml`` (B,H,N,2), fp32
+    (a :class:`Partials` scratch: the ranks' :func:`flash_decode_partials`
+    side by side in rank order), for each (slot, head), an empty split
+    (``l = 0``, m whatever it is) left out of the max and weighing 0
+    (``ref.combine_partials``): the decode's output (B,1,H,D) in
+    ``dtype``, or with ``head_ranges`` its pieces over them, the heads
+    each rank owns.  On the card one launch merges every head.  Replaces
+    the reference's merge of a split cache's attention, which XLA emits
+    as a reduction over the sharded axis; bound by bytes (the scratch
+    read once, the output written once), small beside the partials."""
+    refuse_autograd("flash_decode_combine", acc, ml)
+    ranges = list(head_ranges or [(0, acc.shape[1])])
+    if _costed(acc):  # a rank with no heads merges nothing
+        b, _, _, d = acc.shape
+        out = [torch.ops.repro_torch.flash_decode_combine(
+            acc[:, h0:h1], ml[:, h0:h1], DTYPE_CODES[dtype]) if h1 > h0
+            else acc.new_empty((b, 1, 0, d), dtype=dtype)
+            for h0, h1 in ranked(ranges)]
+    else:
+        whole = _flash_decode_combine(acc, ml, dtype)
+        out = [whole[:, :, h0:h1] for h0, h1 in ranges]
+    return out if head_ranges is not None else out[0]
+
+
+def _flash_decode_combine(acc, ml, dtype) -> torch.Tensor:
+    if acc.device.type == "cpu":
+        return ref.flash_decode_combine(acc, ml, dtype=dtype)
+    b, heads, n_total, d = acc.shape
+    buf = acc.reshape(-1)
+    if not (acc.is_contiguous() and ml.is_contiguous()
+            and ml.data_ptr() == acc.data_ptr() + acc.numel() * 4):
+        part = Partials(b, heads, n_total, d, acc.device)
+        part.acc.copy_(acc)
+        part.ml.copy_(ml)
+        buf = part.buf
+    out = _combine_launch(buf, b, heads, n_total, d, dtype)
+    flash_decode_combine.launches += 1
+    return out
+
+
+def _combine_launch(buf, b, heads, n_total, d, dtype) -> torch.Tensor:
+    if dtype not in DTYPE_CODES or d not in HEAD_DIMS:
+        raise ValueError(f"flash_decode_combine: dtype {dtype} / head dim {d} "
+                         "not supported")
+    out = torch.empty((b, 1, heads, d), dtype=dtype, device=buf.device)
+    _launch("flash_decode_combine", buf.device,
+            build.load("flash_decode_combine_launch"), buf.data_ptr(),
+            out.data_ptr(), b, heads, heads, n_total, d, DTYPE_CODES[dtype],
+            _stream(buf.device))
+    return out
+
+
+flash_decode_combine.launches = 0
 
 #: (head dim P, state dim N) pairs the SSD-scan kernel is built for
 SSD_SHAPES = ((32, 16), (32, 128), (64, 16), (64, 64), (64, 128))
@@ -651,6 +876,9 @@ KERNELS = {"flash_attention": flash_attention, "flash_decode": flash_decode,
            "flash_decode_sharded": flash_decode_sharded,
            "flash_decode_int8": flash_decode_int8,
            "flash_decode_int8_sharded": flash_decode_int8_sharded,
+           "flash_decode_partials": flash_decode_partials,
+           "flash_decode_int8_partials": flash_decode_int8_partials,
+           "flash_decode_combine": flash_decode_combine,
            "ssd_scan": ssd_scan}
 
 
@@ -741,6 +969,69 @@ def _(qs, ks, vs, k_scales, v_scales, kv_len, q_offset, window, head_starts,
     return [torch.empty_like(q) for q in qs]
 
 
+def _partials_op(q, k, v, scales, kv_len, q_offset, window, row0,
+                 head_start, group):
+    """The partials launch as a function: its own scratch, its splits."""
+    fn = flash_decode_partials if not scales else flash_decode_int8_partials
+    acc, ml = _partials(fn, q, k, v, *(scales or [None, None]), kv_len,
+                        q_offset, None, _win(window), row0, 0, 0, head_start,
+                        group)
+    return acc.clone(), ml.clone()
+
+
+def _partials_fake(q, k):
+    n_split, _ = partial_splits(q.shape[0], k.shape[1], q.device)
+    b, _, h, d = q.shape
+    return (q.new_empty((b, h, n_split, d), dtype=torch.float32),
+            q.new_empty((b, h, n_split, 2), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::flash_decode_partials", mutates_args=())
+def _flash_decode_partials_op(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, kv_len: torch.Tensor,
+                              q_offset: torch.Tensor, window: int, row0: int,
+                              head_start: int, group: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _partials_op(q, k, v, None, kv_len, q_offset, window, row0,
+                        head_start, group)
+
+
+@_flash_decode_partials_op.register_fake
+def _(q, k, v, kv_len, q_offset, window, row0, head_start, group):
+    return _partials_fake(q, k)
+
+
+@torch.library.custom_op("repro_torch::flash_decode_int8_partials",
+                         mutates_args=())
+def _flash_decode_int8_partials_op(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        k_scale: torch.Tensor, v_scale: torch.Tensor, kv_len: torch.Tensor,
+        q_offset: torch.Tensor, window: int, row0: int, head_start: int,
+        group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _partials_op(q, k, v, [k_scale, v_scale], kv_len, q_offset, window,
+                        row0, head_start, group)
+
+
+@_flash_decode_int8_partials_op.register_fake
+def _(q, k, v, k_scale, v_scale, kv_len, q_offset, window, row0, head_start,
+      group):
+    return _partials_fake(q, k)
+
+
+@torch.library.custom_op("repro_torch::flash_decode_combine", mutates_args=())
+def _flash_decode_combine_op(acc: torch.Tensor, ml: torch.Tensor,
+                             dtype: int) -> torch.Tensor:
+    dt = {c: t for t, c in DTYPE_CODES.items()}[dtype]
+    return _flash_decode_combine(acc, ml, dt)
+
+
+@_flash_decode_combine_op.register_fake
+def _(acc, ml, dtype):
+    b, heads, _, d = acc.shape
+    dt = {c: t for t, c in DTYPE_CODES.items()}[dtype]
+    return acc.new_empty((b, 1, heads, d), dtype=dt)
+
+
 @torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
 def _ssd_scan_op(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
                  Cm: torch.Tensor, chunk: int
@@ -805,6 +1096,29 @@ def _flash_decode_int8_sharded_flops(qs, ks, vs, k_scales, v_scales, kv_len,
                                      **kwargs) -> int:
     return sum(4 * q[0] * q[2] * q[3] * _decode_rows(k[1], window)
                for q, k in zip(qs, ks))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode_partials)
+def _flash_decode_partials_flops(q, k, v, kv_len, q_offset, window, *args,
+                                 out_shape=None, **kwargs) -> int:
+    b, _, h, d = q
+    return 4 * b * h * d * _decode_rows(k[1], window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode_int8_partials)
+def _flash_decode_int8_partials_flops(q, k, v, k_scale, v_scale, kv_len,
+                                      q_offset, window, *args,
+                                      out_shape=None, **kwargs) -> int:
+    b, _, h, d = q
+    return 4 * b * h * d * _decode_rows(k[1], window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode_combine)
+def _flash_decode_combine_flops(acc, ml, dtype, *args, out_shape=None,
+                                **kwargs) -> int:
+    # one multiply-add a partial element (acc and l), one divide an output
+    b, h, n, d = acc
+    return 2 * b * h * n * (d + 1) + b * h * d
 
 
 @register_flop_formula(torch.ops.repro_torch.ssd_scan)

@@ -101,49 +101,157 @@ def flash_decode_int8(q, k, v, k_scale, v_scale, *, kv_len, q_offset,
                         kv_len=kv_len, q_offset=q_offset, window=window)
 
 
+def attention_partials(q, k, v, *, q_offset, kv_len=None,
+                       window: Optional[int] = None, row0: int = 0,
+                       ring_offset=None):
+    """The partial softmax state of q (B, Sq, H, D) over some rows of a
+    cache, k/v (B, R, KH, D) holding buffer rows ``[row0, row0 + R)``:
+    row i sits at position ``row0 + i`` (or ``ring_offset`` (B, R), a
+    ring's absolute positions), and the masks of
+    :func:`reference_attention` read those positions (``kv_len`` the
+    global row).  Returns ``(o, m, l)`` in fp32: ``m`` (B, Sq, H) the
+    largest visible score (``NEG_INF`` where none is visible), ``l`` the
+    sum of ``exp(s - m)`` over the visible rows (0 where none) and ``o``
+    (B, Sq, H, D) that sum's weights times V, unnormalised.
+    :func:`combine_partials` merges the states of several row ranges."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    rep = h // kh if kh else 1
+    k = k.float().repeat_interleave(rep, dim=2)
+    v = v.float().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / math.sqrt(d)
+    mask = visible(sq, skv, q_offset=q_offset, kv_len=kv_len, window=window,
+                   row0=row0, ring_offset=ring_offset, device=q.device)
+    m, p = softmax_state(s, mask)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v)
+    return o, m.transpose(1, 2), p.sum(dim=-1).transpose(1, 2)
+
+
+def visible(sq: int, skv: int, *, q_offset, kv_len=None,
+            window: Optional[int] = None, row0: int = 0, ring_offset=None,
+            device=None) -> torch.Tensor:
+    """The mask (B or 1, 1, Sq, Skv) of :func:`attention_partials`: query
+    i at position ``q_offset + i`` sees row j of a piece holding rows
+    ``[row0, row0 + Skv)`` (position ``row0 + j``, or ``ring_offset``'s)
+    within the causal, window and ``kv_len`` masks."""
+    q_pos = (torch.arange(sq, device=device)[None, :]
+             + torch.as_tensor(q_offset, device=device).reshape(-1, 1)
+             )[:, None, :, None]
+    row = row0 + torch.arange(skv, device=device)[None, None, None, :]
+    k_pos = row if ring_offset is None else ring_offset.to(device).reshape(
+        -1, skv)[:, None, None, :]
+    mask = k_pos <= q_pos
+    if window is not None:
+        mask = mask & (k_pos > q_pos - window)
+    if kv_len is not None:
+        mask = mask & (row < torch.as_tensor(kv_len, device=device)
+                       .reshape(-1, 1, 1, 1))
+    return mask
+
+
+def softmax_state(s: torch.Tensor, mask: torch.Tensor):
+    """The fp32 scores ``s`` (..., Skv) under ``mask``: (m, the largest
+    visible score, ``NEG_INF`` where none is visible; p = exp(s - m) at
+    the visible keys, 0 elsewhere)."""
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1) if s.shape[-1] else torch.full(s.shape[:-1], NEG_INF,
+                                                      device=s.device)
+    return m, torch.where(mask, torch.exp(s - m[..., None]),
+                          torch.zeros_like(s))
+
+
+def combine_partials(acc: torch.Tensor, ml: torch.Tensor) -> torch.Tensor:
+    """Merge partial softmax states along their split axis, in its order,
+    as the decode kernel's combine pass does: ``acc`` (..., N, D) and
+    ``ml`` (..., N, 2) the N states' (o) and (m, l).  ``out = sum acc_s e_s
+    / max(sum l_s e_s, 1e-30)``, ``e_s = exp(m_s - max m)`` for a state that
+    saw a key and 0 for one that saw none (``l_s = 0``: an empty split, a
+    rank holding none of the visible rows), so that no such state makes a
+    NaN, whatever its ``m``; where no state saw a key the result is 0.
+    Returns (..., D) in fp32."""
+    m, l = ml[..., 0], ml[..., 1]
+    seen = l > 0
+    top = torch.where(seen, m, torch.full_like(m, -math.inf)).amax(
+        dim=-1, keepdim=True)
+    e = torch.where(seen, torch.exp(m - top), torch.zeros_like(m))
+    den = (l * e).sum(dim=-1).clamp(min=1e-30)
+    return (acc * e[..., None]).sum(dim=-2) / den[..., None]
+
+
+def merge_partials(parts, dtype) -> torch.Tensor:
+    """:func:`combine_partials` of the :func:`attention_partials` states
+    ``parts`` [(o, m, l)] of one query batch over several row ranges, in
+    order, on the first state's device; the result in ``dtype``."""
+    dev = parts[0][0].device
+    acc = torch.stack([o.to(dev) for o, _, _ in parts], dim=-2)
+    ml = torch.stack([torch.stack([m.to(dev), l.to(dev)], dim=-1)
+                      for _, m, l in parts], dim=-2)
+    return combine_partials(acc, ml).to(dtype)
+
+
+def flash_decode_partials(q, k, v, *, kv_len, q_offset,
+                          window: Optional[int] = None, row0: int = 0,
+                          n_split: int = 1, s_len: Optional[int] = None,
+                          k_scale=None, v_scale=None):
+    """Plain version of the decode kernel's partials mode: q (B, 1, H, D)
+    over k/v (B, R, KH, D), rows ``[row0, row0 + R)`` of the buffer, cut
+    into ``n_split`` splits of ``s_len`` rows (default one split of all);
+    each split's :func:`attention_partials` state.  With
+    ``k_scale``/``v_scale`` (B, R) the cache is int8, dequantized in fp32
+    first.  Returns ``acc`` (B, H, n_split, D) and ``ml`` (B, H, n_split,
+    2), fp32."""
+    if k_scale is not None:
+        k, v = dequantize(k, k_scale), dequantize(v, v_scale)
+    rows = k.shape[1]
+    s_len = s_len or max(rows, 1)
+    accs, mls = [], []
+    for i in range(n_split):
+        a, e = i * s_len, min((i + 1) * s_len, rows)
+        o, m, l = attention_partials(q, k[:, a:e], v[:, a:e], kv_len=kv_len,
+                                     q_offset=q_offset, window=window,
+                                     row0=row0 + a)
+        accs.append(o[:, 0])
+        mls.append(torch.stack([m[:, 0], l[:, 0]], dim=-1))
+    return torch.stack(accs, dim=2), torch.stack(mls, dim=2)
+
+
+def flash_decode_int8_partials(q, k, v, k_scale, v_scale, *, kv_len,
+                               q_offset, window: Optional[int] = None,
+                               row0: int = 0, n_split: int = 1,
+                               s_len: Optional[int] = None):
+    """Plain version of the int8 decode kernel's partials mode:
+    :func:`flash_decode_partials` over int8 codes and their (B, R)
+    scales."""
+    return flash_decode_partials(q, k, v, kv_len=kv_len, q_offset=q_offset,
+                                 window=window, row0=row0, n_split=n_split,
+                                 s_len=s_len, k_scale=k_scale,
+                                 v_scale=v_scale)
+
+
+def flash_decode_combine(acc, ml, *, dtype=torch.float32) -> torch.Tensor:
+    """Plain version of the combine pass: :func:`combine_partials` of
+    ``acc`` (B, H, N, D) and ``ml`` (B, H, N, 2), the output (B, 1, H, D)
+    in ``dtype``."""
+    return combine_partials(acc, ml)[:, None].to(dtype)
+
+
 def flash_decode_split(q, k, v, *, kv_len, q_offset,
                        window: Optional[int] = None, n_split: int,
                        s_len: int, k_scale=None,
                        v_scale=None) -> torch.Tensor:
     """A plain model of the decode kernel's arithmetic (not a wrapper's
     plain version): the key axis cut into ``n_split`` splits of ``s_len``
-    rows, each split's partial state (m_s, the max of its visible scores,
-    -1e30 when it sees none; l_s = sum exp(s - m_s); acc_s = sum exp(s -
-    m_s) v) in fp32, merged in the order of s as the combine pass does:
-    ``out = sum acc_s e_s / max(sum l_s e_s, 1e-30)``, ``e_s = exp(m_s -
-    max m)``.  With ``k_scale``/``v_scale`` the cache is int8 and is
-    dequantized in fp32 first.  Same arguments and result as
-    :func:`flash_decode`."""
-    if k_scale is not None:
-        k, v = dequantize(k, k_scale), dequantize(v, v_scale)
-    b, _, h, d = q.shape
-    L, kh = k.shape[1], k.shape[2]
-    k = k.float().repeat_interleave(h // kh, dim=2)
-    v = v.float().repeat_interleave(h // kh, dim=2)
-    s = torch.einsum("bhd,blhd->bhl", q[:, 0].float(), k) / math.sqrt(d)
-    row = torch.arange(L, device=q.device)[None, None, :]
-    q_pos = torch.as_tensor(q_offset, device=q.device).reshape(-1, 1, 1)
-    mask = (row < torch.as_tensor(kv_len, device=q.device).reshape(-1, 1, 1)
-            ) & (row <= q_pos)
-    if window is not None:
-        mask &= row > q_pos - window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    parts = []
-    for i in range(n_split):
-        a, e = i * s_len, min((i + 1) * s_len, L)
-        m_s = s[..., a:e].max(dim=-1).values
-        p = torch.where(mask[..., a:e], torch.exp(s[..., a:e] - m_s[..., None]),
-                        torch.zeros_like(s[..., a:e]))
-        parts.append((m_s, p.sum(-1),
-                      torch.einsum("bhl,blhd->bhd", p, v[:, a:e])))
-    top = torch.stack([m_s for m_s, _, _ in parts]).max(dim=0).values
-    l = torch.zeros_like(top)
-    o = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
-    for m_s, l_s, acc_s in parts:
-        e_s = torch.exp(m_s - top)
-        l = l + l_s * e_s
-        o = o + acc_s * e_s[..., None]
-    return (o / l.clamp(min=1e-30)[..., None])[:, None].to(q.dtype)
+    rows, each split's partial state (:func:`flash_decode_partials`: m_s, the
+    max of its visible scores, -1e30 when it sees none; l_s = sum exp(s -
+    m_s); acc_s = sum exp(s - m_s) v) in fp32, merged in the order of s as
+    the combine pass does (:func:`combine_partials`).  With
+    ``k_scale``/``v_scale`` the cache is int8 and is dequantized in fp32
+    first.  Same arguments and result as :func:`flash_decode`."""
+    acc, ml = flash_decode_partials(q, k, v, kv_len=kv_len,
+                                    q_offset=q_offset, window=window,
+                                    n_split=n_split, s_len=s_len,
+                                    k_scale=k_scale, v_scale=v_scale)
+    return combine_partials(acc, ml)[:, None].to(q.dtype)
 
 
 def over_segments(fn, q, k, v, segments, *scales, **kw) -> torch.Tensor:

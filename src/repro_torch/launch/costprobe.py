@@ -17,7 +17,11 @@ kept all the same, for the readers of the reference's records (its
 ``roofline.py`` looks for them): it traces the same probe depths through
 ``dryrun.lower_one`` and extrapolates them by the same models, which in
 the port give the direct full-depth count (the tests hold them equal).
-Corrected totals go to ``experiments/costmodel_torch/``.
+Corrected totals go to ``experiments/costmodel_torch/``.  The layout
+flags are the dry run's: ``--kv-shard`` (the cache's layout, "auto" as
+the reference's ``cache_pspecs`` picks it), ``--params-data-sharded``
+(ZeRO-3) and ``--kv-dtype int8``; long_500k's decode takes the
+context-parallel cache, as there.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import traceback
 from typing import Dict, List
 
 from repro_torch.configs import get_config, list_archs
+from repro_torch.launch.partition import KV_SHARDS
 from repro_torch.launch.shapes import SHAPES, supported
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -135,16 +140,24 @@ def main(argv=None) -> None:
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--moe-scheme", default="tensor")
+    ap.add_argument("--kv-dtype", default=None, choices=[None, "int8"])
+    ap.add_argument("--kv-shard", default="auto", choices=list(KV_SHARDS))
+    ap.add_argument("--params-data-sharded", action="store_true")
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=OUT_DIR)
     args = ap.parse_args(argv)
+    knobs = {"kv_shard": args.kv_shard}
+    if args.kv_dtype:
+        knobs["kv_dtype"] = args.kv_dtype
+    if args.params_data_sharded:
+        knobs["params_data_sharded"] = True
     archs = list(list_archs()) if args.all or not args.arch else [args.arch]
     shapes = list(SHAPES) if args.all or not args.shape else [args.shape]
     for arch in archs:
         for shape in shapes:
             try:
                 rec = probe(arch, shape, moe_scheme=args.moe_scheme,
-                            tag=args.tag, out_dir=args.out)
+                            tag=args.tag, out_dir=args.out, **knobs)
             except Exception as e:  # noqa: BLE001
                 traceback.print_exc()
                 print(f"FAIL {arch} x {shape}: {e!r}")

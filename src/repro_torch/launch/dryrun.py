@@ -28,22 +28,38 @@ dtypes and allocate nothing.  It records per device:
 * ``collectives``: the reference's keys, counted where the port moves
   data between ranks (``launch.mesh.collective``: the ranks' sums, the
   gated norm's sum of squares, the MoE routing sent from rank 0, the
-  int8 writes' max, the logits gathered on rank 0, and ZeRO-1's
-  gradient sum and param gather).  The reference parses them from XLA's
-  optimized HLO (its ``collective_bytes``); the port has no HLO, so its
-  counter fills the same dict, one entry per collective with its output
-  bytes on one device.
+  int8 writes' max, the logits gathered on rank 0, ZeRO's gradient sum
+  and param gathers, and a split cache's moves: ``models.kv_split``).
+  The reference parses them from XLA's optimized HLO (its
+  ``collective_bytes``); the port has no HLO, so its counter fills the
+  same dict, one entry per collective with its output bytes on one device.
 
-One process runs every rank of the pod, so the pod's totals become
-per-device figures by dividing them by the pod's ranks (the ranks' work
-is equal but for rank 0's gathers); collectives are counted once per
-operation, which is each device's count already.  Where the ranks do
-not divide a split axis their work differs: the ranks' ops interleave
-in one trace on one device, which cannot tell them apart, so the record
-reports the mean rank, not the busiest one that sets the step (the
-reference's padded GSPMD shards are the largest shard's).  The busiest
-rank's share of a split axis is ``ceil(n / tp) / (n / tp)`` of the mean
-(qwen2-1.5b's attention at 16 ranks: 1 head of 12 against 0.75).  ``lower_s`` is the
+One process runs every rank of the pod, and the counters charge each
+op to the rank whose loop runs it: the model's loops over a pod's
+ranks mark the rank (``ranks.ranked``), a kernel wrapper's op over
+every rank is one op a rank, the backward's ops take the rank of the
+autograd node that runs them (a hook marks it), and an op outside every
+rank loop is rank 0's, which runs it in a real pod (the sums of the
+ranks' partials and the logits gathered on rank 0's device, the MoE
+routing, the loss, ZeRO's gathers of the pod's pieces).  ``flops``,
+``bytes_accessed`` and ``memory_analysis`` report the busiest rank's
+figure of each (:func:`measure`), as the reference's padded GSPMD shards
+are the largest shard's; a rank's arguments are its own params, cache
+or moments and the batch rows every rank holds.  The pod's totals stay
+in the record beside them, for the checks against a run of the whole
+pod on one card: ``cost_analysis["pod flops"]`` and
+``memory_analysis``'s ``pod_argument_size_in_bytes`` and
+``pod_peak_memory_in_bytes``.  Collectives are counted once per
+operation, which is each device's count already.  The remat'd layers'
+recomputation stops where the step's own does (``torch.utils.checkpoint``'s
+early stop: once the backward has every saved activation back), so the
+pod's totals are the step's.  One process runs the ranks in turn, so it
+stops after the last rank's last saved activation: the last rank is
+charged what it recomputes on a card of its own, and each earlier rank
+also the ops of its layers after its own last one (its MLP slice's down
+projection), which it would skip there.  A train record's busiest rank
+is over by those ops (4.8% of a (2, 2) step of the reduced qwen2-1.5b
+at 2 layers); one rank is exact.  ``lower_s`` is the
 trace's time; ``compile_s`` is 0.0: nothing is compiled, the port's
 kernels being built once by nvcc (``kernels.build``) and its model run
 eagerly.  The cost analysis's ``optimal_seconds`` is the card's roofline
@@ -52,26 +68,35 @@ of the record: the largest of its flops, bytes and collective bytes over
 
 Heads and widths the model axis does not divide are laid out as whole
 units, the first ranks one more (``partition.split_range``; qwen2-1.5b's
-12 heads over 16 ranks leave four ranks none).  Where the port has no
-layout for a combination the record is skipped with a reason naming its
-queue item (ROADMAP.md, queue 1): ``kv_shard="seq"`` or ``"head_dim"``,
-a context-parallel cache (decode with a global batch under 16:
-long_500k) and ``params_data_sharded`` (ZeRO-3), which are item 8.5.  ``kv_shard="auto"`` takes the port's head layout, and the
-record says ``"heads"``.  The reference's ``moe_scheme="expert"`` is not
-ported (``launch.partition``).  :func:`lower_one` keeps two of the
-reference's arguments only for signature parity, so that its calls run
-unchanged: ``save_record``, unused there as here (:func:`main` saves),
-and ``attn_head_shard``, which changes nothing because the port always
-splits attention by head (the record echoes it).
+12 heads over 16 ranks leave four ranks none).  The cache takes the
+layout the reference's ``cache_pspecs`` picks for ``kv_shard``
+(``partition.kv_layout``): "auto" the heads where the model axis divides
+the KV heads, else the sequence (``models.kv_split``: every KV head over
+a range of rows a rank), "seq", "head_dim" or "heads" as asked; a decode
+whose global batch is under 16 (long_500k) the context-parallel cache
+(:func:`context_parallel`: its data index's rows, the head layout on
+"model", every batch row); the record's ``kv_shard`` names the layout
+laid out ("heads" for the context-parallel one, whose heads are on
+"model").  ``params_data_sharded`` is ZeRO-3 (``steps.zero3_shard``:
+each rank its data index's slice of its leaves, gathered in the step).
+The reference's ``moe_scheme="expert"`` is not ported
+(``launch.partition``, ROADMAP.md queue 1, item 8.6).  :func:`lower_one`
+keeps two of the reference's arguments only for signature parity, so
+that its calls run unchanged: ``save_record``, unused there as here
+(:func:`main` saves), and ``attn_head_shard``, which changes nothing
+because the port always splits attention by head (the record echoes it).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --mesh single
+  python -m repro_torch.launch.dryrun --arch yi-6b --shape decode_32k \
+      --kv-shard head_dim --params-data-sharded
   python -m repro_torch.launch.dryrun --all --mesh both
 Records go to ``experiments/dryrun_torch/``.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 from contextlib import nullcontext
 import os
@@ -82,6 +107,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
@@ -95,11 +121,10 @@ from repro_torch.launch.mesh import (HBM_BYTES_S, NVLINK_BYTES_S,
                                      pod_meshes)
 from repro_torch.launch.shapes import SHAPES, input_specs, supported
 from repro_torch.models import transformer as T
+from repro_torch.ranks import current_rank, on_rank, set_rank
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
-
-ITEM_85 = "ROADMAP.md, queue 1, item 8.5"
 
 
 def _storages(tree) -> Dict[int, int]:
@@ -137,29 +162,43 @@ def _nbytes(tree) -> int:
 
 
 class CostMode(TorchDispatchMode):
-    """Counts the bytes of every op's tensor operands and results (views
-    excluded; an op that writes into an operand, as a cache write does,
-    counts its other operands and as many bytes written, not the buffer
-    it writes into), and the storages the ops make: the bytes alive at
-    once, and the most of them (storages of ``arguments`` excluded)."""
+    """Counts, for each rank of a pod, the flops and the bytes of every op
+    its loops run (``ranks.ranked``; an op outside every rank
+    loop is rank 0's: the sums of partials and the logits are gathered on
+    rank 0's device, and the MoE routing runs there), and the storages
+    its ops make.  Bytes are those of an op's tensor operands and results
+    (views excluded; an op that writes into an operand, as a cache write
+    does, counts its other operands and as many bytes written, not the
+    buffer it writes into); flops are ``flop_counter``'s, read from the
+    ``FlopCounterMode`` below this mode around each op.  Storages: the
+    bytes alive at once for each rank, and the most of them (storages of
+    ``arguments`` excluded)."""
 
-    def __init__(self, arguments: Dict[int, int]):
+    def __init__(self, arguments: Dict[int, int], counter: FlopCounterMode,
+                 tp: int = 1):
         super().__init__()
         self.arguments = arguments
-        self.bytes = 0
-        self.out_bytes = 0
-        self.live: Dict[int, int] = {}
-        self.refs: Dict[int, weakref.ref] = {}
-        self.current = 0
-        self.peak = 0
+        self.counter = counter
+        self.flops = [0.0] * tp
+        self.bytes = [0.0] * tp
+        self.out_bytes = [0.0] * tp
+        self.live: Dict[int, tuple] = {}
+        self.made: Dict[int, int] = {}
+        self.current = [0] * tp
+        self.peak = [0] * tp
+        self.pod_current = self.pod_peak = 0
 
     def _freed(self, key: int) -> None:
-        self.current -= self.live.pop(key, 0)
-        self.refs.pop(key, None)
+        rank, nbytes = self.live.pop(key, (0, 0))
+        self.current[rank] -= nbytes
+        self.pod_current -= nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        rank = current_rank() or 0
+        before = self.counter.get_total_flops()
         out = func(*args, **kwargs)
+        self.flops[rank] += self.counter.get_total_flops() - before
         outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
         if not func.is_view:
             schema = func._schema.arguments
@@ -171,69 +210,117 @@ class CostMode(TorchDispatchMode):
             if func.overloadpacket in _GATHERS:  # the rows read, not the table
                 ins = _nbytes(outs) + _nbytes(vals[1:])
             if any(written):  # in place: as many bytes written as read
-                self.bytes += 2 * ins
-                self.out_bytes += ins
+                self.bytes[rank] += 2 * ins
+                self.out_bytes[rank] += ins
             else:
                 res = _nbytes(outs)
-                self.bytes += res + ins
-                self.out_bytes += res
+                self.bytes[rank] += res + ins
+                self.out_bytes[rank] += res
         for t in outs:
             st = t.untyped_storage()
             key = st._cdata
             if key in self.arguments or key in self.live:
                 continue
-            self.live[key] = st.nbytes()
-            self.refs[key] = weakref.ref(
-                st, lambda _, key=key: self._freed(key))
-            self.current += st.nbytes()
-            self.peak = max(self.peak, self.current)
+            self.live[key] = (rank, st.nbytes())
+            self.made[key] = rank
+            weakref.finalize(st, self._freed, key)
+            self.current[rank] += st.nbytes()
+            self.peak[rank] = max(self.peak[rank], self.current[rank])
+            self.pod_current += st.nbytes()
+            self.pod_peak = max(self.pod_peak, self.pod_current)
         return out
 
 
-def measure(step, *inputs) -> Dict:
+class _NodeRanks(TorchFunctionMode):
+    """Marks each autograd node made in a rank's loop with that rank: the
+    autograd engine runs the backward outside the loops, so a hook on
+    each node marks its rank current while it runs (None: rank 0)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if torch.is_grad_enabled():
+            rank = current_rank()
+            for t in tree_flatten(out)[0]:
+                node = t.grad_fn if isinstance(t, torch.Tensor) else None
+                if node is not None and "rank" not in node.metadata:
+                    node.metadata["rank"] = rank
+                    node.register_prehook(functools.partial(_enter, rank))
+        return out
+
+
+def _enter(rank, grad_outputs):
+    set_rank(rank)
+
+
+def measure(step, *inputs, owners: Optional[List] = None) -> Dict:
     """Run ``step(*inputs)`` under the counters (flops, bytes, storages,
-    collectives) and return the pod's totals: ``flops``,
+    collectives) and return the busiest rank's figures: ``flops``,
     ``bytes_accessed``, ``bytes_output``, ``argument``, ``output``,
-    ``alias``, ``temp``, ``peak``, ``collectives`` (per device already),
-    ``seconds``, and ``result`` (the step's outputs).  Any device: the
-    dry run gives meta tensors, the tests and the card real ones."""
+    ``alias``, ``temp``, ``peak`` (each the largest over the ranks, as
+    the reference's padded GSPMD shards are the largest shard's), each
+    rank's in ``ranks``, the pod's totals in ``pod`` (``flops``,
+    ``bytes_accessed``, ``argument``, and ``peak`` over the pod's
+    storages on one device), ``collectives`` (per device already, each
+    operation once), ``seconds``, and ``result`` (the step's outputs).
+    ``owners[r]``: the inputs rank r alone holds (its params, cache or
+    moments); every other input (the batch) every rank holds.  Without
+    ``owners`` one rank holds them all.  A remat'd step's earlier ranks
+    also count the recomputed ops after their last saved activation
+    (module docstring).  Any device: the dry run gives
+    meta tensors, the tests and the card real ones."""
     arguments = _storages(inputs)
-    mode = CostMode(arguments)
+    owners = owners or [inputs]
+    tp = len(owners)
+    owned = [_storages(o) for o in owners]
+    shared = {k: b for k, b in arguments.items()
+              if not any(k in o for o in owned)}
+    flops = FlopCounterMode(display=False)
+    mode = CostMode(arguments, flops, tp)
+    grads = _NodeRanks() if torch.is_grad_enabled() else nullcontext()
     t0 = time.perf_counter()
     with counting_collectives() as coll:
-        with FlopCounterMode(display=False) as flops, mode:
+        with flops, mode, grads, on_rank(None):
             result = step(*inputs)
     seconds = time.perf_counter() - t0
     outputs = _storages(result)
-    arg_bytes = sum(arguments.values())
-    out_bytes = sum(outputs.values())
-    alias = sum(b for k, b in outputs.items() if k in arguments)
-    new_out = out_bytes - alias
-    return {"flops": float(flops.get_total_flops()),
-            "bytes_accessed": float(mode.bytes),
-            "bytes_output": float(mode.out_bytes),
-            "argument": float(arg_bytes), "output": float(out_bytes),
-            "alias": float(alias),
-            "temp": float(max(mode.peak - new_out, 0)),
-            "peak": float(arg_bytes + mode.peak),
-            "collectives": dict(coll), "seconds": seconds,
-            "result": result}
+    ranks = []
+    for r in range(tp):
+        args_r = {**shared, **owned[r]}
+        mine = {k: b for k, b in outputs.items()
+                if k in args_r or (k not in arguments
+                                   and mode.made.get(k, 0) == r)}
+        alias = sum(b for k, b in mine.items() if k in args_r)
+        out_bytes = sum(mine.values())
+        arg_bytes = sum(args_r.values())
+        ranks.append({
+            "flops": mode.flops[r], "bytes_accessed": mode.bytes[r],
+            "bytes_output": mode.out_bytes[r], "argument": float(arg_bytes),
+            "output": float(out_bytes), "alias": float(alias),
+            "temp": float(max(mode.peak[r] - (out_bytes - alias), 0)),
+            "peak": float(arg_bytes + mode.peak[r])})
+    busiest = {k: max(r[k] for r in ranks) for k in ranks[0]}
+    pod = {"flops": sum(mode.flops), "bytes_accessed": sum(mode.bytes),
+           "argument": float(sum(arguments.values())),
+           "peak": float(sum(arguments.values()) + mode.pod_peak)}
+    return {**busiest, "ranks": ranks, "pod": pod,
+            "collectives": dict(coll), "seconds": seconds, "result": result}
 
 
 def own_copies(shards: List) -> List:
     """Rank trees in which no two leaves share a storage: a leaf that an
     earlier rank holds too (``shard_params`` shares a replicated leaf
-    between ranks on one device) is cloned, as separate cards hold their
-    own copies."""
+    between ranks on one device), or a slice of a larger storage (a rank's
+    rows of the embedding), is cloned, as separate cards hold their own
+    copies of their own pieces."""
     seen = set()
 
     def fix(tree):
         if isinstance(tree, dict):
             return {k: fix(v) for k, v in tree.items()}
-        key = tree.untyped_storage()._cdata
-        if key in seen:
+        st = tree.untyped_storage()
+        if st._cdata in seen or st.nbytes() > tree.nbytes:
             return tree.clone()
-        seen.add(key)
+        seen.add(st._cdata)
         return tree
 
     return [fix(tree) for tree in shards]
@@ -255,22 +342,12 @@ def skip_reason(cfg, shape, mesh, *, kv_shard: str = "auto",
         return (f"moe_scheme={moe_scheme!r}: the port lays out the "
                 "reference's baseline 'tensor' scheme only "
                 "(launch/partition.py)")
-    if params_data_sharded:
-        return ("params_data_sharded (ZeRO-3: parameters sharded over the "
-                f"data axes) has no port layout ({ITEM_85})")
     tp = dict(zip(mesh.axis_names, np.shape(mesh.devices)))["model"]
     reason = PT.layout_reason(cfg, tp)
     if reason is not None:
         return reason
     if cfg.family == "ssm":  # no KV cache to lay out
         return None
-    if kv_shard in ("seq", "head_dim"):
-        return (f"kv_shard={kv_shard!r}: the port caches KV by head only "
-                f"({ITEM_85})")
-    if shape.kind == "decode" and shape.global_batch < 16:
-        return ("a context-parallel cache (the KV sequence axis on 'data', "
-                f"global batch {shape.global_batch} < 16) has no port "
-                f"layout ({ITEM_85})")
     return None
 
 
@@ -285,15 +362,31 @@ def _rows_batch(specs: Dict, rows: slice) -> Dict:
     return out
 
 
+def context_parallel(shape, mesh) -> bool:
+    """Whether the reference lays ``shape``'s cache out context-parallel
+    on ``mesh``: a decode whose global batch is under 16, on a mesh with
+    a "data" axis of more than one index."""
+    sizes = dict(zip(mesh.axis_names, np.shape(mesh.devices)))
+    return (shape.kind == "decode" and shape.global_batch < 16
+            and sizes.get("data", 1) > 1)
+
+
 def rank_program(cfg, shape, mesh, *, kv_dtype=None, remat: bool = True,
-                 params=None):
+                 params=None, kv_shard: str = "auto",
+                 params_data_sharded: bool = False):
     """The program of one data index of ``mesh`` (its first pod over its
     rows, ``steps.pod_rows``), on the mesh's devices: (step, inputs, the
     pod's ranks).  ``params``: the unsharded tree on that device (default
     ``abstract_params`` on meta, else random weights from seed 0); each
     rank owns its copies (:func:`own_copies`).  Train shapes run
     ``make_train_step(mesh=, data_index=0)`` over ZeRO-1 moments, prefill
-    and decode shapes the step functions on the pod over its caches."""
+    and decode shapes the step functions on the pod over its caches,
+    laid out as ``kv_shard`` picks (``partition.kv_layout``); a decode
+    :func:`context_parallel` takes every batch row and its data index's
+    rows of the cache (``transformer.init_cache(context=)``).
+    ``params_data_sharded`` (ZeRO-3): each rank holds its data index's
+    slice of its leaves (``steps.zero3_shard``), and the step all-gathers
+    them first."""
     pod = pod_meshes(mesh)[0]
     device = pod.ranks[0]
     rows = ST.pod_rows(mesh, shape.global_batch)[0]
@@ -312,17 +405,48 @@ def rank_program(cfg, shape, mesh, *, kv_dtype=None, remat: bool = True,
     del params
     if shape.kind == "train":
         opt = ST.zero1_init([shards], cfg, mesh)
-        step = ST.make_train_step(cfg, remat=remat, mesh=mesh, data_index=0)
+        step = ST.make_train_step(cfg, remat=remat, mesh=mesh, data_index=0,
+                                  params_data_sharded=params_data_sharded)
+        if params_data_sharded:
+            shards = ST.zero3_shard([shards], cfg, mesh)[0]
         return step, ([shards], opt, batch), len(pod.ranks)
     kv = specs["cache"].get("kv")
+    ctx = context_parallel(shape, mesh)
+    n_data = dict(zip(mesh.axis_names, np.shape(mesh.devices)))["data"] \
+        if ctx else 1
     cache = T.init_cache(cfg, b, shape.seq_len, mesh=pod, kv_dtype=kv_dtype,
                          sliding_window=kv.k.shape[2] if kv is not None
-                         and kv.ring else None)
+                         and kv.ring else None,
+                         kv_shard="heads" if ctx else kv_shard,
+                         context=(n_data, [0]) if ctx else None)
+    step = (ST.make_prefill_step(cfg, mesh=pod) if shape.kind == "prefill"
+            else ST.make_serve_step(cfg, mesh=pod))
+    if params_data_sharded:
+        shards = ST.zero3_shard([shards], cfg, mesh)[0]
+        step = functools.partial(_gathered, step, cfg, mesh)
     if shape.kind == "prefill":
-        return (ST.make_prefill_step(cfg, mesh=pod),
-                (shards, {**batch, "cache": cache}), len(pod.ranks))
-    return (ST.make_serve_step(cfg, mesh=pod),
-            (shards, batch["tokens"], cache), len(pod.ranks))
+        return step, (shards, {**batch, "cache": cache}), len(pod.ranks)
+    return step, (shards, batch["tokens"], cache), len(pod.ranks)
+
+
+def _gathered(step, cfg, mesh, slices, *rest):
+    """``step`` of one data index over its ZeRO-3 slices, all-gathered
+    first (``steps.zero3_gather``)."""
+    return step(ST.zero3_gather([slices], cfg, mesh)[0], *rest)
+
+
+def rank_owners(inputs, kind: str) -> List:
+    """What each rank of :func:`rank_program`'s inputs holds alone: its
+    params and its cache, or for training its params and its ZeRO-1
+    moments (:func:`measure`'s ``owners``)."""
+    if kind == "train":
+        (shards,), opt, _ = inputs
+        return [(p, mu, nu)
+                for p, mu, nu in zip(shards, opt.mu[0], opt.nu[0])]
+    shards, cache = inputs[0], inputs[-1]
+    if kind == "prefill":
+        cache = cache["cache"]
+    return [(p, c) for p, c in zip(shards, cache)]
 
 
 def lower_one(arch: str, shape_name: str, multi_pod: bool,
@@ -352,17 +476,19 @@ def lower_one(arch: str, shape_name: str, multi_pod: bool,
     if reason is not None:
         return _skip(arch, shape_name, multi_pod, reason)
     step, inputs, tp = rank_program(cfg, shape, mesh, kv_dtype=kv_dtype,
-                                    remat=remat)
+                                    remat=remat, kv_shard=kv_shard,
+                                    params_data_sharded=params_data_sharded)
     with torch.no_grad() if shape.kind != "train" else nullcontext():
-        m = measure(step, *inputs)
-    per = 1.0 / tp
-    mem = {"argument_size_in_bytes": m["argument"] * per,
-           "output_size_in_bytes": m["output"] * per,
-           "temp_size_in_bytes": m["temp"] * per,
-           "alias_size_in_bytes": m["alias"] * per,
+        m = measure(step, *inputs, owners=rank_owners(inputs, shape.kind))
+    mem = {"argument_size_in_bytes": m["argument"],
+           "output_size_in_bytes": m["output"],
+           "temp_size_in_bytes": m["temp"],
+           "alias_size_in_bytes": m["alias"],
            "generated_code_size_in_bytes": 0.0,
-           "peak_memory_in_bytes": m["peak"] * per}
-    flops, nbytes = m["flops"] * per, m["bytes_accessed"] * per
+           "peak_memory_in_bytes": m["peak"],
+           "pod_argument_size_in_bytes": m["pod"]["argument"],
+           "pod_peak_memory_in_bytes": m["pod"]["peak"]}
+    flops, nbytes = m["flops"], m["bytes_accessed"]
     dtype = "bfloat16" if cfg.dtype == "bfloat16" else "float32"
     return {
         "arch": arch,
@@ -372,7 +498,8 @@ def lower_one(arch: str, shape_name: str, multi_pod: bool,
         "moe_scheme": moe_scheme,
         "remat": remat,
         "kv_dtype": kv_dtype,
-        "kv_shard": "heads",
+        "kv_shard": ("heads" if context_parallel(shape, mesh)
+                     else PT.kv_layout(cfg, tp, kv_shard)),
         "params_data_sharded": params_data_sharded,
         "attn_head_shard": attn_head_shard,
         "mesh_shape": list(np.shape(mesh.devices)),
@@ -383,7 +510,8 @@ def lower_one(arch: str, shape_name: str, multi_pod: bool,
         "memory_analysis": mem,
         "cost_analysis": {
             "flops": flops, "bytes accessed": nbytes,
-            "bytes accessed output": m["bytes_output"] * per,
+            "bytes accessed output": m["bytes_output"],
+            "pod flops": m["pod"]["flops"],
             "optimal_seconds": max(
                 flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_S,
                 m["collectives"]["total"] / NVLINK_BYTES_S)},

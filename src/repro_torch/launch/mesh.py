@@ -108,7 +108,18 @@ def batch_axes(mesh) -> tuple:
 # Collectives: the data the port moves between ranks
 # --------------------------------------------------------------------------- #
 
-#: XLA's collective kinds, the keys of the reference's ``collective_bytes``
+#: XLA's collective kinds, the keys of the reference's ``collective_bytes``.
+#: The port records: an "all-reduce" for a sum (or max) of the ranks'
+#: partials that every rank reads, the context-parallel cache's merge of
+#: the data indices' attention partials among them; an "all-gather" where
+#: every rank (or rank 0) reads every rank's piece (the logits, the
+#: ZeRO-1 and ZeRO-3 param gathers, a sequence-sharded cache's query
+#: heads); a "reduce-scatter" for ZeRO's gradient sums; an "all-to-all"
+#: where each rank sends each other rank the part that rank owns (the
+#: sequence-sharded cache's new K/V rows, sent to the ranks that own
+#: their positions, and its attention partials, sent to the ranks that
+#: own their heads); a "collective-permute" where one rank sends the
+#: others its data (the MoE routing from rank 0).
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 _COUNTERS: List[Dict[str, float]] = []

@@ -256,6 +256,26 @@ def cache_pspecs(cfg, abstract_cache, batch_ax, *,
     return _map_specs(spec_for, abstract_cache)
 
 
+def kv_layout(cfg, model_size: int, kv_shard: str = "auto") -> str:
+    """The cache layout the port lays out for ``kv_shard`` over
+    ``model_size`` ranks, as :func:`cache_pspecs` picks it: "heads" (each
+    rank its query heads' KV heads, :func:`kv_head_range`), "seq" (every
+    KV head over a range of the buffer's rows, :func:`split_range`) or
+    "head_dim" (a range of every head's dims).  "auto" is "heads" where
+    the ranks divide ``n_kv_heads``, else "seq"; one rank, and a config
+    with no KV heads, are "heads".  A rank's range of rows or dims is a
+    :func:`split_range`: each rank's decode cuts its own rows into key
+    splits (``kernels.ops.partial_splits``), so a range need not be a
+    whole number of the kernel's 32-row tiles."""
+    if kv_shard not in KV_SHARDS:
+        raise ValueError(f"kv_shard must be one of {KV_SHARDS}")
+    if model_size == 1 or cfg.n_kv_heads <= 0:
+        return "heads"
+    if kv_shard == "auto":
+        return "heads" if cfg.n_kv_heads % model_size == 0 else "seq"
+    return kv_shard
+
+
 def batch_pspecs(batch_abstract, batch_ax) -> Any:
     """Specs of the token, label, ``embeds``, ``frames`` and
     ``positions`` inputs: the batch axis on ``batch_ax``."""

@@ -52,6 +52,7 @@ from repro_torch.launch import partition as PT
 from repro_torch.launch.mesh import batch_axes, collective, pod_meshes
 from repro_torch.models import transformer as T
 from repro_torch.models.objective import loss_fn
+from repro_torch.ranks import on_rank, ranked
 from repro_torch.training import loop
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
                                             adamw_leaf, clip_by_global_norm,
@@ -65,7 +66,8 @@ DRYRUN_OPT = AdamWConfig(lr=3e-4, schedule="cosine", warmup_steps=100,
 def make_train_step(cfg, *, remat: bool = True, moe_impl: str = "dense",
                     opt_cfg: AdamWConfig = DRYRUN_OPT,
                     attn_impl: str = "torch", mesh=None,
-                    data_index: Optional[int] = None):
+                    data_index: Optional[int] = None,
+                    params_data_sharded: bool = False):
     """One AdamW step on ``loss_fn(params, cfg, batch)``: ``train_step(
     params, opt_state, batch) -> (params, opt_state, metrics)``; the batch
     goes to the parameters' device.  A leaf the loss does not reach gets
@@ -94,7 +96,15 @@ def make_train_step(cfg, *, remat: bool = True, moe_impl: str = "dense",
     data index alone: the batch is its rows, its pod's gradients stand
     for the sum, it updates its own slices, and the gather joins copies
     of them, so the shapes, flops, bytes and collectives are its pod's;
-    ``params`` and the state's moments may then hold that pod alone."""
+    ``params`` and the state's moments may then hold that pod alone.
+
+    ``params_data_sharded`` (ZeRO-3, the reference's ``opt_pspecs``
+    applied to the parameters themselves): ``params`` are
+    :func:`zero3_shard`'s, each data index holding its ZeRO-1 slice of
+    every rank's leaf.  The step all-gathers them into the pods' rank
+    trees (:func:`zero3_gather`), takes the gradients and their
+    reduce-scatter as ZeRO-1 does, and returns each data index's
+    updated slices, which it does not gather back."""
     def loss(params, batch, pod=None):
         return loss_fn(params, cfg, batch, attn_impl=attn_impl,
                        moe_impl=moe_impl, remat=remat, mesh=pod)
@@ -106,6 +116,8 @@ def make_train_step(cfg, *, remat: bool = True, moe_impl: str = "dense",
 
     def train_step(params, opt_state: AdamWState, batch: Dict):
         pparams = params if nested else [params]
+        if params_data_sharded:
+            pparams = zero3_gather(pparams, cfg, mesh)
         mus, nus = ((opt_state.mu, opt_state.nu) if nested
                     else ([opt_state.mu], [opt_state.nu]))
         if data_index is None:
@@ -139,7 +151,7 @@ def make_train_step(cfg, *, remat: bool = True, moe_impl: str = "dense",
             dims.extend(_zero1_dims(cfg, mesh, grads))
         new_params, mu, nu = _zero1_update(cfg, opt_cfg, pods, pparams,
                                            grads, mus, nus, step, lr, dims,
-                                           which)
+                                           which, not params_data_sharded)
         out = {k: sum(m[k] * w for m, w in metrics)
                for k in ("loss", "ce", "aux")}
         out.update(grad_norm=gnorm, lr=lr)
@@ -212,7 +224,9 @@ def _pod_grads(loss, cfg, pod, ranks, batch, weight: float):
     total, inner = loss([unflatten(r, f) for r, f in zip(ranks, flat)],
                         batch, pod)
     every = [p for f in flat for p in f]
-    grads = torch.autograd.grad(total * weight, every, allow_unused=True)
+    with on_rank(None):  # the backward marks its nodes' ranks as it runs
+        grads = torch.autograd.grad(total * weight, every,
+                                    allow_unused=True)
     it = iter(torch.zeros_like(p) if g is None else g
               for p, g in zip(every, grads))
     rank_grads = [unflatten(r, [next(it) for _ in f])
@@ -275,6 +289,50 @@ def zero1_init(params, cfg, mesh) -> AdamWState:
                       nu=nu if nested else nu[0])
 
 
+def zero3_shard(params, cfg, mesh):
+    """``params`` as :func:`shard_pods` lays them out, cut for ZeRO-3:
+    data index i keeps its slice of every rank's leaf along the leaf's
+    ZeRO-1 dimension (the whole leaf where there is none), one list of
+    rank trees a pod."""
+    pods, nested = _pod_list(mesh)
+    pparams = params if nested else [params]
+    dims = _zero1_dims(cfg, mesh, T.abstract_params(cfg))
+    n = len(pods)
+    out = [[unflatten(rank, [p[_cut(d, i, n, _size(p, d))].clone()
+                             for p, d in zip(leaves(rank), dims)])
+            for rank in ranks] for i, ranks in enumerate(pparams)]
+    return out if nested else out[0]
+
+
+def zero3_gather(slices, cfg, mesh):
+    """The pods' rank trees from :func:`zero3_shard`'s slices: each rank
+    leaf joined over the data indices along its ZeRO-1 dimension, one
+    all-gather a rank leaf.  ``slices`` may hold the first data index
+    alone (the dry run's program of one data index): copies of its
+    slices then stand in for the others'."""
+    pods, _ = _pod_list(mesh)
+    n = len(pods)
+    dims = _zero1_dims(cfg, mesh, T.abstract_params(cfg))
+    out = []
+    for i, ranks in enumerate(slices):
+        trees = []
+        for r, rank in ranked(enumerate(ranks)):
+            own = [leaves(slices[j][r] if j < len(slices) else rank)
+                   for j in range(n)]
+            joined = []
+            for k, (leaf, d) in enumerate(zip(leaves(rank), dims)):
+                if d is None:
+                    joined.append(leaf)
+                    continue
+                joined.append(torch.cat([o[k].to(leaf.device) for o in own],
+                                        dim=d))
+                if i == 0:
+                    collective("all-gather", joined[-1].nbytes)
+            trees.append(unflatten(rank, joined))
+        out.append(trees)
+    return out
+
+
 def zero1_gather(moments, params, cfg, mesh):
     """One tree of ZeRO-1 moments laid out as :func:`zero1_init` lays them
     (``params`` as :func:`shard_pods` does) joined into the whole tree one
@@ -312,17 +370,18 @@ def _cut(dim: Optional[int], i: int, n: int, size: int):
 
 
 def _zero1_update(cfg, opt_cfg, pods, pparams, grads, mus, nus, step, lr,
-                  dims, which):
+                  dims, which, gather: bool = True):
     """The data indices ``which`` update their slices of every rank's
     leaves and moments; the slices are then gathered back into every pod
-    (one all-gather a rank leaf when there are several pods).  Returns
+    (one all-gather a rank leaf when there are several pods), or with
+    ``gather`` False (ZeRO-3) kept as each data index's params.  Returns
     (params, mu, nu) in the pods' layout."""
     n = len(pods)
     slices, new_mu, new_nu = {}, list(mus), list(nus)
     for i in which:
         rank_grads = PT.shard_params(grads, cfg, pods[i])
         pm, pn = [], []
-        for r, rank in enumerate(pparams[i]):
+        for r, rank in ranked(enumerate(pparams[i])):
             upd = [adamw_leaf(opt_cfg, step, lr, p[_cut(d, i, n, _size(p, d))],
                               g[_cut(d, i, n, _size(g, d))], m, v)
                    for p, g, m, v, d in zip(leaves(rank),
@@ -333,10 +392,15 @@ def _zero1_update(cfg, opt_cfg, pods, pparams, grads, mus, nus, step, lr,
             pm.append(unflatten(rank, [u[1] for u in upd]))
             pn.append(unflatten(rank, [u[2] for u in upd]))
         new_mu[i], new_nu[i] = pm, pn
+    if not gather:
+        return ([[unflatten(rank, slices[i, r])
+                  for r, rank in enumerate(ranks)]
+                 for i, ranks in enumerate(pparams) if i in which],
+                new_mu, new_nu)
     out = []
     for i, ranks in enumerate(pparams):
         trees = []
-        for r, rank in enumerate(ranks):
+        for r, rank in ranked(enumerate(ranks)):
             own = [slices.get((j, r), slices[which[0], r]) for j in range(n)]
             joined = []
             for k, (p, d) in enumerate(zip(leaves(rank), dims)):
@@ -358,6 +422,8 @@ def _size(t: torch.Tensor, dim: Optional[int]) -> int:
 
 def make_prefill_step(cfg, *, attn_impl: str = "kernel",
                       moe_impl: str = "dense", mesh=None):
+    """The prompt pass: ``prefill_step(params, batch_with_cache) ->
+    (logits, cache)``, over any cache layout of ``init_pod_caches``."""
     def prefill_step(params, batch: Dict):
         batch = dict(batch)
         cache = batch.pop("cache")
@@ -377,7 +443,18 @@ def make_prefill_step(cfg, *, attn_impl: str = "kernel",
 def make_serve_step(cfg, *, attn_impl: str = "kernel",
                     moe_impl: str = "dense", mesh=None):
     """One-token decode; returns the greedy token (B,) int32, not the
-    logits, so the step's output footprint matches a real serving system."""
+    logits, so the step's output footprint matches a real serving system.
+
+    The cache says the layout: one cache a pod of ``mesh`` runs each pod
+    over its rows (:func:`pod_rows`); :func:`init_pod_caches`'
+    context-parallel cache (the reference's for a decode whose global
+    batch is under 16), one rank list whose ranks hold every row of the
+    batch and each data index's range of the KV rows, runs the data
+    indices in step.  Their projections and MLP are one computation over
+    the replicated batch, so the step runs them once, on the first pod's
+    ranks, and merges the data indices' attention over their rows layer
+    by layer (``models.kv_split``); ``params`` are :func:`shard_pods`'
+    and the token lies on the first pod's rank 0."""
 
     def one_pod(params, tokens, cache, pod):
         logits, cache = T.decode_step(params, cfg, tokens, cache,
@@ -388,6 +465,8 @@ def make_serve_step(cfg, *, attn_impl: str = "kernel",
     def serve_step(params, tokens: torch.Tensor, cache):
         if mesh is None or not _pod_list(mesh)[1]:
             return one_pod(params, tokens, cache, mesh)
+        if isinstance(cache[0], dict):  # one rank list: context-parallel
+            return one_pod(params[0], tokens, cache, pod_meshes(mesh)[0])
         rows = pod_rows(mesh, tokens.shape[0])
         outs = [one_pod(p, tokens[r], c, pod)[0]
                 for pod, p, c, r in zip(pod_meshes(mesh), params, cache,
@@ -397,12 +476,20 @@ def make_serve_step(cfg, *, attn_impl: str = "kernel",
     return serve_step
 
 
-def init_pod_caches(cfg, batch: int, max_len: int, mesh, **kw):
+def init_pod_caches(cfg, batch: int, max_len: int, mesh, *,
+                    context_parallel: bool = False, **kw):
     """One ``transformer.init_cache(..., mesh=pod)`` a pod of ``mesh``, of
     the rows :func:`pod_rows` gives it (``kw``: ``dtype``, ``kv_dtype``,
-    ``sliding_window``); the rank list itself for a ``("model",)``
-    mesh."""
+    ``sliding_window``, ``kv_shard``); the rank list itself for a
+    ``("model",)`` mesh.  ``context_parallel``: the context-parallel
+    cache instead, one rank list over the first pod's ranks holding every
+    row of the batch and the KV rows of all of the mesh's data indices
+    (``transformer.init_cache(context=)``), which
+    :func:`make_serve_step` runs in step."""
     pods, nested = _pod_list(mesh)
+    if context_parallel:
+        return T.init_cache(cfg, batch, max_len, mesh=pods[0],
+                            context=(len(pods), range(len(pods))), **kw)
     out = [T.init_cache(cfg, len(range(batch)[r]), max_len, mesh=pod, **kw)
            for pod, r in zip(pods, pod_rows(mesh, batch))]
     return out if nested else out[0]

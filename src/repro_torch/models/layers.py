@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import reference_attention as sdpa
 from repro_torch.launch.mesh import collective
+from repro_torch.ranks import ranked
 
 Params = Dict[str, torch.Tensor]
 ATTN_IMPLS = ("kernel", "torch")
@@ -40,13 +41,25 @@ class KVCache:
     (position p lives in row ``p % buf_len``).  Quantized mode (``k_scale``
     given): the buffers hold int8 codes with per-token fp32 scales
     ``k_scale``/``v_scale`` (..., batch, buf_len), written by
-    :func:`quantize_kv` (one scale over a token's heads x dims)."""
+    :func:`quantize_kv` (one scale over a token's heads x dims).
+
+    A rank's piece of a cache a pod splits other than by head
+    (:mod:`repro_torch.models.kv_split`) holds rows ``[row0, row0 +
+    buf_len)`` of a buffer of ``total`` rows (``total`` 0: the whole
+    buffer unsplit), of every KV head (the sequence-sharded layout) or of
+    its rank's (the context-parallel one); the head-dim layout's piece
+    holds every row and KV head, and dims ``[dim0, dim0 + D_r)`` of
+    heads of ``dims`` dims."""
 
     k: torch.Tensor
     v: torch.Tensor
     ring: bool = False
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    row0: int = 0
+    total: int = 0
+    dim0: int = 0
+    dims: int = 0
 
     @property
     def quantized(self) -> bool:
@@ -56,7 +69,24 @@ class KVCache:
         """Layer ``i`` of a model cache (views)."""
         return KVCache(self.k[i], self.v[i], self.ring,
                        *(None if s is None else s[i]
-                         for s in (self.k_scale, self.v_scale)))
+                         for s in (self.k_scale, self.v_scale)),
+                       self.row0, self.total, self.dim0, self.dims)
+
+
+class KVShards(list):
+    """One rank's KV cache in the context-parallel layout: its row
+    ranges, one :class:`KVCache` a data index, in data order."""
+
+    @property
+    def quantized(self) -> bool:
+        return self[0].quantized
+
+    @property
+    def ring(self) -> bool:
+        return self[0].ring
+
+    def layer(self, i: int) -> "KVShards":
+        return KVShards(c.layer(i) for c in self)
 
 
 def quantize_kv(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
@@ -116,17 +146,20 @@ def masked_row_write(buf: torch.Tensor, slot: torch.Tensor, val: torch.Tensor,
 
 
 def masked_span_write(buf: torch.Tensor, start: torch.Tensor,
-                      val: torch.Tensor, valid_len: torch.Tensor
-                      ) -> torch.Tensor:
+                      val: torch.Tensor, valid_len: torch.Tensor,
+                      row0: int = 0) -> torch.Tensor:
     """Write ``val`` (B, C, ...) into ``buf`` (B, L, ...) at rows
     ``[start, start + valid_len)`` of each batch row, in place.  Positions
     at or past ``valid_len`` (chunk padding) or past the buffer are not
     written, so every other row keeps its content bit for bit: the
-    reference drops them by an out-of-bounds scatter.  Returns ``buf``."""
+    reference drops them by an out-of-bounds scatter.  ``row0``: ``buf``
+    holds the rows from ``row0`` on of a buffer a pod splits, and takes
+    only those.  Returns ``buf``."""
     c = val.shape[1]
     span = torch.arange(c, device=buf.device)[None, :]
-    idx = start.to(buf.device).long()[:, None] + span            # (B, C)
-    ok = (span < valid_len.to(buf.device)[:, None]) & (idx < buf.shape[1])
+    idx = start.to(buf.device).long()[:, None] + span - row0     # (B, C)
+    ok = ((span < valid_len.to(buf.device)[:, None]) & (idx >= 0)
+          & (idx < buf.shape[1]))
     rows = torch.arange(val.shape[0], device=buf.device)[:, None]
     rows = rows.expand_as(idx)
     buf[rows[ok], idx[ok]] = val[ok]
@@ -420,14 +453,14 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
                                 valid_lens, segs)
     actives = actives or [None] * len(ps)
     qkvs = [project_qkv(p, c, x, cs)
-            for p, c, x, cs in zip(ps, cfgs, xs, cos_sins)]
+            for p, c, x, cs in ranked(zip(ps, cfgs, xs, cos_sins))]
     c0 = caches[0]
     if c0.quantized:
         kqs = quantize_kv_shared([k for _, k, _ in qkvs])
         vqs = quantize_kv_shared([v for _, _, v in qkvs])
     qs = []
-    for r, ((q, k, v), c, cur, act) in enumerate(zip(qkvs, caches, curs,
-                                                      actives)):
+    for r, ((q, k, v), c, cur, act) in ranked(enumerate(zip(
+            qkvs, caches, curs, actives))):
         slot = cur % c.k.shape[1] if c.ring else cur
         rows = [(c.k, k), (c.v, v)]
         if c.quantized:
@@ -441,7 +474,7 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
         head_starts=[h[0] for h in heads], group=heads[0][1])
     if c0.ring or attn_impl == "torch":
         outs = [_plain_read(q, c, cur, window, sg)
-                for q, c, cur, sg in zip(qs, caches, curs, segs)]
+                for q, c, cur, sg in ranked(zip(qs, caches, curs, segs))]
     elif c0.quantized and len(qs) == 1:
         outs = [ops.flash_decode_int8(qs[0], c0.k, c0.v, c0.k_scale,
                                       c0.v_scale, kv_len=curs[0] + 1,
@@ -460,7 +493,7 @@ def attention_decode(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor],
             kv_len=curs[0] + 1, q_offset=curs[0], window=window, **tp_heads)
     b = xs[0].shape[0]
     return [o.reshape(b, 1, c.n_heads * c.head_dim) @ p["wo"]
-            for o, c, p in zip(outs, cfgs, ps)]
+            for o, c, p in ranked(zip(outs, cfgs, ps))]
 
 
 def _attention_chunk(ps, cfgs, xs, cos_sins, caches, curs, valid_lens, segs):
@@ -472,9 +505,8 @@ def _attention_chunk(ps, cfgs, xs, cos_sins, caches, curs, valid_lens, segs):
     b, s, _ = xs[0].shape
     window = cfgs[0].swa_window if cfgs[0].attention_type == "swa" else None
     outs = []
-    for p, cfg, x, cs, c, cur, valid, sg in zip(ps, cfgs, xs, cos_sins,
-                                                caches, curs, valid_lens,
-                                                segs):
+    for p, cfg, x, cs, c, cur, valid, sg in ranked(zip(
+            ps, cfgs, xs, cos_sins, caches, curs, valid_lens, segs)):
         q, k, v = project_qkv(p, cfg, x, cs)
         masked_span_write(c.k, cur, k, valid)
         masked_span_write(c.v, cur, v, valid)

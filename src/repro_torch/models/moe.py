@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.launch.mesh import collective
 from repro_torch.models.layers import dense_init
+from repro_torch.ranks import ranked
 
 Params = Dict[str, torch.Tensor]
 MOE_IMPLS = ("dense", "grouped")
@@ -230,7 +231,8 @@ def moe_partials(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor], *,
     if len(ps) > 1:
         collective("collective-permute",
                    sum(t.nbytes for t in routing if t is not None))
-    return [_routed(p, x, routing.to(x.device)) for p, x in zip(ps, xs)]
+    return [_routed(p, x, routing.to(x.device))
+            for p, x in ranked(zip(ps, xs))]
 
 
 def _check_impl(impl: str) -> None:

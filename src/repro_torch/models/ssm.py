@@ -43,6 +43,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.mesh import collective
 from repro_torch.launch.partition import SSMWidths, ssm_widths
 from repro_torch.models.layers import ATTN_IMPLS, dense_init, rng
+from repro_torch.ranks import ranked
 
 Params = Dict[str, torch.Tensor]
 
@@ -196,7 +197,8 @@ def gated_partials(ps: List[Params], cfg, ys: List[torch.Tensor],
     if len(ys) == 1:
         var = [yfs[0].square().mean(dim=-1, keepdim=True)]
     else:
-        sums = [yf.square().sum(dim=-1, keepdim=True) for yf in yfs]
+        sums = [yf.square().sum(dim=-1, keepdim=True)
+                for yf in ranked(yfs)]
         total = sums[0]
         for part in sums[1:]:
             total = total + part.to(total.device)
@@ -206,7 +208,7 @@ def gated_partials(ps: List[Params], cfg, ys: List[torch.Tensor],
                 lambda g: collective("all-reduce", g.nbytes))
         var = [(total / cfg.ssm_d_inner).to(yf.device) for yf in yfs]
     outs = []
-    for p, y, yf, z, v in zip(ps, ys, yfs, zs, var):
+    for p, y, yf, z, v in ranked(zip(ps, ys, yfs, zs, var)):
         yn = yf * torch.rsqrt(v + 1e-5) * p["norm"].float()
         out = (yn * F.silu(z.float())).to(y.dtype)
         outs.append(out @ p["out_proj"])
@@ -268,7 +270,7 @@ def ssm_partials(ps: List[Params], cfg, xs: List[torch.Tensor], *,
     if impl not in ATTN_IMPLS:
         raise ValueError(f"impl must be one of {ATTN_IMPLS}, got {impl!r}")
     heads = [_forward_heads(p, cfg, w, x, impl)
-             for p, w, x in zip(ps, _rank_widths(cfg, len(ps)), xs)]
+             for p, w, x in ranked(zip(ps, _rank_widths(cfg, len(ps)), xs))]
     outs = gated_partials(ps, cfg, [h[0] for h in heads],
                           [h[1] for h in heads])
     return outs, [h[2] for h in heads]
@@ -338,8 +340,8 @@ def ssm_decode_partials(ps: List[Params], cfg, xs: List[torch.Tensor],
     Returns (the ranks' output partials, each rank's new state) and leaves
     ``states`` as they were."""
     heads = [_decode_heads(p, cfg, w, x, st)
-             for p, w, x, st in zip(ps, _rank_widths(cfg, len(ps)), xs,
-                                    states)]
+             for p, w, x, st in ranked(zip(ps, _rank_widths(cfg, len(ps)),
+                                           xs, states))]
     outs = gated_partials(ps, cfg, [h[0] for h in heads],
                           [h[1] for h in heads])
     return outs, [h[2] for h in heads]

@@ -97,7 +97,14 @@ there.  An int8 cache under a mesh holds each rank's KV heads' codes and
 a copy of the per-token scales that is the same on every rank: each
 write takes one cross-rank max of the ranks' amaxes
 (``layers.quantize_kv_shared``), and the decode read is one
-``ops.flash_decode_int8_sharded`` call a layer.  ``forward(mesh=)``
+``ops.flash_decode_int8_sharded`` call a layer.  A cache the pod
+splits other than by head (``init_cache(kv_shard="seq")``, every KV
+head over a range of rows a rank; ``kv_shard="head_dim"``, a range of
+every head's dims; ``context=``, the context-parallel cache's row ranges
+a data index) keeps the projections' head layout and is written and
+read by :mod:`repro_torch.models.kv_split`: split-KV across the ranks
+(``ops.flash_decode_partials`` and ``ops.flash_decode_combine``) or the
+head-dim scores summed before the softmax.  ``forward(mesh=)``
 runs the same rank bodies over the full sequence with no cache, for
 training: the sums above are tensor ops, so autograd runs through them.
 
@@ -120,9 +127,11 @@ import torch.utils.checkpoint
 
 from repro_torch.launch import partition as P
 from repro_torch.launch.mesh import collective
+from repro_torch.models import kv_split
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.ranks import current_rank, on_rank, ranked
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -279,7 +288,7 @@ def _encode(shards: List[Params], cfg, lcfgs, frames: torch.Tensor):
     for lps in zip(*layers):
         hs = _enc_layer(cfg, lcfgs, list(lps), hs)
     return [L.apply_norm(cfg, p["enc_final_norm"], h)
-            for p, h in zip(shards, hs)]
+            for p, h in ranked(zip(shards, hs))]
 
 
 def _frames_in(p: Params, cfg, frames: torch.Tensor) -> torch.Tensor:
@@ -296,7 +305,7 @@ def _enc_layer(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor]):
     b, s, _ = hs[0].shape
     parts = []
     heads = _heads(cfg, lcfgs) or [None]
-    for lp, h, lc, hd0 in zip(lps, hs, lcfgs, heads):
+    for lp, h, lc, hd0 in ranked(zip(lps, hs, lcfgs, heads)):
         a = lp["attn"]
         nh, kh, hd = lc.n_heads, lc.n_kv_heads, lc.head_dim
         x = L.apply_norm(cfg, lp["attn_norm"], h)
@@ -448,14 +457,14 @@ def _forward_ranks(params, cfg, batch: Dict, attn_impl: str, moe_impl: str,
             enc = run(lambda *e, lps=lps: tuple(
                 _enc_layer(cfg, lcfgs, list(lps), list(e))), *enc)
         enc = [L.apply_norm(cfg, p["enc_final_norm"], e)
-               for p, e in zip(shards, enc)]
+               for p, e in ranked(zip(shards, enc))]
         n = len(shards)
 
         def dec_layer(*args, lps):
             hs, encs = list(args[:n]), args[n:]
             hs = attn_layer(*hs, lps=lps, mlp=False)[:-1]
             crosses = [L.encode_cross_kv(lp["cross"], lc, e)
-                       for lp, lc, e in zip(lps, lcfgs, encs)]
+                       for lp, lc, e in ranked(zip(lps, lcfgs, encs))]
             return tuple(_cross_mlp(cfg, lcfgs, list(lps), list(hs), crosses,
                                     moe_impl))
 
@@ -474,8 +483,18 @@ def _forward_ranks(params, cfg, batch: Dict, attn_impl: str, moe_impl: str,
 
 
 def _checkpointed(fn, *args):
-    """``fn(*args)``, its activations recomputed in the backward pass."""
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    """``fn(*args)``, its activations recomputed in the backward pass.  The
+    recomputation runs under the rank mark the forward ran under
+    (``ranks.current_rank``), and it stops once it has what the backward
+    needs, possibly inside a loop over the ranks: the mark the backward
+    had is restored after it."""
+    rank = current_rank()
+
+    def run(*a):
+        with on_rank(rank):
+            return fn(*a)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 def _dense_layer(cfg, attn_impl: str, moe_impl: str, lp: Params,
@@ -544,7 +563,7 @@ def _ssm_layers(cfg, impl, layers, hs, states, decode: bool = False,
         olds = ([{k: v[i] for k, v in st.items()} for st in states]
                 if decode else None)
         hs, news = _ssm_body(cfg, impl, list(lps), hs, olds, actives)
-        for st, new in zip(states, news):
+        for st, new in ranked(zip(states, news)):
             for k, v in new.items():
                 st[k][i] = v
     return hs
@@ -555,7 +574,7 @@ def _ssm_body(cfg, impl, lps: List[Params], hs, states=None, actives=None):
     (the residual streams plus the block's output, each rank's decode
     state).  Decode: returns (the streams, each rank's new state); rows
     with ``active=False`` keep their state bit for bit."""
-    xs = [L.apply_norm(cfg, lp["norm"], h) for lp, h in zip(lps, hs)]
+    xs = [L.apply_norm(cfg, lp["norm"], h) for lp, h in ranked(zip(lps, hs))]
     ps = [lp["ssm"] for lp in lps]
     if states is None:
         parts, news = S.ssm_partials(ps, cfg, xs, impl=impl)
@@ -565,7 +584,7 @@ def _ssm_body(cfg, impl, lps: List[Params], hs, states=None, actives=None):
         news = [{k: torch.where(act.reshape((-1,) + (1,) * (v.ndim - 1)), v,
                                 old[k])
                  for k, v in new.items()}
-                for new, old, act in zip(news, states, actives)]
+                for new, old, act in ranked(zip(news, states, actives))]
     return _add_sum(hs, parts), news
 
 
@@ -586,7 +605,8 @@ KV_DTYPES = (None, "int8")
 
 def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
                mesh=None, kv_dtype: Optional[str] = None,
-               sliding_window: Optional[int] = None):
+               sliding_window: Optional[int] = None, kv_shard: str = "heads",
+               context=None):
     """Slot cache: per-slot lengths ``len`` (B,) int32, and for the dense
     family K/V buffers (n_layers, B, buf, KH, D), for the SSM family the
     recurrent states ``{"conv": (n_layers, B, CH, d_conv - 1), "ssm":
@@ -608,26 +628,62 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
     and, for the audio family, the cross K/V of its query heads, each
     with its own ``len``; an int8 cache holds each rank's KV heads' codes
     and its own copy of the per-token scales (sites, B, buf), which the
-    writes keep equal on every rank (module docstring)."""
+    writes keep equal on every rank (module docstring).
+
+    ``kv_shard`` (with ``mesh``; ``launch.partition.kv_layout``): "heads"
+    is the layout above; "seq" (or "auto" where the ranks do not divide
+    the KV heads) gives rank r every KV head over its rows ``[r0, r1)`` of
+    the buffer (``launch.partition.split_range``), the int8 scales with the
+    rows; a ring's position p lies at buffer row ``p % buf``, on the rank
+    whose range holds that row (``models.kv_split``).  "head_dim" gives
+    rank r dims ``[d0, d1)`` of every KV head's rows
+    (``launch.partition.split_range`` of ``head_dim``: whole dims, the
+    first ranks one more where the ranks do not divide it).  ``context=(D,
+    indices)``: the context-parallel cache, the head layout's KV heads
+    over D row ranges, of which each rank holds those of the data
+    ``indices`` (``layers.KVShards``).  The audio family's ``cross_kv``
+    keeps the head layout in both: its K/V are over the query heads."""
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
                          f"{kv_dtype!r}")
     if mesh is not None:
         ranks = P.tp_ranks(mesh)
         tp = len(ranks)
+        layout = P.kv_layout(cfg, tp, kv_shard)
         return [_rank_cache(P.local_config(cfg, tp, r), batch, max_len, d,
-                            dtype, kv_dtype, sliding_window, tp, r)
+                            dtype, kv_dtype, sliding_window, tp, r,
+                            rows=_rows(layout, context, tp, r),
+                            kv_heads=(cfg.n_kv_heads if layout != "heads"
+                                      else None),
+                            dims=(P.split_range(cfg.head_dim, tp, r)
+                                  if layout == "head_dim" else None))
                 for r, d in enumerate(ranks)]
+    if context is not None:
+        return _rank_cache(cfg, batch, max_len, device, dtype, kv_dtype,
+                           sliding_window, 1, rows=_rows("heads", context))
     _check_family(cfg)
     return _rank_cache(cfg, batch, max_len, device, dtype, kv_dtype,
                        sliding_window, 1)
 
 
+def _rows(layout: str, context, tp: int = 1, rank: int = 0):
+    """The row pieces a rank holds, as (piece, of how many) pairs: one of
+    ``tp`` in the sequence-sharded layout, its data indices of D in the
+    context-parallel one, None for the whole buffer."""
+    if context is not None:
+        n, idx = context
+        return [(i, n) for i in idx]
+    return [(rank, tp)] if layout == "seq" else None
+
+
 def _rank_cache(cfg, batch, max_len, device, dtype, kv_dtype, sliding_window,
-                tp: int, rank: int = 0) -> Cache:
+                tp: int, rank: int = 0, rows=None,
+                kv_heads: Optional[int] = None, dims=None) -> Cache:
     """The cache of rank ``rank`` of ``tp`` (:func:`init_cache`); ``cfg``
     is the rank's config, its SSM states over the rank's conv channels and
-    heads."""
+    heads.  ``rows``: the row pieces it holds (:func:`_rows`);
+    ``kv_heads``: every KV head (the sequence-sharded and head-dim
+    layouts); ``dims``: the head dims ``[d0, d1)`` it holds."""
     dtype = dtype or _dtype(cfg)
     cache: Cache = {"len": torch.zeros((batch,), dtype=torch.int32,
                                        device=device)}
@@ -651,17 +707,29 @@ def _rank_cache(cfg, batch, max_len, device, dtype, kv_dtype, sliding_window,
     ring = buf < max_len
     if cfg.family == "audio":
         buf, ring = min(max_len, cfg.max_position_embeddings), False
-    shape = (n_sites, batch, buf, cfg.n_kv_heads, cfg.head_dim)
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    if kv_dtype == "int8":
-        cache["kv"] = KVCache(zeros(shape, torch.int8), zeros(shape, torch.int8),
-                              ring, zeros(shape[:3], torch.float32),
-                              zeros(shape[:3], torch.float32))
+    def kv(row0: int, n: int) -> KVCache:
+        d0, d1 = dims or (0, cfg.head_dim)
+        shape = (n_sites, batch, n, kv_heads or cfg.n_kv_heads, d1 - d0)
+        where = dict(row0=row0, total=buf if rows or dims else 0, dim0=d0,
+                     dims=cfg.head_dim if dims else 0)
+        if kv_dtype == "int8":
+            return KVCache(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                           ring, zeros(shape[:3], torch.float32),
+                           zeros(shape[:3], torch.float32), **where)
+        return KVCache(zeros(shape, dtype), zeros(shape, dtype), ring,
+                       **where)
+
+    if rows is None:
+        cache["kv"] = kv(0, buf)
     else:
-        cache["kv"] = KVCache(zeros(shape, dtype), zeros(shape, dtype), ring)
+        pieces = [kv(r0, r1 - r0) for r0, r1 in
+                  (P.split_range(buf, n, i) for i, n in rows)]
+        cache["kv"] = pieces[0] if kv_heads is not None else L.KVShards(
+            pieces)
     if cfg.family == "audio":
         cross = (cfg.n_layers, batch, cfg.encoder.n_frames, cfg.n_heads,
                  cfg.head_dim)
@@ -670,18 +738,23 @@ def _rank_cache(cfg, batch, max_len, device, dtype, kv_dtype, sliding_window,
 
 
 def _write_prompts(kvcs: List[KVCache], i: int, ks: List[torch.Tensor],
-                   vs: List[torch.Tensor]) -> None:
+                   vs: List[torch.Tensor], ranges=None) -> None:
     """Write each rank's prompt K/V (B, S, KHr, D) into layer ``i`` of its
     cache, in place (:func:`_write_prompt`); an int8 cache takes their
     codes under the scales the ranks share (``layers.quantize_kv_shared``).
     The prompt's own attention read the fresh K/V, unquantized, as in the
-    reference."""
+    reference.  A cache whose rows the pod splits takes its rows where
+    their owners lie (``kv_split.write_prompts``; ``ranges``: each rank's
+    KV heads)."""
+    if kv_split.split(kvcs[0]):
+        kv_split.write_prompts(kvcs, i, ks, vs, ranges)
+        return
     if not kvcs[0].quantized:
-        for kvc, k, v in zip(kvcs, ks, vs):
+        for kvc, k, v in ranked(zip(kvcs, ks, vs)):
             _write_prompt(kvc, i, [(kvc.k, k), (kvc.v, v)])
         return
-    for kvc, (kq, ksc), (vq, vsc) in zip(kvcs, L.quantize_kv_shared(ks),
-                                         L.quantize_kv_shared(vs)):
+    for kvc, (kq, ksc), (vq, vsc) in ranked(zip(
+            kvcs, L.quantize_kv_shared(ks), L.quantize_kv_shared(vs))):
         _write_prompt(kvc, i, [(kvc.k, kq), (kvc.v, vq), (kvc.k_scale, ksc),
                                (kvc.v_scale, vsc)])
 
@@ -749,7 +822,8 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
             hs = _attn_prefill(cfg, lcfgs, lps, hs, cos_sins, caches, i,
                                attn_impl, moe_impl, mlp=False)
             crosses = []
-            for lp, lc, c, enc_out in zip(lps, lcfgs, caches, enc_outs):
+            for lp, lc, c, enc_out in ranked(zip(lps, lcfgs, caches,
+                                                 enc_outs)):
                 ck, cv = L.encode_cross_kv(lp["cross"], lc, enc_out)
                 c["cross_kv"].k[i].copy_(ck)
                 c["cross_kv"].v[i].copy_(cv)
@@ -821,7 +895,7 @@ def prefill_chunk(params: Params, cfg, batch: Dict, cache: Cache, *,
     for cc, st, v in zip(caches, starts, valids):
         cc["len"] = st + v
     hs = [h[torch.arange(b, device=h.device), (v - 1).long()][:, None, :]
-          for h, v in zip(hs, valids)]
+          for h, v in ranked(zip(hs, valids))]
     return _unembed(shards, cfg, hs), cache
 
 
@@ -851,7 +925,7 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
     hs = _embed(shards, cfg, tokens, ranks)
     if cfg.rope_type == "learned":
         hs = [h + learned_positions(p, cfg, cur)[:, None, :]
-              for p, h, cur in zip(shards, hs, curs)]
+              for p, h, cur in ranked(zip(shards, hs, curs))]
     if cfg.family != "ssm":
         cos_sins = [L.positional_cos_sin(cfg, cur[:, None]) for cur in curs]
     if cfg.family == "ssm":
@@ -932,7 +1006,7 @@ def _add_sum(hs: List[torch.Tensor], parts: List[torch.Tensor]):
     """The residual stream plus the sum of the ranks' partials."""
     if len(parts) == 1:
         return [hs[0] + parts[0]]
-    return [h + s for h, s in zip(hs, _all_reduce(parts))]
+    return [h + s for h, s in ranked(zip(hs, _all_reduce(parts)))]
 
 
 def _rank_cos_sins(cfg, pos: torch.Tensor, ranks):
@@ -957,7 +1031,7 @@ def _embed_batch(shards: List[Params], cfg, batch: Dict, ranks):
         pos = torch.arange(s, device=ranks[0])[None, :].expand(b, s)
     if cfg.rope_type == "learned":
         hs = [h + learned_positions(p, cfg, pos.to(h.device))
-              for p, h in zip(shards, hs)]
+              for p, h in ranked(zip(shards, hs))]
     return hs, pos
 
 
@@ -970,7 +1044,7 @@ def _embed(shards: List[Params], cfg, tokens: torch.Tensor, ranks):
     if len(shards) == 1:
         return [embed_tokens(shards[0], cfg, tokens.to(ranks[0]))]
     parts = []
-    for r, (p, d) in enumerate(zip(shards, ranks)):
+    for r, (p, d) in ranked(enumerate(zip(shards, ranks))):
         lo, hi = P.vocab_range(cfg, len(shards), r)
         ids = tokens.to(d).long().clamp(0, cfg.vocab_size - 1) - lo
         own = (ids >= 0) & (ids < hi - lo)
@@ -983,7 +1057,7 @@ def _unembed(shards: List[Params], cfg, hs: List[torch.Tensor]):
     """Final norm and logits; over several ranks each rank's vocab range
     (unequal where the ranks do not divide the vocab), concatenated in
     rank order on rank 0's device."""
-    outs = [unembed(p, cfg, h) for p, h in zip(shards, hs)]
+    outs = [unembed(p, cfg, h) for p, h in ranked(zip(shards, hs))]
     if len(outs) == 1:
         return outs[0]
     logits = torch.cat([o.to(outs[0].device) for o in outs], dim=-1)
@@ -1001,7 +1075,7 @@ def _attn_prefill(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
     (``aux``: :func:`_mlp`'s).  Returns the residual stream."""
     parts, ks, vs = [], [], []
     heads = _heads(cfg, lcfgs) or [None]
-    for lp, lc, h, cs, hd in zip(lps, lcfgs, hs, cos_sins, heads):
+    for lp, lc, h, cs, hd in ranked(zip(lps, lcfgs, hs, cos_sins, heads)):
         out, (k, v) = L.attention_block(
             lp["attn"], lc, L.apply_norm(cfg, lp["attn_norm"], h), cs,
             attn_impl=attn_impl, heads=hd)
@@ -1009,7 +1083,8 @@ def _attn_prefill(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
         ks.append(k)
         vs.append(v)
     if caches is not None:
-        _write_prompts([c["kv"] for c in caches], site, ks, vs)
+        _write_prompts([c["kv"] for c in caches], site, ks, vs,
+                       kv_split.kv_ranges(lcfgs, _heads(cfg, lcfgs) or [None]))
     hs = _add_sum(hs, parts)
     return _mlp(cfg, lcfgs, lps, hs, moe_impl, aux) if mlp else hs
 
@@ -1021,10 +1096,14 @@ def _attn_decode(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
     """One attention layer's decode step (or, with ``valid_lens``, one
     prefill chunk) on every rank over site ``site`` of the caches, then
     the MLP unless ``mlp`` is False.  Returns the residual stream."""
-    parts = L.attention_decode(
+    kvs = [c["kv"].layer(site) for c in caches]
+    fn = kv_split.attention_decode if kv_split.split(kvs[0]) else \
+        L.attention_decode
+    parts = fn(
         [lp["attn"] for lp in lps], lcfgs,
-        [L.apply_norm(cfg, lp["attn_norm"], h) for lp, h in zip(lps, hs)],
-        cos_sins, [c["kv"].layer(site) for c in caches], curs,
+        [L.apply_norm(cfg, lp["attn_norm"], h)
+         for lp, h in ranked(zip(lps, hs))],
+        cos_sins, kvs, curs,
         attn_impl=attn_impl, actives=acts, valid_lens=valid_lens,
         heads=_heads(cfg, lcfgs))
     hs = _add_sum(hs, parts)
@@ -1040,7 +1119,7 @@ def _cross_mlp(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
     hs = _add_sum(hs, [
         L.cross_attention_block(lp["cross"], lc,
                                 L.apply_norm(cfg, lp["cross_norm"], h), kv)
-        for lp, lc, h, kv in zip(lps, lcfgs, hs, crosses)])
+        for lp, lc, h, kv in ranked(zip(lps, lcfgs, hs, crosses))])
     return _mlp(cfg, lcfgs, lps, hs, moe_impl)
 
 
@@ -1053,8 +1132,9 @@ def _mlp(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
         kw = {} if aux is None else {"aux_out": aux}
         return _add_sum(hs, M.moe_partials(
             [lp["moe"] for lp in lps], lcfgs[0],
-            [L.apply_norm(cfg, lp["mlp_norm"], h) for lp, h in zip(lps, hs)],
+            [L.apply_norm(cfg, lp["mlp_norm"], h)
+             for lp, h in ranked(zip(lps, hs))],
             impl=moe_impl, **kw))
     return _add_sum(hs, [
         L.mlp_block(lp["mlp"], lc, L.apply_norm(cfg, lp["mlp_norm"], h))
-        for lp, lc, h in zip(lps, lcfgs, hs)])
+        for lp, lc, h in ranked(zip(lps, lcfgs, hs))])

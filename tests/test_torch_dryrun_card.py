@@ -98,7 +98,7 @@ def test_dry_run_counts_what_the_card_runs(kind):
     requires_card()
     cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
                               dtype="float32")
-    # 16 slots: a smaller decode batch is context-parallel, skipped
+    # 16 slots: a smaller decode batch is context-parallel
     shape = InputShape(f"{kind}_card", 64, 16 if kind == "decode" else 4,
                        kind)
     kv = "int8" if kind == "decode" else None
@@ -117,5 +117,7 @@ def test_dry_run_counts_what_the_card_runs(kind):
             else:
                 with torch.no_grad():
                     step(*inputs)
-        assert fc.get_total_flops() == rec["flops"] * tp
-        assert raw == rec["memory_analysis"]["argument_size_in_bytes"] * tp
+        # the pod's totals, and the busiest rank's at least the mean
+        assert fc.get_total_flops() == rec["cost_analysis"]["pod flops"]
+        assert raw == rec["memory_analysis"]["pod_argument_size_in_bytes"]
+        assert rec["flops"] * tp >= fc.get_total_flops()

@@ -323,3 +323,34 @@ def test_zero1_planted_faults_fail_the_gates(fault, monkeypatch):
                                   H.to_torch(H.batch(cfg, mask=False)))
     assert moment > ZERO1_MOMENT_RTOL
     assert param > ZERO1_PARAM_RTOL
+
+
+def test_zero3_step_equals_zero1_and_one_device():
+    """ZeRO-3 (``params_data_sharded``) at (2, 1): each data index holds
+    its ZeRO-1 slice of every leaf, gathered each step.  One step's
+    slices, gathered, equal the ZeRO-1 step's params bit for bit (the
+    same sums in the same order), its loss ZeRO-1's, and ZeRO-1's lie
+    within ``ZERO1_*_RTOL`` of one device's (``zero1_gaps``)."""
+    jcfg, cfg = fp32("dense")
+    _, params = H.params(jcfg)
+    mesh = cpu_mesh((2, 1), ("data", "model"))
+    halves = [H.to_torch(H.batch(cfg, seed=s)) for s in (1, 5)]
+    tb = {k: torch.cat([h[k] for h in halves]) for k in halves[0]}
+    pods = ST.shard_pods(params, cfg, mesh)
+    p1, _, m1 = ST.make_train_step(cfg, mesh=mesh, opt_cfg=ZERO1_OPT)(
+        pods, ST.zero1_init(pods, cfg, mesh), tb)
+    sliced = ST.zero3_shard(pods, cfg, mesh)
+    halved = [(a.numel(), b.numel()) for a, b in zip(leaves(sliced[0][0]),
+                                                       leaves(pods[0][0]))]
+    assert any(2 * a == b for a, b in halved)
+    p3, _, m3 = ST.make_train_step(cfg, mesh=mesh, opt_cfg=ZERO1_OPT,
+                                   params_data_sharded=True)(
+        sliced, ST.zero1_init(pods, cfg, mesh), tb)
+    assert float(m3["loss"]) == float(m1["loss"])
+    for got, want in zip(ST.zero3_gather(p3, cfg, mesh), p1):
+        for g, w in zip(got, want):
+            assert all(torch.equal(a, b) for a, b in zip(leaves(g),
+                                                          leaves(w)))
+    moment, param, (l1, l2) = zero1_gaps(cfg, params, mesh, tb)
+    assert abs(l1 - l2) <= 1e-5
+    assert moment <= ZERO1_MOMENT_RTOL and param <= ZERO1_PARAM_RTOL

@@ -148,12 +148,18 @@ def _kernel_inputs(name):
     if name == "flash_decode_sharded":
         return ([q1[:, :, :2], q1[:, :, 2:]], [k[:, :, :1], k[:, :, 1:]],
                 [v[:, :, :1], v[:, :, 1:]]), lens
+    if name == "flash_decode_partials":  # a rank's rows [4, 12) of 16
+        return (q1, k, v), dict(lens, row0=4)
+    if name == "flash_decode_combine":
+        return (rand(1, 4, 3, 16), rand(1, 4, 3, 2).abs()), {}
     if name.startswith("flash_decode_int8"):
         codes = torch.randint(-127, 128, (1, 8, 2, 16), generator=g,
                               dtype=torch.int8)
         args = (q1, codes, codes.clone(), rand(1, 8), rand(1, 8))
         if name == "flash_decode_int8":
             return args, lens
+        if name == "flash_decode_int8_partials":
+            return args, dict(lens, row0=4)
         # two ranks, one KV head each, sharing the scales
         return ([q1[:, :, :2], q1[:, :, 2:]], [codes[:, :, :1].contiguous(),
                 codes[:, :, 1:].contiguous()], [codes[:, :, :1].clone(),
@@ -191,9 +197,9 @@ def test_loss_through_kernels_refuses_grad_and_mesh():
     with torch.no_grad():
         got, _ = loss_fn(tp, r["cfg"], b, attn_impl="kernel")
     assert abs(got.item() - r["loss"]) <= H.LOSS_RTOL * r["loss"]
-    # under a mesh (ROADMAP.md queue 1, item 8.5's training part, landed)
-    # the loss is the reference's; what stays refused is ZeRO-3, which
-    # the dry run skips naming item 8.5
+    # under a mesh (ROADMAP.md queue 1, item 8.5, landed) the loss is the
+    # reference's, and the dry run lays ZeRO-3 out too: its parameter
+    # slices gather back into the pod's leaves
     mesh = make_mesh((2,), ("model",), devices=["cpu"] * 2)
     pod, _ = loss_fn(shard_params(r["tp"], r["cfg"], mesh), r["cfg"], b,
                      mesh=mesh)
@@ -201,9 +207,16 @@ def test_loss_through_kernels_refuses_grad_and_mesh():
     assert forward(shard_params(r["tp"], r["cfg"], mesh), r["cfg"], b,
                    mesh=mesh)[0].shape == forward(r["tp"], r["cfg"],
                                                    b)[0].shape
-    reason = dryrun.skip_reason(get_config("yi-6b"), S.SHAPES["train_4k"],
-                                mesh, params_data_sharded=True)
-    assert "ZeRO-3" in reason and "item 8.5" in reason
+    assert dryrun.skip_reason(get_config("yi-6b"), S.SHAPES["train_4k"],
+                              mesh, params_data_sharded=True) is None
+    grid = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    pods = steps.shard_pods(r["tp"], r["cfg"], grid)
+    back = steps.zero3_gather(steps.zero3_shard(pods, r["cfg"], grid),
+                              r["cfg"], grid)
+    for got, want in zip(back, pods):
+        for g, w in zip(got, want):
+            assert all(torch.equal(a, b) for a, b in zip(leaves(g),
+                                                          leaves(w)))
 
 
 def test_abstract_opt_state_is_fp32_on_meta():

@@ -500,12 +500,20 @@ def test_plain_segments_of_one_shard_are_the_unsplit_read():
 # --------------------------------------------------------------------------- #
 
 
-def test_dry_run_lays_out_every_production_mesh_and_counts_an_uneven_pod():
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_dry_run_lays_out_every_production_mesh_and_counts_an_uneven_pod(
+        kind):
     """No arch x shape x production mesh is skipped for a layout the ranks
     do not divide (ROADMAP.md queue 1, item 8.4, landed); the skips left
-    name item 8.5 or long_500k.  A tiny uneven pod's record (6 / 2 heads,
-    ``d_ff`` 250 and vocab 509 at mesh (1, 4), one prefill) counts the
-    flops of the same program run on the CPU, exactly."""
+    are long_500k's.  A tiny uneven pod's record (6 / 2 heads, ``d_ff``
+    250 and vocab 509 at mesh (1, 4)) counts the pod's flops of the same
+    program run on the CPU, exactly, and reports its busiest rank: rank r
+    computes what a one-rank trace of ``partition.local_config(cfg, 4,
+    r)`` computes, less the logits of the vocab rows it does not hold
+    (its config's vocab is whole), and the busiest is rank 1, whose heads
+    [2, 4) cut KV head 0's group and so project two KV heads where rank 0
+    projects one (the ROADMAP's section 3 fault 1, fixed: the record
+    was the pod's mean)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     for multi in (False, True):
@@ -513,18 +521,31 @@ def test_dry_run_lays_out_every_production_mesh_and_counts_an_uneven_pod():
         for arch in list_archs():
             for shape in S.SHAPES.values():
                 why = dryrun.skip_reason(get_config(arch), shape, mesh)
-                assert why is None or "item 8.4" not in why, (arch, why)
+                assert why is None or why.startswith("long_500k"), (arch,
+                                                                     why)
     _, cfg, _, _ = _setup("dense")
-    shape = S.InputShape("prefill_32k", 16, 2, "prefill")
-    rec = dryrun.lower_one("qwen2-1.5b", "prefill_32k", False,
-                           cfg_override=cfg, mesh_shape=(1, TP),
-                           input_shape=shape)
+    shape = S.InputShape(f"{kind}_32k", 16, 16, kind)
+    kw = dict(input_shape=shape, kv_shard="heads")
+    rec = dryrun.lower_one("qwen2-1.5b", shape.name, False,
+                           cfg_override=cfg, mesh_shape=(1, TP), **kw)
     assert rec["status"] == "ok", rec
     step, inputs, tp = dryrun.rank_program(
         cfg, shape, make_mesh((1, TP), ("data", "model"),
-                              devices=["cpu"] * TP))
+                              devices=["cpu"] * TP), kv_shard="heads")
     with torch.no_grad(), FlopCounterMode(display=False) as fc:
         step(*inputs)
-    assert tp == TP and fc.get_total_flops() == rec["flops"] * TP
+    assert tp == TP and fc.get_total_flops() == rec["cost_analysis"][
+        "pod flops"]
     assert sum(dryrun._storages(inputs).values()) == (
-        rec["memory_analysis"]["argument_size_in_bytes"] * TP)
+        rec["memory_analysis"]["pod_argument_size_in_bytes"])
+    ranks = []
+    for r in range(TP):
+        one = dryrun.lower_one("qwen2-1.5b", shape.name, False,
+                               cfg_override=P.local_config(cfg, TP, r),
+                               mesh_shape=(1, 1), **kw)
+        lo, hi = P.vocab_range(cfg, TP, r)
+        ranks.append(one["flops"] - 2 * shape.global_batch * cfg.d_model
+                     * (cfg.vocab_size - (hi - lo)))
+    assert sum(ranks) == rec["cost_analysis"]["pod flops"]
+    assert rec["flops"] == max(ranks) == ranks[1] > ranks[0]
+    assert rec["flops"] * TP > rec["cost_analysis"]["pod flops"]
