@@ -330,6 +330,24 @@ Phases (any failure raises and exits non-zero):
      (bf16 and int8); the context-parallel decode at (2, 1) over a linear
      cache and long_500k's ring in fp32 against one device; the dry run
      of the sequence-sharded serve step against the card.
+ 19. the expert-parallel MoE scheme, whisper's split cross K/V and the
+     examples (:func:`expert_phase`): (a) qwen2-moe-a2.7b as a TP=4 pod
+     under ``moe_scheme="expert"`` (15 whole experts a rank): fp32 at 2
+     layers against one device within ``POD_LOGIT_TOL`` (1e-3), which a
+     planted expert range (rank 1's shifted by one) must fail; at full
+     width and 24 layers in bf16 one device, then the expert pod and the
+     tensor-scheme pod from the same weights through ``make_prefill_step``
+     and 8 ``make_serve_step`` steps over 4 x 512, fed one device's
+     tokens, the expert pod with launch counts; (b) the dry run of
+     ``serve 16 x 512 int8`` at (1, 4) under the expert scheme against
+     the card (``dry_vs_card``); (c) whisper-large-v3 at (1, 2) under
+     ``kv_shard="seq"``, its cross K/V split by frames: fp32 at 2 + 2
+     layers within ``AU_SEQ_TOL_FP32`` of one device, which a planted
+     frame offset must fail, and at full width with launch counts; (d)
+     ``repro_torch.examples.quickstart`` and ``serve_isrtf --jobs 8`` on
+     the card, every request to its token budget.  Phase 3's rows tagged
+     ``qwen2-moe-a2.7b expert TP=4`` hold the decode and prefill kernels
+     at a rank's 4/4 heads.
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -922,6 +940,9 @@ def check_kernels(timed: bool = True):
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # phase 19's rows draw from their own stream, so that every earlier
+    # row keeps the inputs it had before they were added
+    gen19 = torch.Generator(device="cuda").manual_seed(SEED + 19)
     rows = {"flash_decode": [], "flash_attention": [], "ssd_scan": [],
             "flash_decode_sharded": [], "flash_decode_int8": [],
             "flash_decode_int8_sharded": []}
@@ -996,16 +1017,34 @@ def check_kernels(timed: bool = True):
         if sharded:
             check_sharded(record, q, k, v, kv_len, q_off, dn, es, iters)
 
-    def prefill_row(B, S, widths, window, arch="", tp=1):
+    def prefill_inputs(B, S, widths, tp, dt, g):
+        """q, k, v (B, S, heads, D) of one rank of a ``tp``-way pod of
+        ``widths``, drawn from ``g``."""
+        h, kh, d = widths[0] // tp, widths[1] // tp, widths[2]
+        q = torch.randn((B, S, h, d), generator=g, device="cuda", dtype=dt)
+        k, v = (torch.randn((B, S, kh, d), generator=g, device="cuda",
+                            dtype=dt) for _ in range(2))
+        return q, k, v
+
+    def shared_stream(state):
+        """A stream at ``state`` advanced past phase 19's bf16 draws (its
+        decode and prefill rows'): the stream the next row would read had
+        those rows drawn from ``gen``, as they once did."""
+        g = torch.Generator(device="cuda")
+        g.set_state(state)
+        decode_case(4, torch.bfloat16, g, MOE_TP_SHAPES[0][1])
+        prefill_inputs(EXPERT_SLOTS, EXPERT_PROMPT, MOE_TP_SHAPES[0][1],
+                       EXPERT_TP, torch.bfloat16, g)
+        return g
+
+    def prefill_row(B, S, widths, window, arch="", tp=1, g=None):
         """``flash_attention`` (causal) at B x S and ``widths`` (heads, KV
         heads, head dim) against its plain version, with ``sdpa``; with
         ``tp`` > 1, at one rank's share of a ``tp``-way pod's heads, and
-        ``sdpa`` also timed over the unsplit heads (``unsplit_ms``)."""
-        h, kh, d = widths[0] // tp, widths[1] // tp, widths[2]
-        q = torch.randn((B, S, h, d), generator=gen, device="cuda",
-                        dtype=dtype)
-        k, v = (torch.randn((B, S, kh, d), generator=gen, device="cuda",
-                            dtype=dtype) for _ in range(2))
+        ``sdpa`` also timed over the unsplit heads (``unsplit_ms``).
+        ``g``: the random stream (default ``gen``)."""
+        q, k, v = prefill_inputs(B, S, widths, tp, dtype, g or gen)
+        h, kh, d = q.shape[2], k.shape[2], q.shape[3]
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         i = torch.arange(S, device="cuda")
         m = (i[None] <= i[:, None]) & (i[None] > i[:, None] - (window or S))
@@ -1071,11 +1110,22 @@ def check_kernels(timed: bool = True):
                       tps=(TP,), arch=AU_TP_TAG)
         # phase 17's uneven pods: llama3.2-3b's ranks at TP=3, which cut
         # GQA groups, and whisper's at TP=4
+        state = gen.get_state()
         check_sharded(record, *decode_case(4, dtype, gen, LL_WIDTHS), dn, es,
                       200, tps=(UNEVEN_TP,), arch=UNEVEN_TAG)
+        if dtype == torch.float32:
+            # a second fp32 case of the cut segments, on which they once
+            # differed from the single-device kernel in the last bits
+            check_sharded(record, *decode_case(4, dtype, shared_stream(
+                state), LL_WIDTHS), dn, es, 200, tps=(UNEVEN_TP,),
+                arch=UNEVEN_TAG + ", second case")
         check_sharded(record, *decode_case(4, dtype, gen, AU_WIDTHS,
                                            AU_ROWS), dn, es, 200,
                       tps=(AU_UNEVEN_TP,), arch=AU_UNEVEN_TAG)
+        # phase 19's expert pod: a rank's 4/4 heads of qwen2-moe at TP=4
+        check_sharded(record, *decode_case(4, dtype, gen19,
+                                           MOE_TP_SHAPES[0][1]),
+                      dn, es, 200, tps=(EXPERT_TP,), arch=EXPERT_TAG)
         torch.cuda.empty_cache()
         check_int8(record, gen, dtype)
         check_int8_sharded(record, gen, dtype)
@@ -1112,6 +1162,9 @@ def check_kernels(timed: bool = True):
                           MAX_LEN, UNEVEN_TAG)
         prefill_row(STEP_SLOTS, STEP_PROMPT, AU_WIDTHS, None, AU_UNEVEN_TAG,
                     tp=AU_UNEVEN_TP)
+        # and phase 19's expert pod: a rank of qwen2-moe at TP=4
+        prefill_row(EXPERT_SLOTS, EXPERT_PROMPT, MOE_TP_SHAPES[0][1], None,
+                    EXPERT_TAG, tp=EXPERT_TP, g=gen19)
         # phase 14's evaluation forward: qwen2-1.5b's training batch
         prefill_row(TRAIN_B, TRAIN_S, (HEADS, KV_HEADS, HEAD_DIM), None,
                     TRAIN_TAG)
@@ -1129,8 +1182,8 @@ def check_kernels(timed: bool = True):
                          f"window={r['window']} n_split={r['n_split']} "
                          f"{r['heads']} heads per rank x {r['tp']} ranks on "
                          f"one card ({r['segments']} launches), bitwise == "
-                         f"single-device kernel: {r['bitwise']}; per call, "
-                         "all shards")
+                         f"single-device kernel: {r['bitwise']} (max gap "
+                         f"{r['kernel_gap']:.3e}); per call, all shards")
             elif name == "flash_decode":
                 shape = (f"B={r['B']} L={r['L']} kv_len={r['kv_len']} "
                          f"window={r['window']} n_split={r['n_split']}")
@@ -1393,10 +1446,12 @@ def check_sharded(record, q, k, v, kv_len, q_off, dn, es, iters,
         qs = [q[:, :, a:b].contiguous() for a, b in qr]
         ks, vs = ([x[:, :, lo:hi].contiguous() for lo, hi in ranges]
                   for x in (k, v))
-        bitwise = bool(torch.equal(
-            torch.cat(ops.flash_decode_sharded(qs, ks, vs, **kw, **at),
-                      dim=2),
-            ops.flash_decode(q, k, v, **kw)))
+        stitched = torch.cat(ops.flash_decode_sharded(qs, ks, vs, **kw, **at),
+                             dim=2)
+        single = ops.flash_decode(q, k, v, **kw)
+        bitwise = bool(torch.equal(stitched, single))
+        kernel_gap = float((stitched.float() - single.float()).abs().max())
+        del stitched, single
         kv_read = sum(hi - lo for lo, hi in ranges)
         n_launch = sum(map(len, segs))
         bytes_moved = (2 * q.numel() * es + 8 * q.shape[0] * n_launch
@@ -1406,8 +1461,8 @@ def check_sharded(record, q, k, v, kv_len, q_off, dn, es, iters,
             dtype=dn, B=q.shape[0], L=L, kv_len=kv_len.tolist(), tp=tp,
             heads=shard_heads(qr, ranges), D=d, window=window, arch=arch,
             n_split=ops.decode_plan(q.shape[0], L, q.device)[0],
-            segments=n_launch, bitwise=bitwise, bound_ms=b_ms,
-            bound_by=b_by),
+            segments=n_launch, bitwise=bitwise, kernel_gap=kernel_gap,
+            bound_ms=b_ms, bound_by=b_by),
             lambda: torch.cat(ops.flash_decode_sharded(qs, ks, vs, **kw,
                                                        **at), dim=2),
             lambda: torch.cat(ref.flash_decode_sharded(
@@ -3475,6 +3530,109 @@ def build_report() -> None:
             short = re.sub(r"\(anonymous namespace\)::", "",
                            demangled.get(entry, entry)).split("(")[0]
             log(f"[build] {name}: {short}: {line}")
+
+
+#: the decode kernel's denominator update as the compiler was left to
+#: round it (fused in some group-size instances, not in others)
+UNPINNED_L = (r"l\[h\] = __fmaf_rn\(l\[h\], alpha, p\);",
+              "l[h] = l[h] * alpha + p;")
+
+
+def rounding_scan(n: int) -> dict:
+    """The decode kernel's cut GQA segments against one device in fp32,
+    built as it is and from a copy of ``csrc`` whose denominator update
+    the compiler may fuse or not (``UNPINNED_L``): over ``n`` draws of
+    llama3.2-3b's TP=3 ranks (7 segment launches) and ``n // 6`` of
+    qwen2-1.5b's TP=16 (one head a rank), how many differ from the
+    single-device kernel and by how much (bf16 too), and the single-device
+    decode's time at the served shape and decode_32k's 8 x 32768 (bf16,
+    fp32, int8), each version timed twice, in the order as built,
+    unpinned, unpinned, as built."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import build, ops
+    from repro_torch.models.layers import quantize_kv
+
+    saved = build.CSRC, build.BUILD_DIR
+    work = Path(tempfile.mkdtemp(prefix="rounding-scan-"))
+    shutil.copytree(build.CSRC, work / "csrc")
+    path = work / "csrc" / "decode_attention.cu"
+    text, k = re.subn(*UNPINNED_L, path.read_text())
+    if k != 1:
+        raise AssertionError("rounding scan: the denominator update not found")
+    path.write_text(text)
+    versions = {"as built": saved, "unpinned": (work / "csrc",
+                                                work / "build")}
+
+    def use(name):
+        build.CSRC, build.BUILD_DIR = versions[name]
+        build._loaded.clear()
+
+    def scan(dtype, draws, widths, tp, seed0):
+        qr, ranges, _, at = rank_shards(
+            SimpleNamespace(n_heads=widths[0], n_kv_heads=widths[1]), tp)
+        differ, gap = 0, 0.0
+        for i in range(draws):
+            g = torch.Generator(device="cuda").manual_seed(seed0 + i)
+            q, kk, v, kv_len, q_off = decode_case(4, dtype, g, widths)
+            kw = dict(kv_len=kv_len, q_offset=q_off)
+            qs = [q[:, :, a:b].contiguous() for a, b in qr]
+            ks, vs = ([x[:, :, lo:hi].contiguous() for lo, hi in ranges]
+                      for x in (kk, v))
+            d = float((torch.cat(ops.flash_decode_sharded(
+                qs, ks, vs, **kw, **at), dim=2).float()
+                - ops.flash_decode(q, kk, v, **kw).float()).abs().max())
+            differ += d > 0
+            gap = max(gap, d)
+        return {"differ": differ, "of": draws, "max_gap": gap}
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = {f"{dn} B=4 L={MAX_LEN}": decode_case(4, dt, gen)
+             for dn, dt in (("bf16", torch.bfloat16),
+                            ("fp32", torch.float32))}
+    cases.update({f"{dn} B={LONG_B} L={LONG_L}": long_decode_case(dt, gen)
+                  for dn, dt in (("bf16", torch.bfloat16),
+                                 ("fp32", torch.float32))})
+    q, kk, v, kv_len, q_off = cases[f"bf16 B={LONG_B} L={LONG_L}"]
+    (kq, ksc), (vq, vsc) = quantize_kv(kk), quantize_kv(v)
+    out = {}
+    try:
+        use("unpinned")
+        t0 = time.perf_counter()
+        build.build_all(("decode_attention",))
+        log(f"[rounding] the unpinned decode kernel built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name in ("as built", "unpinned", "unpinned", "as built"):
+            use(name)
+            r = out.setdefault(name, {"ms": {}})
+            if "fp32 llama3.2-3b TP=3" not in r:
+                r["fp32 llama3.2-3b TP=3"] = scan(torch.float32, n,
+                                                  LL_WIDTHS, UNEVEN_TP, 1000)
+                r["fp32 qwen2-1.5b TP=16"] = scan(
+                    torch.float32, n // 6, (HEADS, KV_HEADS, HEAD_DIM), 16,
+                    7000)
+                r["bf16 llama3.2-3b TP=3"] = scan(torch.bfloat16, n // 3,
+                                                  LL_WIDTHS, UNEVEN_TP, 5000)
+            for c, (cq, ck, cv, cl, co) in cases.items():
+                r["ms"].setdefault(c, []).append(cuda_ms(
+                    lambda: ops.flash_decode(cq, ck, cv, kv_len=cl,
+                                             q_offset=co), 100))
+            r["ms"].setdefault(f"int8 B={LONG_B} L={LONG_L}", []).append(
+                cuda_ms(lambda: ops.flash_decode_int8(
+                    q, kq, vq, ksc, vsc, kv_len=kv_len, q_offset=q_off),
+                    100))
+    finally:
+        build.CSRC, build.BUILD_DIR = saved
+        build._loaded.clear()
+        shutil.rmtree(work, ignore_errors=True)
+    for name, r in out.items():
+        log(f"[rounding] {name}: " + json.dumps(r))
+    if out["as built"]["fp32 llama3.2-3b TP=3"]["differ"]:
+        raise AssertionError(f"the cut segments differ from one device: "
+                             f"{out['as built']}")
+    return out
 
 
 def window_bench(cfg, params, n: int) -> None:
@@ -5897,8 +6055,10 @@ def round_block(nbytes: int) -> int:
     return max(-(-nbytes // 512) * 512, 512) if nbytes else 0
 
 
-def dry_vs_card(cfg, shape, mesh_shape, kv_dtype, kv_shard="auto") -> list:
-    """Phase 16 (b), one case (phase 18 (c) with ``kv_shard="seq"``): the
+def dry_vs_card(cfg, shape, mesh_shape, kv_dtype, kv_shard="auto",
+                moe_scheme="tensor") -> list:
+    """Phase 16 (b), one case (phase 18 (c) with ``kv_shard="seq"``,
+    phase 19 (b) with ``moe_scheme="expert"``): the
     dry run's record on the meta device against the same rank program on
     the card (``dryrun.rank_program``): the pod's flops (``pod flops``)
     against ``FlopCounterMode`` over the card's step (exact), and the
@@ -5918,10 +6078,11 @@ def dry_vs_card(cfg, shape, mesh_shape, kv_dtype, kv_shard="auto") -> list:
     tag = f"{shape.name} {shape.global_batch}x{shape.seq_len} {mesh_shape}"
     rec = dryrun.lower_one(cfg.arch_id, shape.name, False, input_shape=shape,
                            cfg_override=cfg, mesh_shape=mesh_shape,
-                           kv_dtype=kv_dtype, kv_shard=kv_shard)
+                           kv_dtype=kv_dtype, kv_shard=kv_shard,
+                           moe_scheme=moe_scheme)
     if rec["status"] != "ok":
         return [f"dry run {tag}: {rec}"]
-    tag += f" kv_shard={rec['kv_shard']}"
+    tag += f" kv_shard={rec['kv_shard']} moe_scheme={moe_scheme}"
     mesh = make_mesh(mesh_shape, ("data", "model"),
                      devices=[DEVICE] * mesh_shape[0] * mesh_shape[1])
     gc.collect()
@@ -5930,7 +6091,8 @@ def dry_vs_card(cfg, shape, mesh_shape, kv_dtype, kv_shard="auto") -> list:
     base = torch.cuda.memory_allocated()
     step, inputs, tp = dryrun.rank_program(cfg, shape, mesh,
                                            kv_dtype=kv_dtype,
-                                           kv_shard=kv_shard)
+                                           kv_shard=kv_shard,
+                                           moe_scheme=moe_scheme)
     synchronize_all()
     held = torch.cuda.memory_allocated() - base
     sizes = dryrun._storages(inputs).values()
@@ -6830,6 +6992,412 @@ def seq_kernel_json(rows: dict, launches: dict) -> list:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# Phase 19: the expert-parallel MoE scheme, whisper's split cross K/V, the
+# examples
+# --------------------------------------------------------------------------- #
+
+#: (a): qwen2-moe-a2.7b's expert-parallel pod, ``EXPERT_TP`` ranks of 15
+#: whole experts on one card, bf16 at full width and depth: a prefill of
+#: ``EXPERT_SLOTS`` prompts of ``EXPERT_PROMPT`` tokens through
+#: ``make_prefill_step``, then ``EXPERT_STEPS`` ``make_serve_step`` steps
+#: over a ``EXPERT_SLOTS`` x ``MAX_LEN`` cache, fed one device's tokens
+EXPERT_ARCH, EXPERT_TP = "qwen2-moe-a2.7b", 4
+EXPERT_SLOTS, EXPERT_PROMPT, EXPERT_STEPS = 4, 64, 8
+EXPERT_TAG = f"{EXPERT_ARCH} expert TP={EXPERT_TP}"
+#: (a)'s fp32 parity pod at ``EXPERT_PARITY_DEPTH`` layers against one
+#: device, within ``POD_LOGIT_TOL`` fp32 (1e-3: each rank's partial rounds
+#: once before the ranks add); the planted fault (rank 1's expert range
+#: shifted by one) must break it
+EXPERT_PARITY_DEPTH = 2
+#: (c): whisper-large-v3 at (1, ``AU_SEQ_TP``) under ``kv_shard="seq"``
+#: (its cross K/V 750 of 1500 frames a rank), ``AU_SEQ_STEPS`` decode
+#: steps after prompts of ``STEP_PROMPT`` over ``STEP_SLOTS`` slots; in
+#: fp32 at 2 + 2 layers within ``AU_SEQ_TOL_FP32`` of one device (the
+#: ranks' partial states merge in another order than one softmax sums:
+#: the CPU reads 1e-7 to 1e-6), the planted frame offset (rank 1's
+#: frames one earlier) outside it
+AU_SEQ_TP, AU_SEQ_STEPS = 2, 4
+AU_SEQ_TOL_FP32 = 1e-5
+#: (d): the examples run on the card, each request to its own budget
+EXAMPLE_JOBS = 8
+
+
+def expert_rows(cfg, params, mesh, prompts, forced=None):
+    """(a)'s run of one device (``mesh`` None) or a pod (``params`` its
+    rank trees, under the scheme they were laid out by):
+    the prefill logits through ``make_prefill_step`` and ``EXPERT_STEPS``
+    tokens of ``make_serve_step``, each step fed ``forced[:, i]`` when it
+    is given, else its own last token.  Returns (prefill logits in fp32,
+    the tokens (B, 1 + EXPERT_STEPS): the prefill's and each step's)."""
+    import torch
+
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+
+    kw = {} if mesh is None else dict(mesh=mesh)
+    cache = (T.init_cache(cfg, EXPERT_SLOTS, MAX_LEN, DEVICE) if mesh is None
+             else T.init_cache(cfg, EXPERT_SLOTS, MAX_LEN, mesh=mesh))
+    logits, cache = ST.make_prefill_step(cfg, **kw)(
+        params, {"tokens": prompts, "cache": cache})
+    toks = [logits[:, -1].argmax(-1).to(torch.int32)]
+    serve = ST.make_serve_step(cfg, **kw)
+    for i in range(EXPERT_STEPS):
+        fed = toks[-1] if forced is None else forced[:, i]
+        tok, cache = serve(params, fed[:, None], cache)
+        toks.append(tok.to(toks[0].device))
+    synchronize_all()
+    return logits[:, -1].float(), torch.stack(toks, 1)
+
+
+def expert_parity(cfg, prompts) -> list:
+    """(a)'s fp32 gate: one device and the expert pod at
+    ``EXPERT_PARITY_DEPTH`` layers, prefill then ``EXPERT_STEPS`` decode
+    steps fed one device's tokens, the pod's logits within ``POD_LOGIT_TOL``
+    fp32 of one device's at every step; the planted fault (rank 1 computes
+    the routing of the experts one past its own, so it reads rank 2's
+    first expert with its own last expert's weights) outside it.
+    Returns failures."""
+    import torch
+
+    from repro_torch.launch import shard_params
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    cfg32, params32 = fp32_model(cfg, EXPERT_PARITY_DEPTH)
+    tol = POD_LOGIT_TOL["dense", "float32"]
+    mesh = tp_mesh(EXPERT_TP)
+
+    def run(params, m):
+        kw = {} if m is None else dict(mesh=m)
+        cache = (T.init_cache(cfg32, EXPERT_SLOTS, MAX_LEN, DEVICE)
+                 if m is None else T.init_cache(cfg32, EXPERT_SLOTS,
+                                                MAX_LEN, mesh=m))
+        lg, cache = T.prefill(params, cfg32, {"tokens": prompts}, cache,
+                              **kw)
+        out = [lg[:, -1].float()]
+        for i in range(EXPERT_STEPS):
+            lg, cache = T.decode_step(params, cfg32, fed[:, i:i + 1], cache,
+                                      **kw)
+            out.append(lg[:, -1].float())
+        return torch.stack(out, 1)
+
+    _, fed = expert_rows(cfg32, params32, None, prompts)
+    fed = fed[:, :EXPERT_STEPS]
+    one = run(params32, None)
+    shards = shard_params(params32, cfg32, mesh, moe_scheme="expert")
+    del params32
+    pod = run(shards, mesh)
+    rank_experts = M.rank_experts
+
+    def shifted(c, tp, rank):
+        e0, e1 = rank_experts(c, tp, rank)
+        return (e0 + 1, e1 + 1) if rank == 1 else (e0, e1)
+
+    M.rank_experts = shifted
+    try:
+        planted = run(shards, mesh)
+    finally:
+        M.rank_experts = rank_experts
+    gap = float((pod - one).abs().max())
+    gap_p = float((planted - one).abs().max())
+    log(f"[expert] {cfg.arch_id} fp32, {EXPERT_PARITY_DEPTH} layers, "
+        f"moe_scheme='expert' at (1, {EXPERT_TP}): prefill and "
+        f"{EXPERT_STEPS} decode steps fed one device's tokens, max |logit "
+        f"gap| {gap:.4e} (tol {tol}), max |logit| "
+        f"{float(one.abs().max()):.3f}; planted expert range + 1 on rank 1: "
+        f"{gap_p:.4e}, {'caught' if gap_p > tol else 'MISSED'}")
+    failures = []
+    if not gap <= tol:
+        failures.append(f"expert pod fp32 logit gap {gap:.4e} > {tol}")
+    if not gap_p > tol:
+        failures.append(f"the planted expert range passed the fp32 gate "
+                        f"({gap_p:.4e})")
+    return failures
+
+
+def expert_pod_phase(cfg) -> tuple:
+    """Phase 19 (a): qwen2-moe-a2.7b's expert-parallel pod at full width
+    and depth in bf16 (``EXPERT_TP`` ranks of 15 whole experts, all on one
+    card), after the fp32 gate (:func:`expert_parity`).  One device runs
+    first and is freed (one copy of the weights is 28.6 GB); the expert
+    pod and then the tensor-scheme pod run from the same weights, fed one
+    device's tokens, the expert pod with the launch counts reset before
+    and read after (``flash_attention`` layers x ranks a prefill,
+    ``flash_decode_sharded`` layers x ranks a step).  Reports the pods'
+    prefill logits against one device's and each other's, and the tokens
+    that agree.  Returns (launches, failures)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shard_params
+    from repro_torch.launch.partition import expert_range
+
+    prompts = torch.as_tensor(
+        [[t % cfg.vocab_size for t in (r.prompt_tokens * EXPERT_PROMPT)
+          [:EXPERT_PROMPT]] for r in make_requests(EXPERT_SLOTS, SEED)],
+        device=DEVICE)
+    failures = expert_parity(cfg, prompts)
+    gc.collect()
+    torch.cuda.empty_cache() if DEVICE != "cpu" else None
+    mesh = tp_mesh(EXPERT_TP)
+    params = random_params(cfg)
+    one_lg, one_tok = expert_rows(cfg, params, None, prompts)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache() if DEVICE != "cpu" else None
+    out, launches = {}, {}
+    for scheme in ("expert", "tensor"):
+        params = random_params(cfg)
+        shards = shard_params(params, cfg, mesh, moe_scheme=scheme)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache() if DEVICE != "cpu" else None
+        held = [r["layers"]["moe"]["w_up"].shape[1] for r in shards]
+        if scheme == "expert":
+            want = [expert_range(cfg, EXPERT_TP, r)[1]
+                    - expert_range(cfg, EXPERT_TP, r)[0]
+                    for r in range(EXPERT_TP)]
+            if held != want:
+                failures.append(f"expert shards hold {held} experts, want "
+                                f"{want}")
+            ops.reset_launches()
+        t0 = time.perf_counter()
+        out[scheme] = expert_rows(cfg, shards, mesh, prompts,
+                                  forced=one_tok)
+        wall = time.perf_counter() - t0
+        if scheme == "expert":
+            launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
+            n = cfg.n_layers
+            check_launches(launches, {
+                "flash_attention": (n * EXPERT_TP, f"{n} layers x "
+                                                   f"{EXPERT_TP} ranks x 1 "
+                                                   "prefill"),
+                "flash_decode_sharded": (
+                    n * EXPERT_TP * EXPERT_STEPS,
+                    f"{n} layers x {EXPERT_TP} ranks x {EXPERT_STEPS} "
+                    "steps")})
+        log(f"[expert] {cfg.arch_id} bf16, {cfg.n_layers} layers, "
+            f"moe_scheme={scheme!r} at (1, {EXPERT_TP}), experts a rank "
+            f"{held}: prefill of {EXPERT_SLOTS} x {EXPERT_PROMPT} and "
+            f"{EXPERT_STEPS} serve steps over {EXPERT_SLOTS} x {MAX_LEN} in "
+            f"{wall:.1f} s"
+            + (f"; launches flash_attention "
+               f"{launches['flash_attention']}, flash_decode_sharded "
+               f"{launches['flash_decode_sharded']}"
+               if scheme == "expert" else ""))
+        del shards
+        gc.collect()
+        torch.cuda.empty_cache() if DEVICE != "cpu" else None
+    (ex_lg, ex_tok), (tn_lg, tn_tok) = out["expert"], out["tensor"]
+    gaps = {"expert vs one device": float((ex_lg - one_lg).abs().max()),
+            "tensor vs one device": float((tn_lg - one_lg).abs().max()),
+            "expert vs tensor": float((ex_lg - tn_lg).abs().max())}
+    agree = {k: int((t == one_tok).sum()) for k, t in (("expert", ex_tok),
+                                                       ("tensor", tn_tok))}
+    finite = bool(torch.isfinite(ex_lg).all()) and bool(
+        ((ex_tok >= 0) & (ex_tok < cfg.vocab_size)).all())
+    log(f"[expert] bf16 prefill logits, max |gap|: "
+        + ", ".join(f"{k} {v:.4e}" for k, v in gaps.items())
+        + f" (max |logit| {float(one_lg.abs().max()):.3f}); tokens equal to "
+        f"one device's of {one_tok.numel()}: expert {agree['expert']}, "
+        f"tensor {agree['tensor']}; finite, in the vocabulary: {finite}")
+    if not finite:
+        failures.append("expert pod: logits not finite or a token outside "
+                        "the vocabulary")
+    return launches, failures
+
+
+def audio_seq_phase() -> tuple:
+    """Phase 19 (c): whisper-large-v3 at (1, ``AU_SEQ_TP``) under
+    ``kv_shard="seq"``: its self-attention cache split by rows and its
+    cross K/V by frames (750 of 1500 a rank).  fp32 at 2 + 2 layers: the
+    pod's prefill and ``AU_SEQ_STEPS`` decode logits, fed one device's
+    tokens, within ``AU_SEQ_TOL_FP32`` of one device's, and the planted
+    frame offset (rank 1's cross K/V written and read one frame early)
+    outside it.  Then bf16 at full width and depth (32 + 32 layers), one
+    device and the pod through the step functions, the pod's launch
+    counts reset before and read after (``flash_attention`` layers x
+    ranks, ``flash_decode_partials`` layers x ranks a step,
+    ``flash_decode_combine`` layers a step).  Returns (launches,
+    failures)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shard_params
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(AU_ARCH)
+    if DEVICE == "cpu":
+        cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16")
+    mesh = tp_mesh(AU_SEQ_TP)
+    failures = []
+
+    def run(c, params, m, batch, forced=None, plant=None, steps=True):
+        kw = {} if m is None else dict(mesh=m)
+        cache = (T.init_cache(c, STEP_SLOTS, AU_ROWS, DEVICE) if m is None
+                 else T.init_cache(c, STEP_SLOTS, AU_ROWS, mesh=m,
+                                   kv_shard="seq"))
+        if plant is not None:
+            plant(cache)
+        lg, cache = ST.make_prefill_step(c, **kw)(params,
+                                                  {**batch, "cache": cache})
+        out, toks = [lg[:, -1].float()], [lg[:, -1].argmax(-1)]
+        for i in range(AU_SEQ_STEPS):
+            fed = toks[-1] if forced is None else forced[:, i]
+            lg, cache = T.decode_step(params, c, fed[:, None].to(torch.int32),
+                                      cache, **kw)
+            out.append(lg[:, -1].float())
+            toks.append(lg[:, -1].argmax(-1))
+        synchronize_all()
+        return torch.stack(out, 1), torch.stack(toks, 1)
+
+    # fp32 at 2 + 2 layers, and the planted frame offset
+    cfg32 = dataclasses.replace(audio_depth(cfg, 2), dtype="float32")
+    params32 = T.init_params(cfg32, torch.Generator(device=DEVICE)
+                             .manual_seed(SEED + 1))
+    batch32 = audio_batch(cfg32, STEP_SLOTS, STEP_PROMPT, SEED + 3)
+    one, fed = run(cfg32, params32, None, batch32)
+    shards = shard_params(params32, cfg32, mesh)
+
+    def shift(cache):
+        cache[1]["cross_kv"].row0 -= 1
+
+    pod, _ = run(cfg32, shards, mesh, batch32, forced=fed)
+    planted, _ = run(cfg32, shards, mesh, batch32, forced=fed, plant=shift)
+    gap = float((pod - one).abs().max())
+    gap_p = float((planted - one).abs().max())
+    log(f"[audio-seq] {AU_ARCH} fp32, 2 + 2 layers, kv_shard='seq' at (1, "
+        f"{AU_SEQ_TP}) (cross K/V {cfg.encoder.n_frames // AU_SEQ_TP} "
+        f"frames a rank): prefill and {AU_SEQ_STEPS} steps fed one device's "
+        f"tokens, max |logit gap| {gap:.4e} (tol {AU_SEQ_TOL_FP32}), max "
+        f"|logit| {float(one.abs().max()):.3f}; planted frame offset - 1 on "
+        f"rank 1: {gap_p:.4e}, "
+        f"{'caught' if gap_p > AU_SEQ_TOL_FP32 else 'MISSED'}")
+    if not gap <= AU_SEQ_TOL_FP32:
+        failures.append(f"audio seq pod fp32 gap {gap:.4e}")
+    if not gap_p > AU_SEQ_TOL_FP32:
+        failures.append(f"the planted frame offset passed the fp32 gate "
+                        f"({gap_p:.4e})")
+    del params32, shards
+    gc.collect()
+    # bf16 at full width and depth: one device, then the pod
+    params = random_params(cfg)
+    batch = audio_batch(cfg, STEP_SLOTS, STEP_PROMPT, SEED + 3)
+    one, fed = run(cfg, params, None, batch)
+    shards = shard_params(params, cfg, mesh)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    pod, tok = run(cfg, shards, mesh, batch, forced=fed)
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
+    n = cfg.n_layers
+    check_launches(launches, {
+        "flash_attention": (n * AU_SEQ_TP, f"{n} layers x {AU_SEQ_TP} ranks "
+                                           "x 1 prefill"),
+        "flash_decode_partials": (n * AU_SEQ_TP * AU_SEQ_STEPS,
+                                  f"{n} layers x {AU_SEQ_TP} ranks x "
+                                  f"{AU_SEQ_STEPS} steps"),
+        "flash_decode_combine": (n * AU_SEQ_STEPS, f"{n} layers x "
+                                                   f"{AU_SEQ_STEPS} steps")})
+    gap = float((pod - one).abs().max())
+    finite = bool(torch.isfinite(pod).all())
+    agree = int((tok == fed).sum())
+    log(f"[audio-seq] {AU_ARCH} bf16, {cfg.encoder.n_layers} + {n} layers, "
+        f"(1, {AU_SEQ_TP}) kv_shard='seq' in {wall:.1f} s: launches "
+        f"flash_attention {launches['flash_attention']}, "
+        f"flash_decode_partials {launches['flash_decode_partials']}, "
+        f"flash_decode_combine {launches['flash_decode_combine']}; max "
+        f"|logit gap| from one device {gap:.4e} (bf16, reported), greedy "
+        f"tokens equal {agree} of {fed.numel()}; finite {finite}")
+    if not finite:
+        failures.append("audio seq pod: bf16 logits not finite")
+    del params, shards
+    gc.collect()
+    torch.cuda.empty_cache() if DEVICE != "cpu" else None
+    return launches, failures
+
+
+def examples_phase() -> tuple:
+    """Phase 19 (d): ``repro_torch.examples.quickstart`` and
+    ``serve_isrtf --jobs EXAMPLE_JOBS`` on the card, in-process, with the
+    launch counts reset before and read after: every request finishes
+    with its own token budget.  Returns (launches, failures)."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import quickstart, serve_isrtf
+    from repro_torch.kernels import ops
+
+    argv = [] if DEVICE != "cpu" else ["--device", "cpu"]
+    failures = []
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        quick = quickstart.main(argv)
+        served = serve_isrtf.main(argv + ["--jobs", str(EXAMPLE_JOBS)])
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
+    got = sorted(r.n_tokens for r in quick)
+    want = sorted(n for _, n in quickstart.PROMPTS)
+    if got != want or not all(r.ok for r in quick):
+        failures.append(f"quickstart: tokens {got}, want {want}")
+    want_j = sorted(r.true_output_len
+                    for r in serve_isrtf.make_requests(EXAMPLE_JOBS))
+    for policy, (_, responses) in served.items():
+        got_j = sorted(r.n_tokens for r in responses)
+        if got_j != want_j or not all(r.ok for r in responses):
+            failures.append(f"serve_isrtf {policy}: tokens {got_j}, want "
+                            f"{want_j}")
+    if DEVICE != "cpu" and not (launches["flash_attention"]
+                                and launches["flash_decode"]):
+        failures.append(f"the examples launched no kernel: {launches}")
+    lines = [ln for ln in text.getvalue().splitlines()
+             if "mean JCT" in ln or " vs fcfs" in ln]
+    log(f"[examples] quickstart and serve_isrtf --jobs {EXAMPLE_JOBS} in "
+        f"{wall:.1f} s: {len(quick)} + {EXAMPLE_JOBS} x 3 requests finished "
+        f"with their tokens: {not failures}; launches flash_attention "
+        f"{launches['flash_attention']}, flash_decode "
+        f"{launches['flash_decode']}; " + " | ".join(lines))
+    return launches, failures
+
+
+def expert_phase() -> dict:
+    """Phase 19: (a) the expert-parallel pod (:func:`expert_pod_phase`),
+    (b) the dry run of ``serve 16 x 512 int8`` at (1, ``EXPERT_TP``)
+    under ``moe_scheme="expert"`` against the card (:func:`dry_vs_card`),
+    (c) whisper's split cross K/V (:func:`audio_seq_phase`), (d) the
+    examples on the card (:func:`examples_phase`).  Returns each part's
+    launch counts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import InputShape
+
+    t_phase = time.perf_counter()
+    cfg = get_config(EXPERT_ARCH)
+    if DEVICE == "cpu":
+        cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16")
+    out = {}
+    out["expert"], failures = expert_pod_phase(cfg)
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+        serve = InputShape("serve_512", MAX_LEN, DRY_SERVE_B, "decode")
+        failures += dry_vs_card(cfg, serve, (1, EXPERT_TP), "int8",
+                                moe_scheme="expert")
+    out["audio-seq"], more = audio_seq_phase()
+    failures += more
+    out["examples"], more = examples_phase()
+    failures += more
+    log(f"[expert] phase 19 in {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("phase 19: " + "; ".join(failures))
+    return out
+
+
 def random_params(cfg):
     """``transformer.init_params`` on the card from ``SEED``."""
     import torch
@@ -6857,6 +7425,11 @@ def main(argv=None) -> None:
                     help="check the checks against these deliberate "
                          "kernel (or TP) faults instead of running the "
                          "smoke")
+    ap.add_argument("--rounding-scan", type=int, metavar="N",
+                    help="hold the decode kernel's cut GQA segments against "
+                         "one device over N fp32 draws, as built and with "
+                         "its denominator update left to the compiler, "
+                         "instead of running the smoke")
     ap.add_argument("--window-bench", type=int, metavar="N",
                     help="time N decode windows of the dense cell's engine "
                          "instead of running the smoke")
@@ -6880,6 +7453,11 @@ def main(argv=None) -> None:
               (get_config("mamba2-130m"),
                make_requests(12, SEED, max_prompt=400, vocab=50280))]
 
+    if args.rounding_scan:
+        build.build_all()
+        print(json.dumps(rounding_scan(args.rounding_scan)), flush=True)
+        print(smi, flush=True)
+        return
     if args.window_bench:
         build.build_all()
         window_bench(models[0][0], random_params(models[0][0]),
@@ -7058,6 +7636,11 @@ def main(argv=None) -> None:
     seq_rows = seq_kernel_rows()
     seq = seq_phase()
     lap("18 split caches")
+
+    # phase 19: the expert-parallel MoE scheme, whisper's split cross K/V,
+    # the examples on the card
+    expert = expert_phase()
+    lap("19 expert pods, audio seq, examples")
     log("[time] each phase, s: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}) + f"; in all "
         f"{sum(phase_s.values()):.1f} s after the imports")
@@ -7131,6 +7714,11 @@ def main(argv=None) -> None:
             + [(n, k, uneven[AU_UNEVEN_TAG], AU_UNEVEN_TAG) for n, k in (
                 ("flash_decode_sharded", dict(tp_row, tp=AU_UNEVEN_TP)),
                 ("flash_attention", au_rows["flash_attention"]))]
+            # the expert pod's ranks, with phase 19's launches
+            + [(n, k, expert["expert"], EXPERT_TAG) for n, k in (
+                ("flash_decode_sharded", dict(tp_row, tp=EXPERT_TP)),
+                ("flash_attention", dict(dtype="bfloat16", B=EXPERT_SLOTS,
+                                         S=EXPERT_PROMPT)))]
             # the training batch, with phase 14's evaluation forwards
             + [(n, dict(dtype="bfloat16", B=TRAIN_B, S=TRAIN_S),
                 trained[a]["launches"], TRAIN_TAG) for n, a in (

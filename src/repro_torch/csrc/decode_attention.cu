@@ -81,7 +81,11 @@
 //    l = sum l_s e_s, out = sum acc_s e_s / max(l, 1e-30), e_s =
 //    exp(m_s - M).  With one split the block writes the output itself, the
 //    same bits.  Every sum runs in an order fixed by the key partition
-//    alone, so a head's result does not depend on G;
+//    alone, so a head's result does not depend on G.  The denominator's
+//    update l = l * alpha + p is written as one fma: left to the
+//    compiler it was fused in some group-size instances and not in
+//    others, and an fp32 output then differed in its last bit between a
+//    rank's cut segment and one device (a bf16 output rounds it away);
 //  * the key loop's exponentials use the hardware's fast exp2 (__expf,
 //    within 2 + 1.16|x| ulp: ~1e-6 relative over the range a softmax
 //    weight that matters spans; expf costs several instructions more, and
@@ -413,7 +417,7 @@ decode_kernel(const T* __restrict__ q, const KV kv, const int* __restrict__ kv_l
       const float m_new = fmaxf(m[h], warp_max(sh));
       const float alpha = __expf(m[h] - m_new);
       const float p = valid ? __expf(sh - m_new) : 0.f;
-      l[h] = l[h] * alpha + p;
+      l[h] = __fmaf_rn(l[h], alpha, p);  // one rounding in every instance
 #pragma unroll
       for (int i = 0; i < PER; ++i) acc[h][i] *= alpha;
       m[h] = m_new;

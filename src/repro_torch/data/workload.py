@@ -550,3 +550,30 @@ def scale_workload_requests(w: ScaleWorkload) -> List[Request]:
             deadline=None if np.isinf(deadline) else deadline,
         ))
     return reqs
+
+
+# --------------------------------------------------------------------------- #
+# Fig-1 style similar/dissimilar sentence sets
+# --------------------------------------------------------------------------- #
+
+
+def similarity_probe_sets(n: int = 100, seed: int = 0):
+    """Two sentence sets and the tokenizer: one set on a single topic
+    (weather), one scattered across all other topics, as in the paper's
+    Fig. 1 experiment.  The draws are the reference's, in its order, so
+    the same seed gives the same sentences."""
+    rng = np.random.RandomState(seed)
+    tok = HashTokenizer()
+    weather = TOPICS["weather"]["words"]
+    others = [t for t in TOPICS if t != "weather"]
+
+    def sentence(words):
+        k = rng.randint(4, 9)
+        return " ".join(words[rng.randint(len(words))] for _ in range(k))
+
+    similar = [sentence(weather) for _ in range(n)]
+    dissimilar = [
+        sentence(TOPICS[others[rng.randint(len(others))]]["words"])
+        for _ in range(n)
+    ]
+    return similar, dissimilar, tok

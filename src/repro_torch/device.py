@@ -2,6 +2,8 @@
 the CPU, and never falls back from one to the other."""
 from __future__ import annotations
 
+import sys
+
 import torch
 
 
@@ -16,6 +18,15 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
     return dev
+
+
+def device_or_exit(device: str) -> torch.device:
+    """:func:`resolve_device` for a command line's ``--device``: exits
+    naming the flag and the reason where there is no card."""
+    try:
+        return resolve_device(device)
+    except RuntimeError as e:
+        sys.exit(f"--device {device}: {e}")
 
 
 def synchronize(device: torch.device) -> None:

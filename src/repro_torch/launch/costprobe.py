@@ -20,7 +20,8 @@ the port give the direct full-depth count (the tests hold them equal).
 Corrected totals go to ``experiments/costmodel_torch/``.  The layout
 flags are the dry run's: ``--kv-shard`` (the cache's layout, "auto" as
 the reference's ``cache_pspecs`` picks it), ``--params-data-sharded``
-(ZeRO-3) and ``--kv-dtype int8``; long_500k's decode takes the
+(ZeRO-3), ``--kv-dtype int8`` and ``--moe-scheme`` ("tensor", or
+"expert": whole experts a rank); long_500k's decode takes the
 context-parallel cache, as there.
 """
 from __future__ import annotations
@@ -139,7 +140,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default=None, choices=list(list_archs()))
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
     ap.add_argument("--all", action="store_true")
-    ap.add_argument("--moe-scheme", default="tensor")
+    ap.add_argument("--moe-scheme", default="tensor",
+                    choices=["tensor", "expert"])
     ap.add_argument("--kv-dtype", default=None, choices=[None, "int8"])
     ap.add_argument("--kv-shard", default="auto", choices=list(KV_SHARDS))
     ap.add_argument("--params-data-sharded", action="store_true")

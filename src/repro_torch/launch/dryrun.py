@@ -79,8 +79,10 @@ whose global batch is under 16 (long_500k) the context-parallel cache
 laid out ("heads" for the context-parallel one, whose heads are on
 "model").  ``params_data_sharded`` is ZeRO-3 (``steps.zero3_shard``:
 each rank its data index's slice of its leaves, gathered in the step).
-The reference's ``moe_scheme="expert"`` is not ported
-(``launch.partition``, ROADMAP.md queue 1, item 8.6).  :func:`lower_one`
+``moe_scheme`` is the reference's: "tensor" (each routed expert's
+hidden axis on "model") or "expert" (whole experts a rank,
+``partition.expert_range``; where the ranks do not divide the experts the
+first ranks hold one more, and a rank may hold none).  :func:`lower_one`
 keeps two of the reference's arguments only for signature parity, so
 that its calls run unchanged: ``save_record``, unused there as here
 (:func:`main` saves), and ``attn_head_shard``, which changes nothing
@@ -91,6 +93,8 @@ Usage:
   python -m repro_torch.launch.dryrun --arch yi-6b --shape decode_32k \
       --kv-shard head_dim --params-data-sharded
   python -m repro_torch.launch.dryrun --all --mesh both
+  python -m repro_torch.launch.dryrun --arch mixtral-8x7b --shape decode_32k \
+      --moe-scheme expert --mesh-shape 2,8
 Records go to ``experiments/dryrun_torch/``.
 """
 from __future__ import annotations
@@ -338,10 +342,7 @@ def skip_reason(cfg, shape, mesh, *, kv_shard: str = "auto",
     """Why the port has no layout for this combination, or None."""
     if not supported(cfg, shape):
         return "long_500k unsupported (see DESIGN.md)"
-    if moe_scheme != "tensor":
-        return (f"moe_scheme={moe_scheme!r}: the port lays out the "
-                "reference's baseline 'tensor' scheme only "
-                "(launch/partition.py)")
+    PT.moe_rules(moe_scheme)  # raises for an unknown scheme
     tp = dict(zip(mesh.axis_names, np.shape(mesh.devices)))["model"]
     reason = PT.layout_reason(cfg, tp)
     if reason is not None:
@@ -373,7 +374,8 @@ def context_parallel(shape, mesh) -> bool:
 
 def rank_program(cfg, shape, mesh, *, kv_dtype=None, remat: bool = True,
                  params=None, kv_shard: str = "auto",
-                 params_data_sharded: bool = False):
+                 params_data_sharded: bool = False,
+                 moe_scheme: str = "tensor"):
     """The program of one data index of ``mesh`` (its first pod over its
     rows, ``steps.pod_rows``), on the mesh's devices: (step, inputs, the
     pod's ranks).  ``params``: the unsharded tree on that device (default
@@ -386,7 +388,8 @@ def rank_program(cfg, shape, mesh, *, kv_dtype=None, remat: bool = True,
     rows of the cache (``transformer.init_cache(context=)``).
     ``params_data_sharded`` (ZeRO-3): each rank holds its data index's
     slice of its leaves (``steps.zero3_shard``), and the step all-gathers
-    them first."""
+    them first.  ``moe_scheme``: the MoE experts' layout
+    (``partition.shard_params``)."""
     pod = pod_meshes(mesh)[0]
     device = pod.ranks[0]
     rows = ST.pod_rows(mesh, shape.global_batch)[0]
@@ -401,7 +404,8 @@ def rank_program(cfg, shape, mesh, *, kv_dtype=None, remat: bool = True,
         params = (T.abstract_params(cfg) if device.type == "meta" else
                   T.init_params(cfg, torch.Generator(device=device)
                                 .manual_seed(0)))
-    shards = own_copies(PT.shard_params(params, cfg, pod))
+    shards = own_copies(PT.shard_params(params, cfg, pod,
+                                        moe_scheme=moe_scheme))
     del params
     if shape.kind == "train":
         opt = ST.zero1_init([shards], cfg, mesh)
@@ -477,7 +481,8 @@ def lower_one(arch: str, shape_name: str, multi_pod: bool,
         return _skip(arch, shape_name, multi_pod, reason)
     step, inputs, tp = rank_program(cfg, shape, mesh, kv_dtype=kv_dtype,
                                     remat=remat, kv_shard=kv_shard,
-                                    params_data_sharded=params_data_sharded)
+                                    params_data_sharded=params_data_sharded,
+                                    moe_scheme=moe_scheme)
     with torch.no_grad() if shape.kind != "train" else nullcontext():
         m = measure(step, *inputs, owners=rank_owners(inputs, shape.kind))
     mem = {"argument_size_in_bytes": m["argument"],

@@ -17,13 +17,20 @@ axis does not divide (``sanitize_specs``), or splits its columns
 mid-head; the port keeps whole heads, so each rank's K/V slice is a
 contiguous tensor that the decode kernel takes as it is.
 
-The MoE family follows the reference's baseline "tensor" scheme
-(``_MOE_RULES``, which its ``engine_shardings`` uses): each routed
-expert's hidden axis is on "model", and the router, the shared path's
-sigmoid gate and the experts' own axis are replicated; the shared path's
-MLP takes the dense rules.  The reference's other scheme,
-``moe_scheme="expert"`` (experts on "model"), is an experiment its engine
-never selects, so it is not ported.
+The MoE family has the reference's two schemes (``moe_scheme``).  The
+baseline "tensor" scheme (``_MOE_RULES``, which its ``engine_shardings``
+and the port's engine use) puts each routed expert's hidden axis on
+"model", and replicates the router, the shared path's sigmoid gate and
+the experts' own axis; the shared path's MLP takes the dense rules.  The
+"expert" scheme (``_MOE_EXPERT_PARALLEL``) puts the routed experts' own
+axis on "model" instead: rank ``r`` holds the whole experts
+``split_range(num_experts, tp, r)`` (:func:`expert_range`), and the
+router, the gate and the shared path keep their rules.  Where the ranks
+do not divide the experts the first ranks hold one more, and a rank may
+hold none (mixtral's 8 over 16 ranks); the reference's ``sanitize_specs``
+replicates the experts there instead.  The reference's dry run and cost
+probes take the expert scheme, and its engine never selects it; so do
+the port's (``launch.steps``, ``launch.dryrun``).
 
 The SSM family (and the hybrid's Mamba2 layers) split by SSM head.  The
 reference's GSPMD layout is contiguous and its program global: GSPMD
@@ -126,6 +133,14 @@ _MOE_RULES: Dict[str, Tuple[int, Tuple]] = {
     "w_up": (3, (None, None, "model")),
     "w_down": (3, (None, "model", None)),
 }
+#: the expert-parallel scheme's routed experts: split on the expert axis
+_MOE_EXPERT_PARALLEL: Dict[str, Tuple[int, Tuple]] = {
+    "w_gate": (3, ("model", None, None)),
+    "w_up": (3, ("model", None, None)),
+    "w_down": (3, ("model", None, None)),
+}
+#: the MoE partition schemes: name -> the routed experts' rules
+MOE_SCHEMES = {"tensor": _MOE_RULES, "expert": _MOE_EXPERT_PARALLEL}
 #: leaves split by KV head: each rank takes its kv_head_range (outside
 #: ``cross``, whose K/V projections are over the query heads)
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
@@ -189,9 +204,27 @@ def _zip_specs(fn, specs, tree):
     raise TypeError(f"not a spec tree: {type(specs)}")
 
 
-def param_pspecs(cfg, abstract_params=None) -> Any:
-    """The reference's spec tree of ``init_params(cfg)`` (its baseline
-    ``moe_scheme="tensor"``); ``abstract_params`` defaults to
+def moe_rules(moe_scheme: str) -> Dict[str, Tuple[int, Tuple]]:
+    """The routed experts' rules of ``moe_scheme`` ("tensor" or
+    "expert"); raises ``ValueError`` naming the choices for another."""
+    if moe_scheme not in MOE_SCHEMES:
+        raise ValueError(f"moe_scheme must be one of {tuple(MOE_SCHEMES)}, "
+                         f"got {moe_scheme!r}")
+    return MOE_SCHEMES[moe_scheme]
+
+
+def _table(names: Tuple[str, ...], moe_scheme: str, base):
+    """The rule table of the leaf at ``names``: the scheme's routed-expert
+    rules under "moe" and outside "shared", else ``base``."""
+    moe = moe_rules(moe_scheme)
+    in_moe = "moe" in names and "shared" not in names
+    return moe if in_moe and names[-1] in moe else base
+
+
+def param_pspecs(cfg, abstract_params=None, *,
+                 moe_scheme: str = "tensor") -> Any:
+    """The reference's spec tree of ``init_params(cfg)`` under
+    ``moe_scheme``; ``abstract_params`` defaults to
     ``transformer.abstract_params(cfg)``."""
     if abstract_params is None:
         from repro_torch.models.transformer import abstract_params as ap
@@ -199,8 +232,7 @@ def param_pspecs(cfg, abstract_params=None) -> Any:
 
     def spec_for(names, leaf):
         name = names[-1]
-        in_moe = "moe" in names and "shared" not in names
-        table = _MOE_RULES if in_moe and name in _MOE_RULES else _SPEC_RULES
+        table = _table(names, moe_scheme, _SPEC_RULES)
         if name not in table:
             raise KeyError(f"no partition rule for param path {names}")
         ndim, tail = table[name]
@@ -512,21 +544,27 @@ def local_configs(cfg, tp: int) -> List[Any]:
     return [local_config(cfg, tp, r) for r in range(tp)]
 
 
+def expert_range(cfg, tp: int, rank: int) -> Tuple[int, int]:
+    """The routed experts ``[e0, e1)`` rank ``rank`` holds whole under the
+    expert-parallel scheme (:func:`split_range`; a rank may hold none)."""
+    return split_range(cfg.moe.num_experts, tp, rank)
+
+
 def vocab_range(cfg, tp: int, rank: int) -> Tuple[int, int]:
     """The vocab rows ``[lo, hi)`` of the embedding (and columns of
     ``lm_head``) that rank ``rank`` holds (:func:`split_range`)."""
     return split_range(cfg.vocab_size, tp, rank)
 
 
-def split_axis(names: Tuple[str, ...], leaf: torch.Tensor) -> Optional[int]:
+def split_axis(names: Tuple[str, ...], leaf: torch.Tensor,
+               moe_scheme: str = "tensor") -> Optional[int]:
     """The axis of ``leaf`` split across ranks, or None (replicated).  The
     table is chosen from the whole path, as the reference's
     ``param_pspecs`` chooses it: a routed expert's ``w_gate`` is 3-D and
-    split on its last axis, the shared path's 2-D one by the dense
-    rule."""
+    split on its last axis ("tensor") or its expert axis ("expert"), the
+    shared path's 2-D one by the dense rule."""
     name = names[-1]
-    in_moe = "moe" in names and "shared" not in names
-    table = _MOE_RULES if in_moe and name in _MOE_RULES else _PARAM_RULES
+    table = _table(names, moe_scheme, _PARAM_RULES)
     if name not in table:
         raise KeyError(f"no partition rule for param path {names}")
     ndim, tail = table[name]
@@ -535,13 +573,18 @@ def split_axis(names: Tuple[str, ...], leaf: torch.Tensor) -> Optional[int]:
     return leaf.ndim - ndim + tail.index("model")
 
 
-def _axis_ranges(names: Tuple[str, ...], cfg, tp: int):
+def _axis_ranges(names: Tuple[str, ...], cfg, tp: int,
+                 moe_scheme: str = "tensor"):
     """(the unsplit width of a split leaf's axis, each rank's ``[lo, hi)``
     of it): its units' :func:`split_range` (query heads, KV heads by
-    :func:`kv_head_range`, FFN or expert columns, vocab rows, SSM heads)
-    times the width of a unit (``head_dim`` for attention heads, the SSM
-    ``head_dim`` for ``norm`` and ``out_proj``, else 1)."""
+    :func:`kv_head_range`, FFN or expert columns, whole experts under the
+    expert scheme, vocab rows, SSM heads) times the width of a unit
+    (``head_dim`` for attention heads, the SSM ``head_dim`` for ``norm``
+    and ``out_proj``, else 1)."""
     name = names[-1]
+    if _table(names, moe_scheme, {}) is _MOE_EXPERT_PARALLEL:
+        return cfg.moe.num_experts, [expert_range(cfg, tp, r)
+                                     for r in range(tp)]
     if name in _KV_LEAVES and "cross" not in names:
         n, unit = cfg.n_kv_heads, cfg.head_dim
         ranges = [kv_head_range(cfg, tp, r) for r in range(tp)]
@@ -566,8 +609,9 @@ def _axis_ranges(names: Tuple[str, ...], cfg, tp: int):
                       for r in range(tp)]
 
 
-def _pieces(names: Tuple[str, ...], leaf: torch.Tensor, cfg,
-            tp: int) -> Optional[Tuple[int, List[torch.Tensor]]]:
+def _pieces(names: Tuple[str, ...], leaf: torch.Tensor, cfg, tp: int,
+            moe_scheme: str = "tensor"
+            ) -> Optional[Tuple[int, List[torch.Tensor]]]:
     """(axis, each rank's indices along it) of a split leaf, or None for
     a replicated one: each rank's contiguous range of whole units
     (:func:`_axis_ranges`; ranks may hold unequal pieces, or none), a
@@ -577,10 +621,10 @@ def _pieces(names: Tuple[str, ...], leaf: torch.Tensor, cfg,
         conv = names[-1] != "in_proj"
         return (leaf.ndim + _PACKED_RULES[names[-1]],
                 [ssm_columns(cfg, tp, r, conv) for r in range(tp)])
-    axis = split_axis(names, leaf)
+    axis = split_axis(names, leaf, moe_scheme)
     if axis is None:
         return None
-    _, ranges = _axis_ranges(names, cfg, tp)
+    _, ranges = _axis_ranges(names, cfg, tp, moe_scheme)
     return axis, [torch.arange(lo, hi) for lo, hi in ranges]
 
 
@@ -589,15 +633,17 @@ def replicated(names: Tuple[str, ...], leaf: torch.Tensor) -> bool:
     return names[-1] not in _PACKED_RULES and split_axis(names, leaf) is None
 
 
-def shard_params(params: Dict[str, Any], cfg, mesh) -> List[Dict[str, Any]]:
+def shard_params(params: Dict[str, Any], cfg, mesh, *,
+                 moe_scheme: str = "tensor") -> List[Dict[str, Any]]:
     """The port's parameter tree (from ``init_params`` or the bridge, on
     any device) -> one tree per rank of the ``("model",)`` mesh, on that
     rank's device.  A split leaf becomes each rank's contiguous range of
     whole units (:func:`_axis_ranges`: equal pieces where the ranks divide
     the axis; a packed SSM leaf the columns of :func:`ssm_columns`, in the
-    JAX layout still); a replicated leaf is copied to each rank's device
-    (ranks on one device share it).  Raises ``KeyError`` for a leaf with
-    no rule."""
+    JAX layout still; under ``moe_scheme="expert"`` a routed expert leaf
+    the rank's whole experts, :func:`expert_range`); a replicated leaf is
+    copied to each rank's device (ranks on one device share it).  Raises
+    ``KeyError`` for a leaf with no rule."""
     ranks = tp_ranks(mesh)
     tp = len(ranks)
     reason = layout_reason(cfg, tp)  # family and layout checks
@@ -608,7 +654,7 @@ def shard_params(params: Dict[str, Any], cfg, mesh) -> List[Dict[str, Any]]:
         if isinstance(tree, dict):
             per = {k: split(v, names + (k,)) for k, v in tree.items()}
             return [{k: per[k][r] for k in tree} for r in range(tp)]
-        pieces = _pieces(names, tree, cfg, tp)
+        pieces = _pieces(names, tree, cfg, tp, moe_scheme)
         if pieces is None:
             return [tree.to(d) for d in ranks]
         axis, idx = pieces
@@ -626,15 +672,42 @@ def shard_params(params: Dict[str, Any], cfg, mesh) -> List[Dict[str, Any]]:
     return split(params, ())
 
 
+def shard_scheme(shards: List[Dict[str, Any]], cfg) -> str:
+    """The ``moe_scheme`` :func:`shard_params` laid the rank trees
+    ``shards`` out under: "expert" where rank 0's routed ``w_gate`` keeps
+    the experts' whole hidden width across several ranks, else "tensor"
+    (one rank, or no routed experts, lays out the same either way).  The
+    hidden axis, not the expert axis, tells them apart because a ZeRO-3
+    slice (``steps.zero3_shard``) may cut the tensor scheme's expert axis,
+    never the expert scheme's hidden axis (its layer and model axes come
+    first)."""
+    def routed(tree, names=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                found = routed(v, names + (k,))
+                if found is not None:
+                    return found
+            return None
+        in_moe = "moe" in names and "shared" not in names
+        return tree if in_moe and names[-1] == "w_gate" else None
+
+    w = routed(shards[0]) if len(shards) > 1 else None
+    if w is not None and w.shape[-1] == cfg.moe.expert_d_ff:
+        return "expert"
+    return "tensor"
+
+
 def gather_shards(shards: List[Dict[str, Any]], cfg, mesh, *,
                   add: bool = False) -> Dict[str, Any]:
-    """The inverse of :func:`shard_params`: the rank trees -> one tree on
-    rank 0's device.  With ``add`` the pieces that ranks share are summed
-    (the gradients of a pod: a replicated leaf's, and a KV head's that two
+    """The inverse of :func:`shard_params` (under the scheme the shards
+    hold, :func:`shard_scheme`): the rank trees -> one tree on rank 0's
+    device.  With ``add`` the pieces that ranks share are summed (the
+    gradients of a pod: a replicated leaf's, and a KV head's that two
     ranks hold, are the sums of the ranks' partials); without it a shared
     piece is taken from the first rank that holds it."""
     ranks = tp_ranks(mesh)
     tp, dev = len(ranks), ranks[0]
+    moe_scheme = shard_scheme(shards, cfg)
 
     def join(trees, names):
         if isinstance(trees[0], dict):
@@ -642,7 +715,7 @@ def gather_shards(shards: List[Dict[str, Any]], cfg, mesh, *,
                     for k in trees[0]}
         parts = [t.to(dev) for t in trees]
         shape = list(parts[0].shape)
-        pieces = _pieces(names, parts[0], cfg, 1)  # the axis, if split
+        pieces = _pieces(names, parts[0], cfg, 1, moe_scheme)  # the axis
         if pieces is None:
             if not add:
                 return parts[0]
@@ -651,8 +724,9 @@ def gather_shards(shards: List[Dict[str, Any]], cfg, mesh, *,
                 total = total + t
             return total
         axis = pieces[0]
-        shape[axis] = _global_width(names, parts[0], cfg, tp, axis)
-        _, idx = _pieces(names, torch.empty(shape, device="meta"), cfg, tp)
+        shape[axis] = _global_width(names, cfg, tp, moe_scheme)
+        _, idx = _pieces(names, torch.empty(shape, device="meta"), cfg, tp,
+                         moe_scheme)
         out = parts[0].new_zeros(shape)
         for i, t in zip(idx, parts):
             i = i.to(dev)
@@ -665,14 +739,13 @@ def gather_shards(shards: List[Dict[str, Any]], cfg, mesh, *,
     return join(shards, ())
 
 
-def _global_width(names, piece: torch.Tensor, cfg, tp: int, axis: int) -> int:
-    """The unsplit width along ``axis`` of a leaf whose rank piece is
-    ``piece``."""
+def _global_width(names, cfg, tp: int, moe_scheme: str) -> int:
+    """The unsplit width along the split axis of the leaf at ``names``."""
     if names[-1] in _PACKED_RULES:
         conv = cfg.ssm_d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
         return conv + (cfg.ssm_d_inner + cfg.ssm_n_heads
                        if names[-1] == "in_proj" else 0)
-    return _axis_ranges(names, cfg, tp)[0]
+    return _axis_ranges(names, cfg, tp, moe_scheme)[0]
 
 
 def kernel_decode_support(cfg, mesh) -> Optional[str]:

@@ -63,7 +63,7 @@ from repro_torch.data.workload import (
     build_scale_workload,
     scale_workload_requests,
 )
-from repro_torch.device import resolve_device
+from repro_torch.device import device_or_exit
 from repro_torch.engine.engine import AUDIO_PREFILL_NOT_SERVED
 from repro_torch.engine import (
     EngineConfig,
@@ -302,10 +302,7 @@ def main(argv=None):
     _refuse_unported(args)
     if args.prefill_chunk is not None and args.prefill_chunk < 1:
         sys.exit(f"--prefill-chunk must be >= 1, got {args.prefill_chunk}")
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        sys.exit(f"--device {args.device}: {e}")
+    device = device_or_exit(args.device)
     cfg = get_config(args.arch)
     if device.type == "cpu":
         cfg = cfg.reduced()

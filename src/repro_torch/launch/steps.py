@@ -147,11 +147,13 @@ def make_train_step(cfg, *, remat: bool = True, moe_impl: str = "dense",
         grads, gnorm = clip_by_global_norm(grads, opt_cfg.clip_norm)
         step = opt_state.step + 1
         lr = schedule_lr(opt_cfg, step)
+        scheme = PT.shard_scheme(pparams[which[0]], cfg)
         if not dims:
-            dims.extend(_zero1_dims(cfg, mesh, grads))
+            dims.extend(_zero1_dims(cfg, mesh, grads, scheme))
         new_params, mu, nu = _zero1_update(cfg, opt_cfg, pods, pparams,
                                            grads, mus, nus, step, lr, dims,
-                                           which, not params_data_sharded)
+                                           which, not params_data_sharded,
+                                           scheme)
         out = {k: sum(m[k] * w for m, w in metrics)
                for k in ("loss", "ce", "aux")}
         out.update(grad_norm=gnorm, lr=lr)
@@ -171,13 +173,15 @@ def _pod_list(mesh):
     return pod_meshes(mesh), True
 
 
-def shard_pods(params, cfg, mesh):
+def shard_pods(params, cfg, mesh, *, moe_scheme: str = "tensor"):
     """``params`` laid out for ``mesh``: the rank trees of
-    ``partition.shard_params`` for a ``("model",)`` mesh, else one such
-    list a pod (TP-only, the same in every pod, as the reference's
-    ``param_pspecs`` replicates them over the data axes)."""
+    ``partition.shard_params`` (under ``moe_scheme``) for a ``("model",)``
+    mesh, else one such list a pod (TP-only, the same in every pod, as the
+    reference's ``param_pspecs`` replicates them over the data axes).  The
+    steps read the scheme off the trees (``partition.shard_scheme``)."""
     pods, nested = _pod_list(mesh)
-    out = [PT.shard_params(params, cfg, pod) for pod in pods]
+    out = [PT.shard_params(params, cfg, pod, moe_scheme=moe_scheme)
+           for pod in pods]
     return out if nested else out[0]
 
 
@@ -249,17 +253,20 @@ def _named_leaves(tree, names=()):
         yield names, tree
 
 
-def _zero1_dims(cfg, mesh, whole) -> List[Optional[int]]:
+def _zero1_dims(cfg, mesh, whole,
+                moe_scheme: str = "tensor") -> List[Optional[int]]:
     """Each leaf's ZeRO-1 dimension (``partition.data_dim`` of
-    ``opt_pspecs`` over ``param_pspecs``), in :func:`leaves`' order.  The
-    reference sanitizes the specs first, which frees a "model" dimension
-    the axis does not divide for the data axes; the port splits every
-    "model" dimension, unevenly where the axis does not divide it, so such
-    a dimension stays the rank's and the moments take the next free one.
-    Where the axis divides every width the two agree."""
+    ``opt_pspecs`` over ``param_pspecs`` under the rank trees'
+    ``moe_scheme``), in :func:`leaves`' order.  The reference sanitizes
+    the specs first, which frees a "model" dimension the axis does not
+    divide for the data axes; the port splits every "model" dimension
+    (the expert axis under the expert scheme too), unevenly where the
+    axis does not divide it, so such a dimension stays the rank's and the
+    moments take the next free one.  Where the axis divides every width
+    the two agree."""
     abstract = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                               device="meta"), whole)
-    pspec = PT.param_pspecs(cfg, abstract)
+    pspec = PT.param_pspecs(cfg, abstract, moe_scheme=moe_scheme)
     mspec = PT.opt_pspecs(mesh, pspec, abstract)
     return [PT.data_dim(sp) for _, sp in _named_leaves(mspec)]
 
@@ -272,7 +279,8 @@ def zero1_init(params, cfg, mesh) -> AdamWState:
     rank list itself for a ``("model",)`` mesh)."""
     pods, nested = _pod_list(mesh)
     pparams = params if nested else [params]
-    dims = _zero1_dims(cfg, mesh, PT.gather_shards(pparams[0], cfg, pods[0]))
+    dims = _zero1_dims(cfg, mesh, PT.gather_shards(pparams[0], cfg, pods[0]),
+                       PT.shard_scheme(pparams[0], cfg))
     n = len(pods)
 
     def moments():
@@ -296,7 +304,8 @@ def zero3_shard(params, cfg, mesh):
     rank trees a pod."""
     pods, nested = _pod_list(mesh)
     pparams = params if nested else [params]
-    dims = _zero1_dims(cfg, mesh, T.abstract_params(cfg))
+    dims = _zero1_dims(cfg, mesh, T.abstract_params(cfg),
+                       PT.shard_scheme(pparams[0], cfg))
     n = len(pods)
     out = [[unflatten(rank, [p[_cut(d, i, n, _size(p, d))].clone()
                              for p, d in zip(leaves(rank), dims)])
@@ -312,7 +321,8 @@ def zero3_gather(slices, cfg, mesh):
     slices then stand in for the others'."""
     pods, _ = _pod_list(mesh)
     n = len(pods)
-    dims = _zero1_dims(cfg, mesh, T.abstract_params(cfg))
+    dims = _zero1_dims(cfg, mesh, T.abstract_params(cfg),
+                       PT.shard_scheme(slices[0], cfg))
     out = []
     for i, ranks in enumerate(slices):
         trees = []
@@ -342,7 +352,8 @@ def zero1_gather(moments, params, cfg, mesh):
     pods, nested = _pod_list(mesh)
     per_pod = moments if nested else [moments]
     ranks = params[0] if nested else params
-    dims = _zero1_dims(cfg, mesh, PT.gather_shards(ranks, cfg, pods[0]))
+    dims = _zero1_dims(cfg, mesh, PT.gather_shards(ranks, cfg, pods[0]),
+                       PT.shard_scheme(ranks, cfg))
     joined = []
     for r, rank in enumerate(ranks):
         own = [leaves(m[r]) for m in per_pod]
@@ -370,16 +381,19 @@ def _cut(dim: Optional[int], i: int, n: int, size: int):
 
 
 def _zero1_update(cfg, opt_cfg, pods, pparams, grads, mus, nus, step, lr,
-                  dims, which, gather: bool = True):
+                  dims, which, gather: bool = True,
+                  moe_scheme: str = "tensor"):
     """The data indices ``which`` update their slices of every rank's
-    leaves and moments; the slices are then gathered back into every pod
+    leaves and moments (the gradients laid out as the params, under
+    ``moe_scheme``); the slices are then gathered back into every pod
     (one all-gather a rank leaf when there are several pods), or with
     ``gather`` False (ZeRO-3) kept as each data index's params.  Returns
     (params, mu, nu) in the pods' layout."""
     n = len(pods)
     slices, new_mu, new_nu = {}, list(mus), list(nus)
     for i in which:
-        rank_grads = PT.shard_params(grads, cfg, pods[i])
+        rank_grads = PT.shard_params(grads, cfg, pods[i],
+                                     moe_scheme=moe_scheme)
         pm, pn = [], []
         for r, rank in ranked(enumerate(pparams[i])):
             upd = [adamw_leaf(opt_cfg, step, lr, p[_cut(d, i, n, _size(p, d))],

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.data import WorkloadGenerator
-from repro_torch.device import resolve_device
+from repro_torch.device import device_or_exit
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import transformer as T
 from repro_torch.training import (
@@ -108,10 +108,7 @@ def main(argv=None) -> dict:
         if rc:
             sys.exit(rc)
         return {"dry_run": rc}
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        sys.exit(f"--device {args.device}: {e}")
+    device = device_or_exit(args.device)
     cfg = get_config(args.arch).reduced()
     print(f"[train] {cfg.arch_id}: {cfg.param_count() / 1e6:.1f}M params, "
           f"batch {args.batch} x seq {args.seq} on {device}")

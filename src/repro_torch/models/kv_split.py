@@ -36,6 +36,19 @@ run in step by construction.  Each data index writes the rows it owns
 and computes its partial states over them; the states merge across the
 data axis for each of the rank's heads (an all-reduce).
 
+**The audio family's cross-attention K/V** (``cross_kv``) follows the
+same rule in the sequence-sharded and head-dim layouts, as the
+reference's ``cache_pspecs`` applies one rule to ``kv`` and
+``cross_kv``: rank r holds every query head's K/V over its frames
+``split_range(n_frames, tp, r)`` ("seq") or its dims of every head
+("head_dim").  The prefill gathers the ranks' heads of the encoder K/V
+and each rank writes its piece (:func:`write_cross`); a decode reads it
+(:func:`cross_attention`) with every query head on every rank and each
+rank's partial states over its frames merged by each head's owner, or
+the head-dim partial scores summed before the softmax.  The reads are
+plain, as the reference reads cross-attention in XLA; the
+context-parallel layout keeps ``cross_kv`` in the head layout.
+
 Kernels: a linear cache's decode reads each rank's rows with
 ``ops.flash_decode_partials`` (``ops.flash_decode_int8_partials`` over
 int8 codes), every rank's splits side by side in one ``ops.Partials``
@@ -449,3 +462,85 @@ def attention_decode(ps, cfgs, xs, cos_sins, caches, curs, *, attn_impl: str,
     b, s = xs[0].shape[:2]
     return [o.reshape(b, s, c.n_heads * c.head_dim) @ p["wo"]
             for o, c, p in ranked(zip(outs, cfgs, ps))]
+
+
+# --------------------------------------------------------------------------- #
+# The audio family's cross-attention K/V
+# --------------------------------------------------------------------------- #
+
+
+def write_cross(caches, site: int, ks, vs, ranges) -> None:
+    """The encoder K/V of the ranks' query heads ``ranges[r]``, ``ks[r]``
+    / ``vs[r]`` (B, Se, Hr, D), into layer ``site`` of each rank's split
+    ``cross_kv`` piece: its frames (rows ``[row0, row0 + F_r)``) or its
+    dims of every head, after one all-to-all that brings each rank its
+    piece."""
+    dev = ks[0].device
+    k, v = gather_heads(ks, ranges, dev), gather_heads(vs, ranges, dev)
+    c0 = caches[0]
+    if c0.dims:
+        piece = k[..., c0.dim0:c0.dim0 + c0.k.shape[-1]]
+    else:
+        piece = k[:, c0.row0:c0.row0 + c0.k.shape[2]]
+    if len(caches) > 1:
+        collective("all-to-all", 2 * piece.nbytes)
+    for c in ranked(caches):
+        if c.dims:
+            cut = (Ellipsis, slice(c.dim0, c.dim0 + c.k.shape[-1]))
+        else:
+            cut = (slice(None), slice(c.row0, c.row0 + c.k.shape[2]))
+        c.k[site].copy_(k[cut])
+        c.v[site].copy_(v[cut])
+
+
+def cross_attention(ps, cfgs, xs, caches) -> List[torch.Tensor]:
+    """``layers.cross_attention_block`` over a split ``cross_kv`` (one
+    layer's pieces, ``caches[r]`` rank r's): each rank projects its query
+    heads, the heads are gathered on every rank (an all-gather), the
+    attention over all frames is taken from the pieces (:func:`read`'s
+    plain states merged by each head's owner, or :func:`_cross_head_dim`),
+    and each rank's heads go through its
+    ``wo`` rows: the rank's partial (B, Sq, d_model), which the model
+    sums.  No mask: every frame is visible."""
+    b, s, _ = xs[0].shape
+    hd = cfgs[0].head_dim
+    qs = [(x @ p["wq"]).reshape(b, s, c.n_heads, hd)
+          for p, c, x in ranked(zip(ps, cfgs, xs))]
+    dev = qs[0].device
+    q = torch.cat([t.to(dev) for t in qs], dim=2)
+    qr = q_ranges(cfgs)
+    if len(caches) > 1:
+        collective("all-gather", q.nbytes)
+    if caches[0].dims:
+        outs = _cross_head_dim(q, caches, qr)
+    else:  # every frame visible: a query past the last one
+        h = q.shape[2]
+        outs = read(q, caches, caches[0].total, None, None, kernel=False,
+                    segs=[(0, h, 0, h)], head_start=0, group=0,
+                    out_ranges=qr, mark=True)
+    return [o.to(x.device).reshape(b, s, c.n_heads * hd) @ p["wo"]
+            for o, c, p, x in ranked(zip(outs, cfgs, ps, xs))]
+
+
+def _cross_head_dim(q, caches, qr) -> List[torch.Tensor]:
+    """Every head of q over head-dim pieces: each rank's partial scores
+    over its dims, summed across the ranks (an all-reduce) before the
+    softmax, then each rank's dims of the weighted V, gathered by each
+    head's owner (an all-to-all); each rank's heads ``qr[r]``."""
+    b, sq, h, d = q.shape
+    scores = []
+    for c in ranked(caches):
+        qq = q[..., c.dim0:c.dim0 + c.k.shape[-1]].to(c.k.device).float()
+        scores.append(torch.einsum("bqhd,bkhd->bhqk", qq, c.k.float()))
+    total = scores[0]
+    for part in scores[1:]:
+        total = total + part.to(total.device)
+    if len(scores) > 1:
+        collective("all-reduce", total.nbytes)
+    p = torch.softmax(total / math.sqrt(d), dim=-1)
+    outs = [torch.einsum("bhqk,bkhd->bqhd", p.to(c.v.device), c.v.float())
+            .to(q.device) for c in ranked(caches)]
+    out = torch.cat(outs, dim=-1).to(q.dtype)
+    if len(caches) > 1:
+        collective("all-to-all", out[:, :, qr[0][0]:qr[0][1]].nbytes)
+    return [out[:, :, a:z] for a, z in qr]

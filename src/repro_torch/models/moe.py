@@ -20,11 +20,13 @@ clipped at 1e-9; ``combine`` is built in x's dtype, and the grouped path
 casts the routing weights to the experts' output dtype before it sums over
 k; the shared path (qwen2-moe) is gated by a sigmoid of x.
 
-Tensor parallelism (:func:`moe_partials`): each rank holds a slice of
-every expert's hidden axis and of the shared path's (the reference's
-baseline "tensor" scheme, ``launch.partition``), the router runs once and
-its routing is copied to every rank, and each rank's output is a partial
-that the model sums over the ranks.
+Tensor parallelism (:func:`moe_partials`): under the reference's
+baseline "tensor" scheme (``launch.partition``) each rank holds a slice of
+every expert's hidden axis and of the shared path's; under its "expert"
+scheme each rank holds whole experts (``partition.expert_range``) and its
+slice of the shared path's hidden axis.  Either way the router runs once
+and its routing is copied to every rank, and each rank's output is a
+partial that the model sums over the ranks.
 
 Parameters (stacked over layers by :func:`init_moe`): ``router`` (d, E),
 ``w_gate`` / ``w_up`` (E, d, f), ``w_down`` (E, f, d), and with shared
@@ -37,6 +39,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import partition
 from repro_torch.launch.mesh import collective
 from repro_torch.models.layers import dense_init
 from repro_torch.ranks import ranked
@@ -172,14 +175,32 @@ def _grouped_experts(p: Params, xt: torch.Tensor, topk_w: torch.Tensor,
     return torch.sum(y * topk_w[:, :, None].to(y.dtype), dim=1)
 
 
+def _own_experts(routing: Routing, e0: int, e1: int) -> Routing:
+    """``routing`` restricted to the experts ``[e0, e1)`` a rank holds,
+    indexed from ``e0``: the combine matrix's columns of those experts, or
+    the top-k slots whose expert lies there, every other slot pointing at
+    the rank's first expert with weight 0 (a rank gathers no other rank's
+    weights).  A rank with no expert keeps no column and no slot weight."""
+    if routing.combine is not None:
+        return routing._replace(combine=routing.combine[:, e0:e1])
+    local = routing.topk_i - e0
+    own = (local >= 0) & (local < e1 - e0)
+    return routing._replace(
+        topk_w=torch.where(own, routing.topk_w,
+                           torch.zeros_like(routing.topk_w)),
+        topk_i=torch.where(own, local, torch.zeros_like(local)))
+
+
 def _routed(p: Params, x: torch.Tensor, routing: Routing) -> torch.Tensor:
     """The expert sum under ``routing`` (the dense path when it carries a
     ``combine``), plus the shared path's: x (B, S, d) -> (B, S, d), over
-    ``p``'s slice of the hidden axes (a rank's partial when ``p`` is a
-    shard)."""
+    ``p``'s slice of the hidden axes or its experts (a rank's partial when
+    ``p`` is a shard; no expert term for a rank that holds none)."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    if routing.combine is not None:
+    if p["w_gate"].shape[0] == 0:  # a rank that holds no expert
+        out = xt.new_zeros(xt.shape)
+    elif routing.combine is not None:
         out = _dense_experts(p, xt, routing.combine)
     else:
         out = _grouped_experts(p, xt, routing.topk_w, routing.topk_i)
@@ -212,10 +233,14 @@ def moe_partials(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor], *,
                  impl: str = "dense",
                  aux_out: Optional[List] = None) -> List[torch.Tensor]:
     """The MoE block on every tensor-parallel rank (a single device is one
-    rank), its aux loss dropped: rank r's output over its slice of the
-    experts' and shared path's hidden axes (``ps[r]``, ``xs[r]``; every
-    rank holds the same x), a partial that the ranks sum.  The router runs
-    once, on rank 0's copy of x, and every rank gets that routing on its
+    rank), its aux loss dropped: rank r's output (``ps[r]``, ``xs[r]``;
+    every rank holds the same x), a partial that the ranks sum.  A rank
+    that holds every expert (the "tensor" scheme) computes them over its
+    slice of the hidden axes; a rank that holds fewer (the "expert"
+    scheme, :func:`_held_experts`) computes its whole experts only: the
+    dense path the combine matrix's columns of its experts, the grouped
+    path the top-k slots whose expert it holds, every other slot weighing
+    0.  The router runs once, on rank 0's copy of x, and every rank gets that routing on its
     device: the ranks must add partials of the same experts, and two
     routers could order a near-tie differently (bf16 probabilities over 60
     experts tie often); over several ranks that send is recorded as one
@@ -231,8 +256,39 @@ def moe_partials(ps: Sequence[Params], cfg, xs: Sequence[torch.Tensor], *,
     if len(ps) > 1:
         collective("collective-permute",
                    sum(t.nbytes for t in routing if t is not None))
-    return [_routed(p, x, routing.to(x.device))
-            for p, x in ranked(zip(ps, xs))]
+    outs = []
+    for r, (p, x) in ranked(enumerate(zip(ps, xs))):
+        mine = routing.to(x.device)
+        held = _held_experts(p, cfg, len(ps), r)
+        if held is not None:
+            mine = _own_experts(mine, *held)
+        outs.append(_routed(p, x, mine))
+    return outs
+
+
+def _held_experts(p: Params, cfg, tp: int, rank: int):
+    """None where rank ``rank``'s shard ``p`` holds every routed expert
+    (one device, or the "tensor" scheme), else the experts ``[e0, e1)``
+    it holds whole (the "expert" scheme, :func:`rank_experts`); raises
+    ``ValueError`` where the shard's count is not that range's."""
+    n = p["w_gate"].shape[0]
+    if n == cfg.moe.num_experts:
+        return None
+    e0, e1 = rank_experts(cfg, tp, rank)
+    if n != e1 - e0:
+        raise ValueError(f"rank {rank} of {tp} holds {n} of "
+                         f"{cfg.moe.num_experts} experts, not the "
+                         f"{e1 - e0} of partition.expert_range")
+    return e0, e1
+
+
+def rank_experts(cfg, tp: int, rank: int):
+    """The experts ``[e0, e1)`` whose routing rank ``rank`` of ``tp``
+    computes under the expert scheme: the ones it holds
+    (``partition.expert_range``).  Apart from the layout so that a check
+    can shift what a rank computes and not what it holds
+    (``chip_smoke.py``'s planted expert range)."""
+    return partition.expert_range(cfg, tp, rank)
 
 
 def _check_impl(impl: str) -> None:

@@ -76,7 +76,10 @@ and the vocab-parallel logits are concatenated there, so two runs agree
 bit for bit.  The
 Mamba2 block's gated norm sums the ranks' sums of squares the same way
 before any rank normalises (``models.ssm.gated_partials``).  The MoE
-router runs once a layer, on rank 0, and every rank gets its routing.
+router runs once a layer, on rank 0, and every rank gets its routing;
+where ``shard_params(..., moe_scheme="expert")`` gave each rank whole
+experts, each rank computes the routed tokens of its own experts only
+(``models.moe.moe_partials`` reads the scheme off the shards).
 The decode read of all ranks is one ``ops.flash_decode_sharded`` call
 (the hybrid's shared block included), given each rank's first query
 head and the group size so that a rank whose heads cut a GQA group runs
@@ -642,7 +645,11 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
     indices)``: the context-parallel cache, the head layout's KV heads
     over D row ranges, of which each rank holds those of the data
     ``indices`` (``layers.KVShards``).  The audio family's ``cross_kv``
-    keeps the head layout in both: its K/V are over the query heads."""
+    follows the same rule, as the reference's ``cache_pspecs`` does:
+    under "seq" rank r holds every query head's K/V over its frames
+    ``split_range(n_frames, tp, r)``, under "head_dim" its dims of every
+    head (``models.kv_split``); the context-parallel cache keeps it in
+    the head layout, over the rank's query heads."""
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
                          f"{kv_dtype!r}")
@@ -655,6 +662,7 @@ def init_cache(cfg, batch: int, max_len: int, device=None, dtype=None, *,
                             rows=_rows(layout, context, tp, r),
                             kv_heads=(cfg.n_kv_heads if layout != "heads"
                                       else None),
+                            q_heads=cfg.n_heads,
                             dims=(P.split_range(cfg.head_dim, tp, r)
                                   if layout == "head_dim" else None))
                 for r, d in enumerate(ranks)]
@@ -678,12 +686,15 @@ def _rows(layout: str, context, tp: int = 1, rank: int = 0):
 
 def _rank_cache(cfg, batch, max_len, device, dtype, kv_dtype, sliding_window,
                 tp: int, rank: int = 0, rows=None,
-                kv_heads: Optional[int] = None, dims=None) -> Cache:
+                kv_heads: Optional[int] = None, dims=None,
+                q_heads: Optional[int] = None) -> Cache:
     """The cache of rank ``rank`` of ``tp`` (:func:`init_cache`); ``cfg``
     is the rank's config, its SSM states over the rank's conv channels and
     heads.  ``rows``: the row pieces it holds (:func:`_rows`);
     ``kv_heads``: every KV head (the sequence-sharded and head-dim
-    layouts); ``dims``: the head dims ``[d0, d1)`` it holds."""
+    layouts); ``dims``: the head dims ``[d0, d1)`` it holds; ``q_heads``:
+    every query head, whose cross K/V the audio family's rank holds over
+    its frames or dims in those two layouts."""
     dtype = dtype or _dtype(cfg)
     cache: Cache = {"len": torch.zeros((batch,), dtype=torch.int32,
                                        device=device)}
@@ -731,9 +742,19 @@ def _rank_cache(cfg, batch, max_len, device, dtype, kv_dtype, sliding_window,
         cache["kv"] = pieces[0] if kv_heads is not None else L.KVShards(
             pieces)
     if cfg.family == "audio":
-        cross = (cfg.n_layers, batch, cfg.encoder.n_frames, cfg.n_heads,
-                 cfg.head_dim)
-        cache["cross_kv"] = KVCache(zeros(cross, dtype), zeros(cross, dtype))
+        nf = cfg.encoder.n_frames
+        where, heads = {}, cfg.n_heads
+        if kv_heads is not None and dims:  # every head, the rank's dims
+            where = dict(dim0=dims[0], dims=cfg.head_dim, total=nf)
+            heads = q_heads
+        elif kv_heads is not None:  # every head, the rank's frames
+            f0, f1 = P.split_range(nf, rows[0][1], rows[0][0])
+            where = dict(row0=f0, total=nf)
+            heads, nf = q_heads, f1 - f0
+        d0, d1 = dims or (0, cfg.head_dim)
+        cross = (cfg.n_layers, batch, nf, heads, d1 - d0)
+        cache["cross_kv"] = KVCache(zeros(cross, dtype), zeros(cross, dtype),
+                                    **where)
     return cache
 
 
@@ -821,13 +842,18 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
             lps = [per[i] for per in layers]
             hs = _attn_prefill(cfg, lcfgs, lps, hs, cos_sins, caches, i,
                                attn_impl, moe_impl, mlp=False)
-            crosses = []
-            for lp, lc, c, enc_out in ranked(zip(lps, lcfgs, caches,
-                                                 enc_outs)):
-                ck, cv = L.encode_cross_kv(lp["cross"], lc, enc_out)
-                c["cross_kv"].k[i].copy_(ck)
-                c["cross_kv"].v[i].copy_(cv)
-                crosses.append((ck, cv))
+            crosses = [L.encode_cross_kv(lp["cross"], lc, enc_out)
+                       for lp, lc, enc_out in ranked(zip(lps, lcfgs,
+                                                         enc_outs))]
+            xkv = [c["cross_kv"] for c in caches]
+            if kv_split.split(xkv[0]):  # each rank its frames or dims
+                kv_split.write_cross(xkv, i, [k for k, _ in crosses],
+                                     [v for _, v in crosses],
+                                     kv_split.q_ranges(lcfgs))
+            else:
+                for c, (ck, cv) in ranked(zip(xkv, crosses)):
+                    c.k[i].copy_(ck)
+                    c.v[i].copy_(cv)
             hs = _cross_mlp(cfg, lcfgs, lps, hs, crosses, moe_impl)
     else:
         layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
@@ -950,8 +976,8 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, cache: Cache, *,
             hs = _attn_decode(cfg, lcfgs, lps, hs, cos_sins, caches, i, curs,
                               acts, attn_impl, moe_impl, mlp=False)
             hs = _cross_mlp(cfg, lcfgs, lps, hs,
-                            [(c["cross_kv"].k[i], c["cross_kv"].v[i])
-                             for c in caches], moe_impl)
+                            [c["cross_kv"].layer(i) for c in caches],
+                            moe_impl)
     else:
         layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
         for i in range(cfg.n_layers):
@@ -1114,12 +1140,21 @@ def _cross_mlp(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
                crosses, moe_impl: str) -> List[torch.Tensor]:
     """An audio decoder layer after its self-attention, on every rank:
     cross-attention of each rank's query heads over its encoder K/V
-    ``crosses[r]`` (``ck``, ``cv``), the ranks' ``wo`` partials summed
-    before the MLP, then the MLP.  Returns the residual streams."""
-    hs = _add_sum(hs, [
-        L.cross_attention_block(lp["cross"], lc,
-                                L.apply_norm(cfg, lp["cross_norm"], h), kv)
-        for lp, lc, h, kv in ranked(zip(lps, lcfgs, hs, crosses))])
+    ``crosses[r]`` (``ck``, ``cv``, or one layer of its ``cross_kv``: a
+    split one read by ``kv_split.cross_attention``), the ranks' ``wo``
+    partials summed before the MLP, then the MLP.  Returns the residual
+    streams."""
+    xs = [L.apply_norm(cfg, lp["cross_norm"], h)
+          for lp, h in ranked(zip(lps, hs))]
+    if isinstance(crosses[0], KVCache) and kv_split.split(crosses[0]):
+        parts = kv_split.cross_attention([lp["cross"] for lp in lps], lcfgs,
+                                         xs, crosses)
+    else:
+        parts = [L.cross_attention_block(
+            lp["cross"], lc, x, (kv.k, kv.v) if isinstance(kv, KVCache)
+            else kv) for lp, lc, x, kv in ranked(zip(lps, lcfgs, xs,
+                                                      crosses))]
+    hs = _add_sum(hs, parts)
     return _mlp(cfg, lcfgs, lps, hs, moe_impl)
 
 

@@ -309,11 +309,11 @@ def test_tp2_record_counts_the_pods_cross_rank_sums(tiny_shapes):
 
 
 def test_skip_reasons_name_their_items():
-    """The layouts of item 8.5 are laid out (landed: a sequence- or
-    head-dim-sharded cache, ZeRO-3, a context-parallel cache), as item
-    8.4's were: no arch x shape x production mesh x layout is skipped but
-    whisper's long_500k, and the reference's expert-parallel MoE scheme
-    (item 8.6) names its reason.  Each record's ``kv_shard`` is the layout
+    """The layouts of items 8.4 to 8.6 are laid out (a sequence- or
+    head-dim-sharded cache, ZeRO-3, a context-parallel cache, the
+    reference's expert-parallel MoE scheme): no arch x shape x production
+    mesh x layout is skipped but whisper's long_500k, and an unknown MoE
+    scheme raises naming the choices.  Each record's ``kv_shard`` is the layout
     the reference's ``cache_pspecs`` picks at a model axis of 16: the
     sequence for the seven archs whose KV heads 16 does not divide, the
     heads for qwen2-moe and zamba2 (and the SSM family, with none); the
@@ -323,7 +323,8 @@ def test_skip_reasons_name_their_items():
         for arch in list_archs():
             for shape in S.SHAPES.values():
                 for kw in ({}, {"kv_shard": "seq"}, {"kv_shard": "head_dim"},
-                           {"params_data_sharded": True}):
+                           {"params_data_sharded": True},
+                           {"moe_scheme": "expert"}):
                     why = dryrun.skip_reason(get_config(arch), shape, m, **kw)
                     assert why is None or why.startswith("long_500k"), (
                         arch, shape.name, why)
@@ -332,10 +333,10 @@ def test_skip_reasons_name_their_items():
     assert seq == {"qwen2-1.5b", "llama3.2-3b", "yi-6b", "qwen1.5-32b",
                    "mixtral-8x7b", "qwen2-vl-7b", "whisper-large-v3"}
     assert PT.kv_layout(get_config("zamba2-7b"), 16) == "heads"
-    why = dryrun.skip_reason(get_config("qwen2-moe-a2.7b"),
-                             S.SHAPES["decode_32k"], make_production_mesh(),
-                             moe_scheme="expert")
-    assert "moe_scheme='expert'" in why
+    with pytest.raises(ValueError, match="moe_scheme must be one of"):
+        dryrun.skip_reason(get_config("qwen2-moe-a2.7b"),
+                           S.SHAPES["decode_32k"], make_production_mesh(),
+                           moe_scheme="replicated")
     for arch in list_archs():
         cfg = get_config(arch)
         if cfg.long_context_mode == "unsupported":

@@ -111,6 +111,16 @@ def test_planted_fault_patterns_match_their_sources(kind):
         assert edited != text
 
 
+def test_rounding_scan_unpins_one_line_of_the_decode_kernel():
+    """``chip_smoke.py --rounding-scan`` builds its second decode kernel by
+    one edit: the denominator update, written as an explicit fma, left to
+    the compiler again."""
+    pattern, repl = _chip_smoke().UNPINNED_L
+    text = (build.CSRC / "decode_attention.cu").read_text()
+    edited, n = re.subn(pattern, repl, text)
+    assert n == 1 and repl not in text and repl in edited
+
+
 @pytest.mark.parametrize("kind", ["drop_first_tile", "bf16_accumulate"])
 def test_prefill_faults_reach_both_bodies(kind):
     """The two prefill faults edit the fp32 CUDA-core body and the bf16
