@@ -76,7 +76,7 @@ Phases (any failure raises and exits non-zero):
      step path, identical fp32 greedy tokens and agreeing bf16 decode
      logits;
   6. the serve CLI (``python -m repro_torch.launch.serve``, run in this
-     process through ``main``) at full width, qwen2-1.5b in bf16 at 14 of
+     process through ``main``) at full width, qwen2-1.5b in bf16 at 7 of
      its 28 layers (``CLI_DEPTH``, cut for the script's time): serve.py's
      defaults with ``--n 12``; then traffic that queues
      and preempts (``CLI_QUEUE``: 4 slots, 24 requests at 4 req/s, outputs
@@ -176,7 +176,7 @@ Phases (any failure raises and exits non-zero):
      decode window profiled; the pod's bf16 first prefill logits against
      the single-device kernel model within ``LOGIT_TOL_BF16``; then the
      serve CLI with ``--mesh 1x2 --arch qwen2-moe-a2.7b --prefill-chunk
-     64 --preempt-policy auto`` on ``CLI_QUEUE`` at ``POD_CLI_DEPTH`` (6)
+     64 --preempt-policy auto`` on ``CLI_QUEUE`` at ``POD_CLI_DEPTH`` (3)
      layers (every request finished, its swaps and chunk dispatches
      printed) and
      one offload and restore through its executor;
@@ -198,7 +198,7 @@ Phases (any failure raises and exits non-zero):
      prefill logits against the single-device kernel model (and fp32 ones
      at the parity depth) within ``POD_LOGIT_TOL``; then the serve CLI with
      ``--mesh 1x2 --arch mamba2-130m --preempt-policy auto`` on
-     ``CLI_QUEUE`` at ``POD_CLI_DEPTH`` (6) layers, and one offload and restore
+     ``CLI_QUEUE`` at ``POD_CLI_DEPTH`` (3) layers, and one offload and restore
      through its executor
      when the traffic swapped nothing.  Phase 3's rows tagged
      ``mamba2-130m TP=2`` and ``zamba2-7b TP=2`` hold the kernels at a
@@ -348,6 +348,41 @@ Phases (any failure raises and exits non-zero):
      the card, every request to its token budget.  Phase 3's rows tagged
      ``qwen2-moe-a2.7b expert TP=4`` hold the decode and prefill kernels
      at a rank's 4/4 heads.
+ 20. the prefill_32k step on one card and the engine's two baselines:
+     (a) :func:`prefill_32k_phase`, after every earlier tensor is freed:
+     ``make_prefill_step`` of qwen2-1.5b (28 layers, bf16, full width)
+     at the reference's prefill_32k shape (B=32 x 32768 ids from a seeded
+     generator) over an ``input_specs`` int8 cache, its dense MLP in row
+     chunks (``transformer.PREFILL_MLP_ROWS``: 4 a layer); one step under
+     ``FlopCounterMode`` and one timed, launch counts reset before and read
+     after (``flash_attention`` 28 a step: the chunks add none); the dry
+     run's record at (1, 1) against the card: flops and argument bytes
+     exact, the peak at most ``DRY_PEAK_MARGIN`` (1%) under
+     ``max_memory_allocated`` and never over it, and at most
+     ``PREFILL_PEAK_SHARE`` (80%) of the card's memory; prompts 0 and 31
+     alone at B=1 (one chunk): last-position logits within
+     ``LOGIT_TOL_BF16`` of the batch's, their int8 cache rows at most one
+     code apart (the share apart printed) and scales within 2^-7
+     relative; fp32 at 2 layers over B=2 x 32768, chunked by
+     ``PREFILL_PARITY_ROWS`` (24576: a chunk straddles the two prompts)
+     against one piece, logits within ``POD_LOGIT_TOL``'s fp32 1e-3, codes
+     at most one apart and scales within 1e-3, and the planted
+     ``chunk_drops_last_row`` (each chunk leaves its last row out) must
+     break the logits' gate.  Prints the step's wall time, prompt
+     tokens/s, its bound (the dry run's flops at 989 TFLOP/s or bytes at
+     3.35 TB/s, the larger), ``flash_attention``'s 28 x phase 3's time
+     at this shape as a share of the wall, and the peak against the
+     card's memory.  (b) :func:`baseline_phase`: phase 4's served path
+     (qwen2-1.5b, 28 layers, bf16, the same 12 requests) on an engine with
+     ``EngineConfig(batched_prefill=False, masked_decode=False)``, launch
+     counts reset before and read after: every request with its expected
+     token count, prefill dispatches equal to the admissions (requests
+     and recompute resumes), ``flash_attention`` 28 a prefill dispatch,
+     ``flash_decode`` 28 a decode step, every decode dispatch at the
+     ``max_slots`` batch; fp32 greedy tokens, finished flags and lens at
+     full width and 2 layers equal to the fast engine's over one window
+     of four jobs (1 prefill dispatch against 4); tokens/s and mean JCT
+     printed beside phase 4's fast run (host clock).
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line.
 Needs one CUDA card; imports neither JAX nor the JAX package.
@@ -977,7 +1012,7 @@ def check_kernels(timed: bool = True):
         if timed:
             row.update(ms=cuda_ms(t_run, iters),
                        eager_ms=eager_ms(t_run, iters),
-                       plain_ms=None if t_plain is None
+                       plain_ms=row.get("plain_ms") if t_plain is None
                        else cuda_ms(t_plain, max(iters // 10, 5)),
                        library_ms=None if lib is None else cuda_ms(lib, iters))
         rows[name].append(row)
@@ -1169,7 +1204,7 @@ def check_kernels(timed: bool = True):
         prefill_row(TRAIN_B, TRAIN_S, (HEADS, KV_HEADS, HEAD_DIM), None,
                     TRAIN_TAG)
         if dtype == torch.bfloat16:
-            check_long_prefill(record, gen)
+            check_long_prefill(record, gen, timed)
             if timed:
                 check_row_tiles(gen, failures)
         check_ssd(record, gen, dtype, timed)
@@ -1245,6 +1280,10 @@ LONG_PREFILL = [(1, 32768), (32, 32768)]
 #: of the output over keys [0, b) at query offset a: the same rows), in
 #: groups of LONG_CHECK_BATCH batch rows
 LONG_SLICE, LONG_CHECK_BATCH = 256, 4
+#: query rows of a block when the plain version is timed over a whole long
+#: row (:func:`plain_blocks`): its fp32 scores are at most 12 x 4096 x
+#: 32768 x 4 bytes = 6.4 GB a block
+LONG_PLAIN_BLOCK = 4096
 #: shapes (B, S), bf16, causal, at the served heads, at which phase 3 times
 #: each instance of the prefill's tensor-core body, 1 and 2 row tiles a
 #: warp: the launcher picks 2 when its grid of 128-row blocks makes
@@ -1289,6 +1328,22 @@ def plain_slices(q, k, v, slices):
                             v[i:i + LONG_CHECK_BATCH, :b], q_offset=a)
         for i in range(0, B, LONG_CHECK_BATCH)], dim=0)
         for a, b in slices], dim=1)
+
+
+def plain_blocks(q, k, v) -> None:
+    """The plain causal prefill over every query row of q, in blocks of
+    ``LONG_PLAIN_BLOCK`` rows of one batch row each: rows [a, b) over
+    keys [0, b) at query offset a, the same rows as one call over the
+    whole prompt, whose scores would not fit.  The outputs are dropped:
+    this times the plain version over the kernel's whole work."""
+    from repro_torch.kernels import ref
+
+    B, S = q.shape[:2]
+    for i in range(B):
+        for a in range(0, S, LONG_PLAIN_BLOCK):
+            b = min(a + LONG_PLAIN_BLOCK, S)
+            ref.flash_attention(q[i:i + 1, a:b], k[i:i + 1, :b],
+                                v[i:i + 1, :b], q_offset=a)
 
 
 def check_row_tiles(gen, failures) -> None:
@@ -1345,12 +1400,12 @@ def check_row_tiles(gen, failures) -> None:
         torch.cuda.empty_cache()
 
 
-def check_long_prefill(record, gen) -> None:
+def check_long_prefill(record, gen, timed: bool) -> None:
     """bf16 ``flash_attention`` at the ``LONG_PREFILL`` shapes: the kernel
     over the whole prompt, checked on three slices of ``LONG_SLICE`` query
     rows against the plain version; the kernel and ``sdpa`` (causal, GQA)
-    timed over the whole prompt with few iterations; the plain version is
-    not timed."""
+    timed over the whole prompt with few iterations, the plain version
+    once over it, block by block (:func:`plain_blocks`, CUDA events)."""
     import torch
     import torch.nn.functional as F
 
@@ -1377,8 +1432,12 @@ def check_long_prefill(record, gen) -> None:
         b_ms, b_by = bound(bytes_moved, flops, "bfloat16")
         record("flash_attention", dict(
             dtype="bfloat16", B=B, S=S, window=None,
+            heads=f"{HEADS}/{KV_HEADS}", D=HEAD_DIM,
             bound_ms=b_ms, bound_by=b_by,
-            note=f"; checked on query rows {slices}; plain not timed"),
+            plain_ms=event_ms(lambda: plain_blocks(q, k, v), reps=1,
+                              warmup=0) if timed else None,
+            note=f"; checked on query rows {slices}; plain timed once, in "
+                 f"blocks of {LONG_PLAIN_BLOCK} query rows"),
             run, plain,
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True),
@@ -1793,15 +1852,17 @@ def served_frontend():
         observe_in_flight=False)
 
 
-def serve(cfg, params, requests, *, attn_impl: str, mesh=None):
+def serve(cfg, params, requests, *, attn_impl: str, mesh=None,
+          **engine_opts):
     """Drive the served path (serve.py's defaults) over ``requests`` on one
-    engine (a TP pod with ``mesh``); returns (responses, executor, wall
-    seconds)."""
+    engine (a TP pod with ``mesh``; ``engine_opts``: more ``EngineConfig``
+    fields); returns (responses, executor, wall seconds)."""
     from repro_torch.core import ElisServer, OraclePredictor
     from repro_torch.engine import EngineConfig, EngineExecutor, InferenceEngine
 
     ecfg = EngineConfig(max_slots=4, max_len=MAX_LEN, max_output=32,
-                        eos_id=-1, respect_job_max=True, attn_impl=attn_impl)
+                        eos_id=-1, respect_job_max=True, attn_impl=attn_impl,
+                        **engine_opts)
     engine = InferenceEngine(cfg, params, ecfg, device=DEVICE, mesh=mesh)
     executor = EngineExecutor({0: engine})
     server = ElisServer(served_frontend(), OraclePredictor(), executor)
@@ -1913,19 +1974,22 @@ def path_launches(cfg, tp: int, prefills: int, steps: int,
             if prefills or name not in ("ssd_scan", "flash_attention")}
 
 
-def served_path(cfg, params, requests, mesh=None, keep=None):
+def served_path(cfg, params, requests, mesh=None, keep=None,
+                **engine_opts):
     """Serve ``requests`` through the kernel path (on one TP pod with
-    ``mesh``) with every launch count set to 0 just before and read just
-    after; check every request, and that the path's kernels ran as often
-    as its dispatches say.  Returns the launch counts; ``keep``, a dict,
-    also receives the executor and the responses (phase 15 calibrates on
-    them)."""
+    ``mesh``; ``engine_opts`` as :func:`serve`'s) with every launch count
+    set to 0 just before and read just after; check every request, and
+    that the path's kernels ran as often as its dispatches say.  Returns
+    the launch counts; ``keep``, a dict, also receives the executor, the
+    responses and the wall seconds (phase 15 calibrates on them, phase 20
+    compares with them)."""
     from repro_torch.core import summarize
     from repro_torch.kernels import ops
 
     ops.reset_launches()
     responses, executor, wall = serve(cfg, params, requests,
-                                      attn_impl="kernel", mesh=mesh)
+                                      attn_impl="kernel", mesh=mesh,
+                                      **engine_opts)
     launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
     counters = executor.counters()
     want = {r.request_id: min(32, r.true_output_len) for r in requests}
@@ -1943,7 +2007,8 @@ def served_path(cfg, params, requests, mesh=None, keep=None):
     check_launches(launches, want_launches)
     n_tok = sum(r.n_tokens for r in responses)
     m = summarize(responses)
-    log(f"[serve] {describe(cfg, mesh)}")
+    log(f"[serve] {describe(cfg, mesh)}"
+        + (f"; EngineConfig {engine_opts}" if engine_opts else ""))
     log(f"[serve] {len(responses)}/{len(requests)} requests FINISHED with "
         f"the expected token counts; {n_tok} tokens in {wall:.3f} s wall = "
         f"{n_tok / wall:.1f} tokens/s; JCT mean {m['jct_mean']:.3f} s, p99 "
@@ -1956,7 +2021,7 @@ def served_path(cfg, params, requests, mesh=None, keep=None):
         + f" (all counts: {json.dumps(launches)})")
     log(f"[serve] engine counters: {json.dumps(counters)}")
     if keep is not None:
-        keep.update(executor=executor, responses=responses)
+        keep.update(executor=executor, responses=responses, wall=wall)
     return launches
 
 
@@ -2723,11 +2788,11 @@ def cross_rank_local():
 
     right = T._cross_mlp
 
-    def faulty(cfg, lcfgs, lps, hs, crosses, moe_impl):
+    def faulty(cfg, lcfgs, lps, hs, crosses, moe_impl, rows=None):
         hs = [h + L.cross_attention_block(
             lp["cross"], lc, L.apply_norm(cfg, lp["cross_norm"], h), kv)
             for lp, lc, h, kv in zip(lps, lcfgs, hs, crosses)]
-        return T._mlp(cfg, lcfgs, lps, hs, moe_impl)
+        return T._mlp(cfg, lcfgs, lps, hs, moe_impl, rows=rows)
 
     T._cross_mlp = faulty
     try:
@@ -2790,16 +2855,19 @@ def tp_planted_fault(cfg, params, requests) -> dict:
 #: serve far fewer requests a second at full width
 CLI_QUEUE = ["--slots", "4", "--window", "8", "--n", "24", "--rate", "4",
              "--max-output", "128", "--seed", "0"]
-#: the depth phases 6 and 7 serve qwen2-1.5b at (full width, 14 of its
-#: 28 layers): cut for the script's time once phase 16 took it to 1099 s
-#: of its 1200 on an H100 with a slow host, and phase 7's two ranked runs
-#: too once phase 17 took it to 1106 s (they ran all 28, so their JCT was
-#: not comparable with phase 6's oracle ISRTF runs); phase 4 serves all 28
-CLI_DEPTH = 14
+#: the depth phases 6 and 7 serve qwen2-1.5b at (full width, 7 of its
+#: 28 layers): cut to 14 for the script's time once phase 16 took it to
+#: 1099 s of its 1200 on an H100 with a slow host, and phase 7's two
+#: ranked runs too once phase 17 took it to 1106 s (they ran all 28, so
+#: their JCT was not comparable with phase 6's oracle ISRTF runs); cut to
+#: 7 once phase 20 took it to 1169.8 s on a slow host; phase 4 serves all
+#: 28
+CLI_DEPTH = 7
 #: the depth of the pod CLI runs of phases 11 (qwen2-moe-a2.7b) and 12
-#: (mamba2-130m): 6 layers, cut from their served depth of 12 for the
-#: script's time once phase 17 took it to 1106 s on a slow host
-POD_CLI_DEPTH = 6
+#: (mamba2-130m): 3 layers, cut from their served depth of 12 to 6 for the
+#: script's time once phase 17 took it to 1106 s on a slow host, and to 3
+#: once phase 20 took it to 1169.8 s
+POD_CLI_DEPTH = 3
 #: the runs of phase 6, in order: serve.py's defaults, then ISRTF and FCFS
 #: on the same arrivals (isrtf, fcfs, fcfs, isrtf), then ISRTF with chunked
 #: prefill and swap preemption, and with the ``auto`` break-even after a
@@ -7398,6 +7466,352 @@ def expert_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# Phase 20: make_prefill_step at prefill_32k on one card, and the engine's
+# two reference baselines
+# --------------------------------------------------------------------------- #
+
+#: phase 20 (a)'s arch: the prefill_32k step (B=32 x 32768) over an int8
+#: cache, at full width and depth on one card
+PREFILL_ARCH = "qwen2-1.5b"
+#: the most of the card's memory (``torch.cuda.mem_get_info()[1]``) the
+#: dry run's peak of that step may take
+PREFILL_PEAK_SHARE = 0.8
+#: (a)'s fp32 check at full width: ``PREFILL_PARITY_DEPTH`` layers over
+#: ``PREFILL_PARITY_B`` prompts of 32768 ids, chunked by
+#: ``PREFILL_PARITY_ROWS`` rows, which divides neither prompt: the chunks
+#: are rows [0, 24576), [24576, 49152) and [49152, 65536), the second
+#: straddling the boundary between the prompts
+PREFILL_PARITY_DEPTH, PREFILL_PARITY_B, PREFILL_PARITY_ROWS = 2, 2, 24576
+#: phase 20 (b): ``EngineConfig``'s two baselines, both off the fast path
+BASELINE_OPTS = dict(batched_prefill=False, masked_decode=False)
+
+
+def chunk_drops_last_row(fn, x, rows):
+    """The planted fault of phase 20 (a): ``transformer._in_rows`` with
+    each chunk leaving its last row's MLP out (zero); the last chunk ends
+    at the last prompt's last position, whose logits it moves."""
+    import torch
+
+    flat = x.reshape(-1, x.shape[-1])
+    out = torch.zeros_like(flat)
+    for a in range(0, flat.shape[0], rows):
+        b = min(a + rows, flat.shape[0]) - 1
+        out[a:b] = fn(flat[a:b])
+    return out.view_as(x)
+
+
+def int8_row_gap(kv, kv1, i: int, j: int = 0) -> tuple:
+    """Slot ``i`` of the int8 cache ``kv`` against slot ``j`` of ``kv1``,
+    every layer and row: (the largest code difference, the share of
+    codes that differ, the largest scale gap relative to the scales'
+    largest value)."""
+    worst, off, n, rel = 0, 0, 0, 0.0
+    for a, b in ((kv.k, kv1.k), (kv.v, kv1.v)):
+        d = (a[:, i].int() - b[:, j].int()).abs()
+        worst = max(worst, int(d.max()))
+        off += int((d > 0).sum())
+        n += d.numel()
+    for a, b in ((kv.k_scale, kv1.k_scale), (kv.v_scale, kv1.v_scale)):
+        rel = max(rel, float((a[:, i] - b[:, j]).abs().max()
+                             / b[:, j].abs().max()))
+    return worst, off / n, rel
+
+
+def prefill_step_run(cfg, params, shape, tokens, rows=None, fault=False):
+    """``make_prefill_step(cfg)`` over a fresh ``input_specs`` int8 cache
+    of ``shape`` fed ``tokens``, under ``torch.no_grad()``; ``rows``
+    replaces ``transformer.PREFILL_MLP_ROWS`` for the run, ``fault`` plants
+    :func:`chunk_drops_last_row`.  Returns (logits, cache)."""
+    import torch
+
+    from repro_torch.launch.shapes import input_specs
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    batch = input_specs(cfg, shape, kv_dtype="int8", device=DEVICE)
+    batch["tokens"] = tokens
+    old = T.PREFILL_MLP_ROWS, T._in_rows
+    if rows is not None:
+        T.PREFILL_MLP_ROWS = rows
+    if fault:
+        T._in_rows = chunk_drops_last_row
+    try:
+        with torch.no_grad():
+            logits, cache = make_prefill_step(cfg)(params, batch)
+    finally:
+        T.PREFILL_MLP_ROWS, T._in_rows = old
+    return logits, cache["kv"]
+
+
+def prefill_chunk_parity(cfg, shape) -> list:
+    """Phase 20 (a), fp32: the step at full width and
+    ``PREFILL_PARITY_DEPTH`` layers over ``PREFILL_PARITY_B`` prompts,
+    chunked by ``PREFILL_PARITY_ROWS`` against one piece: logits within
+    ``POD_LOGIT_TOL``'s fp32 limit (1e-3), cache codes at most one step
+    apart and scales within that limit of their largest; the planted
+    :func:`chunk_drops_last_row` must break the logits' gate.  Returns
+    failures."""
+    import torch
+
+    from repro_torch.launch.shapes import InputShape
+
+    cfg2, params = fp32_model(cfg, PREFILL_PARITY_DEPTH)
+    two = InputShape(shape.name, shape.seq_len, PREFILL_PARITY_B, "prefill")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    tokens = torch.randint(8, cfg.vocab_size, (two.global_batch, two.seq_len),
+                           generator=gen, device=DEVICE, dtype=torch.int32)
+    n = two.global_batch * two.seq_len
+    tol = POD_LOGIT_TOL[("dense", "float32")]
+    whole_l, whole_kv = prefill_step_run(cfg2, params, two, tokens, rows=n)
+    out, failures = {}, []
+    for name, fault in (("chunked", False), ("planted", True)):
+        logits, kv = prefill_step_run(cfg2, params, two, tokens,
+                                      rows=PREFILL_PARITY_ROWS, fault=fault)
+        gap = float((logits - whole_l).abs().max())
+        codes = [int8_row_gap(kv, whole_kv, i, i)
+                 for i in range(two.global_batch)]
+        worst = max(c[0] for c in codes)
+        share = sum(c[1] for c in codes) / len(codes)
+        rel = max(c[2] for c in codes)
+        out[name] = (gap, worst, share, rel)
+        log(f"[prefill32k] fp32, {cfg2.n_layers} layers, B={two.global_batch}"
+            f" x {two.seq_len}, rows by {PREFILL_PARITY_ROWS} "
+            f"({-(-n // PREFILL_PARITY_ROWS)} chunks, one across the "
+            f"prompts' boundary){' with the planted chunk_drops_last_row' if fault else ''}"
+            f" against one piece: logits max gap {gap:.3e} (gate {tol}), "
+            f"cache codes largest difference {worst}, share differing "
+            f"{share:.3e}, scales' largest relative gap {rel:.3e}")
+    gap, worst, _, rel = out["chunked"]
+    if not (gap <= tol and worst <= 1 and rel <= tol):
+        failures.append(f"fp32 chunked prefill against one piece: logits "
+                        f"{gap:.3e}, codes {worst}, scales {rel:.3e}")
+    if out["planted"][0] <= tol:
+        failures.append(f"the planted chunk_drops_last_row passed the "
+                        f"logits' gate ({out['planted'][0]:.3e})")
+    else:
+        log(f"[prefill32k] planted chunk_drops_last_row caught: logits gap "
+            f"{out['planted'][0]:.3e} = {out['planted'][0] / tol:.0f} x the "
+            f"gate")
+    return failures
+
+
+def prefill_32k_phase(attn_ms=None, cfg=None, shape=None) -> dict:
+    """Phase 20 (a): ``make_prefill_step`` of ``PREFILL_ARCH`` at the
+    reference's prefill_32k shape over an ``input_specs`` int8 cache, bf16
+    at full width and depth, after every earlier tensor is freed.  One
+    step under ``FlopCounterMode``, then one timed (devices
+    synchronised), launch counts reset before the first and read after
+    the second (``flash_attention`` once a layer and step: the MLP's row
+    chunks add no launch); the dry run's record (``dryrun.lower_one`` at
+    (1, 1)) against the card: flops and argument bytes exact, the peak at
+    most ``DRY_PEAK_MARGIN`` under ``max_memory_allocated`` and never over
+    it, and at most ``PREFILL_PEAK_SHARE`` of the card's memory; the
+    first and the last prompt run alone at B=1 (one chunk): their logits
+    within ``LOGIT_TOL_BF16`` of the batch's, their int8 cache rows at
+    most one code apart (the share printed) and their scales within
+    ``2 ** -7`` relative; then :func:`prefill_chunk_parity`.  Prints the
+    step's wall time, prompt tokens/s, its bound (the record's flops at
+    the bf16 peak and its bytes at HBM's rate, the larger),
+    ``flash_attention``'s share of the wall at phase 3's time of one
+    launch at this shape (``attn_ms``), and the peak against the card's
+    memory.  ``cfg`` and ``shape`` replace the published config and the
+    shape (a CPU rehearsal).  Returns the launch counts."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import SHAPES, InputShape, input_specs
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config(PREFILL_ARCH)
+    shape = shape or SHAPES["prefill_32k"]
+    b, s, n = shape.global_batch, shape.seq_len, cfg.n_layers
+    rec = dryrun.lower_one(cfg.arch_id, shape.name, False, input_shape=shape,
+                           cfg_override=cfg, mesh_shape=(1, 1),
+                           kv_dtype="int8")
+    ma = rec["memory_analysis"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    synchronize_all()
+    total = torch.cuda.mem_get_info()[1]
+    base = torch.cuda.memory_allocated()
+    params = T.init_params(cfg, torch.Generator(device=DEVICE)
+                           .manual_seed(SEED))
+    batch = input_specs(cfg, shape, kv_dtype="int8", device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    batch["tokens"] = torch.randint(8, cfg.vocab_size, (b, s), generator=gen,
+                                    device=DEVICE, dtype=torch.int32)
+    args = sum(dryrun._storages((params, batch)).values())
+    step = make_prefill_step(cfg)
+    synchronize_all()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        logits, _ = step(params, batch)
+    synchronize_all()
+    peak = torch.cuda.max_memory_allocated() - base
+    del logits
+    with torch.no_grad():
+        synchronize_all()
+        t0 = time.perf_counter()
+        logits, cache = step(params, batch)
+        synchronize_all()
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
+    check_launches(launches, {"flash_attention": (
+        2 * n, f"{n} layers x 2 steps (the MLP's chunks add none)")})
+    failures = []
+    if tuple(logits.shape) != (b, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        failures.append(f"logits {tuple(logits.shape)} not finite or not "
+                        f"({b}, 1, {cfg.vocab_size})")
+    flops = fc.get_total_flops()
+    dry_peak = ma["pod_peak_memory_in_bytes"]
+    if flops != rec["flops"] or flops != rec["cost_analysis"]["pod flops"]:
+        failures.append(f"flops: dry {rec['flops']:.6e} vs card {flops:.6e}")
+    if args != ma["argument_size_in_bytes"]:
+        failures.append(f"argument bytes: dry "
+                        f"{ma['argument_size_in_bytes']:.0f} vs card {args}")
+    if not 0 <= peak - dry_peak <= DRY_PEAK_MARGIN * peak:
+        failures.append(f"peak: dry {dry_peak:.0f} vs card {peak}")
+    if dry_peak > PREFILL_PEAK_SHARE * total:
+        failures.append(f"dry peak {dry_peak / 1e9:.2f} GB over "
+                        f"{PREFILL_PEAK_SHARE:.0%} of {total / 1e9:.2f} GB")
+    t_f = rec["flops"] / PEAK_FLOPS["bfloat16"]
+    t_b = rec["bytes_accessed"] / HBM_BYTES_S
+    attn = ("not measured" if attn_ms is None else
+            f"{n} x {attn_ms:.2f} ms (phase 3, B={b} x {s}) = "
+            f"{n * attn_ms / 1e3:.2f} s, {n * attn_ms / 1e3 / wall:.1%} of "
+            f"the wall")
+    log(f"[prefill32k] make_prefill_step, {describe(cfg)}, B={b} x {s} over "
+        f"an int8 cache, row budget {T.PREFILL_MLP_ROWS} "
+        f"({-(-b * s // T.PREFILL_MLP_ROWS)} MLP chunks a layer): step wall "
+        f"{wall:.3f} s, {b * s / wall:.0f} prompt tokens/s; bound "
+        f"{max(t_f, t_b):.3f} s (dry-run flops {rec['flops']:.4e} at "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s = {t_f:.3f} s, bytes "
+        f"{rec['bytes_accessed']:.4e} at {HBM_BYTES_S / 1e12:.2f} TB/s = "
+        f"{t_b:.3f} s), {max(t_f, t_b) / wall:.1%} of the wall; "
+        f"flash_attention {attn}; launches {json.dumps(launches)}")
+    log(f"[prefill32k] dry run against the card: flops dry {rec['flops']:.6e}"
+        f" vs card {flops:.6e}; argument bytes dry "
+        f"{ma['argument_size_in_bytes']:.0f} vs card {args}; peak dry "
+        f"{dry_peak / 1e9:.4f} GB vs max_memory_allocated {peak / 1e9:.4f} "
+        f"GB ({(dry_peak - peak) / max(peak, 1):+.3%}, gate 0 to "
+        f"-{DRY_PEAK_MARGIN:.0%}); peak {peak / 1e9:.2f} GB of the card's "
+        f"{total / 1e9:.2f} GB ({peak / total:.1%}; the dry run's limit "
+        f"{PREFILL_PEAK_SHARE:.0%}); trace {rec['lower_s']} s; "
+        f"{nvidia_smi_line()}")
+    one = InputShape(shape.name, s, 1, "prefill")
+    for i in (0, b - 1):
+        l1, kv1 = prefill_step_run(cfg, params, one,
+                                   batch["tokens"][i:i + 1].clone())
+        gap = float((l1[0].float() - logits[i].float()).abs().max())
+        worst, share, rel = int8_row_gap(cache["kv"], kv1, i)
+        log(f"[prefill32k] prompt {i} alone (B=1 x {s}, one chunk) against "
+            f"its row of the batch: logits max gap {gap:.4e} (gate "
+            f"{LOGIT_TOL_BF16}); int8 cache codes largest difference "
+            f"{worst}, share differing {share:.3e}; scales' largest "
+            f"relative gap {rel:.3e}")
+        if not (gap <= LOGIT_TOL_BF16 and worst <= 1 and rel <= 2.0 ** -7):
+            failures.append(f"prompt {i} alone: logits {gap:.4e}, codes "
+                            f"{worst}, scales {rel:.3e}")
+        del l1, kv1
+    del params, batch, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    failures += prefill_chunk_parity(cfg, shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[prefill32k] phase 20 (a) in {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("phase 20 (a): " + "; ".join(failures))
+    return launches
+
+
+def baseline_parity(cfg, requests) -> list:
+    """Phase 20 (b), fp32 at full width and 2 layers: four jobs in one
+    window on the fast engine and on the baseline one
+    (``BASELINE_OPTS``), as the reference's
+    ``test_batched_prefill_matches_serial``: identical tokens, finished
+    flags and ``len`` vectors, 1 prefill dispatch against 4.  Returns
+    failures."""
+    from repro_torch.core import Job
+    from repro_torch.engine import EngineConfig, InferenceEngine
+
+    cfg2, params = fp32_model(cfg, 2)
+    out = {}
+    for name, opts in (("fast", {}), ("baseline", BASELINE_OPTS)):
+        eng = InferenceEngine(cfg2, params, EngineConfig(
+            max_slots=4, max_len=MAX_LEN, max_output=64, eos_id=-1, **opts),
+            device=DEVICE)
+        jobs = [Job(job_id=r.request_id, prompt="",
+                    prompt_tokens=list(r.prompt_tokens), arrival_time=0.0)
+                for r in requests[:4]]
+        toks, fin = eng.run_window(jobs, 8)
+        out[name] = (toks, fin, eng.cache["len"].tolist(),
+                     eng.num_prefill_dispatches)
+    same = out["fast"][:3] == out["baseline"][:3]
+    log(f"[baseline] fp32, {cfg2.n_layers} layers, 4 jobs in one window of "
+        f"8: tokens, finished flags and lens of the baseline engine "
+        f"{'equal to' if same else 'DIFFER from'} the fast engine's; prefill "
+        f"dispatches {out['fast'][3]} against {out['baseline'][3]}")
+    if not same or (out["fast"][3], out["baseline"][3]) != (1, 4):
+        return [f"fp32 baseline against fast engine: {out}"]
+    return []
+
+
+def baseline_phase(cfg, params, requests, dense=None) -> dict:
+    """Phase 20 (b): phase 4's served path (``requests``, bf16 at full
+    width and depth) on an engine with both baselines off the fast path
+    (``BASELINE_OPTS``), launch counts reset before and read after
+    (:func:`served_path`: every request with its expected token count,
+    ``flash_attention`` once a layer and prefill dispatch,
+    ``flash_decode`` once a layer and decode step); the prefill
+    dispatches must equal the admissions (the requests and their
+    recompute resumes) and every decode dispatch must run at the
+    ``max_slots`` batch; then :func:`baseline_parity`.  Prints tokens/s
+    and mean JCT beside ``dense``, phase 4's fast run (host clock).
+    Returns the launch counts."""
+    from repro_torch.core import summarize
+
+    t_phase = time.perf_counter()
+    keep = {}
+    launches = served_path(cfg, params, requests, keep=keep, **BASELINE_OPTS)
+    eng = keep["executor"].engines[0]
+    responses, wall = keep["responses"], keep["wall"]
+    counters = keep["executor"].counters()
+    admissions = len(requests) + sum(r.n_preemptions for r in responses)
+    widths = sorted({batch for _, batch in eng._decode_shapes})
+    failures = []
+    if counters["prefill_dispatches"] != admissions or counters["swapins"]:
+        failures.append(f"prefill dispatches {counters['prefill_dispatches']}"
+                        f" vs {admissions} admissions")
+    if widths != [eng.cfg.max_slots]:
+        failures.append(f"decode batches {widths}, want only "
+                        f"{eng.cfg.max_slots}")
+    n_tok = sum(r.n_tokens for r in responses)
+    m = summarize(responses)
+    fast = ("not run in this call" if dense is None else
+            f"{dense['tokens_s']:.1f} tokens/s, JCT mean "
+            f"{dense['jct_mean']:.3f} s")
+    log(f"[baseline] {BASELINE_OPTS}: {counters['prefill_dispatches']} "
+        f"prefill dispatches = {len(requests)} requests + "
+        f"{admissions - len(requests)} recompute resumes; decode batches "
+        f"{widths}; {n_tok / wall:.1f} tokens/s, JCT mean "
+        f"{m['jct_mean']:.3f} s; phase 4's fast engine: {fast} (host "
+        f"clock)")
+    failures += baseline_parity(cfg, requests)
+    log(f"[baseline] phase 20 (b) in {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("phase 20 (b): " + "; ".join(failures))
+    return launches
+
+
 def random_params(cfg):
     """``transformer.init_params`` on the card from ``SEED``."""
     import torch
@@ -7440,6 +7854,7 @@ def main(argv=None) -> None:
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script needs an NVIDIA card")
     from repro_torch.configs import get_config
+    from repro_torch.core import summarize
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7513,7 +7928,7 @@ def main(argv=None) -> None:
     # tensor-parallel pod
     cells = [(cfg, requests, None) for cfg, requests in models]
     cells.append((models[0][0], models[0][1], tp_mesh()))
-    calibration = None
+    calibration = dense = None
     for cfg, requests, mesh in cells:
         name = cfg.arch_id + ("" if mesh is None else f" TP={TP}")
         params = random_params(cfg)
@@ -7525,6 +7940,9 @@ def main(argv=None) -> None:
         if calibration is None and mesh is None and cfg.family == "dense":
             # phase 15 (a) and (b): calibrate the simulator on this run
             calibration = sim_calibrate(cfg, requests, served)
+            dense = {"tokens_s": sum(r.n_tokens for r in served["responses"])
+                     / served["wall"],
+                     "jct_mean": summarize(served["responses"])["jct_mean"]}
         del served
         profile_window(cfg, params, requests, mesh)
         if not greedy_parity(cfg, requests,
@@ -7641,6 +8059,20 @@ def main(argv=None) -> None:
     # the examples on the card
     expert = expert_phase()
     lap("19 expert pods, audio seq, examples")
+
+    # phase 20: the prefill_32k step on one card, then phase 4's traffic on
+    # the engine's two baselines
+    attn_ms = next(r["ms"] for r in rows["flash_attention"]
+                   if r.get("arch", "") == "" and (r["B"], r["S"])
+                   == LONG_PREFILL[-1])
+    prefill32k = prefill_32k_phase(attn_ms)
+    cfg, requests = models[0]
+    params = random_params(cfg)
+    baseline = baseline_phase(cfg, params, requests, dense)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("20 prefill_32k, baselines")
     log("[time] each phase, s: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}) + f"; in all "
         f"{sum(phase_s.values()):.1f} s after the imports")
@@ -7681,7 +8113,7 @@ def main(argv=None) -> None:
         "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:81")
     kernels = []
-    for name, key, counts, arch in (
+    for name, key, counts, arch, *label in (
             [(n, k, launches, "") for n, k in served.items()]
             + [(n, k, hybrid, HY_ARCH) for n, k in hy_rows.items()]
             + [(n, k, archs[VL_ARCH], VL_ARCH) for n, k in vl_rows.items()]
@@ -7723,7 +8155,14 @@ def main(argv=None) -> None:
             + [(n, dict(dtype="bfloat16", B=TRAIN_B, S=TRAIN_S),
                 trained[a]["launches"], TRAIN_TAG) for n, a in (
                 ("flash_attention", "qwen2-1.5b"),
-                ("ssd_scan", "mamba2-130m"))]):
+                ("ssd_scan", "mamba2-130m"))]
+            # the prefill_32k step and the baseline engine, with phase 20's
+            # launches
+            + [("flash_attention", dict(dtype="bfloat16", B=LONG_PREFILL[-1][0],
+                                        S=LONG_PREFILL[-1][1], window=None),
+                prefill32k, "", "prefill_32k step")]
+            + [(n, served[n], baseline, "", "dense-baseline")
+               for n in ("flash_attention", "flash_decode")]):
         r = next(r for r in rows[name]
                  if r.get("arch", "") == arch
                  and all(r[k] == v for k, v in key.items()))
@@ -7740,7 +8179,8 @@ def main(argv=None) -> None:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": f"{arch + ': ' if arch else ''}{r['dtype']} {shape}"})
+            "shape": f"{(label or [arch])[0] + ': ' if label or arch else ''}"
+                     f"{r['dtype']} {shape}"})
     kernels += seq_kernel_json(seq_rows, seq)
     print(json.dumps({"kernels": kernels}))
     print(smi)

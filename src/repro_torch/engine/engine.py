@@ -35,6 +35,12 @@ Fast path, as in the reference:
     of a chunked prefill are plain PyTorch, as in the reference
     (``"torch"`` is the plain reference path throughout).
 
+``EngineConfig(batched_prefill=False)`` and ``masked_decode=False`` are the
+reference's pre-fast-path baselines, kept for benchmarking: one batch-1
+prefill dispatch per admitted job, and every decode window at the full
+``max_slots`` batch with every slot alive (empty and unscheduled slots
+advance too, as in the reference).
+
 PyTorch runs eagerly, so a decode window is a Python loop of steps and the
 ``num_*_traces`` counters count distinct dispatch shapes first seen (the
 reference counts jit traces; both are bounded by the shape buckets).
@@ -108,6 +114,14 @@ class EngineConfig:
     #: kernel implementation: "kernel" (the hand-written CUDA kernels;
     #: their plain versions on CPU tensors) or "torch" (plain PyTorch)
     attn_impl: str = "kernel"
+    #: admit all newly scheduled jobs in one padded (batch, seq)-bucketed
+    #: prefill dispatch (False = one batch-1 dispatch per job, the
+    #: pre-fast-path baseline kept for benchmarking)
+    batched_prefill: bool = True
+    #: compact decode dispatches to the batch bucket of the *scheduled*
+    #: slots and freeze unscheduled/EOS slots (False = always decode the
+    #: full ``max_slots`` batch, the pre-fast-path baseline)
+    masked_decode: bool = True
     #: honour each request's own token budget (job.true_output_len acts as
     #: the request's ``max_tokens``)
     respect_job_max: bool = False
@@ -511,8 +525,8 @@ class InferenceEngine:
     def add_jobs(self, jobs: Sequence[Job]) -> List[int]:
         """Admit every job not yet holding a slot: attention families in
         ONE padded ``(batch_bucket, seq_bucket)`` prefill dispatch,
-        exact-length families in serial batch-1 dispatches.  Returns each
-        job's slot."""
+        exact-length families (or ``batched_prefill=False``) in serial
+        batch-1 dispatches.  Returns each job's slot."""
         todo = [j for j in jobs if not self.has_job(j.job_id)]
         if todo:
             if len(todo) > self.free_slots():
@@ -520,7 +534,8 @@ class InferenceEngine:
                 raise RuntimeError(
                     f"admitting {len(todo)} jobs needs {len(todo)} free "
                     f"slots, engine has {self.free_slots()}")
-            if self.model_cfg.family in EXACT_PREFILL_FAMILIES:
+            if (not self.cfg.batched_prefill
+                    or self.model_cfg.family in EXACT_PREFILL_FAMILIES):
                 for j in todo:
                     self._admit([j])
             else:
@@ -682,13 +697,17 @@ class InferenceEngine:
     def _decode_jobs(self, jobs: Sequence[Job], window: int,
                      results: Dict[int, Tuple[List[int], bool]]) -> None:
         """One masked/compacted decode dispatch for ``jobs`` (all holding
-        prefilled slots); writes (tokens, finished) into ``results``."""
+        prefilled slots); writes (tokens, finished) into ``results``.
+        With ``masked_decode=False`` the dispatch is the full ``max_slots``
+        batch with every slot alive, so every slot advances, empty and
+        unscheduled ones included, and keeps the ``len`` it reached, as in
+        the reference's baseline."""
         slots = [self.slot_of[job.job_id] for job in jobs]
         prev_lens = _ranks(self.cache)[0]["len"].tolist()
         ms = self.cfg.max_slots
         order = sorted(slots)
         db = min(batch_bucket(len(order)), ms)
-        compact = db < ms
+        compact = self.cfg.masked_decode and db < ms
         if compact:
             # decode only the scheduled slots, padded to the batch bucket
             # (pad rows duplicate a real slot but start dead, so they are
@@ -704,11 +723,15 @@ class InferenceEngine:
             alive0[: len(order)] = True
             row_of = {slot: r for r, slot in enumerate(order)}
         else:
-            # full-width dispatch, but unscheduled slots stay frozen
             sub_cache = self.cache
             sub_last = self.last_token
-            alive0 = np.zeros((ms,), bool)
-            alive0[slots] = True
+            if self.cfg.masked_decode:
+                # full-width dispatch, but unscheduled slots stay frozen
+                alive0 = np.zeros((ms,), bool)
+                alive0[slots] = True
+            else:
+                # pre-fast-path baseline: every slot advances every window
+                alive0 = np.ones((ms,), bool)
             row_of = {s: s for s in slots}
         self.num_decode_dispatches += 1
         new_cache, toks = self._decode_window(
@@ -718,7 +741,10 @@ class InferenceEngine:
         if compact:
             for big, small in zip(_ranks(self.cache), _ranks(new_cache)):
                 _scatter_slots(big, small, order, len(order))
-        lens = list(prev_lens)
+        # the lengths the window left (unscheduled slots advanced only in the
+        # baseline), then each scheduled job's consumed writes
+        lens = (list(prev_lens) if self.cfg.masked_decode
+                else _ranks(self.cache)[0]["len"].tolist())
         for job in jobs:
             slot = self.slot_of[job.job_id]
             scanned = toks[row_of[slot]].tolist()

@@ -801,6 +801,18 @@ def _write_prompt(kvc: KVCache, i: int, pairs) -> None:
 # =========================================================================== #
 
 
+#: the most rows of the flattened (B * S) prompt batch that one-shot
+#: :func:`prefill` runs through a layer's dense MLP at once: a longer batch
+#: runs the norm and the MLP chunk by chunk into one buffer (:func:`_mlp`),
+#: which changes no sum, since both act on each row alone.  Sized for
+#: qwen2-1.5b's prefill_32k step (B=32 x 32768 = 2**20 rows) on one 80 GB
+#: card: the gate, up and product transients of 2**18 rows are 3 x 2**18 x
+#: 8960 bf16 = 14.1 GB, where the whole batch's 56.4 GB put the step's
+#: peak at 89.2 GB.  A batch of at most 2**18 rows (one prompt of 32768
+#: tokens, every served window) runs in one piece.
+PREFILL_MLP_ROWS = 1 << 18
+
+
 def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
             attn_impl: str = "kernel", moe_impl: str = "dense",
             last_index: Optional[torch.Tensor] = None, mesh=None):
@@ -831,7 +843,8 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
             hs = _ssm_layers(cfg, attn_impl, [q[0][g] for q in per], hs,
                              _group_states(caches, g))
             hs = _attn_prefill(cfg, lcfgs, [q[2] for q in per], hs, cos_sins,
-                               caches, g, attn_impl, moe_impl)
+                               caches, g, attn_impl, moe_impl,
+                               rows=PREFILL_MLP_ROWS)
         if per[0][1]:
             hs = _ssm_layers(cfg, attn_impl, [q[1] for q in per], hs,
                              [c["tail_ssm"] for c in caches])
@@ -854,12 +867,14 @@ def prefill(params: Params, cfg, batch: Dict, cache: Cache, *,
                 for c, (ck, cv) in ranked(zip(xkv, crosses)):
                     c.k[i].copy_(ck)
                     c.v[i].copy_(cv)
-            hs = _cross_mlp(cfg, lcfgs, lps, hs, crosses, moe_impl)
+            hs = _cross_mlp(cfg, lcfgs, lps, hs, crosses, moe_impl,
+                            rows=PREFILL_MLP_ROWS)
     else:
         layers = [_unstack(p["layers"], cfg.n_layers) for p in shards]
         for i in range(cfg.n_layers):
             hs = _attn_prefill(cfg, lcfgs, [per[i] for per in layers], hs,
-                               cos_sins, caches, i, attn_impl, moe_impl)
+                               cos_sins, caches, i, attn_impl, moe_impl,
+                               rows=PREFILL_MLP_ROWS)
     for c, d in zip(caches, ranks):
         c["len"] = torch.full((b,), s, dtype=torch.int32, device=d)
     if last_index is not None:
@@ -1094,11 +1109,12 @@ def _unembed(shards: List[Params], cfg, hs: List[torch.Tensor]):
 def _attn_prefill(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
                   cos_sins, caches, site: int, attn_impl: str,
                   moe_impl: str, mlp: bool = True,
-                  aux: Optional[List] = None) -> List[torch.Tensor]:
+                  aux: Optional[List] = None,
+                  rows: Optional[int] = None) -> List[torch.Tensor]:
     """One attention layer's prefill on every rank (``lps[r]``, ``hs[r]``):
     attention, its K/V written into site ``site`` of each rank's cache
     (none when ``caches`` is None), then the MLP unless ``mlp`` is False
-    (``aux``: :func:`_mlp`'s).  Returns the residual stream."""
+    (``aux``, ``rows``: :func:`_mlp`'s).  Returns the residual stream."""
     parts, ks, vs = [], [], []
     heads = _heads(cfg, lcfgs) or [None]
     for lp, lc, h, cs, hd in ranked(zip(lps, lcfgs, hs, cos_sins, heads)):
@@ -1112,7 +1128,7 @@ def _attn_prefill(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
         _write_prompts([c["kv"] for c in caches], site, ks, vs,
                        kv_split.kv_ranges(lcfgs, _heads(cfg, lcfgs) or [None]))
     hs = _add_sum(hs, parts)
-    return _mlp(cfg, lcfgs, lps, hs, moe_impl, aux) if mlp else hs
+    return _mlp(cfg, lcfgs, lps, hs, moe_impl, aux, rows) if mlp else hs
 
 
 def _attn_decode(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
@@ -1137,13 +1153,14 @@ def _attn_decode(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
 
 
 def _cross_mlp(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
-               crosses, moe_impl: str) -> List[torch.Tensor]:
+               crosses, moe_impl: str,
+               rows: Optional[int] = None) -> List[torch.Tensor]:
     """An audio decoder layer after its self-attention, on every rank:
     cross-attention of each rank's query heads over its encoder K/V
     ``crosses[r]`` (``ck``, ``cv``, or one layer of its ``cross_kv``: a
     split one read by ``kv_split.cross_attention``), the ranks' ``wo``
-    partials summed before the MLP, then the MLP.  Returns the residual
-    streams."""
+    partials summed before the MLP, then the MLP (``rows``: :func:`_mlp`'s).
+    Returns the residual streams."""
     xs = [L.apply_norm(cfg, lp["cross_norm"], h)
           for lp, h in ranked(zip(lps, hs))]
     if isinstance(crosses[0], KVCache) and kv_split.split(crosses[0]):
@@ -1155,14 +1172,19 @@ def _cross_mlp(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
             else kv) for lp, lc, x, kv in ranked(zip(lps, lcfgs, xs,
                                                       crosses))]
     hs = _add_sum(hs, parts)
-    return _mlp(cfg, lcfgs, lps, hs, moe_impl)
+    return _mlp(cfg, lcfgs, lps, hs, moe_impl, rows=rows)
 
 
 def _mlp(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
-         moe_impl: str, aux: Optional[List] = None):
+         moe_impl: str, aux: Optional[List] = None,
+         rows: Optional[int] = None):
     """The residual stream after each rank's (column/row-parallel) MLP,
     or after each rank's MoE block, whose aux loss is appended to ``aux``
-    when it is a list (else dropped)."""
+    when it is a list (else dropped).  ``rows``: a dense MLP over more
+    rows of (B * S) than that runs chunk by chunk (:func:`_in_rows`), each
+    rank's whole partial built before the ranks' one sum
+    (:data:`PREFILL_MLP_ROWS`); None runs it in one piece, as does the
+    MoE block always."""
     if cfg.moe.enabled:
         kw = {} if aux is None else {"aux_out": aux}
         return _add_sum(hs, M.moe_partials(
@@ -1170,6 +1192,22 @@ def _mlp(cfg, lcfgs, lps: List[Params], hs: List[torch.Tensor],
             [L.apply_norm(cfg, lp["mlp_norm"], h)
              for lp, h in ranked(zip(lps, hs))],
             impl=moe_impl, **kw))
+
+    def partial(lp, lc, x):
+        return L.mlp_block(lp["mlp"], lc, L.apply_norm(cfg, lp["mlp_norm"], x))
+
+    chunked = rows is not None and hs[0].numel() > rows * hs[0].shape[-1]
     return _add_sum(hs, [
-        L.mlp_block(lp["mlp"], lc, L.apply_norm(cfg, lp["mlp_norm"], h))
-        for lp, lc, h in ranked(zip(lps, lcfgs, hs))])
+        _in_rows(functools.partial(partial, lp, lc), h, rows) if chunked
+        else partial(lp, lc, h) for lp, lc, h in ranked(zip(lps, lcfgs, hs))])
+
+
+def _in_rows(fn, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``fn`` (d -> d, acting on each row alone) of ``x`` (..., d), run
+    over chunks of at most ``rows`` rows of its flattened leading axes
+    into one buffer: only one chunk's transients are alive at a time."""
+    flat = x.reshape(-1, x.shape[-1])
+    out = torch.empty_like(flat)
+    for a in range(0, flat.shape[0], rows):
+        out[a:a + rows] = fn(flat[a:a + rows])
+    return out.view_as(x)
